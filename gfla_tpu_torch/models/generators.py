@@ -1,0 +1,202 @@
+"""Pose-transfer generator (NCHW, channels_last activations).
+
+Counterpart of gfla_tpu/models/generators.py:44-284 with the original GFLA's
+module tree (generator.py:13-242), so an original `latest_net_G.pth` loads
+with strict key matching:
+
+* PoseSourceNet encodes the source image into a feature pyramid, returned
+  coarsest first with the raw input last.
+* PoseFlowNet (fixed ngf=32, img_f=256, encoder_layer=5) is a U-Net over
+  [source, source pose, target pose] that emits a flow (x, y, in feature
+  pixels) and a sigmoid mask at each attention level, coarse to fine.
+* PoseTargetNet encodes the target pose and decodes it, fusing at each
+  attention level: out = out * (1 - mask) + attn(source_feat, out, flow) * mask.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+from torch import nn
+
+from gfla_tpu_torch.nn.attention import ExtractorAttn
+from gfla_tpu_torch.nn.blocks import (
+    EncoderBlock,
+    Jump,
+    Output,
+    ResBlockDecoder,
+    ResBlocks,
+)
+
+
+def _mult(i: int, ngf: int, img_f: int) -> int:
+    return min(2**i, img_f // ngf)
+
+
+class PoseSourceNet(nn.Module):
+    def __init__(self, input_nc: int = 3, ngf: int = 64, img_f: int = 1024,
+                 layers: int = 6, norm_type: str = "batch",
+                 activation: str = "ReLU"):
+        super().__init__()
+        self.layers = layers
+        kw = dict(norm_type=norm_type, activation=activation)
+        self.block0 = EncoderBlock(input_nc, ngf, **kw)
+        for i in range(layers - 1):
+            setattr(self, f"encoder{i}",
+                    EncoderBlock(ngf * _mult(i, ngf, img_f),
+                                 ngf * _mult(i + 1, ngf, img_f), **kw))
+
+    def forward(self, source):
+        feats = [source]
+        out = self.block0(source)
+        feats.append(out)
+        for i in range(self.layers - 1):
+            out = getattr(self, f"encoder{i}")(out)
+            feats.append(out)
+        return list(reversed(feats))
+
+
+class PoseFlowNet(nn.Module):
+    def __init__(self, image_nc: int = 3, structure_nc: int = 18,
+                 ngf: int = 32, img_f: int = 256, encoder_layer: int = 5,
+                 attn_layer: Sequence[int] = (1, 2), norm_type: str = "batch",
+                 activation: str = "ReLU"):
+        super().__init__()
+        self.encoder_layer = encoder_layer
+        self.decoder_layer = encoder_layer - min(attn_layer)
+        self.attn_layer = tuple(attn_layer)
+        kw = dict(norm_type=norm_type, activation=activation)
+        self.block0 = EncoderBlock(2 * structure_nc + image_nc, ngf, **kw)
+        for i in range(encoder_layer - 1):
+            setattr(self, f"encoder{i}",
+                    EncoderBlock(ngf * _mult(i, ngf, img_f),
+                                 ngf * _mult(i + 1, ngf, img_f), **kw))
+        nc_prev = ngf * _mult(encoder_layer - 1, ngf, img_f)
+        for i in range(self.decoder_layer):
+            nc = ngf * _mult(encoder_layer - i - 2, ngf, img_f)
+            setattr(self, f"decoder{i}",
+                    ResBlockDecoder(nc_prev, nc, nc, **kw))
+            setattr(self, f"jump{i}",
+                    Jump(nc, nc, 3, norm_type="none", activation=activation))
+            if encoder_layer - i - 1 in self.attn_layer:
+                setattr(self, f"output{i}", nn.Conv2d(nc, 2, 3, 1, 1))
+                setattr(self, f"mask{i}", nn.Sequential(
+                    nn.Conv2d(nc, 1, 3, 1, 1), nn.Sigmoid()))
+            nc_prev = nc
+
+    def forward(self, source, source_b, target_b):
+        out = self.block0(torch.cat([source, source_b, target_b], dim=1))
+        result = [out]
+        for i in range(self.encoder_layer - 1):
+            out = getattr(self, f"encoder{i}")(out)
+            result.append(out)
+        flows, masks = [], []
+        for i in range(self.decoder_layer):
+            out = getattr(self, f"decoder{i}")(out)
+            out = out + getattr(self, f"jump{i}")(
+                result[self.encoder_layer - i - 2])
+            if self.encoder_layer - i - 1 in self.attn_layer:
+                flows.append(getattr(self, f"output{i}")(out))
+                masks.append(getattr(self, f"mask{i}")(out))
+        return flows, masks
+
+
+class PoseTargetNet(nn.Module):
+    def __init__(self, structure_nc: int = 18, output_nc: int = 3,
+                 ngf: int = 64, img_f: int = 1024, layers: int = 6,
+                 num_blocks: int = 2, norm_type: str = "batch",
+                 activation: str = "ReLU", attn_layer: Sequence[int] = (1, 2),
+                 extractor_kz: Dict[str, int] = None):
+        super().__init__()
+        self.layers = layers
+        self.attn_layer = tuple(attn_layer)
+        kw = dict(norm_type=norm_type, activation=activation)
+        self.block0 = EncoderBlock(structure_nc, ngf, **kw)
+        for i in range(layers - 1):
+            setattr(self, f"encoder{i}",
+                    EncoderBlock(ngf * _mult(i, ngf, img_f),
+                                 ngf * _mult(i + 1, ngf, img_f), **kw))
+        nc_prev = ngf * _mult(layers - 1, ngf, img_f)
+        for i in range(layers):
+            nc = ngf * _mult(layers - i - 2, ngf, img_f) \
+                if i != layers - 1 else ngf
+            up = ResBlockDecoder(nc_prev, nc, None, **kw)
+            if num_blocks > 1:
+                up = nn.Sequential(
+                    ResBlocks(num_blocks - 1, nc_prev, **kw), up)
+            else:
+                up = nn.Sequential(up)
+            setattr(self, f"decoder{i}", up)
+            if layers - i in self.attn_layer:
+                setattr(self, f"attn{i}",
+                        ExtractorAttn(nc_prev,
+                                      extractor_kz[str(layers - i)],
+                                      activation))
+            nc_prev = nc
+        self.outconv = Output(ngf, output_nc, 3, norm_type="none",
+                              activation=activation)
+
+    def forward(self, target_b, source_feature, flow_fields, masks,
+                return_hooks: bool = False):
+        out = self.block0(target_b)
+        for i in range(self.layers - 1):
+            out = getattr(self, f"encoder{i}")(out)
+        hooks = {"target": [], "source": [], "attn": [], "mask": []}
+        counter = 0
+        for i in range(self.layers):
+            if self.layers - i in self.attn_layer:
+                attn_mod = getattr(self, f"attn{i}")
+                if return_hooks:
+                    attn_w, out_attn = attn_mod(
+                        source_feature[i], out, flow_fields[counter],
+                        return_attn=True)
+                else:
+                    out_attn = attn_mod(source_feature[i], out,
+                                        flow_fields[counter])
+                mask = masks[counter]
+                out = out * (1 - mask) + out_attn * mask
+                if return_hooks:
+                    hooks["target"].append(out)
+                    hooks["source"].append(source_feature[i])
+                    hooks["attn"].append(attn_w)
+                    hooks["mask"].append(mask)
+                counter += 1
+            out = getattr(self, f"decoder{i}")(out)
+        img = self.outconv(out)
+        return (img, hooks) if return_hooks else img
+
+
+class PoseGenerator(nn.Module):
+    """Source encoder + flow U-Net + target decoder. Inputs and outputs are
+    NCHW; inputs are moved to channels_last so every activation, and the
+    NHWC view the warp kernel reads, stays channels_last."""
+
+    def __init__(self, image_nc: int = 3, structure_nc: int = 18,
+                 output_nc: int = 3, ngf: int = 64, img_f: int = 1024,
+                 layers: int = 6, num_blocks: int = 2,
+                 norm_type: str = "batch", activation: str = "ReLU",
+                 attn_layer: Sequence[int] = (1, 2),
+                 extractor_kz: Dict[str, int] = None):
+        super().__init__()
+        kw = dict(norm_type=norm_type, activation=activation)
+        self.source = PoseSourceNet(image_nc, ngf, img_f, layers, **kw)
+        self.target = PoseTargetNet(structure_nc, output_nc, ngf, img_f,
+                                    layers, num_blocks, attn_layer=attn_layer,
+                                    extractor_kz=extractor_kz, **kw)
+        self.flow_net = PoseFlowNet(image_nc, structure_nc, ngf=32, img_f=256,
+                                    encoder_layer=5, attn_layer=attn_layer,
+                                    **kw)
+
+    def forward(self, source, source_b, target_b, return_hooks: bool = False):
+        source, source_b, target_b = (
+            t.contiguous(memory_format=torch.channels_last)
+            for t in (source, source_b, target_b))
+        feature_list = self.source(source)
+        flow_fields, masks = self.flow_net(source, source_b, target_b)
+        out = self.target(target_b, feature_list, flow_fields, masks,
+                          return_hooks=return_hooks)
+        if return_hooks:
+            img, hooks = out
+            return img, flow_fields, masks, hooks
+        return out, flow_fields, masks

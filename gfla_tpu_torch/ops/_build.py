@@ -1,0 +1,81 @@
+"""Build the package's CUDA kernels with nvcc and bind them with ctypes.
+
+On first CUDA use, every `gfla_tpu_torch/csrc/*.cu` is compiled for Hopper
+(`sm_90a`) into one shared library with a plain C interface under
+`build/gfla_tpu_torch/` at the repo root. The file name carries a hash of the
+sources, so an edited kernel is rebuilt and a current one is loaded as is.
+Importing this module needs neither nvcc nor a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gfla_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the "
+                       "CUDA toolkit (nvcc on PATH or /usr/local/cuda)")
+
+
+def _sources():
+    cu = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return cu, digest.hexdigest()[:16]
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gfla_warp_fwd.argtypes = [p, p, p, p, p, p, p,
+                                  i, i, i, i, i, i, ctypes.c_float, p]
+    lib.gfla_warp_fwd.restype = i
+    lib.gfla_cuda_error_string.argtypes = [i]
+    lib.gfla_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_library(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library. With `verbose`,
+    ptxas reports registers, shared memory and spills per kernel."""
+    sources, digest = _sources()
+    target = BUILD_DIR / f"libgfla_kernels_{digest}.so"
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        if verbose:
+            print(proc.stdout + proc.stderr, end="")
+            print(f"nvcc built {target.name} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        os.replace(tmp, target)  # atomic: concurrent builds race safely
+    return _bind(ctypes.CDLL(str(target)))

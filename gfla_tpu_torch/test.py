@@ -1,0 +1,33 @@
+"""Inference entry point, CLI-compatible with the original test.py:
+
+    python -m gfla_tpu_torch.test --model=pose --dataset_mode=synthetic \
+        --gpu_ids=0 --name=NAME --checkpoints_dir=DIR --results_dir=DIR
+
+loads `{checkpoints_dir}/{name}/{which_iter}_net_G.pth` (random init if
+absent) and writes `{src}_2_{tgt}_vis.jpg` under `{results_dir}/{name}`.
+`--gpu_ids=-1` runs on the CPU.
+"""
+
+from __future__ import annotations
+
+from gfla_tpu_torch.data import get_dataset_class, iterate_batches
+from gfla_tpu_torch.options import TestOptions
+from gfla_tpu_torch.runtime import card_line, select_device, set_tf32
+from gfla_tpu_torch.tasks import create_task
+from gfla_tpu_torch.tasks.testing import run_test_pose
+
+
+def main(args=None) -> int:
+    opt = TestOptions().parse(args)
+    device = select_device(opt.gpu_ids)
+    if device.type == "cuda":
+        set_tf32(False)  # float32 serving, as gfla_tpu's float32 path
+        print(card_line())
+    dataset = get_dataset_class(opt.dataset_mode)(opt)
+    task = create_task(opt, device)
+    task.load_checkpoint()
+    return run_test_pose(task, opt, iterate_batches(dataset, opt.batchSize))
+
+
+if __name__ == "__main__":
+    main()
