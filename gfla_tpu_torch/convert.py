@@ -1,11 +1,17 @@
-"""gfla_tpu pose-generator parameters -> the port's state dict.
+"""gfla_tpu parameters -> the port's state dicts.
 
-The exact inverse of gfla_tpu.convert.torch_mapping.convert_pose_generator
-(and its helpers, torch_mapping.py:40-157,253-329) for the instance-norm pose
-generator: it takes gfla_tpu's params tree, as nested dicts of numpy arrays,
-and returns a state dict keyed like the original GFLA `latest_net_G.pth`,
-which loads into `gfla_tpu_torch.models.generators.PoseGenerator` with
-`strict=True`.
+The exact inverse of gfla_tpu.convert.torch_mapping's converters
+(torch_mapping.py:40-214,253-329): each function takes gfla_tpu's variable
+trees, as nested dicts of numpy arrays, and returns a state dict keyed like
+the original GFLA's checkpoints, which loads into the port's module with
+`strict=True`:
+
+* `pose_generator_state_dict`: the instance-norm pose generator
+  (`latest_net_G.pth`, PoseGenerator), spectral-normed or not;
+* `res_discriminator_state_dict`: the spectral-norm ResDiscriminator
+  (`latest_net_D.pth`), its power-iteration u carried across;
+* `vgg19_state_dict`: the VGG19 of the perceptual losses (the port's VGG19
+  module keys, `conv1_1.weight` ...).
 
 * conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
 * transposed-conv kernel (kh, kw, I, O), spatially flipped -> weight
@@ -13,6 +19,10 @@ which loads into `gfla_tpu_torch.models.generators.PoseGenerator` with
 * InstanceNorm_0 {scale, bias} -> {weight, bias}
 * attention w1 (k*k, 2C, D) -> (D, 2C, k, k); w2 (D, k*k) -> (k*k, D, 1, 1)
 * Jump/Output `conv1` also under its Sequential alias `model.2`
+* spectral-norm conv: kernel -> `weight_orig`; flax's stored u (1, cout) ->
+  `weight_u` (cout,); `weight_v` (fan_in,), which flax does not store, is
+  the normalised W^T u the next power-iteration step starts from (a
+  transposed conv's W is its (cout, cin*kh*kw) view)
 """
 
 from __future__ import annotations
@@ -28,17 +38,44 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
 
 
-def _conv(tree, key, sd):
+def _l2n(x):
+    return x / np.sqrt((x * x).sum() + 1e-12)
+
+
+def _spectral(key, w, wm, u, sd):
+    """Spectral-norm keys of weight `w`, matricised (cout, fan_in) as `wm`."""
+    sd[f"{key}.weight_orig"] = _t(w)
+    sd[f"{key}.weight_u"] = _t(u)
+    sd[f"{key}.weight_v"] = _t(_l2n(wm.T @ u))
+
+
+def _u(stats, name):
+    return np.asarray(stats["SpectralNorm_0"][f"{name}/kernel/u"]).reshape(-1)
+
+
+def _sub(stats, name):
+    return stats[name] if stats else None
+
+
+def _conv(tree, key, sd, stats=None):
     conv = tree["Conv_0"]
-    sd[f"{key}.weight"] = _t(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+    w = np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
+    if stats:
+        _spectral(key, w, w.reshape(w.shape[0], -1), _u(stats, "Conv_0"), sd)
+    else:
+        sd[f"{key}.weight"] = _t(w)
     if "bias" in conv:
         sd[f"{key}.bias"] = _t(conv["bias"])
 
 
-def _conv_transpose(tree, key, sd):
+def _conv_transpose(tree, key, sd, stats=None):
     conv = tree["ConvTranspose_0"]
-    kernel = np.asarray(conv["kernel"]).transpose(2, 3, 0, 1)
-    sd[f"{key}.weight"] = _t(kernel[:, :, ::-1, ::-1])
+    w = np.asarray(conv["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    if stats:
+        wm = w.transpose(1, 0, 2, 3).reshape(w.shape[1], -1)
+        _spectral(key, w, wm, _u(stats, "ConvTranspose_0"), sd)
+    else:
+        sd[f"{key}.weight"] = _t(w)
     sd[f"{key}.bias"] = _t(conv["bias"])
 
 
@@ -48,28 +85,30 @@ def _norm(tree, key, sd):
     sd[f"{key}.bias"] = _t(norm["bias"])
 
 
-def _pre_act(tree, prefix, sd, conv2=_conv):
+def _pre_act(tree, prefix, sd, stats=None, conv2=_conv):
     _norm(tree["norm1"], f"{prefix}.model.0", sd)
-    _conv(tree["conv1"], f"{prefix}.model.2", sd)
+    _conv(tree["conv1"], f"{prefix}.model.2", sd, _sub(stats, "conv1"))
     _norm(tree["norm2"], f"{prefix}.model.3", sd)
-    conv2(tree["conv2"], f"{prefix}.model.5", sd)
+    conv2(tree["conv2"], f"{prefix}.model.5", sd, _sub(stats, "conv2"))
 
 
-def _resblock(tree, prefix, sd):
-    _pre_act(tree, prefix, sd)
+def _resblock(tree, prefix, sd, stats=None):
+    _pre_act(tree, prefix, sd, stats)
     if "shortcut" in tree:
-        _conv(tree["shortcut"], f"{prefix}.shortcut.0", sd)
+        _conv(tree["shortcut"], f"{prefix}.shortcut.0", sd,
+              _sub(stats, "shortcut"))
 
 
-def _resblock_decoder(tree, prefix, sd):
-    _pre_act(tree, prefix, sd, conv2=_conv_transpose)
-    _conv_transpose(tree["shortcut"], f"{prefix}.shortcut.0", sd)
+def _resblock_decoder(tree, prefix, sd, stats=None):
+    _pre_act(tree, prefix, sd, stats, conv2=_conv_transpose)
+    _conv_transpose(tree["shortcut"], f"{prefix}.shortcut.0", sd,
+                    _sub(stats, "shortcut"))
 
 
-def _jump(tree, prefix, sd):
-    _conv(tree["conv1"], f"{prefix}.conv1", sd)
-    for suffix in ("weight", "bias"):
-        sd[f"{prefix}.model.2.{suffix}"] = sd[f"{prefix}.conv1.{suffix}"]
+def _jump(tree, prefix, sd, stats=None):
+    _conv(tree["conv1"], f"{prefix}.conv1", sd, _sub(stats, "conv1"))
+    for key in [k for k in sd if k.startswith(f"{prefix}.conv1.")]:
+        sd[key.replace(".conv1.", ".model.2.", 1)] = sd[key]
 
 
 def _attn(tree, prefix, sd):
@@ -85,38 +124,80 @@ def _attn(tree, prefix, sd):
 
 def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
                               attn_layer=(2, 3), num_blocks: int = 2,
-                              flow_layers: int = 5) -> Dict[str, torch.Tensor]:
-    """gfla_tpu PoseGenerator params -> original-keyed torch state dict."""
+                              flow_layers: int = 5,
+                              batch_stats: Dict[str, Any] | None = None
+                              ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu PoseGenerator params -> original-keyed torch state dict.
+    With the `batch_stats` of a spectral-norm generator (`use_spect`), its
+    block convs get the spectral keys and their stored u."""
     sd: Dict[str, torch.Tensor] = {}
-    src = params["source"]
-    _pre_act(src["block0"], "source.block0", sd)
+    stats = batch_stats or {}
+    src, s_src = params["source"], stats.get("source")
+    _pre_act(src["block0"], "source.block0", sd, _sub(s_src, "block0"))
     for i in range(layers - 1):
-        _pre_act(src[f"encoder{i}"], f"source.encoder{i}", sd)
+        _pre_act(src[f"encoder{i}"], f"source.encoder{i}", sd,
+                 _sub(s_src, f"encoder{i}"))
 
-    fn = params["flow_net"]
-    _pre_act(fn["block0"], "flow_net.block0", sd)
+    fn, s_fn = params["flow_net"], stats.get("flow_net")
+    _pre_act(fn["block0"], "flow_net.block0", sd, _sub(s_fn, "block0"))
     for i in range(flow_layers - 1):
-        _pre_act(fn[f"encoder{i}"], f"flow_net.encoder{i}", sd)
+        _pre_act(fn[f"encoder{i}"], f"flow_net.encoder{i}", sd,
+                 _sub(s_fn, f"encoder{i}"))
     for i in range(flow_layers - min(attn_layer)):
-        _resblock_decoder(fn[f"decoder{i}"], f"flow_net.decoder{i}", sd)
-        _jump(fn[f"jump{i}"], f"flow_net.jump{i}", sd)
+        _resblock_decoder(fn[f"decoder{i}"], f"flow_net.decoder{i}", sd,
+                          _sub(s_fn, f"decoder{i}"))
+        _jump(fn[f"jump{i}"], f"flow_net.jump{i}", sd, _sub(s_fn, f"jump{i}"))
         if flow_layers - i - 1 in attn_layer:
             _conv(fn[f"output{i}"], f"flow_net.output{i}", sd)
             _conv(fn[f"mask{i}"], f"flow_net.mask{i}.0", sd)
 
-    tg = params["target"]
-    _pre_act(tg["block0"], "target.block0", sd)
+    tg, s_tg = params["target"], stats.get("target")
+    _pre_act(tg["block0"], "target.block0", sd, _sub(s_tg, "block0"))
     for i in range(layers - 1):
-        _pre_act(tg[f"encoder{i}"], f"target.encoder{i}", sd)
+        _pre_act(tg[f"encoder{i}"], f"target.encoder{i}", sd,
+                 _sub(s_tg, f"encoder{i}"))
     for i in range(layers):
         if layers - i in attn_layer:
             _attn(tg[f"attn{i}"], f"target.attn{i}", sd)
+        dec = _sub(s_tg, f"decoder{i}")
         if num_blocks > 1:
+            res = _sub(s_tg, f"decoder{i}_res")
             for b in range(num_blocks - 1):
                 _resblock(tg[f"decoder{i}_res"][f"block{b}"],
-                          f"target.decoder{i}.0.model.{b}", sd)
-            _resblock_decoder(tg[f"decoder{i}"], f"target.decoder{i}.1", sd)
+                          f"target.decoder{i}.0.model.{b}", sd,
+                          _sub(res, f"block{b}"))
+            _resblock_decoder(tg[f"decoder{i}"], f"target.decoder{i}.1", sd,
+                              dec)
         else:
-            _resblock_decoder(tg[f"decoder{i}"], f"target.decoder{i}.0", sd)
-    _jump(tg["outconv"], "target.outconv", sd)
+            _resblock_decoder(tg[f"decoder{i}"], f"target.decoder{i}.0", sd,
+                              dec)
+    _jump(tg["outconv"], "target.outconv", sd, _sub(s_tg, "outconv"))
+    return sd
+
+
+def res_discriminator_state_dict(params: Dict[str, Any],
+                                 batch_stats: Dict[str, Any],
+                                 layers: int = 4) -> Dict[str, torch.Tensor]:
+    """gfla_tpu ResDiscriminator (spectral norm, norm 'none') params and
+    batch_stats -> original-keyed torch state dict (discriminator.py:20-39:
+    model.1 conv 3x3, model.3 conv 4x4, shortcut.1 conv 1x1, conv)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for block in ["block0"] + [f"encoder{i}" for i in range(layers - 1)]:
+        for ours, theirs in (("conv1", "model.1"), ("conv2", "model.3"),
+                             ("shortcut", "shortcut.1")):
+            _conv(params[block][ours], f"{block}.{theirs}", sd,
+                  batch_stats[block][ours])
+    _conv(params["conv"], "conv", sd, batch_stats["conv"])
+    return sd
+
+
+def vgg19_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """gfla_tpu VGG19 params ({'conv1_1': {kernel, bias}, ...}, or the
+    `{'params': ...}` variables) -> the port's VGG19 state dict."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, conv in params.items():
+        sd[f"{name}.weight"] = _t(np.asarray(conv["kernel"]).transpose(
+            3, 2, 0, 1))
+        sd[f"{name}.bias"] = _t(conv["bias"])
     return sd

@@ -1,7 +1,8 @@
 // Per-position index, clamp and bilinear code of the local-attention warp.
 //
-// Shared by the CUDA kernel (warp_fwd.cu) and by a host-only harness that the
-// CPU tests compile with g++: without nvcc, GFLA_HD expands to plain `inline`.
+// Shared by the CUDA kernels (warp_fwd.cu, warp_bwd.cu) and by a host-only
+// harness that the CPU tests compile with g++: without nvcc, GFLA_HD expands
+// to plain `inline`.
 //
 // Semantics (gfla_tpu/ops/block_extract.py:40-72 and the padded-window
 // formulation of gfla_tpu/ops/pallas_warp.py:103-134): output position (y, x)
@@ -82,6 +83,48 @@ GFLA_HD float block_value(const float* img, const Footprint& f, int i, int j,
   return blend(f.wy, f.wx, img[(r0 * W + c0) * C + c],
                img[(r0 * W + c1) * C + c], img[(r1 * W + c0) * C + c],
                img[(r1 * W + c1) * C + c]);
+}
+
+// ---- backward -------------------------------------------------------------
+//
+// A block value is blend(wy, wx, tl, tr, bl, br) of four clamped taps. Its
+// cotangent d goes back to the taps with the blend weights (scattered into
+// d_source at the clamped pixels, so edge bands fold onto the border as
+// gfla_tpu's _fold_pad does), and to the fractional weights, whose
+// derivative with respect to the flow is 1 (floor is piecewise constant):
+// d_flow = (sum d * dblend/dwx, sum d * dblend/dwy) over offsets and
+// channels, as in gfla_tpu/ops/pallas_warp.py:340-347.
+
+// Pixel indices r * W + c of the four taps of offset (i, j): top-left,
+// top-right, bottom-left, bottom-right.
+struct Taps {
+  int tl, tr, bl, br;
+};
+
+GFLA_HD Taps tap_pixels(const Footprint& f, int i, int j, int H, int W) {
+  const int r0 = tap_row(f, i, H);
+  const int r1 = tap_row(f, i + 1, H);
+  const int c0 = tap_col(f, j, W);
+  const int c1 = tap_col(f, j + 1, W);
+  return Taps{r0 * W + c0, r0 * W + c1, r1 * W + c0, r1 * W + c1};
+}
+
+// Blend weights of the four taps, in Taps order.
+struct TapWeights {
+  float tl, tr, bl, br;
+};
+
+GFLA_HD TapWeights tap_weights(float wy, float wx) {
+  return TapWeights{(1.0f - wy) * (1.0f - wx), (1.0f - wy) * wx,
+                    wy * (1.0f - wx), wy * wx};
+}
+
+GFLA_HD float dblend_dwy(float wx, float tl, float tr, float bl, float br) {
+  return (1.0f - wx) * (bl - tl) + wx * (br - tr);
+}
+
+GFLA_HD float dblend_dwx(float wy, float tl, float tr, float bl, float br) {
+  return (1.0f - wy) * (tr - tl) + wy * (br - bl);
 }
 
 }  // namespace gfla

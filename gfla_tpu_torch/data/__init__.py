@@ -1,11 +1,15 @@
-"""Data for the port's serving path: the synthetic paired dataset, a serial
-batch loader and on-device heatmap encoding. The file-backed fashion and
-market datasets are not ported yet."""
+"""Data for the port: the synthetic paired dataset, a serial batch loader
+for testing, an endless shuffled one for training, and on-device heatmap
+encoding. The file-backed fashion and market datasets are not ported yet."""
 
 from __future__ import annotations
 
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
-from gfla_tpu_torch.data.synthetic import SyntheticPoseDataset, iterate_batches
+from gfla_tpu_torch.data.synthetic import (
+    SyntheticPoseDataset,
+    iterate_batches,
+    train_batches,
+)
 
 DATASETS = {"synthetic": SyntheticPoseDataset}
 
@@ -18,4 +22,4 @@ def get_dataset_class(name: str):
 
 
 __all__ = ["DATASETS", "SyntheticPoseDataset", "encode_heatmaps",
-           "get_dataset_class", "iterate_batches"]
+           "get_dataset_class", "iterate_batches", "train_batches"]

@@ -65,3 +65,21 @@ def iterate_batches(dataset, batch_size: int) -> Iterator[Dict]:
     for start in range(0, len(dataset), batch_size):
         stop = min(start + batch_size, len(dataset))
         yield collate([dataset[i] for i in range(start, stop)])
+
+
+def train_batches(dataset, batch_size: int, shuffle: bool = True,
+                  seed: int = 0) -> Iterator[Dict]:
+    """Endless full batches, as the training loader gives them: each epoch
+    in a fresh order from RandomState(seed + epoch) (index order with
+    `shuffle` off), the short tail dropped."""
+    if len(dataset) < batch_size:
+        raise ValueError(f"dataset has {len(dataset)} samples, fewer than "
+                         f"batchSize={batch_size}")
+    epoch = 0
+    while True:
+        order = (np.random.RandomState(seed + epoch).permutation(len(dataset))
+                 if shuffle else np.arange(len(dataset)))
+        for start in range(0, len(order) - batch_size + 1, batch_size):
+            yield collate([dataset[int(i)]
+                           for i in order[start:start + batch_size]])
+        epoch += 1

@@ -1,0 +1,70 @@
+"""Flow-field affine regularisation (counterpart of
+gfla_tpu/losses/affine_reg.py; the original's external_function.py:12-77).
+
+For every k x k patch of the flow-displaced coordinate grid, the squared
+residual of its best-fit affine transform, ||K v||^2 with
+K = A (A^T A)^-1 A^T - I, averaged over patches and summed over the x and y
+grids. Flows are NCHW, (B, 2, H, W) with channel 0 = x.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+
+@lru_cache(maxsize=8)
+def _residual_projector(kz: int) -> np.ndarray:
+    """K = A(A^T A)^-1 A^T - I, (k^2, k^2), float32."""
+    temp = np.arange(kz)
+    A = np.ones([kz * kz, 3], dtype=np.float64)
+    A[:, 0] = np.repeat(temp, kz)
+    A[:, 1] = np.tile(temp, kz)
+    k = A @ np.linalg.inv(A.T @ A) @ A.T - np.identity(kz * kz)
+    return k.astype(np.float32)
+
+
+def _patches(grid, kz: int):
+    """(B, H, W) -> (B, H-k+1, W-k+1, k^2) valid patches by slicing."""
+    B, H, W = grid.shape
+    Ho, Wo = H - kz + 1, W - kz + 1
+    return torch.stack([grid[:, i:i + Ho, j:j + Wo]
+                        for i in range(kz) for j in range(kz)], dim=-1)
+
+
+class AffineRegularizationLoss:
+    """Single-resolution affine regularisation of one flow field."""
+
+    def __init__(self, kz: int):
+        self.kz = kz
+        self.projector = torch.from_numpy(_residual_projector(kz))
+
+    def __call__(self, flow):
+        B, _, H, W = flow.shape
+        xs = torch.arange(W, device=flow.device, dtype=flow.dtype)
+        ys = torch.arange(H, device=flow.device, dtype=flow.dtype)
+        proj = self.projector.to(flow.device, flow.dtype)
+        loss = 0.0
+        for g in (flow[:, 0] + xs[None, None, :], flow[:, 1] + ys[None, :, None]):
+            r = _patches(g, self.kz) @ proj.t()
+            loss = loss + (r * r).sum(-1).mean()
+        return loss
+
+
+class MultiAffineRegularizationLoss:
+    """flow_fields[i] (coarse to fine) pairs with kz_dic's keys sorted
+    descending."""
+
+    def __init__(self, kz_dic: Dict[int, int]):
+        self.layers = sorted(kz_dic, reverse=True)
+        self.methods = {key: AffineRegularizationLoss(kz_dic[key])
+                        for key in kz_dic}
+
+    def __call__(self, flow_fields: Sequence[torch.Tensor]):
+        loss = 0.0
+        for i, flow in enumerate(flow_fields):
+            loss = loss + self.methods[self.layers[i]](flow)
+        return loss

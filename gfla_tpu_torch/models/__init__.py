@@ -1,13 +1,15 @@
-"""Network registry (counterpart of gfla_tpu/models/__init__.py). Only the
-pose generator is ported so far."""
+"""Network registry (counterpart of gfla_tpu/models/__init__.py): the pose
+generator and the residual discriminator so far."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+from gfla_tpu_torch.models.discriminators import ResDiscriminator
 from gfla_tpu_torch.models.generators import PoseGenerator
 
 GENERATORS: Dict[str, Any] = {"pose": PoseGenerator}
+DISCRIMINATORS: Dict[str, Any] = {"res": ResDiscriminator}
 
 
 def define_g(name: str, **kwargs):
@@ -15,3 +17,11 @@ def define_g(name: str, **kwargs):
     if name not in GENERATORS:
         raise KeyError(f"unknown generator '{name}'; have {sorted(GENERATORS)}")
     return GENERATORS[name](**kwargs)
+
+
+def define_d(name: str, **kwargs):
+    """Instantiate a discriminator by registry name (reference define_d)."""
+    if name not in DISCRIMINATORS:
+        raise KeyError(f"unknown discriminator '{name}'; have "
+                       f"{sorted(DISCRIMINATORS)}")
+    return DISCRIMINATORS[name](**kwargs)

@@ -11,6 +11,10 @@ with strict key matching:
   pixels) and a sigmoid mask at each attention level, coarse to fine.
 * PoseTargetNet encodes the target pose and decodes it, fusing at each
   attention level: out = out * (1 - mask) + attn(source_feat, out, flow) * mask.
+
+With `use_spect` (`--use_spect_g`) every block conv is spectral-normed, as in
+gfla_tpu: not the flow and mask heads, not the attention. Each spectral conv
+stores its power iteration in train mode and not in eval mode.
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ def _mult(i: int, ngf: int, img_f: int) -> int:
 class PoseSourceNet(nn.Module):
     def __init__(self, input_nc: int = 3, ngf: int = 64, img_f: int = 1024,
                  layers: int = 6, norm_type: str = "batch",
-                 activation: str = "ReLU"):
+                 activation: str = "ReLU", use_spect: bool = False):
         super().__init__()
         self.layers = layers
-        kw = dict(norm_type=norm_type, activation=activation)
+        kw = dict(norm_type=norm_type, activation=activation,
+                  use_spect=use_spect)
         self.block0 = EncoderBlock(input_nc, ngf, **kw)
         for i in range(layers - 1):
             setattr(self, f"encoder{i}",
@@ -61,12 +66,13 @@ class PoseFlowNet(nn.Module):
     def __init__(self, image_nc: int = 3, structure_nc: int = 18,
                  ngf: int = 32, img_f: int = 256, encoder_layer: int = 5,
                  attn_layer: Sequence[int] = (1, 2), norm_type: str = "batch",
-                 activation: str = "ReLU"):
+                 activation: str = "ReLU", use_spect: bool = False):
         super().__init__()
         self.encoder_layer = encoder_layer
         self.decoder_layer = encoder_layer - min(attn_layer)
         self.attn_layer = tuple(attn_layer)
-        kw = dict(norm_type=norm_type, activation=activation)
+        kw = dict(norm_type=norm_type, activation=activation,
+                  use_spect=use_spect)
         self.block0 = EncoderBlock(2 * structure_nc + image_nc, ngf, **kw)
         for i in range(encoder_layer - 1):
             setattr(self, f"encoder{i}",
@@ -78,7 +84,8 @@ class PoseFlowNet(nn.Module):
             setattr(self, f"decoder{i}",
                     ResBlockDecoder(nc_prev, nc, nc, **kw))
             setattr(self, f"jump{i}",
-                    Jump(nc, nc, 3, norm_type="none", activation=activation))
+                    Jump(nc, nc, 3, norm_type="none", activation=activation,
+                         use_spect=use_spect))
             if encoder_layer - i - 1 in self.attn_layer:
                 setattr(self, f"output{i}", nn.Conv2d(nc, 2, 3, 1, 1))
                 setattr(self, f"mask{i}", nn.Sequential(
@@ -107,11 +114,13 @@ class PoseTargetNet(nn.Module):
                  ngf: int = 64, img_f: int = 1024, layers: int = 6,
                  num_blocks: int = 2, norm_type: str = "batch",
                  activation: str = "ReLU", attn_layer: Sequence[int] = (1, 2),
-                 extractor_kz: Dict[str, int] = None):
+                 extractor_kz: Dict[str, int] = None,
+                 use_spect: bool = False):
         super().__init__()
         self.layers = layers
         self.attn_layer = tuple(attn_layer)
-        kw = dict(norm_type=norm_type, activation=activation)
+        kw = dict(norm_type=norm_type, activation=activation,
+                  use_spect=use_spect)
         self.block0 = EncoderBlock(structure_nc, ngf, **kw)
         for i in range(layers - 1):
             setattr(self, f"encoder{i}",
@@ -135,7 +144,7 @@ class PoseTargetNet(nn.Module):
                                       activation))
             nc_prev = nc
         self.outconv = Output(ngf, output_nc, 3, norm_type="none",
-                              activation=activation)
+                              activation=activation, use_spect=use_spect)
 
     def forward(self, target_b, source_feature, flow_fields, masks,
                 return_hooks: bool = False):
@@ -177,9 +186,11 @@ class PoseGenerator(nn.Module):
                  layers: int = 6, num_blocks: int = 2,
                  norm_type: str = "batch", activation: str = "ReLU",
                  attn_layer: Sequence[int] = (1, 2),
-                 extractor_kz: Dict[str, int] = None):
+                 extractor_kz: Dict[str, int] = None,
+                 use_spect: bool = False):
         super().__init__()
-        kw = dict(norm_type=norm_type, activation=activation)
+        kw = dict(norm_type=norm_type, activation=activation,
+                  use_spect=use_spect)
         self.source = PoseSourceNet(image_nc, ngf, img_f, layers, **kw)
         self.target = PoseTargetNet(structure_nc, output_nc, ngf, img_f,
                                     layers, num_blocks, attn_layer=attn_layer,

@@ -1,10 +1,13 @@
 """Pre-activation building blocks (NCHW), in the original GFLA's module layout.
 
-Counterpart of gfla_tpu/nn/blocks.py:27-175,241-286. Each block keeps the
-original's `nn.Sequential` indices (base_function.py:334-391,508-531,650-691)
+Counterpart of gfla_tpu/nn/blocks.py:27-209,241-286. Each block keeps the
+original's `nn.Sequential` indices (base_function.py:334-391,508-556,650-691)
 so its checkpoints load with strict key matching: with a norm layer,
 `model.0` norm, `model.2` conv, `model.3` norm, `model.5` conv; without,
-`model.1` and `model.3`; a learnable shortcut is `shortcut.0`.
+`model.1` and `model.3`; a learnable shortcut is `shortcut.0`
+(`shortcut.1` behind ResBlockEncoder's average pool). With `use_spect` every
+conv is spectral-normed (keys `weight_orig`, `weight_u`, `weight_v`); the
+generator's blocks leave `update_stats` to the module's train/eval mode.
 """
 
 from __future__ import annotations
@@ -13,7 +16,13 @@ from typing import Optional
 
 from torch import nn
 
-from gfla_tpu_torch.nn.norms import ConvTranspose2x, get_activation, norm_layer
+from gfla_tpu_torch.nn.norms import (
+    ConvTranspose2x,
+    SpectralNormed,
+    conv2d,
+    get_activation,
+    norm_layer,
+)
 
 
 def _pre_act(norm_type, activation, in_nc, conv1, mid_nc, conv2):
@@ -30,12 +39,12 @@ class EncoderBlock(nn.Module):
     """norm, act, conv 4x4 s2 -> norm, act, conv 3x3 s1 (H -> H/2)."""
 
     def __init__(self, input_nc: int, output_nc: int, norm_type: str = "batch",
-                 activation: str = "ReLU"):
+                 activation: str = "ReLU", use_spect: bool = False):
         super().__init__()
         self.model = _pre_act(
             norm_type, activation, input_nc,
-            nn.Conv2d(input_nc, output_nc, 4, 2, 1), output_nc,
-            nn.Conv2d(output_nc, output_nc, 3, 1, 1))
+            conv2d(input_nc, output_nc, 4, 2, 1, use_spect), output_nc,
+            conv2d(output_nc, output_nc, 3, 1, 1, use_spect))
 
     def forward(self, x):
         return self.model(x)
@@ -47,22 +56,52 @@ class ResBlock(nn.Module):
 
     def __init__(self, input_nc: int, output_nc: Optional[int] = None,
                  hidden_nc: Optional[int] = None, norm_type: str = "batch",
-                 activation: str = "ReLU", learnable_shortcut: bool = False):
+                 activation: str = "ReLU", learnable_shortcut: bool = False,
+                 use_spect: bool = False):
         super().__init__()
         output_nc = output_nc or input_nc
         hidden_nc = hidden_nc or input_nc
         self.model = _pre_act(
             norm_type, activation, input_nc,
-            nn.Conv2d(input_nc, hidden_nc, 3, 1, 1), hidden_nc,
-            nn.Conv2d(hidden_nc, output_nc, 3, 1, 1))
+            conv2d(input_nc, hidden_nc, 3, 1, 1, use_spect), hidden_nc,
+            conv2d(hidden_nc, output_nc, 3, 1, 1, use_spect))
         self.learnable_shortcut = learnable_shortcut or input_nc != output_nc
         if self.learnable_shortcut:
             self.shortcut = nn.Sequential(
-                nn.Conv2d(input_nc, output_nc, 1, 1, 0))
+                conv2d(input_nc, output_nc, 1, 1, 0, use_spect))
 
     def forward(self, x):
         s = self.shortcut(x) if self.learnable_shortcut else x
         return self.model(x) + s
+
+
+class ResBlockEncoder(nn.Module):
+    """Residual 2x downsampling (the discriminator's block): main [norm,]
+    act, conv 3x3 s1 -> [norm,] act, conv 4x4 s2; shortcut avg-pool 2 ->
+    conv 1x1. `update_stats` goes to the spectral-norm convs."""
+
+    def __init__(self, input_nc: int, output_nc: int,
+                 hidden_nc: Optional[int] = None, norm_type: str = "none",
+                 activation: str = "LeakyReLU", use_spect: bool = True):
+        super().__init__()
+        hidden_nc = hidden_nc or input_nc
+        self.model = _pre_act(
+            norm_type, activation, input_nc,
+            conv2d(input_nc, hidden_nc, 3, 1, 1, use_spect), hidden_nc,
+            conv2d(hidden_nc, output_nc, 4, 2, 1, use_spect))
+        self.shortcut = nn.Sequential(
+            nn.AvgPool2d(2, 2), conv2d(input_nc, output_nc, 1, 1, 0, use_spect))
+
+    def forward(self, x, update_stats=None):
+        return (_run(self.model, x, update_stats)
+                + _run(self.shortcut, x, update_stats))
+
+
+def _run(seq, x, update_stats):
+    for layer in seq:
+        x = (layer(x, update_stats) if isinstance(layer, SpectralNormed)
+             else layer(x))
+    return x
 
 
 class ResBlocks(nn.Module):
@@ -71,12 +110,13 @@ class ResBlocks(nn.Module):
     def __init__(self, num_blocks: int, input_nc: int,
                  output_nc: Optional[int] = None,
                  hidden_nc: Optional[int] = None, norm_type: str = "batch",
-                 activation: str = "ReLU", learnable_shortcut: bool = False):
+                 activation: str = "ReLU", learnable_shortcut: bool = False,
+                 use_spect: bool = False):
         super().__init__()
         hidden_nc = hidden_nc or input_nc
         output_nc = output_nc or input_nc
         kw = dict(norm_type=norm_type, activation=activation,
-                  learnable_shortcut=learnable_shortcut)
+                  learnable_shortcut=learnable_shortcut, use_spect=use_spect)
         if num_blocks == 1:
             blocks = [ResBlock(input_nc, output_nc, hidden_nc, **kw)]
         else:
@@ -96,14 +136,15 @@ class ResBlockDecoder(nn.Module):
 
     def __init__(self, input_nc: int, output_nc: int,
                  hidden_nc: Optional[int] = None, norm_type: str = "batch",
-                 activation: str = "ReLU"):
+                 activation: str = "ReLU", use_spect: bool = False):
         super().__init__()
         hidden_nc = hidden_nc or input_nc
         self.model = _pre_act(
             norm_type, activation, input_nc,
-            nn.Conv2d(input_nc, hidden_nc, 3, 1, 1), hidden_nc,
-            ConvTranspose2x(hidden_nc, output_nc))
-        self.shortcut = nn.Sequential(ConvTranspose2x(input_nc, output_nc))
+            conv2d(input_nc, hidden_nc, 3, 1, 1, use_spect), hidden_nc,
+            ConvTranspose2x(hidden_nc, output_nc, use_spect))
+        self.shortcut = nn.Sequential(
+            ConvTranspose2x(input_nc, output_nc, use_spect))
 
     def forward(self, x):
         return self.model(x) + self.shortcut(x)
@@ -115,9 +156,10 @@ class Jump(nn.Module):
     under both names, as the original's does."""
 
     def __init__(self, input_nc: int, output_nc: int, kernel_size: int = 3,
-                 norm_type: str = "none", activation: str = "ReLU"):
+                 norm_type: str = "none", activation: str = "ReLU",
+                 use_spect: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(input_nc, output_nc, kernel_size, 1, 0)
+        self.conv1 = conv2d(input_nc, output_nc, kernel_size, 1, 0, use_spect)
         layers = [get_activation(activation),
                   nn.ReflectionPad2d(kernel_size // 2), self.conv1]
         if norm_type != "none":
@@ -132,7 +174,8 @@ class Output(Jump):
     """Output head: Jump followed by tanh."""
 
     def __init__(self, input_nc: int, output_nc: int, kernel_size: int = 3,
-                 norm_type: str = "none", activation: str = "ReLU"):
+                 norm_type: str = "none", activation: str = "ReLU",
+                 use_spect: bool = False):
         super().__init__(input_nc, output_nc, kernel_size, norm_type,
-                         activation)
+                         activation, use_spect)
         self.model.append(nn.Tanh())

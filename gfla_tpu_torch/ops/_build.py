@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and bind them with ctypes.
 
 On first CUDA use, every `gfla_tpu_torch/csrc/*.cu` is compiled for Hopper
-(`sm_90a`) into one shared library with a plain C interface under
+(`sm_90a`), one nvcc process per source, all started together, and the
+objects are linked into one shared library with a plain C interface under
 `build/gfla_tpu_torch/` at the repo root. The file name carries a hash of the
 sources, so an edited kernel is rebuilt and a current one is loaded as is.
 Importing this module needs neither nvcc nor a GPU.
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gfla_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -50,9 +51,30 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gfla_warp_fwd.argtypes = [p, p, p, p, p, p, p,
                                   i, i, i, i, i, i, ctypes.c_float, p]
     lib.gfla_warp_fwd.restype = i
+    lib.gfla_warp_bwd_pos.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, p]
+    lib.gfla_warp_bwd_pos.restype = i
+    lib.gfla_warp_bwd_w1.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.gfla_warp_bwd_w1.restype = i
+    lib.gfla_warp_bwd_pos_scratch.argtypes = [i, i, i]
+    lib.gfla_warp_bwd_pos_scratch.restype = ctypes.c_longlong
+    lib.gfla_warp_bwd_w1_scratch.argtypes = [i, i, i, i]
+    lib.gfla_warp_bwd_w1_scratch.restype = ctypes.c_longlong
     lib.gfla_cuda_error_string.argtypes = [i]
     lib.gfla_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of any failure.
+    Returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+    return "".join(outs)
 
 
 @functools.cache
@@ -63,19 +85,19 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
     target = BUILD_DIR / f"libgfla_kernels_{digest}.so"
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, *map(str, sources)]
+        nvcc = _nvcc()
+        ptxas = ["-Xptxas", "-v"] if verbose else []
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+            objs = [Path(tmp_dir) / f"{src.stem}.o" for src in sources]
+            out = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj),
+                             str(src)] for src, obj in zip(sources, objs)])
+            tmp = Path(tmp_dir) / target.name
+            out += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              str(tmp), *map(str, objs)]])
+            os.replace(tmp, target)  # atomic: concurrent builds race safely
         if verbose:
-            print(proc.stdout + proc.stderr, end="")
-            print(f"nvcc built {target.name} in "
+            print(out, end="")
+            print(f"nvcc built {target.name} from {len(sources)} sources in "
                   f"{time.perf_counter() - t0:.1f} s")
-        os.replace(tmp, target)  # atomic: concurrent builds race safely
     return _bind(ctypes.CDLL(str(target)))

@@ -15,25 +15,34 @@ import torch
 import torch.nn.functional as F
 
 
+def patch_index(flow, H: int, W: int, kernel_size: int):
+    """Pixel index iy * W + ix of each edge-clamped (k+1)x(k+1) footprint tap
+    of an H x W source, (B,Hf,Wf,k+1,k+1), and the fractional weights wy, wx
+    (B,Hf,Wf) that all k^2 offsets share."""
+    k = kernel_size
+    r = k // 2
+    Hf, Wf = flow.shape[1:3]
+    ys = torch.arange(Hf, device=flow.device, dtype=flow.dtype)
+    xs = torch.arange(Wf, device=flow.device, dtype=flow.dtype)
+    dy = flow[..., 1] + ys[None, :, None]
+    dx = flow[..., 0] + xs[None, None, :]
+    fy = torch.floor(dy)
+    fx = torch.floor(dx)
+    offs = torch.arange(k + 1, device=flow.device) - r
+    iy = (fy.long()[..., None] + offs).clamp(0, H - 1)      # (B,Hf,Wf,k+1)
+    ix = (fx.long()[..., None] + offs).clamp(0, W - 1)
+    return iy[..., :, None] * W + ix[..., None, :], dy - fy, dx - fx
+
+
 def _patch_gather(source, flow, kernel_size: int):
     """Edge-clamped (k+1)x(k+1) integer footprints and fractional weights.
     Returns patch (B,H,W,k+1,k+1,C), wy and wx (B,H,W)."""
     B, H, W, C = source.shape
     k = kernel_size
-    r = k // 2
-    ys = torch.arange(H, device=source.device, dtype=flow.dtype)
-    xs = torch.arange(W, device=source.device, dtype=flow.dtype)
-    dy = flow[..., 1] + ys[None, :, None]
-    dx = flow[..., 0] + xs[None, None, :]
-    fy = torch.floor(dy)
-    fx = torch.floor(dx)
-    offs = torch.arange(k + 1, device=source.device) - r
-    iy = (fy.long()[..., None] + offs).clamp(0, H - 1)      # (B,H,W,k+1)
-    ix = (fx.long()[..., None] + offs).clamp(0, W - 1)
-    flat = (iy[..., :, None] * W + ix[..., None, :]).reshape(B, -1, 1)
+    flat, wy, wx = patch_index(flow, H, W, k)
     patch = torch.gather(source.reshape(B, H * W, C), 1,
-                         flat.expand(-1, -1, C))
-    return patch.reshape(B, H, W, k + 1, k + 1, C), dy - fy, dx - fx
+                         flat.reshape(B, -1, 1).expand(-1, -1, C))
+    return patch.reshape(B, *flat.shape[1:3], k + 1, k + 1, C), wy, wx
 
 
 def block_extract(source, flow, kernel_size: int):

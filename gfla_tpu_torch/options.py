@@ -58,6 +58,15 @@ def add_spect_d_flags(parser):
     return parser
 
 
+def resolve_use_spect_d(opt) -> bool:
+    """True when D uses spectral norm: the parsed `use_spect_d`, or, for a
+    namespace that only carries the legacy `no_spect_d`, its negation."""
+    v = getattr(opt, "use_spect_d", None)
+    if v is not None:
+        return bool(v)
+    return not getattr(opt, "no_spect_d", False)
+
+
 class BaseOptions:
     isTrain = False
 
@@ -159,4 +168,35 @@ class TestOptions(BaseOptions):
     def initialize(self, parser):
         parser = BaseOptions.initialize(self, parser)
         parser.set_defaults(serial_batches=True, batchSize=1, phase="test")
+        return parser
+
+
+class TrainOptions(BaseOptions):
+    """gfla_tpu's TrainOptions flags (options.py:231-), which follow the
+    original's train_options.py. The visualizer and held-out evaluation
+    flags parse but the port's trainer does not use them yet."""
+
+    isTrain = True
+
+    def initialize(self, parser):
+        parser = BaseOptions.initialize(self, parser)
+        add = parser.add_argument
+        add("--iter_count", type=int, default=1)
+        add("--niter", type=int, default=5_000_000)
+        add("--niter_decay", type=int, default=0)
+        add("--max_iters", type=int, default=0,
+            help="stop after this many iterations (0 = run by niter epochs)")
+        add("--lr_policy", type=str, default="lambda")
+        add("--lr", type=float, default=1e-4)
+        add("--gan_mode", type=str, default="lsgan",
+            choices=["wgan-gp", "hinge", "lsgan"])
+        add("--display_id", type=int, default=1)
+        add("--eval_iters_freq", type=int, default=15000)
+        add("--print_freq", type=int, default=1000)
+        add("--save_latest_freq", type=int, default=1000)
+        add("--save_iters_freq", type=int, default=10000)
+        add("--no_html", action="store_true")
+        add("--iters_per_epoch", type=int, default=0,
+            help="0 = derive from dataset size (epoch-based LR schedule)")
+        add("--profile_iters", type=int, default=0)
         return parser

@@ -1,5 +1,5 @@
 """Task registry of the port (counterpart of gfla_tpu/tasks/__init__.py).
-Only the pose head's serving path is ported so far."""
+Only the pose head is ported so far, for serving and training."""
 
 from __future__ import annotations
 

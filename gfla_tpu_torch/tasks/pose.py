@@ -1,11 +1,19 @@
-"""Pose-guided person image generation, serving path (counterpart of
-gfla_tpu/tasks/pose.py).
+"""Pose-guided person image generation (counterpart of gfla_tpu/tasks/pose.py).
 
-Builds the generator exactly as gfla_tpu does (instance norm, LeakyReLU,
-ngf 64, img_f 512, layers 3, attention at levels 2 and 3 with kernels 5 and 3)
-and serves it in eval mode under `torch.inference_mode()`. Checkpoints are the
-original GFLA's per-network files, `{which_iter}_net_G.pth`. The
-discriminator, losses and the training step are not ported yet.
+Builds the networks exactly as gfla_tpu does: G is the pose generator
+(instance norm, LeakyReLU, ngf 64, img_f 512, layers 3, attention at levels
+2 and 3 with kernels 5 and 3, spectral-normed with `--use_spect_g`); in
+train mode D is the spectral-norm ResDiscriminator (4 layers, 3 for market;
+ndf 32, img_f 128), with the frozen VGG19, the six G losses and two Adams,
+betas (0, 0.999), D lr = 0.1 G lr.
+
+`train_step` is gfla_tpu's step (tasks/pose.py:190-284, the original's
+pose_model.py:130-196) in its order: one G forward; a D step on the detached
+fake, D(real) then D(fake), each storing its spectral-norm u; the G losses
+against the updated D, which iterates u without storing it; the G backward
+and Adam step. Serving runs G in eval mode under `torch.inference_mode()`.
+Checkpoints are the original GFLA's per-network files, `{iter}_net_G.pth`
+and `{iter}_net_D.pth`.
 """
 
 from __future__ import annotations
@@ -15,14 +23,33 @@ import os
 import torch
 
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
-from gfla_tpu_torch.models import define_g
+from gfla_tpu_torch.losses import (
+    MultiAffineRegularizationLoss,
+    PerceptualCorrectness,
+    adversarial_loss,
+    l1_loss,
+    vgg_content_style_loss,
+)
+from gfla_tpu_torch.models import define_d, define_g
+from gfla_tpu_torch.models.vgg import load_vgg19
 from gfla_tpu_torch.nn.norms import init_weights
-from gfla_tpu_torch.options import StoreDictKeyPair, StoreList, add_spect_d_flags
+from gfla_tpu_torch.options import (
+    StoreDictKeyPair,
+    StoreList,
+    add_spect_d_flags,
+    resolve_use_spect_d,
+)
 from gfla_tpu_torch.runtime import select_device
+from gfla_tpu_torch.train import checkpoint
+from gfla_tpu_torch.train.state import make_optimizer
 
 
 class PoseTask:
-    model_names = ["G"]
+    loss_names = [
+        "app_gen", "correctness_gen", "content_gen", "style_gen",
+        "regularization", "ad_gen", "dis_img_gen",
+    ]
+    model_names = ["G", "D"]
 
     @staticmethod
     def modify_options(parser, is_train=True):
@@ -52,11 +79,8 @@ class PoseTask:
     def __init__(self, opt, device: torch.device | None = None):
         if getattr(opt, "compute_dtype", "float32") != "float32":
             raise NotImplementedError(
-                f"--compute_dtype={opt.compute_dtype}: the port serves in "
-                "float32; the warp kernel has no bfloat16 variant yet")
-        if getattr(opt, "use_spect_g", False):
-            raise NotImplementedError("--use_spect_g: spectral norm is not "
-                                      "ported yet")
+                f"--compute_dtype={opt.compute_dtype}: the port runs in "
+                "float32; the warp kernels have no bfloat16 variant yet")
         self.opt = opt
         self.device = device if device is not None \
             else select_device(opt.gpu_ids)
@@ -67,11 +91,39 @@ class PoseTask:
             img_f=getattr(opt, "img_f", 512), layers=opt.layers,
             num_blocks=2, norm_type="instance", activation="LeakyReLU",
             attn_layer=tuple(int(a) for a in opt.attn_layer),
-            extractor_kz=kz,
+            extractor_kz=kz, use_spect=getattr(opt, "use_spect_g", False),
         )
-        init_weights(self.net_g,
-                     torch.Generator().manual_seed(getattr(opt, "seed", 0)))
-        self.net_g.to(self.device).eval()
+        gen = torch.Generator().manual_seed(getattr(opt, "seed", 0))
+        init_weights(self.net_g, gen)
+        self.net_g.to(self.device)
+        self.is_train = getattr(opt, "isTrain", False)
+        if not self.is_train:
+            self.net_g.eval()
+            return
+        self.attn_layer = [int(a) for a in opt.attn_layer]
+        d_layers = getattr(opt, "d_layers", None) or (
+            3 if opt.dataset_mode == "market" else 4)
+        self.net_d = define_d(
+            "res", ndf=getattr(opt, "ndf", 32),
+            img_f=getattr(opt, "d_img_f", 128), layers=d_layers,
+            use_spect=resolve_use_spect_d(opt))
+        init_weights(self.net_d, gen)
+        self.net_d.to(self.device)
+        self.vgg = load_vgg19().to(self.device)
+        self.correctness = PerceptualCorrectness(self.vgg)
+        self.regularization = MultiAffineRegularizationLoss(
+            {int(k): int(v) for k, v in opt.kernel_size.items()})
+        okw = dict(policy=opt.lr_policy, niter=opt.niter,
+                   niter_decay=opt.niter_decay, iter_count=opt.iter_count,
+                   iters_per_epoch=max(1, getattr(opt, "iters_per_epoch",
+                                                  1000)))
+        self.opt_g, self.sched_g = make_optimizer(
+            self.net_g.parameters(), opt.lr, **okw)
+        self.opt_d, self.sched_d = make_optimizer(
+            self.net_d.parameters(), opt.lr * opt.ratio_g2d, **okw)
+        self.step = 0
+        self.net_g.train()
+        self.net_d.train()
 
     def load_checkpoint(self) -> bool:
         """Load `{checkpoints_dir}/{name}/{which_iter}_net_G.pth`, a state
@@ -105,3 +157,79 @@ class PoseTask:
         """Eval-mode forward; returns (img_gen, flows, masks)."""
         with torch.inference_mode():
             return self.net_g(batch["P1"], batch["BP1"], batch["BP2"])
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch):
+        """One D-then-G step on a prepared batch. Returns the losses as
+        0-dim tensors: `loss_names` plus `total_G`."""
+        opt = self.opt
+        p1, bp1, p2, bp2 = batch["P1"], batch["BP1"], batch["P2"], batch["BP2"]
+        img_gen, flows, _ = self.net_g(p1, bp1, bp2)
+
+        # D step on the detached fake; each pass stores its power iteration
+        self.net_d.requires_grad_(True)
+        self.opt_d.zero_grad(set_to_none=True)
+        d_real = self.net_d(p2, update_stats=True)
+        d_fake = self.net_d(img_gen.detach(), update_stats=True)
+        loss_d = 0.5 * (adversarial_loss(d_real, True, True, opt.gan_mode)
+                        + adversarial_loss(d_fake, False, True, opt.gan_mode))
+        loss_d.backward()
+        self.opt_d.step()
+        self.sched_d.step()
+
+        # G losses against the updated D, frozen and not storing u
+        self.net_d.requires_grad_(False)
+        with torch.no_grad():
+            p2_feats = self.vgg(p2)
+        logs = {
+            "app_gen": l1_loss(img_gen, p2) * opt.lambda_rec,
+            "correctness_gen": self.correctness(
+                p2, p1, flows, self.attn_layer, target_feats=p2_feats)
+            * opt.lambda_correct,
+            "ad_gen": adversarial_loss(
+                self.net_d(img_gen, update_stats=False), True, False,
+                opt.gan_mode) * opt.lambda_g,
+            "regularization": self.regularization(flows)
+            * opt.lambda_regularization,
+        }
+        content, style = vgg_content_style_loss(self.vgg, img_gen, p2,
+                                                fy=p2_feats)
+        logs["content_gen"] = content * opt.lambda_content
+        logs["style_gen"] = style * opt.lambda_style
+        total = sum(logs.values())
+        self.opt_g.zero_grad(set_to_none=True)
+        total.backward()
+        self.opt_g.step()
+        self.sched_g.step()
+        self.step += 1
+        logs = {k: v.detach() for k, v in logs.items()}
+        logs["dis_img_gen"] = loss_d.detach()
+        logs["total_G"] = total.detach()
+        return logs
+
+    def train_state(self):
+        """Optimizer and scheduler states, for the checkpoint side file."""
+        return {"opt_g": self.opt_g.state_dict(),
+                "opt_d": self.opt_d.state_dict(),
+                "sched_g": self.sched_g.state_dict(),
+                "sched_d": self.sched_d.state_dict()}
+
+    def save(self, step: int, numbered: bool = True):
+        return checkpoint.save_checkpoint(
+            self.opt.checkpoints_dir, self.opt.name, step,
+            {"G": self.net_g, "D": self.net_d}, self.train_state(), numbered)
+
+    def resume(self, which_iter: str = "latest"):
+        """Load G, D and the optimizer state of `which_iter`; returns the
+        step, or None when nothing is saved."""
+        state, step = checkpoint.load_checkpoint(
+            self.opt.checkpoints_dir, self.opt.name,
+            {"G": self.net_g, "D": self.net_d}, which_iter)
+        if state is None:
+            return step
+        self.opt_g.load_state_dict(state["opt_g"])
+        self.opt_d.load_state_dict(state["opt_d"])
+        self.sched_g.load_state_dict(state["sched_g"])
+        self.sched_d.load_state_dict(state["sched_d"])
+        self.step = int(state["step"])
+        return self.step

@@ -1,0 +1,107 @@
+"""Checkpoints in the original GFLA's layout (counterpart of
+gfla_tpu/train/checkpoint.py; the original's base_model.py:142-197).
+
+Under {checkpoints_dir}/{name}/ each network goes to `{iter}_net_{G,D}.pth`
+(numbered saves) and `latest_net_{G,D}.pth`, plain state dicts keyed like
+the original's. The optimizer and scheduler states and the step go to a side
+file, `{iter}_train_state.pth` / `latest_train_state.pth`, so that a resume
+continues as gfla_tpu's full-state restore does; the text file `latest`
+holds the step of the newest save.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+
+def _dir(checkpoints_dir: str, name: str) -> str:
+    return os.path.abspath(os.path.join(checkpoints_dir, name))
+
+
+def _save(obj, path: str) -> None:
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)  # a reader never sees a half-written file
+
+
+def save_checkpoint(checkpoints_dir: str, name: str, step: int,
+                    nets: Dict[str, torch.nn.Module], train_state: Dict,
+                    numbered: bool = True) -> str:
+    """Write the `latest` files and, with `numbered`, the `{step}` files."""
+    base = _dir(checkpoints_dir, name)
+    os.makedirs(base, exist_ok=True)
+    tags = ["latest"] + ([str(step)] if numbered else [])
+    for tag in tags:
+        for net_name, net in nets.items():
+            sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+            _save(sd, os.path.join(base, f"{tag}_net_{net_name}.pth"))
+        _save(dict(train_state, step=step),
+              os.path.join(base, f"{tag}_train_state.pth"))
+    with open(os.path.join(base, "latest"), "w") as f:
+        f.write(str(step))
+    return base
+
+
+def get_iteration(checkpoints_dir: str, name: str,
+                  which_iter: str = "latest") -> Optional[int]:
+    """'latest' or a number -> the saved step, or None if nothing is saved
+    (util.py:285-297 of the original)."""
+    base = _dir(checkpoints_dir, name)
+    if not os.path.isdir(base):
+        return None
+    if which_iter != "latest":
+        return int(which_iter)
+    latest = os.path.join(base, "latest")
+    if os.path.exists(latest):
+        with open(latest) as f:
+            return int(f.read().strip())
+    steps = [int(m.group(1)) for f in os.listdir(base)
+             if (m := re.fullmatch(r"(\d+)_net_G\.pth", f))]
+    return max(steps) if steps else None
+
+
+def load_checkpoint(checkpoints_dir: str, name: str,
+                    nets: Dict[str, torch.nn.Module],
+                    which_iter: str = "latest") -> Tuple[Optional[Dict],
+                                                         Optional[int]]:
+    """Load `{which_iter}_net_*.pth` into `nets` (strict keys) and return
+    (train_state, step), or (None, None) when nothing is saved."""
+    step = get_iteration(checkpoints_dir, name, which_iter)
+    if step is None:
+        return None, None
+    base = _dir(checkpoints_dir, name)
+    tag = which_iter if which_iter == "latest" else str(step)
+    for net_name, net in nets.items():
+        path = os.path.join(base, f"{tag}_net_{net_name}.pth")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        net.load_state_dict({k.removeprefix("module."): v
+                             for k, v in sd.items()}, strict=True)
+    path = os.path.join(base, f"{tag}_train_state.pth")
+    state = (torch.load(path, map_location="cpu", weights_only=True)
+             if os.path.exists(path) else None)
+    return state, step
+
+
+def partial_load(module: torch.nn.Module, state_dict: Dict
+                 ) -> Tuple[List[str], List[str]]:
+    """Copy every entry of `state_dict` whose key and shape match into
+    `module` (the original's tolerant load, base_model.py:167-192). Returns
+    (loaded keys, skipped keys with the reason)."""
+    own = module.state_dict()
+    loaded, skipped, merged = [], [], {}
+    for key, value in state_dict.items():
+        key = key.removeprefix("module.")
+        if key not in own:
+            skipped.append(key)
+        elif own[key].shape != value.shape:
+            skipped.append(f"{key} (shape {tuple(value.shape)} vs "
+                           f"{tuple(own[key].shape)})")
+        else:
+            merged[key] = value
+            loaded.append(key)
+    module.load_state_dict(merged, strict=False)
+    return loaded, skipped
