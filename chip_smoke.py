@@ -24,6 +24,23 @@ Phases, each failing the run (non-zero exit) on the first error:
      same next step; one step against the plain path from one state and
      one card step against a CPU step at 2x64x64, gradients held against a
      float64 step; median ms per step of both paths and the peak memory.
+  7. corr kernel: the max-correlation kernel against its plain scan at both
+     sites of the correctness loss, at a ragged shape and with duplicated
+     and zero rows (exact ties); median ms of the kernel, the scan and one
+     unchunked torch.bmm + max, the yardstick the port never calls.
+  8. attn-math kernels: the math-fused forward and backward against their
+     plain twins at both attention sites and a ragged N; median ms of each.
+  9. poseflownet: stage-1 flow pretraining at full width, batch 8, with
+     GFLA_PALLAS_CORR=1: four steps, 2 max-correlation launches each;
+     finite losses; every parameter the losses reach moved; one step
+     against the scan path from one state (float64 rule as in 6); a save,
+     then the pose task's --continue_train on it starts its flow net from
+     it (the two-stage protocol); median ms per step of both paths.
+ 10. switches: the pose head under GFLA_ATTN_PALLAS=1 (serving, one training
+     step) and GFLA_PALLAS_CORR=1 (one training step): the kernels each
+     setting selects, and agreement with the default path.
+The switches are set per phase with mock.patch.dict, so none leaks into the
+next; every other phase runs with GFLA_ATTN_PALLAS=auto, GFLA_PALLAS_CORR=0.
 Extra arguments go to the test options, e.g. `--checkpoints_dir DIR --name N
 --which_iter latest` to serve an original-GFLA `latest_net_G.pth` instead of
 the seeded random init. The last line is the JSON device record.
@@ -31,8 +48,10 @@ the seeded random init. The last line is the JSON device record.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import statistics
 import sys
 import tempfile
@@ -54,11 +73,24 @@ GRAD_F64_REL = 5e-2  # each f32 gradient vs the f64 one, x its tensor's
                      # max: a check for gross faults; the flow net's
                      # gradients are small sums of larger terms, 1.6e-2 off
                      # in f32 at 64x64 on the CPU (2x2 bottleneck)
+FLOW_GRAD_F64_REL = 1e-1  # the same for the stage-1 flow net alone: its
+                     # deepest encoder weights get gradients of ~1e-6 that
+                     # f32 sums 6.9e-2 off the f64 ones on both paths alike
+FLOW_PAIR_REL = BWD_REL  # ... so its kernel path is also held to its scan
+                     # path, each gradient within this x the tensor's max:
+                     # both take the same argmax, and their cmax differ in
+                     # the last bits (losses ~4e-7 apart), which those small
+                     # gradients magnify to ~7e-6 of a tensor's max on an
+                     # H100
 MASK_REL = 1e-3     # the parameters held tight: |grad| > 1e-3 x tensor max
 PARAM_ATOL = 1e-6   # how tight
 ADAM_FLOOR = 1e-6   # ... and |grad| > 100 x Adam's eps
 RESOLVED = 10.0     # ... and |grad| > 10 x the tensor's f32 rounding
 CKPT_REL = 1e-5     # the step after a save/resume vs the uninterrupted one
+CORR_ATOL = 1e-5    # max-correlation: cmax, and argmax where the top-two
+                    # gap of the plain correlation exceeds it
+F32_PEAK = 67e12    # H100 SXM: f32 FLOP/s outside the tensor cores
+HBM_RATE = 3.35e12  # H100 SXM: device memory bytes/s
 
 KERNEL_CASES = [  # name, B, H, W, C, D, k, flow scale (None: far-off)
     ("k=5 site 64x64 C128", 8, 64, 64, 128, 128, 5, 1.5),
@@ -128,6 +160,17 @@ def warp_inputs(B, H, W, C, D, k, flow_scale, seed, device):
     return src, flow, hidden_bt, w1s, w2, b2
 
 
+def expect_refusals(what, refusals):
+    """Each call must raise its exception before any launch."""
+    for name, (exc, call) in refusals.items():
+        try:
+            call()
+        except exc:
+            continue
+        raise RuntimeError(f"FAILED: {what} accepted {name}")
+    print(f"{what} refuses: {', '.join(refusals)}")
+
+
 def phase_kernel(device):
     from gfla_tpu_torch.ops import warp
 
@@ -160,13 +203,7 @@ def phase_kernel(device):
         "bfloat16": (TypeError, lambda: warp.warp_fwd(
             args[0].detach().bfloat16(), *args[1:], 3)),
     }
-    for name, (exc, call) in refusals.items():
-        try:
-            call()
-        except exc:
-            continue
-        raise RuntimeError(f"FAILED: the wrapper accepted {name}")
-    print(f"wrapper refuses: {', '.join(refusals)}")
+    expect_refusals("warp_fwd", refusals)
 
     # an input that requires grad goes through WarpFunction: forward kernel,
     # then both backward kernels
@@ -235,13 +272,242 @@ def phase_bwd_kernel(device):
         "float64 d_hpre": (ValueError, lambda: warp.warp_bwd_w1(
             args[0], args[1], args[2].double(), 3)),
     }
-    for what, (exc, call) in refusals.items():
-        try:
-            call()
-        except exc:
-            continue
-        raise RuntimeError(f"FAILED: the backward wrapper accepted {what}")
-    print(f"backward wrapper refuses: {', '.join(refusals)}")
+    expect_refusals("warp_bwd", refusals)
+    return results
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time one H100 SXM could take for work
+    of `flops` f32 operations that moves `nbytes` bytes."""
+    t_ops = flops / F32_PEAK * 1e3
+    t_bytes = nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def warp_work(B, H, W, C, D, k):
+    """(FLOPs, bytes) of each warp kernel at one site. A multiply-add is 2
+    FLOPs; the dense products dominate, plus the logits, the weighted sum
+    and the bilinear blend (7 per block value); each input is read once and
+    each output written once, as 4-byte floats."""
+    N, k2 = B * H * W, k * k
+    dense = 2 * N * k2 * C * D
+    small = 2 * N * (D * k2 + k2 * C) + 7 * N * k2 * C
+    ins = N * C + 2 * N + N * D + k2 * C * D + D * k2 + k2
+    return {
+        "warp_fwd": (dense + small, 4 * (ins + N * C)),
+        "warp_bwd_pos": (2 * dense + 2 * small + 4 * N * D * k2,
+                         4 * (ins + N * C + N * C + 2 * N + N * D + D * k2
+                              + k2)),
+        "warp_bwd_w1": (dense + 7 * N * k2 * C,
+                        4 * (N * C + 2 * N + N * D + k2 * C * D)),
+    }
+
+
+CORR_CASES = [  # name, B, Ns, Nt, C, exact ties
+    ("relu3_1 B=8 4096x4096 C256", 8, 4096, 4096, 256, False),
+    ("relu4_1 B=8 1024x1024 C512", 8, 1024, 1024, 512, False),
+    ("ragged B=3 Ns=1000 Nt=777 C3", 3, 1000, 777, 3, False),
+    ("duplicated and zero rows B=2 4096x4096 C256", 2, 4096, 4096, 256,
+     True),
+]
+
+
+def corr_inputs(B, Ns, Nt, C, ties, seed, device):
+    """Unit-norm ReLU features, as the correctness loss feeds the kernel.
+    With `ties`, a quarter of the source rows repeat one of 32 rows and
+    every 97th is zero; half the target rows copy one of the 32 and every
+    7th is zero: equal maxima, as DeepFashion's white side bands give."""
+    rng = np.random.RandomState(seed)
+    s = np.maximum(rng.randn(B, Ns, C), 0.0)
+    t = np.maximum(rng.randn(B, Nt, C), 0.0)
+    if ties:
+        for b in range(B):
+            rows = np.maximum(rng.randn(32, C), 0.0)
+            dup = np.flatnonzero(rng.rand(Ns) < 0.25)
+            s[b, dup] = rows[rng.randint(0, 32, dup.size)]
+            t[b, ::2] = rows[rng.randint(0, 32, t[b, ::2].shape[0])]
+        s[:, ::97] = 0.0
+        t[:, 1::7] = 0.0
+
+    def unit(x):
+        return torch.from_numpy((x / (np.sqrt((x * x).sum(-1, keepdims=True))
+                                      + 1e-8)).astype(np.float32)).to(device)
+
+    return unit(s), unit(t)
+
+
+def corr_work(B, Ns, Nt, C):
+    """(FLOPs, bytes): the products and one comparison per pair; reading
+    both inputs, writing cmax (4 bytes) and argmax (8 bytes) per target."""
+    return (2 * B * Ns * Nt * C + B * Ns * Nt,
+            4 * B * (Ns + Nt) * C + 12 * B * Nt)
+
+
+def phase_corr_kernel(device):
+    """The max-correlation kernel against `max_corr_plain`: cmax within
+    CORR_ATOL; argmax equal wherever the plain correlation's top two differ
+    by more than CORR_ATOL, and everywhere in the tie case; the plain
+    correlation at the kernel's argmax within CORR_ATOL of cmax everywhere."""
+    from gfla_tpu_torch.ops import max_corr
+
+    results = {}
+    for i, (name, B, Ns, Nt, C, ties) in enumerate(CORR_CASES):
+        s, t = corr_inputs(B, Ns, Nt, C, ties, 40 + i, device)
+        cmax, amax = max_corr.max_corr(s, t)
+        want_max, want_idx = max_corr.max_corr_plain(s, t)
+        torch.cuda.synchronize()
+        check(cmax.dtype == torch.float32 and amax.dtype == torch.int64
+              and tuple(amax.shape) == (B, Nt), f"{name}: output types")
+        err = (cmax - want_max).abs().max().item()
+        check(err <= CORR_ATOL, f"{name}: cmax off by {err:.3e}")
+        decided = at_err = 0
+        for b in range(B):
+            corr = s[b] @ t[b].T                                  # (Ns, Nt)
+            top2 = corr.topk(2, dim=0).values
+            sure = (top2[0] - top2[1]) > CORR_ATOL
+            same = amax[b] == want_idx[b]
+            check(bool(same[sure].all()), f"{name}: argmax differs where "
+                  f"the top two are more than {CORR_ATOL:g} apart")
+            if ties:
+                check(bool(same.all()), f"{name}: argmax differs at a tie")
+            decided += int(sure.sum())
+            at = corr.gather(0, amax[b][None]).squeeze(0)
+            at_err = max(at_err, (at - cmax[b]).abs().max().item())
+        check(at_err <= CORR_ATOL, f"{name}: the correlation at the kernel's "
+              f"argmax is {at_err:.3e} off cmax")
+        ms = cuda_ms(lambda: max_corr.max_corr(s, t))
+        plain_ms = cuda_ms(lambda: max_corr.max_corr_plain(s, t))
+        library_ms = cuda_ms(lambda: torch.bmm(t, s.mT).max(-1))
+        bound_ms, bound_by = bound(*corr_work(B, Ns, Nt, C))
+        print(f"corr kernel {name}: cmax max_abs_err={err:.3e} (tol "
+              f"{CORR_ATOL:g}); argmax equal at all {decided} of {B * Nt} "
+              f"rows with a top-two gap > {CORR_ATOL:g}"
+              + (" and at every tie" if ties else "")
+              + f"; correlation at the kernel's argmax within {at_err:.3e}; "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bmm+max "
+              f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, work=corr_work(B, Ns, Nt,
+                                                                   C))
+    s, t = corr_inputs(1, 64, 32, 8, False, 49, device)
+    refusals = {
+        "bfloat16": (TypeError, lambda: max_corr.max_corr(s.bfloat16(),
+                                                          t.bfloat16())),
+        "non-contiguous": (ValueError, lambda: max_corr.max_corr(
+            s.mT.contiguous().mT, t)),
+        "mismatched channels": (ValueError, lambda: max_corr.max_corr(
+            s, t[..., :4].contiguous())),
+    }
+    expect_refusals("max_corr", refusals)
+    return results
+
+
+ATTN_CASES = [  # name, N, k, C, D, negative slope
+    ("k=5 site N=32768 C128", 8 * 64 * 64, 5, 128, 128, 0.1),
+    ("k=3 site N=8192 C256", 8 * 32 * 32, 3, 256, 128, 0.1),
+    ("ragged N=1000 k=3 C21 D42", 1000, 3, 21, 42, 0.1),
+    ("ragged N=1000 k=3 C21 D42 ReLU", 1000, 3, 21, 42, 0.0),
+]
+ATTN_OUTPUTS = ("d_bs", "d_bt", "d_hpre", "dW2", "db1", "db2")
+
+
+def attn_inputs(N, k, C, D, seed, device):
+    """Blocks, weights in gfla_tpu's layout, and an output cotangent. b1
+    sets every pre-activation 6 sigma to either side of the activation's
+    kink, so that f32 rounding cannot put one unit on different branches in
+    the kernel and the plain twin: of 4 M units of N(0, sigma^2), one lands
+    within the ~1e-6 rounding of 0 in a typical draw, and its d_hpre then
+    differs by 0.9 |d_h|, through d_bs, d_bt and db1."""
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    k2 = k * k
+    sigma = 0.05 * np.sqrt(2 * k2 * C)  # std of bt.W1t + bs.W1s
+    b1 = 6 * sigma * np.where(np.arange(D) % 2 == 0, 1.0, -1.0)
+    return ((t(rng.randn(N, k2, C)), t(rng.randn(N, k2, C)),
+             t(rng.randn(k2, 2 * C, D) * 0.05), t(b1 + rng.randn(D) * 0.1),
+             t(rng.randn(D, k2) * 0.01), t(rng.randn(k2) * 0.1)),
+            t(rng.randn(N, C)))
+
+
+def attn_work(N, k, C, D):
+    """(FLOPs, bytes) of the forward and the backward kernel: the dense
+    layer over [bt || bs] (twice in the backward, recomputed and
+    transposed), logits, weighted sum and their gradients; each input read
+    once, each output written once."""
+    k2 = k * k
+    dense = 2 * N * 2 * k2 * C * D
+    weights = 2 * k2 * C * D + D + D * k2 + k2
+    fwd = (dense + 2 * N * (D * k2 + k2 * C),
+           4 * (2 * N * k2 * C + weights + N * C))
+    bwd = (2 * dense + 2 * N * (3 * D * k2 + 2 * k2 * C),
+           4 * (2 * N * k2 * C + N * C + weights
+                + 2 * N * k2 * C + N * D + D * k2 + D + k2))
+    return fwd, bwd
+
+
+def phase_attn_kernel(device):
+    """Both attention-math kernels against their plain twins: the forward
+    and each of the six backward outputs within BWD_REL x its max |value|."""
+    from gfla_tpu_torch.ops import attn_math
+
+    results = {}
+    for i, (name, N, k, C, D, slope) in enumerate(ATTN_CASES):
+        args, g = attn_inputs(N, k, C, D, 50 + i, device)
+        out = attn_math.attn_math_fwd(*args, slope)
+        want = attn_math.attn_math_plain(*args, slope)
+        got_b = attn_math.attn_math_bwd(args[0], args[1], g, *args[2:], slope)
+        want_b = attn_math.attn_math_bwd_plain(args[0], args[1], g, *args[2:],
+                                               slope)
+        torch.cuda.synchronize()
+        errs, faults = [], []
+        for what, a, b in zip(("out",) + ATTN_OUTPUTS, (out, *got_b),
+                              (want, *want_b)):
+            err = (a - b).abs().max().item()
+            tol = BWD_REL * b.abs().max().item()
+            if not (bool(torch.isfinite(a).all()) and err <= tol):
+                faults.append(f"{what} {err:.3e} > {tol:.3e}")
+            errs.append(err)
+        check(not faults, f"{name}: kernel vs plain: {', '.join(faults)}")
+        fwd_ms = cuda_ms(lambda: attn_math.attn_math_fwd(*args, slope),
+                         iters=10)
+        fwd_plain = cuda_ms(lambda: attn_math.attn_math_plain(*args, slope),
+                            iters=10)
+        bwd_ms = cuda_ms(lambda: attn_math.attn_math_bwd(
+            args[0], args[1], g, *args[2:], slope), iters=10)
+        bwd_plain = cuda_ms(lambda: attn_math.attn_math_bwd_plain(
+            args[0], args[1], g, *args[2:], slope), iters=10)
+        dw1_ms = cuda_ms(lambda: attn_math.attn_math_dw1(
+            args[0], args[1], want_b[2]), iters=10)
+        (f_ops, f_bytes), (b_ops, b_bytes) = attn_work(N, k, C, D)
+        print(f"attn-math {name}: max_abs_err out={errs[0]:.3e} "
+              + " ".join(f"{o}={e:.3e}" for o, e in zip(ATTN_OUTPUTS,
+                                                        errs[1:]))
+              + f" (tol {BWD_REL:g} x max|value|); forward kernel "
+              f"{fwd_ms:.4f} ms plain {fwd_plain:.4f} ms bound "
+              f"{bound(f_ops, f_bytes)[0]:.4f} ms; backward kernel "
+              f"{bwd_ms:.4f} ms plain {bwd_plain:.4f} ms bound "
+              f"{bound(b_ops, b_bytes)[0]:.4f} ms; dW1 matmul outside "
+              f"{dw1_ms:.4f} ms")
+        results[name] = dict(
+            fwd=dict(err=errs[0], ms=fwd_ms, plain_ms=fwd_plain,
+                     work=(f_ops, f_bytes)),
+            bwd=dict(err=max(errs[1:]), ms=bwd_ms, plain_ms=bwd_plain,
+                     work=(b_ops, b_bytes)))
+    args, g = attn_inputs(40, 3, 8, 16, 59, device)
+    refusals = {
+        "C > 512": (ValueError, lambda: attn_math.attn_math_fwd(
+            *attn_inputs(4, 3, 520, 16, 59, device)[0])),
+        "bfloat16": (TypeError, lambda: attn_math.attn_math_fwd(
+            args[0].bfloat16(), *args[1:])),
+        "non-contiguous": (ValueError, lambda: attn_math.attn_math_fwd(
+            args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])),
+        "g of the wrong shape": (ValueError, lambda: attn_math.attn_math_bwd(
+            args[0], args[1], g[:20], *args[2:])),
+    }
+    expect_refusals("attn_math", refusals)
     return results
 
 
@@ -332,20 +598,35 @@ def phase_slice(extra_args):
     print(f"forward batch 8 at 256x256: kernel path {ms:.3f} ms "
           f"(again {ms_again:.3f}), plain path {plain_ms:.3f} ms, "
           f"peak {peak:.0f} MiB")
-    return launches
+    return dict(launches=launches, task=task, request=requests[0])
 
 
 def launch_counts():
-    from gfla_tpu_torch.ops import warp
+    from gfla_tpu_torch.ops import attn_math, max_corr, warp
 
     return {"warp_fwd": warp.launches, "warp_bwd_pos": warp.bwd_pos_launches,
-            "warp_bwd_w1": warp.bwd_w1_launches}
+            "warp_bwd_w1": warp.bwd_w1_launches,
+            "max_corr": max_corr.launches,
+            "attn_math_fwd": attn_math.fwd_launches,
+            "attn_math_bwd": attn_math.bwd_launches}
 
 
 def reset_launch_counts():
-    from gfla_tpu_torch.ops import warp
+    from gfla_tpu_torch.ops import attn_math, max_corr, warp
 
     warp.launches = warp.bwd_pos_launches = warp.bwd_w1_launches = 0
+    max_corr.launches = 0
+    attn_math.fwd_launches = attn_math.bwd_launches = 0
+
+
+def only(counts, **expected):
+    """True if `counts` holds `expected` and 0 for every other kernel."""
+    return counts == {name: expected.get(name, 0) for name in counts}
+
+
+def switches(**env):
+    """The GFLA_* switches for one phase, restored when it ends."""
+    return mock.patch.dict(os.environ, env)
 
 
 def plain_warp():
@@ -357,7 +638,11 @@ def plain_warp():
 
 
 def nets(task):
-    return {"G": task.net_g, "D": task.net_d}
+    """The task's trained networks: G, and D where the task has one."""
+    out = {"G": task.net_g}
+    if hasattr(task, "net_d"):
+        out["D"] = task.net_d
+    return out
 
 
 def snapshot(task):
@@ -376,7 +661,7 @@ def exact_grads(task, batch):
     (the kernels take float32 only): the reference that tells the
     gradients f32 resolves from those it does not."""
     task = copy.deepcopy(task)
-    for module in (task.net_g, task.net_d, task.vgg):
+    for module in (*nets(task).values(), task.vgg):
         module.double()
     with plain_warp():
         task.train_step({k: v.double() for k, v in batch.items()})
@@ -387,10 +672,10 @@ def exact_grads(task, batch):
 
 
 def check_step_pair(what, logs_a, snap_a, logs_b, snap_b, exact, lrs,
-                    masked=True):
+                    masked=True, grad_rel=GRAD_F64_REL, pair_rel=None):
     """Two steps from one state, a (kernel path, card) against b (plain path,
     CPU): losses within TRAIN_LOSS_REL; each gradient of a within
-    GRAD_F64_REL x its tensor's largest exact |grad| of the exact (float64)
+    `grad_rel` x its tensor's largest exact |grad| of the exact (float64)
     one (b's is printed: the CPU's f32 is the further off of the two at
     64x64); the updated parameters within 2 lr everywhere
     and, with `masked`, within PARAM_ATOL where |exact grad| > MASK_REL x
@@ -404,16 +689,18 @@ def check_step_pair(what, logs_a, snap_a, logs_b, snap_b, exact, lrs,
     tensor's f32 rounding (its largest f32-vs-f64 gradient difference on
     either side); the rest are held to 2 lr. A tensor whose exact gradient
     is 0 (a conv bias feeding an instance norm) gets f32 rounding as its
-    gradient and is held to 2 lr only."""
+    gradient and is held to 2 lr only. With `pair_rel`, each gradient of a
+    that the f64 step does not find 0 is also held to b's, within
+    `pair_rel` x that largest exact |grad|."""
     faults = []
-    loss_rel = 0.0
+    loss_rel = pair_worst = 0.0
     for name, want in logs_b.items():
         got, want = float(logs_a[name]), float(want)
         rel = abs(got - want) / max(abs(want), 1e-30)
         if not (np.isfinite(got) and rel <= TRAIN_LOSS_REL):
             faults.append(f"loss {name} {got} vs {want}")
         loss_rel = max(loss_rel, rel)
-    grad_rel = [0.0, 0.0]
+    worst = [0.0, 0.0]
     param_err = floored_err = 0.0
     held = skipped = n_big = n_signed = n_resolved = 0
     for tag, lr in lrs.items():
@@ -424,8 +711,8 @@ def check_step_pair(what, logs_a, snap_a, logs_b, snap_b, exact, lrs,
             if diff.max().item() > 2 * lr:
                 faults.append(f"{tag} {name} moved {diff.max().item():.3e} "
                               f"apart, > 2 lr")
-            g64 = ex[name]
-            top = g64.abs().max().item()
+            g64 = ex.get(name)  # None: a head the losses do not reach
+            top = 0.0 if g64 is None else g64.abs().max().item()
             if top <= 1e-9 * scale:  # exactly 0 in f64
                 skipped += 1
                 continue
@@ -433,10 +720,16 @@ def check_step_pair(what, logs_a, snap_a, logs_b, snap_b, exact, lrs,
                      for side in (snap_a, snap_b)]
             sides = [(g - g64).abs().max().item() for g in grads]
             rounding = max(sides)
-            if sides[0] > GRAD_F64_REL * top:
+            if sides[0] > grad_rel * top:
                 faults.append(f"{tag} {name} grad off the f64 one by "
                               f"{sides[0] / top:.3e} of its max {top:.3e}")
-            grad_rel = [max(r, e / top) for r, e in zip(grad_rel, sides)]
+            if pair_rel is not None:
+                pair_err = (grads[0] - grads[1]).abs().max().item() / top
+                pair_worst = max(pair_worst, pair_err)
+                if pair_err > pair_rel:
+                    faults.append(f"{tag} {name} grad off the other path's by "
+                                  f"{pair_err:.3e} of its max {top:.3e}")
+            worst = [max(r, e / top) for r, e in zip(worst, sides)]
             held += 1
             if not masked:
                 continue
@@ -464,9 +757,12 @@ def check_step_pair(what, logs_a, snap_a, logs_b, snap_b, exact, lrs,
             f"{MASK_REL:g} max that Adam signs ({n_signed}) and f32 "
             f"resolves, within {floored_err:.3e} at all {n_big}" if masked else
             "updated parameters within 2 lr")
+    pair_note = ("" if pair_rel is None else
+                 f"; path a's gradients within {pair_worst:.3e} of path b's "
+                 f"x each tensor's max (bound {pair_rel:g})")
     print(f"{what}: losses within {loss_rel:.3e} rel; gradients within "
-          f"{grad_rel[0]:.3e} and {grad_rel[1]:.3e} of each tensor's max of "
-          f"the f64 step's; {rule}; "
+          f"{worst[0]:.3e} and {worst[1]:.3e} of each tensor's max of "
+          f"the f64 step's{pair_note}; {rule}; "
           f"{held} tensors, {skipped} more with zero f64 gradient held to "
           f"2 lr")
     for fault in faults[:40]:
@@ -505,30 +801,35 @@ def off_the_kinks(task):
     return task
 
 
-def compare_steps(what, state, batch, lrs, to_cpu=False):
-    """One step of `state` on the kernel path against one on the plain path
-    (or, with `to_cpu`, one on the card against one on the CPU), both held
-    against a float64 step by check_step_pair; card and CPU convolutions
-    round differently all through G, so that pair is not masked."""
+def compare_steps(what, state, batch, lrs, to_cpu=False,
+                  path_a=contextlib.nullcontext, path_b=plain_warp,
+                  grad_rel=GRAD_F64_REL, pair_rel=None):
+    """One step of `state` on path a (the kernel path) against one on path b
+    (the plain path) or, with `to_cpu`, one on the card against one on the
+    CPU, both held against a float64 step by check_step_pair; card and CPU
+    convolutions round differently all through G, so that pair is not
+    masked. `path_a`/`path_b` give the context each step runs in;
+    `pair_rel` holds a's gradients to b's (check_step_pair)."""
     exact = exact_grads(state, batch)
     a = copy.deepcopy(state)
-    logs_a = a.train_step(batch)
+    with path_a():
+        logs_a = a.train_step(batch)
     snap_a = snapshot(a)
     del a
     b = copy.deepcopy(state)
     if to_cpu:
-        for module in (b.net_g, b.net_d, b.vgg):
+        for module in (*nets(b).values(), b.vgg):
             module.cpu()
         logs_b = b.train_step({k: v.cpu() for k, v in batch.items()})
     else:
-        with plain_warp():
+        with path_b():
             logs_b = b.train_step(batch)
     snap_b = {tag: {kind: {n: t.to(batch["P1"].device) for n, t in d.items()}
                     for kind, d in s.items()}
               for tag, s in snapshot(b).items()}
     del b
     check_step_pair(what, logs_a, snap_a, logs_b, snap_b, exact, lrs,
-                    masked=not to_cpu)
+                    masked=not to_cpu, grad_rel=grad_rel, pair_rel=pair_rel)
 
 
 def phase_train():
@@ -572,9 +873,10 @@ def phase_train():
     peak = torch.cuda.max_memory_allocated() / 2**30
     times, logs = times + more_times, logs + more_logs
     print(f"trained {TRAIN_STEPS} steps: kernel launches {counts}")
-    check(counts == {name: 2 * TRAIN_STEPS for name in counts},
+    check(only(counts, warp_fwd=2 * TRAIN_STEPS,
+               warp_bwd_pos=2 * TRAIN_STEPS, warp_bwd_w1=2 * TRAIN_STEPS),
           f"launches {counts} for {TRAIN_STEPS} steps, expected 2 forward "
-          f"and 2 of each backward kernel per step")
+          f"and 2 of each backward warp kernel per step, nothing else")
 
     # losses finite; parameters moved; u stored by the D step only
     for i, step_logs in enumerate(logs):
@@ -640,7 +942,195 @@ def phase_train():
           f"{plain_ms:.3f} ms (steps "
           f"{', '.join(f'{t:.1f}' for t in plain_times)}), "
           f"peak {peak:.2f} GiB")
+    return dict(counts=counts, state=state, batch=batches[0])
+
+
+def phase_poseflownet():
+    """Stage-1 flow pretraining at full width with GFLA_PALLAS_CORR=1, and
+    the two-stage protocol from its checkpoint."""
+    from gfla_tpu_torch.options import TrainOptions
+    from gfla_tpu_torch.tasks import create_task
+
+    ckpt = tempfile.TemporaryDirectory()
+    common = ["--dataset_mode=synthetic", "--load_size=256", "--batchSize=8",
+              "--gpu_ids=0", f"--checkpoints_dir={ckpt.name}",
+              "--name=flow_smoke"]
+    opt = TrainOptions().parse(["--model=poseflownet", *common], save=False)
+    opt.iters_per_epoch = 1000
+    task = create_task(opt)
+    fn = task.net_g.flow_net
+    check(fn.block0.model[2].out_channels == 32 and fn.encoder_layer == 5
+          and fn.encoder3.model[5].out_channels == 256,
+          "not the full-width flow net")
+    print(f"poseflownet: {sum(p.numel() for p in task.net_g.parameters())} "
+          f"parameters")
+    batches = [task.prepare_batch(deepfashion_batch(200 + s))
+               for s in range(TRAIN_STEPS)]
+    state0 = copy.deepcopy(task)
+    s0 = snapshot(state0)
+
+    # the main path: TRAIN_STEPS steps through the max-correlation kernel
+    with switches(GFLA_PALLAS_CORR="1"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times, logs = timed_steps(task, batches)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"poseflownet trained {TRAIN_STEPS} steps: kernel launches {counts}")
+    check(only(counts, max_corr=2 * TRAIN_STEPS),
+          f"launches {counts}, expected 2 max_corr per step and nothing else")
+    for i, step_logs in enumerate(logs):
+        check(sorted(step_logs) == sorted(task.loss_names + ["total_G"]),
+              f"loss names {sorted(step_logs)}")
+        for name, v in step_logs.items():
+            check(bool(torch.isfinite(v)), f"step {i + 1}: {name} not finite")
+    for i in (0, TRAIN_STEPS - 1):
+        print(f"poseflownet losses, step {i + 1}: " + " ".join(
+            f"{k} {float(v):.5f}" for k, v in logs[i].items()))
+    params = dict(task.net_g.named_parameters())
+    unreached = sorted(n for n, p in params.items() if p.grad is None)
+    still = [n for n, p in params.items()
+             if n not in unreached and torch.equal(p, s0["G"]["params"][n])]
+    check(not still, f"parameters unchanged: {still}")
+    check(all(n.startswith("flow_net.mask") for n in unreached)
+          and all(torch.equal(params[n], s0["G"]["params"][n])
+                  for n in unreached),
+          f"parameters without a gradient: {unreached}")
+    print(f"every parameter the losses reach moved; the {len(unreached)} of "
+          f"the mask heads, which no stage-1 loss reaches, did not")
+    flows, masks = task.test_step(batches[0])
+    check([tuple(f.shape) for f in flows] == [(8, 2, 32, 32), (8, 2, 64, 64)]
+          and all(bool(torch.isfinite(f).all()) for f in flows + masks),
+          "test_step flows")
+
+    with switches(GFLA_PALLAS_CORR="0"):
+        plain = copy.deepcopy(task)
+        plain_times, _ = timed_steps(plain, batches[1:])
+        del plain
+
+    # the two-stage protocol: stage 2 resumes the stage-1 directory
+    task.save(TRAIN_STEPS)
+    pose_opt = TrainOptions().parse(["--model=pose", "--continue_train",
+                                     *common], save=False)
+    pose = create_task(pose_opt)
+    init = {n: t.clone() for n, t in pose.net_g.state_dict().items()}
+    check(pose.resume(pose_opt.which_iter) == TRAIN_STEPS
+          and pose.step == TRAIN_STEPS, "stage 2 did not keep the step")
+    saved = task.net_g.state_dict()
+    got = pose.net_g.state_dict()
+    flow_keys = [n for n in got if n.startswith("flow_net.")]
+    check(len(flow_keys) == len(saved)
+          and all(torch.equal(got[n], saved[n]) for n in flow_keys),
+          "stage 2's flow net is not the saved one")
+    check(all(torch.equal(got[n], init[n]) for n in got
+              if not n.startswith("flow_net.")),
+          "stage 2's source and target nets are not at their init")
+    check(not pose.opt_g.state, "stage 2's optimizer is not fresh")
+    print(f"two-stage: pose --continue_train loaded the {len(flow_keys)} "
+          f"flow_net tensors at step {pose.step}; the other "
+          f"{len(got) - len(flow_keys)} kept their init")
+    del pose
+    ckpt.cleanup()
+
+    state = off_the_kinks(state0)
+    del state0
+    compare_steps("poseflownet kernel vs scan path, batch 8 at 256x256",
+                  state, batches[0], {"G": opt.lr},
+                  path_a=lambda: switches(GFLA_PALLAS_CORR="1"),
+                  path_b=lambda: switches(GFLA_PALLAS_CORR="0"),
+                  grad_rel=FLOW_GRAD_F64_REL, pair_rel=FLOW_PAIR_REL)
+    ms = statistics.median(times[1:])
+    plain_ms = statistics.median(plain_times)
+    print(f"poseflownet step batch 8 at 256x256: kernel path {ms:.3f} ms "
+          f"(steps {', '.join(f'{t:.1f}' for t in times)}), scan path "
+          f"{plain_ms:.3f} ms (steps "
+          f"{', '.join(f'{t:.1f}' for t in plain_times)}), peak "
+          f"{peak:.2f} GiB")
     return counts
+
+
+def rel_diff(logs_a, logs_b):
+    return max(abs(float(logs_a[n]) - float(logs_b[n]))
+               / max(abs(float(logs_b[n])), 1e-30) for n in logs_b)
+
+
+def attention_outputs(task, request):
+    """The served image and the output of each ExtractorAttn in it."""
+    from gfla_tpu_torch.nn.attention import ExtractorAttn
+
+    outs = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: outs.append(out))
+             for m in task.net_g.modules() if isinstance(m, ExtractorAttn)]
+    img = task.test_step(request)[0]
+    for h in hooks:
+        h.remove()
+    return img, outs
+
+
+def phase_switches(serve, train):
+    """The pose head under GFLA_ATTN_PALLAS=1 and under GFLA_PALLAS_CORR=1:
+    the kernels each selects, launched on its path, against the default
+    (warp, scan) path."""
+    task, request = serve["task"], serve["request"]
+    want_img, want_attn = attention_outputs(task, request)
+    with switches(GFLA_ATTN_PALLAS="1"):
+        reset_launch_counts()
+        img, got_attn = attention_outputs(task, request)
+        torch.cuda.synchronize()
+        serve_counts = launch_counts()
+        ms = cuda_ms(lambda: task.test_step(request), iters=10)
+    diff = (img - want_img).abs().max().item()
+    attn_rel = max((a - b).abs().max().item() / b.abs().max().item()
+                   for a, b in zip(got_attn, want_attn))
+    print(f"GFLA_ATTN_PALLAS=1 serving: launches {serve_counts}; image vs the "
+          f"warp path max_abs_diff={diff:.3e} (bound {SLICE_ATOL:g}); both "
+          f"ExtractorAttn outputs within {attn_rel:.3e} x their max (bound "
+          f"{BWD_REL:g}); {ms:.3f} ms per batch-8 forward")
+    check(only(serve_counts, attn_math_fwd=2),
+          f"launches {serve_counts}, expected 2 attn_math_fwd, no warp")
+    check(diff <= SLICE_ATOL, f"attn-math serving vs warp {diff:.3e}")
+    check(len(got_attn) == 2 and attn_rel <= BWD_REL,
+          f"ExtractorAttn outputs {attn_rel:.3e} apart")
+
+    state, batch = train["state"], train["batch"]
+    want = copy.deepcopy(state).train_step(batch)  # the default path
+    counts, rel, ms = {}, {}, {}
+    for name, env in (("attn", dict(GFLA_ATTN_PALLAS="1")),
+                      ("corr", dict(GFLA_PALLAS_CORR="1"))):
+        task = copy.deepcopy(state)
+        with switches(**env):
+            reset_launch_counts()
+            got = task.train_step(batch)
+            torch.cuda.synchronize()
+            counts[name] = launch_counts()
+            times, _ = timed_steps(task, [batch] * 3)
+        rel[name] = rel_diff(got, want)
+        ms[name] = statistics.median(times)
+        del task
+        print(f"{env} pose training step: launches {counts[name]}; losses "
+              f"within {rel[name]:.3e} rel of the default path (bound "
+              f"{TRAIN_LOSS_REL:g}); {ms[name]:.3f} ms per step (steps "
+              f"{', '.join(f'{t:.1f}' for t in times)})")
+        check(rel[name] <= TRAIN_LOSS_REL, f"{env}: losses {got} vs {want}")
+    check(only(counts["attn"], attn_math_fwd=2, attn_math_bwd=2),
+          f"GFLA_ATTN_PALLAS=1 launches {counts['attn']}")
+    check(only(counts["corr"], warp_fwd=2, warp_bwd_pos=2, warp_bwd_w1=2,
+               max_corr=2), f"GFLA_PALLAS_CORR=1 launches {counts['corr']}")
+    return dict(serve_attn=serve_counts, train_attn=counts["attn"],
+                train_corr=counts["corr"])
+
+
+def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
+                 plain_ms, work, library_ms, shape):
+    bound_ms, bound_by = bound(*work)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": err,
+            "tolerance": tolerance, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "ms_shape": shape}
 
 
 def main(argv):
@@ -652,33 +1142,62 @@ def main(argv):
     from gfla_tpu_torch.runtime import set_tf32
 
     set_tf32(False)
-    phase_card()
-    phase_build()
-    kernel = phase_kernel(device)
-    bwd = phase_bwd_kernel(device)
-    serve = phase_slice(argv)
-    train = phase_train()
+    with switches(GFLA_ATTN_PALLAS="auto", GFLA_PALLAS_CORR="0"):
+        phase_card()
+        phase_build()
+        kernel = phase_kernel(device)
+        bwd = phase_bwd_kernel(device)
+        corr = phase_corr_kernel(device)
+        attn = phase_attn_kernel(device)
+        serve = phase_slice(argv)
+        train = phase_train()
+        flow = phase_poseflownet()
+        switched = phase_switches(serve, train)
+    train = train["counts"]
+    site = KERNEL_CASES[0]
+    work = warp_work(*site[1:7])
     shape = "k=5 B=8 64x64 C=128 D=128"
-    _, ms, plain_ms = kernel["k=5 site 64x64 C128"]
-    entries = [{
-        "name": "warp_fwd", "route": "cuda",
-        "source": "gfla_tpu_torch/csrc/warp_fwd.cu",
-        "replaces": "gfla_tpu/ops/pallas_warp.py:166",
-        "launches": serve + train["warp_fwd"],
-        "launches_by_path": {"serve": serve, "train": train["warp_fwd"]},
-        "max_abs_err": max(e for e, _, _ in kernel.values()),
-        "ms": ms, "plain_ms": plain_ms, "ms_shape": shape}]
+    _, ms, plain_ms = kernel[site[0]]
+    none = None  # no single PyTorch call computes these
+    entries = [kernel_entry(
+        "warp_fwd", "gfla_tpu_torch/csrc/warp_fwd.cu",
+        "gfla_tpu/ops/pallas_warp.py:166",
+        {"serve": serve["launches"], "train": train["warp_fwd"],
+         "train_corr": switched["train_corr"]["warp_fwd"]},
+        max(e for e, _, _ in kernel.values()), f"{KERNEL_ATOL:g} abs", ms,
+        plain_ms, work["warp_fwd"], none, shape)]
     for name, part in (("warp_bwd_pos", "pos"), ("warp_bwd_w1", "w1")):
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "gfla_tpu_torch/csrc/warp_bwd.cu",
-            "replaces": "gfla_tpu/ops/pallas_warp.py:243",
-            "launches": train[name],
-            "max_abs_err": max(r[part][0] for r in bwd.values()),
-            "tolerance": f"{BWD_REL:g} x max|value| of each output",
-            "ms": bwd["k=5 site 64x64 C128"][part][1],
-            "plain_ms": bwd["k=5 site 64x64 C128"][part][2],
-            "ms_shape": shape})
+        entries.append(kernel_entry(
+            name, "gfla_tpu_torch/csrc/warp_bwd.cu",
+            "gfla_tpu/ops/pallas_warp.py:243",
+            {"train": train[name],
+             "train_corr": switched["train_corr"][name]},
+            max(r[part][0] for r in bwd.values()),
+            f"{BWD_REL:g} x max|value| of each output",
+            bwd[site[0]][part][1], bwd[site[0]][part][2], work[name], none,
+            shape))
+    c = corr[CORR_CASES[0][0]]
+    entries.append(kernel_entry(
+        "max_corr", "gfla_tpu_torch/csrc/max_corr.cu",
+        "gfla_tpu/ops/pallas_corr.py:36",
+        {"poseflownet": flow["max_corr"],
+         "train_corr": switched["train_corr"]["max_corr"]},
+        max(r["err"] for r in corr.values()), f"{CORR_ATOL:g} abs (cmax)",
+        c["ms"], c["plain_ms"], c["work"], c["library_ms"],
+        "B=8 Ns=Nt=4096 C=256"))
+    a = attn[ATTN_CASES[0][0]]
+    for name, part, paths in (
+            ("attn_math_fwd", "fwd", ("serve_attn", "train_attn")),
+            ("attn_math_bwd", "bwd", ("train_attn",))):
+        entries.append(kernel_entry(
+            name, f"gfla_tpu_torch/csrc/{name}.cu",
+            "gfla_tpu/ops/pallas_attn.py:"
+            + ("64" if part == "fwd" else "155"),
+            {path: switched[path][name] for path in paths},
+            max(r[part]["err"] for r in attn.values()),
+            f"{BWD_REL:g} x max|value| of each output", a[part]["ms"],
+            a[part]["plain_ms"], a[part]["work"], none,
+            "N=32768 k=5 C=128 D=128"))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

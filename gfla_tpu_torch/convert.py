@@ -8,6 +8,8 @@ the original GFLA's checkpoints, which loads into the port's module with
 
 * `pose_generator_state_dict`: the instance-norm pose generator
   (`latest_net_G.pth`, PoseGenerator), spectral-normed or not;
+* `poseflownet_state_dict`: the stage-1 flow generator
+  (PoseFlowNetGenerator), whose keys are the pose generator's `flow_net.*`;
 * `res_discriminator_state_dict`: the spectral-norm ResDiscriminator
   (`latest_net_D.pth`), its power-iteration u carried across;
 * `vgg19_state_dict`: the VGG19 of the perceptual losses (the port's VGG19
@@ -122,6 +124,21 @@ def _attn(tree, prefix, sd):
     sd[f"{key}.2.bias"] = _t(tree["b2"])
 
 
+def _flow_net(fn, s_fn, sd, flow_layers, attn_layer):
+    """PoseFlowNet params (and spectral stats) -> `flow_net.*` keys."""
+    _pre_act(fn["block0"], "flow_net.block0", sd, _sub(s_fn, "block0"))
+    for i in range(flow_layers - 1):
+        _pre_act(fn[f"encoder{i}"], f"flow_net.encoder{i}", sd,
+                 _sub(s_fn, f"encoder{i}"))
+    for i in range(flow_layers - min(attn_layer)):
+        _resblock_decoder(fn[f"decoder{i}"], f"flow_net.decoder{i}", sd,
+                          _sub(s_fn, f"decoder{i}"))
+        _jump(fn[f"jump{i}"], f"flow_net.jump{i}", sd, _sub(s_fn, f"jump{i}"))
+        if flow_layers - i - 1 in attn_layer:
+            _conv(fn[f"output{i}"], f"flow_net.output{i}", sd)
+            _conv(fn[f"mask{i}"], f"flow_net.mask{i}.0", sd)
+
+
 def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
                               attn_layer=(2, 3), num_blocks: int = 2,
                               flow_layers: int = 5,
@@ -138,18 +155,8 @@ def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
         _pre_act(src[f"encoder{i}"], f"source.encoder{i}", sd,
                  _sub(s_src, f"encoder{i}"))
 
-    fn, s_fn = params["flow_net"], stats.get("flow_net")
-    _pre_act(fn["block0"], "flow_net.block0", sd, _sub(s_fn, "block0"))
-    for i in range(flow_layers - 1):
-        _pre_act(fn[f"encoder{i}"], f"flow_net.encoder{i}", sd,
-                 _sub(s_fn, f"encoder{i}"))
-    for i in range(flow_layers - min(attn_layer)):
-        _resblock_decoder(fn[f"decoder{i}"], f"flow_net.decoder{i}", sd,
-                          _sub(s_fn, f"decoder{i}"))
-        _jump(fn[f"jump{i}"], f"flow_net.jump{i}", sd, _sub(s_fn, f"jump{i}"))
-        if flow_layers - i - 1 in attn_layer:
-            _conv(fn[f"output{i}"], f"flow_net.output{i}", sd)
-            _conv(fn[f"mask{i}"], f"flow_net.mask{i}.0", sd)
+    _flow_net(params["flow_net"], stats.get("flow_net"), sd, flow_layers,
+              attn_layer)
 
     tg, s_tg = params["target"], stats.get("target")
     _pre_act(tg["block0"], "target.block0", sd, _sub(s_tg, "block0"))
@@ -172,6 +179,18 @@ def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
             _resblock_decoder(tg[f"decoder{i}"], f"target.decoder{i}.0", sd,
                               dec)
     _jump(tg["outconv"], "target.outconv", sd, _sub(s_tg, "outconv"))
+    return sd
+
+
+def poseflownet_state_dict(params: Dict[str, Any], attn_layer=(2, 3),
+                           flow_layers: int = 5,
+                           batch_stats: Dict[str, Any] | None = None
+                           ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu PoseFlowNetGenerator params -> the stage-1 state dict, keyed
+    `flow_net.*` as PoseGenerator.flow_net's keys are."""
+    sd: Dict[str, torch.Tensor] = {}
+    _flow_net(params["flow_net"], (batch_stats or {}).get("flow_net"), sd,
+              flow_layers, attn_layer)
     return sd
 
 

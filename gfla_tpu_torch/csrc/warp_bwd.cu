@@ -32,20 +32,17 @@
 // work.
 #include <cuda_runtime.h>
 
+#include "attn_tile.cuh"
+#include "reduce_parts.cuh"
 #include "warp_common.cuh"
 
 namespace {
 
-constexpr int kTile = 32;     // positions per CTA of the per-position kernel
+using gfla::kTile;            // positions per CTA of the per-position kernel
+using gfla::warp_sum;
 constexpr int kRows = 32;     // dW1s rows (channels of one offset) per CTA
 constexpr int kSub = 32;      // positions per shared-memory stage, dW1s
 constexpr int kChunk = 1024;  // positions per partial sum of dW1s
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // blockDim.x is D rounded up to a multiple of 32; thread d < D owns hidden
 // unit d, as in the forward.
@@ -81,6 +78,7 @@ __global__ void __launch_bounds__(256)
   const int d = tid;
   const bool owns_d = d < D;
   const int p0 = blockIdx.x * kTile;
+  const int n_valid = min(kTile, N - p0);
   const int HW = H * W;
 
   for (int t = tid; t < kTile; t += nthreads) {
@@ -122,24 +120,8 @@ __global__ void __launch_bounds__(256)
     }
     __syncthreads();
     if (owns_d) {
-      const float* wcol = w1s + static_cast<size_t>(m) * C * D + d;
-      for (int c = 0; c < Cp; c += 4) {
-        const float wa = c < C ? wcol[static_cast<size_t>(c) * D] : 0.0f;
-        const float wb =
-            c + 1 < C ? wcol[static_cast<size_t>(c + 1) * D] : 0.0f;
-        const float wc =
-            c + 2 < C ? wcol[static_cast<size_t>(c + 2) * D] : 0.0f;
-        const float wd =
-            c + 3 < C ? wcol[static_cast<size_t>(c + 3) * D] : 0.0f;
-#pragma unroll
-        for (int t = 0; t < kTile; ++t) {
-          const float4 v = *reinterpret_cast<const float4*>(blk + t * Cp + c);
-          acc[t] = fmaf(v.x, wa, acc[t]);
-          acc[t] = fmaf(v.y, wb, acc[t]);
-          acc[t] = fmaf(v.z, wc, acc[t]);
-          acc[t] = fmaf(v.w, wd, acc[t]);
-        }
-      }
+      gfla::dense_accumulate(acc, blk, Cp,
+                             w1s + static_cast<size_t>(m) * C * D + d, C, D);
     }
     // d_attn[t][m] = (1/k^2) <block, g>: one warp per position
     for (int t = warp; t < kTile; t += nwarps) {
@@ -168,76 +150,16 @@ __global__ void __launch_bounds__(256)
     for (int t = 0; t < kTile; ++t) hid[t * Dp + d] = 0.0f;
   }
   __syncthreads();
-
-  // ---- logits = hidden . W2 + b2, softmax ----
-  for (int e = tid; e < kTile * K2; e += nthreads) {
-    const int t = e / K2;
-    const int mm = e - t * K2;
-    float s = 0.0f;
-    for (int dd = 0; dd < D; ++dd) s = fmaf(hid[t * Dp + dd], w2[dd * K2 + mm], s);
-    att[e] = s + b2[mm];
-  }
-  __syncthreads();
-  for (int t = tid; t < kTile; t += nthreads) {
-    float* a = att + t * K2;
-    float mx = a[0];
-    for (int mm = 1; mm < K2; ++mm) mx = fmaxf(mx, a[mm]);
-    float sum = 0.0f;
-    for (int mm = 0; mm < K2; ++mm) {
-      a[mm] = expf(a[mm] - mx);
-      sum += a[mm];
-    }
-    for (int mm = 0; mm < K2; ++mm) a[mm] = a[mm] / sum;
-  }
-  __syncthreads();
-
-  // ---- softmax backward: d_logits = attn (d_attn - sum attn d_attn) ----
-  for (int t = tid; t < kTile; t += nthreads) {
-    const float* a = att + t * K2;
-    float* da = dat + t * K2;
-    if (img_of[t] < 0) {
-      for (int mm = 0; mm < K2; ++mm) da[mm] = 0.0f;
-      continue;
-    }
-    float s = 0.0f;
-    for (int mm = 0; mm < K2; ++mm) s = fmaf(a[mm], da[mm], s);
-    for (int mm = 0; mm < K2; ++mm) da[mm] = a[mm] * (da[mm] - s);
-  }
-  __syncthreads();
-
-  // ---- this CTA's share of dW2 = hidden^T d_logits and db2 ----
+  gfla::logits_softmax(hid, Dp, w2, b2, att, K2, D);
+  // d_logits = attn (d_attn - sum attn d_attn); this CTA's dW2 and db2
+  gfla::softmax_bwd(att, dat, n_valid, K2);
   float* part = w2_part + static_cast<size_t>(blockIdx.x) * (D * K2 + K2);
-  if (owns_d) {
-    for (int mm = 0; mm < K2; ++mm) {
-      float s = 0.0f;
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) s = fmaf(hid[t * Dp + d], dat[t * K2 + mm], s);
-      part[d * K2 + mm] = s;
-    }
-  }
-  for (int mm = tid; mm < K2; mm += nthreads) {
-    float s = 0.0f;
-    for (int t = 0; t < kTile; ++t) s += dat[t * K2 + mm];
-    part[D * K2 + mm] = s;
-  }
+  gfla::dw2_db2_partial(hid, Dp, dat, part, D * K2, K2, D);
   __syncthreads();  // hidden fully read before d_hpre overwrites it
 
   // ---- d_hpre = LeakyReLU'(hpre) (d_logits . W2^T) ----
   if (owns_d) {
-    const float* w2row = w2 + d * K2;
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      float s = 0.0f;
-      for (int mm = 0; mm < K2; ++mm) s = fmaf(dat[t * K2 + mm], w2row[mm], s);
-      float dh = acc[t] >= 0.0f ? s : s * slope;
-      const int p = p0 + t;
-      if (p < N) {
-        dhbt[static_cast<size_t>(p) * D + d] = dh;
-      } else {
-        dh = 0.0f;
-      }
-      hid[t * Dp + d] = dh;
-    }
+    gfla::d_hpre_rows(acc, dat, w2, slope, hid, Dp, dhbt, p0, n_valid, K2, D);
   }
 
   // ---- per offset: d_block, scattered into d_source, folded into d_flow ----
@@ -412,27 +334,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// out[e] = sum over parts of part[p][e], parts in order: deterministic.
-__global__ void reduce_parts(const float* __restrict__ part, int n_parts,
-                             size_t n, float* __restrict__ out) {
-  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < n; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = 0.0f;
-#pragma unroll 8
-    for (int p = 0; p < n_parts; ++p) s += part[static_cast<size_t>(p) * n + e];
-    out[e] = s;
-  }
-}
-
-int launch_reduce(const float* part, int n_parts, size_t n, float* out,
-                  cudaStream_t stream) {
-  const int threads = 256;
-  const size_t blocks = (n + threads - 1) / threads;
-  const int grid = static_cast<int>(blocks < 4096 ? blocks : 4096);
-  reduce_parts<<<grid, threads, 0, stream>>>(part, n_parts, n, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int threads_for(int D) { return (D + 31) / 32 * 32; }
 
 template <int K>
@@ -458,8 +359,8 @@ int launch_pos(const float* src, const float* flow, const float* hbt,
       Cp, D, Dp, slope);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_reduce(w2_part, n_ctas, static_cast<size_t>(D) * K2 + K2,
-                       dw2b2, stream);
+  return gfla::launch_reduce(w2_part, n_ctas,
+                             static_cast<size_t>(D) * K2 + K2, dw2b2, stream);
 }
 
 template <int K>
@@ -475,8 +376,8 @@ int launch_w1(const float* src, const float* flow, const float* dhpre,
       src, flow, dhpre, part, N, H, W, C, D, n_ctiles);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_reduce(part, n_chunks, static_cast<size_t>(K2) * C * D, dw1s,
-                       stream);
+  return gfla::launch_reduce(part, n_chunks, static_cast<size_t>(K2) * C * D,
+                             dw1s, stream);
 }
 
 }  // namespace

@@ -23,11 +23,12 @@
 // cores: moving the dense layer to wgmma with TMA-fed tiles is later work.
 #include <cuda_runtime.h>
 
+#include "attn_tile.cuh"
 #include "warp_common.cuh"
 
 namespace {
 
-constexpr int kTile = 32;  // positions per CTA
+using gfla::kTile;
 
 template <int K>
 __global__ void __launch_bounds__(256)
@@ -88,21 +89,8 @@ __global__ void __launch_bounds__(256)
       blk[e] = v;
     }
     __syncthreads();
-    const float* wcol = w1s + static_cast<size_t>(m) * C * D + d;
-    for (int c = 0; c < Cp; c += 4) {
-      const float wa = c < C ? wcol[static_cast<size_t>(c) * D] : 0.0f;
-      const float wb = c + 1 < C ? wcol[static_cast<size_t>(c + 1) * D] : 0.0f;
-      const float wc = c + 2 < C ? wcol[static_cast<size_t>(c + 2) * D] : 0.0f;
-      const float wd = c + 3 < C ? wcol[static_cast<size_t>(c + 3) * D] : 0.0f;
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        const float4 v = *reinterpret_cast<const float4*>(blk + t * Cp + c);
-        acc[t] = fmaf(v.x, wa, acc[t]);
-        acc[t] = fmaf(v.y, wb, acc[t]);
-        acc[t] = fmaf(v.z, wc, acc[t]);
-        acc[t] = fmaf(v.w, wd, acc[t]);
-      }
-    }
+    gfla::dense_accumulate(acc, blk, Cp,
+                           w1s + static_cast<size_t>(m) * C * D + d, C, D);
   }
 
   // + target stream (which carries b1), LeakyReLU
@@ -114,30 +102,7 @@ __global__ void __launch_bounds__(256)
     hid[t * D + d] = h >= 0.0f ? h : h * slope;
   }
   __syncthreads();
-
-  // logits = hidden . W2 + b2
-  for (int e = tid; e < kTile * K2; e += nthreads) {
-    const int t = e / K2;
-    const int mm = e - t * K2;
-    float s = 0.0f;
-    for (int dd = 0; dd < D; ++dd) s = fmaf(hid[t * D + dd], w2[dd * K2 + mm], s);
-    att[e] = s + b2[mm];
-  }
-  __syncthreads();
-
-  // softmax over the k^2 offsets
-  for (int t = tid; t < kTile; t += nthreads) {
-    float* a = att + t * K2;
-    float mx = a[0];
-    for (int mm = 1; mm < K2; ++mm) mx = fmaxf(mx, a[mm]);
-    float sum = 0.0f;
-    for (int mm = 0; mm < K2; ++mm) {
-      a[mm] = expf(a[mm] - mx);
-      sum += a[mm];
-    }
-    for (int mm = 0; mm < K2; ++mm) a[mm] = a[mm] / sum;
-  }
-  __syncthreads();
+  gfla::logits_softmax(hid, D, w2, b2, att, K2, D);
 
   // out = (1/k^2) sum attn * block, re-gathering each block
   for (int e = tid; e < kTile * C; e += nthreads) {

@@ -10,11 +10,13 @@ correctness loss.
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence
 
 import torch
 
 from gfla_tpu_torch.ops.gaussian_resample import gaussian_resample
+from gfla_tpu_torch.ops.max_corr import max_corr, max_corr_plain
 
 _EPS = 1e-8
 
@@ -50,35 +52,29 @@ def vgg_content_style_loss(vgg, x, y, weights: Sequence[float] = (1.0,) * 5,
     return content, style
 
 
-def max_corr_scan(source_norm, target_norm, chunk: int = 2048):
-    """Running (max, argmax) over source chunks of <s_i, t_j>:
-    (B,Ns,C) x (B,Nt,C) -> (B,Nt) values and int64 source indices. Ties go
-    to the first index: the first maximum within a chunk, a strict > across
-    chunks."""
-    B, Ns, _ = source_norm.shape
-    cmax = amax = None
-    for base in range(0, Ns, chunk):
-        corr = source_norm[:, base:base + chunk] @ target_norm.transpose(1, 2)
-        m, a = corr.max(dim=1)                                   # (B, Nt)
-        a = a + base
-        if cmax is None:
-            cmax, amax = m, a
-        else:
-            take = m > cmax
-            cmax = torch.where(take, m, cmax)
-            amax = torch.where(take, a, amax)
-    return cmax, amax
+def _max_corr_fwd(source_norm, target_norm, chunk: int):
+    """(cmax, argmax) as gfla_tpu chooses (perceptual.py:66-81), deciding
+    when called: with GFLA_PALLAS_CORR=1 and inputs that compute in float32
+    the max-correlation kernel (`ops.max_corr.max_corr`), else the chunked
+    scan (`max_corr_plain`)."""
+    if (os.environ.get("GFLA_PALLAS_CORR", "0") == "1"
+            and torch.promote_types(source_norm.dtype, torch.float32)
+            == torch.float32):
+        return max_corr(source_norm.float().contiguous(),
+                        target_norm.float().contiguous())
+    return max_corr_plain(source_norm, target_norm, chunk)
 
 
 class MaxCorrelation(torch.autograd.Function):
-    """max over source positions of <s_i, t_j>, O(chunk * Nt) memory.
+    """max over source positions of <s_i, t_j>, without the (Ns x Nt)
+    correlation: the kernel or an O(chunk * Nt) scan (`_max_corr_fwd`).
     Backward: d cmax_j / d s_i is nonzero only at i = argmax_j, so it is one
     gather (grad target) and one scatter-add (grad source), as gfla_tpu's
     custom VJP (perceptual.py:144-155)."""
 
     @staticmethod
     def forward(ctx, source_norm, target_norm, chunk: int = 2048):
-        cmax, amax = max_corr_scan(source_norm, target_norm, chunk)
+        cmax, amax = _max_corr_fwd(source_norm, target_norm, chunk)
         ctx.save_for_backward(source_norm, target_norm, amax)
         return cmax
 

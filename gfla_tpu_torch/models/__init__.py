@@ -1,14 +1,18 @@
 """Network registry (counterpart of gfla_tpu/models/__init__.py): the pose
-generator and the residual discriminator so far."""
+generator, its stage-1 flow head and the residual discriminator so far."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from gfla_tpu_torch.models.discriminators import ResDiscriminator
-from gfla_tpu_torch.models.generators import PoseGenerator
+from gfla_tpu_torch.models.generators import (
+    PoseFlowNetGenerator,
+    PoseGenerator,
+)
 
-GENERATORS: Dict[str, Any] = {"pose": PoseGenerator}
+GENERATORS: Dict[str, Any] = {"pose": PoseGenerator,
+                               "poseflownet": PoseFlowNetGenerator}
 DISCRIMINATORS: Dict[str, Any] = {"res": ResDiscriminator}
 
 

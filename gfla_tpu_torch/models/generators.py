@@ -11,6 +11,9 @@ with strict key matching:
   pixels) and a sigmoid mask at each attention level, coarse to fine.
 * PoseTargetNet encodes the target pose and decodes it, fusing at each
   attention level: out = out * (1 - mask) + attn(source_feat, out, flow) * mask.
+* PoseFlowNetGenerator is the stage-1 flow pretraining head: a PoseFlowNet
+  alone, under the name `flow_net`, so its checkpoint keys are those of
+  PoseGenerator.flow_net (the two-stage protocol).
 
 With `use_spect` (`--use_spect_g`) every block conv is spectral-normed, as in
 gfla_tpu: not the flow and mask heads, not the attention. Each spectral conv
@@ -211,3 +214,25 @@ class PoseGenerator(nn.Module):
             img, hooks = out
             return img, flow_fields, masks, hooks
         return out, flow_fields, masks
+
+
+class PoseFlowNetGenerator(nn.Module):
+    """Stage-1 flow pretraining head (gfla_tpu/models/generators.py:287-310,
+    the original's generator.py:244-259): returns (flows, masks), coarse to
+    fine."""
+
+    def __init__(self, image_nc: int = 3, structure_nc: int = 18,
+                 ngf: int = 32, img_f: int = 256, encoder_layer: int = 5,
+                 attn_layer: Sequence[int] = (1, 2), norm_type: str = "batch",
+                 activation: str = "ReLU", use_spect: bool = False):
+        super().__init__()
+        self.flow_net = PoseFlowNet(image_nc, structure_nc, ngf, img_f,
+                                    encoder_layer, attn_layer,
+                                    norm_type=norm_type, activation=activation,
+                                    use_spect=use_spect)
+
+    def forward(self, source, source_b, target_b):
+        source, source_b, target_b = (
+            t.contiguous(memory_format=torch.channels_last)
+            for t in (source, source_b, target_b))
+        return self.flow_net(source, source_b, target_b)

@@ -59,9 +59,38 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gfla_warp_bwd_pos_scratch.restype = ctypes.c_longlong
     lib.gfla_warp_bwd_w1_scratch.argtypes = [i, i, i, i]
     lib.gfla_warp_bwd_w1_scratch.restype = ctypes.c_longlong
+    lib.gfla_max_corr_splits.argtypes = [i, i, i]
+    lib.gfla_max_corr_splits.restype = i
+    lib.gfla_max_corr.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.gfla_max_corr.restype = i
+    lib.gfla_attn_math_fwd.argtypes = [p] * 8 + [i] * 4 + [ctypes.c_float, p]
+    lib.gfla_attn_math_fwd.restype = i
+    lib.gfla_attn_math_bwd.argtypes = [p] * 13 + [i] * 4 + [ctypes.c_float,
+                                                            p]
+    lib.gfla_attn_math_bwd.restype = i
+    lib.gfla_attn_math_bwd_scratch.argtypes = [i, i, i]
+    lib.gfla_attn_math_bwd_scratch.restype = ctypes.c_longlong
     lib.gfla_cuda_error_string.argtypes = [i]
     lib.gfla_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def on_kernel_device(tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one (its caller then runs the
+    plain twin); raises for any other device."""
+    if tensor.device.type == "cpu":
+        return False
+    if tensor.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {tensor.device}")
+    return True
+
+
+def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error: a refused launch never
+    runs, and no later synchronize would report it."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.gfla_cuda_error_string(err).decode()}")
 
 
 def _run_all(cmds):

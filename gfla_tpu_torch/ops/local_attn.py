@@ -4,23 +4,38 @@ Counterpart of gfla_tpu/ops/local_attn.py. Weight layout contract as there:
 w1 (k*k, 2C, D) with offset index i*k + j and channels [target || source];
 w2 (D, k*k).
 
-Dispatch: with `return_attn=False` and a LeakyReLU (or ReLU) activation the
-target stream is a k x k convolution over the edge-padded target (as in
-gfla_tpu's `local_attn_warp_fused`) and the source stream goes to
-`warp.warp_fwd`, which launches the CUDA kernel on a CUDA tensor and runs its
-plain twin on a CPU tensor. `return_attn=True`, the visualisation hook, runs
-the plain composite on any device, as gfla_tpu does. Any other activation
-runs the composite on the CPU and raises on CUDA: the kernel path never gives
-way silently.
+Dispatch follows gfla_tpu's `GFLA_ATTN_PALLAS` (ops/local_attn.py:88-142),
+read when called:
+- `auto` (the default) or `warp`: with `return_attn=False` and a LeakyReLU
+  (or ReLU) activation the target stream is a k x k convolution over the
+  edge-padded target (as in gfla_tpu's `local_attn_warp_fused`) and the
+  source stream goes to `warp.warp_fwd`, which launches the CUDA kernel on a
+  CUDA tensor and runs its plain twin on a CPU tensor. gfla_tpu's `auto`
+  takes the warp kernel on its accelerator and the composition on the CPU;
+  the port takes the warp route on both, since its CPU twin is plain torch.
+- `1`: the blocks are gathered in plain torch (`block_extract`,
+  `extract_patches`) and the attention math goes to
+  `attn_math.attn_math`, the math-fused kernel, for any LeakyReLU or ReLU
+  (the kernel takes the slope). gfla_tpu fuses only the default
+  LeakyReLU(0.1) and sends other slopes to its composition; the port keeps
+  them on the kernel, which computes them. Gradients to source, target and
+  flow go through autograd over the gather.
+- `0`: the plain composite, any activation, any device.
+`return_attn=True`, the visualisation hook, runs the composite under every
+setting, as gfla_tpu does. An activation that no kernel computes runs the
+composite on the CPU and raises on CUDA unless `0` asks for the composite:
+the kernel routes never give way silently.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gfla_tpu_torch.ops import warp
+from gfla_tpu_torch.ops import attn_math, warp
 from gfla_tpu_torch.ops.block_extract import block_extract, extract_patches
 
 
@@ -67,16 +82,22 @@ def local_attn_warp(source, target, flow, kernel_size: int, w1, b1, w2, b2,
     (attn (B,H,W,k*k), out) with `return_attn`. `activation` is an
     nn.Module or callable; None means LeakyReLU(0.1)."""
     k = kernel_size
+    route = os.environ.get("GFLA_ATTN_PALLAS", "auto")
     slope = _leaky_slope(activation)
-    if return_attn or slope is None:
-        if slope is None and source.is_cuda:
-            raise NotImplementedError(
-                f"local_attn_warp: the CUDA kernel computes LeakyReLU/ReLU "
-                f"only, got {activation!r}")
-        act = activation or nn.LeakyReLU(0.1)
+    act = activation or nn.LeakyReLU(0.1)
+    if slope is None and source.is_cuda and route != "0":
+        raise NotImplementedError(
+            f"local_attn_warp: the CUDA kernels compute LeakyReLU/ReLU only, "
+            f"got {activation!r}; GFLA_ATTN_PALLAS=0 selects the composite")
+    if route == "0" or return_attn or slope is None:
         return _composite(source, target, flow, k, w1, b1, w2, b2, act,
                           return_attn)
-    C = source.shape[-1]
+    B, H, W, C = source.shape
+    if route == "1":
+        bs = block_extract(source, flow, k).reshape(-1, k * k, C)
+        bt = extract_patches(target, k).reshape(-1, k * k, C)
+        out = attn_math.attn_math(bs, bt, w1, b1, w2, b2, slope)
+        return out.reshape(B, H, W, C)
     D = w1.shape[-1]
     hidden_bt = target_stream(target, w1, b1, k)
     w1s = w1[:, C:, :].reshape(k * k * C, D)

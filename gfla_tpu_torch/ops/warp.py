@@ -20,6 +20,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gfla_tpu_torch.ops._build import (
+    check_launch,
+    load_library,
+    on_kernel_device,
+)
 from gfla_tpu_torch.ops.block_extract import block_extract, patch_index
 
 # Kernel launches since each count was last set to 0 (chip_smoke.py reads
@@ -157,20 +162,9 @@ def _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k, g=None):
                              f"{tuple(tensors[name].shape)}")
 
 
-def _on_kernel_device(source, name):
-    """True for CUDA, False for the CPU; raises for any other device."""
-    if source.device.type == "cpu":
-        return False
-    if source.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {source.device}")
-    return True
-
-
 def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope):
     global launches
     _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k)
-    from gfla_tpu_torch.ops._build import load_library
-
     lib = load_library()
     B, H, W, C = source.shape
     out = torch.empty_like(source)
@@ -180,9 +174,7 @@ def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope):
             source.data_ptr(), flow.data_ptr(), hidden_bt.data_ptr(),
             w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             B, H, W, C, w1s.shape[-1], k, float(slope), stream)
-    if err != 0:
-        raise RuntimeError(f"warp_fwd kernel launch failed: "
-                           f"{lib.gfla_cuda_error_string(err).decode()}")
+    check_launch(lib, err, "warp_fwd")
     launches += 1
     return out
 
@@ -190,8 +182,6 @@ def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope):
 def _launch_bwd_pos(source, flow, hidden_bt, w1s, w2, b2, g, k, slope):
     global bwd_pos_launches
     _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k, g)
-    from gfla_tpu_torch.ops._build import load_library
-
     lib = load_library()
     B, H, W, C = source.shape
     D = w1s.shape[-1]
@@ -209,9 +199,7 @@ def _launch_bwd_pos(source, flow, hidden_bt, w1s, w2, b2, g, k, slope):
             d_source.data_ptr(), d_flow.data_ptr(), d_hpre.data_ptr(),
             part.data_ptr(), dw2b2.data_ptr(), B, H, W, C, D, k,
             float(slope), stream)
-    if err != 0:
-        raise RuntimeError(f"warp_bwd_pos kernel launch failed: "
-                           f"{lib.gfla_cuda_error_string(err).decode()}")
+    check_launch(lib, err, "warp_bwd_pos")
     bwd_pos_launches += 1
     return (d_source, d_flow, d_hpre, dw2b2[:D * k2].view(D, k2),
             dw2b2[D * k2:])
@@ -232,8 +220,6 @@ def _launch_bwd_w1(source, flow, d_hpre, k):
     if k not in KERNEL_SIZES or not 1 <= D <= MAX_D or not 1 <= C <= MAX_C:
         raise ValueError(f"warp_bwd_w1: kernel_size {k}, C={C}, D={D} out of "
                          f"range")
-    from gfla_tpu_torch.ops._build import load_library
-
     lib = load_library()
     dw1s = source.new_empty(k * k * C, D)
     part = source.new_empty(lib.gfla_warp_bwd_w1_scratch(B * H * W, C, D, k))
@@ -242,9 +228,7 @@ def _launch_bwd_w1(source, flow, d_hpre, k):
         err = lib.gfla_warp_bwd_w1(
             source.data_ptr(), flow.data_ptr(), d_hpre.data_ptr(),
             part.data_ptr(), dw1s.data_ptr(), B, H, W, C, D, k, stream)
-    if err != 0:
-        raise RuntimeError(f"warp_bwd_w1 kernel launch failed: "
-                           f"{lib.gfla_cuda_error_string(err).decode()}")
+    check_launch(lib, err, "warp_bwd_w1")
     bwd_w1_launches += 1
     return dw1s
 
@@ -253,7 +237,7 @@ def warp_bwd_pos(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
                  negative_slope: float = 0.1):
     """Per-position backward kernel on CUDA tensors, plain version on CPU
     tensors: (d_source, d_flow, d_hidden_bt, dW2, db2); g is (B,H,W,C)."""
-    if _on_kernel_device(source, "warp_bwd_pos"):
+    if on_kernel_device(source, "warp_bwd_pos"):
         return _launch_bwd_pos(source, flow, hidden_bt, w1s, w2, b2, g,
                                kernel_size, negative_slope)
     return warp_bwd_pos_plain(source, flow, hidden_bt, w1s, w2, b2, g,
@@ -262,7 +246,7 @@ def warp_bwd_pos(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
 
 def warp_bwd_w1(source, flow, d_hpre, kernel_size: int):
     """dW1s kernel on CUDA tensors, plain version on CPU tensors."""
-    if _on_kernel_device(source, "warp_bwd_w1"):
+    if on_kernel_device(source, "warp_bwd_w1"):
         return _launch_bwd_w1(source, flow, d_hpre, kernel_size)
     return warp_bwd_w1_plain(source, flow, d_hpre, kernel_size)
 
@@ -290,7 +274,7 @@ class WarpFunction(torch.autograd.Function):
         ctx.save_for_backward(*inputs)
         ctx.kernel_size = kernel_size
         ctx.negative_slope = negative_slope
-        if _on_kernel_device(source, "warp_fwd"):
+        if on_kernel_device(source, "warp_fwd"):
             return _launch_fwd(*inputs, kernel_size, negative_slope)
         return warp_fwd_plain(*inputs, kernel_size, negative_slope)
 
@@ -310,6 +294,6 @@ def warp_fwd(source, flow, hidden_bt, w1s, w2, b2, kernel_size: int,
     tensors = (source, flow, hidden_bt, w1s, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return WarpFunction.apply(*tensors, kernel_size, negative_slope)
-    if _on_kernel_device(source, "warp_fwd"):
+    if on_kernel_device(source, "warp_fwd"):
         return _launch_fwd(*tensors, kernel_size, negative_slope)
     return warp_fwd_plain(*tensors, kernel_size, negative_slope)

@@ -1,11 +1,13 @@
-"""Task registry of the port (counterpart of gfla_tpu/tasks/__init__.py).
-Only the pose head is ported so far, for serving and training."""
+"""Task registry of the port (counterpart of gfla_tpu/tasks/__init__.py):
+the pose head, for serving and training, and its stage-1 flow pretraining
+head, poseflownet."""
 
 from __future__ import annotations
 
 from gfla_tpu_torch.tasks.pose import PoseTask
+from gfla_tpu_torch.tasks.poseflownet import PoseFlowNetTask
 
-TASKS = {"pose": PoseTask}
+TASKS = {"pose": PoseTask, "poseflownet": PoseFlowNetTask}
 
 
 def get_task_class(name: str):

@@ -44,6 +44,20 @@ from gfla_tpu_torch.train import checkpoint
 from gfla_tpu_torch.train.state import make_optimizer
 
 
+def prepare_batch(batch, device):
+    """Host batch (numpy NHWC images, (B, K, 2) keypoints) -> device NCHW
+    tensors in channels_last memory; heatmaps are encoded on the device."""
+    dev = {}
+    for key in ("P1", "P2"):
+        img = torch.from_numpy(batch[key]).to(device)
+        dev[key] = img.permute(0, 3, 1, 2)
+    H, W = dev["P1"].shape[2:]
+    for kp, bp in (("KP1", "BP1"), ("KP2", "BP2")):
+        cords = torch.from_numpy(batch[kp]).to(device)
+        dev[bp] = encode_heatmaps(cords, H, W).permute(0, 3, 1, 2)
+    return dev
+
+
 class PoseTask:
     loss_names = [
         "app_gen", "correctness_gen", "content_gen", "style_gen",
@@ -141,17 +155,7 @@ class PoseTask:
         return True
 
     def prepare_batch(self, batch):
-        """Host batch (numpy NHWC images, (B, K, 2) keypoints) -> device NCHW
-        tensors in channels_last memory; heatmaps are encoded on the device."""
-        dev = {}
-        for key in ("P1", "P2"):
-            img = torch.from_numpy(batch[key]).to(self.device)
-            dev[key] = img.permute(0, 3, 1, 2)
-        H, W = dev["P1"].shape[2:]
-        for kp, bp in (("KP1", "BP1"), ("KP2", "BP2")):
-            cords = torch.from_numpy(batch[kp]).to(self.device)
-            dev[bp] = encode_heatmaps(cords, H, W).permute(0, 3, 1, 2)
-        return dev
+        return prepare_batch(batch, self.device)
 
     def test_step(self, batch):
         """Eval-mode forward; returns (img_gen, flows, masks)."""
@@ -221,15 +225,20 @@ class PoseTask:
 
     def resume(self, which_iter: str = "latest"):
         """Load G, D and the optimizer state of `which_iter`; returns the
-        step, or None when nothing is saved."""
+        step, or None when nothing is saved. A stage-1 poseflownet directory
+        loads its `flow_net.*` into G's flow net, leaves the rest of G and
+        D at their init and keeps its step, with fresh optimizers (the
+        two-stage protocol)."""
         state, step = checkpoint.load_checkpoint(
             self.opt.checkpoints_dir, self.opt.name,
             {"G": self.net_g, "D": self.net_d}, which_iter)
-        if state is None:
-            return step
-        self.opt_g.load_state_dict(state["opt_g"])
-        self.opt_d.load_state_dict(state["opt_d"])
-        self.sched_g.load_state_dict(state["sched_g"])
-        self.sched_d.load_state_dict(state["sched_d"])
-        self.step = int(state["step"])
+        if step is None:
+            return None
+        self.step = step
+        if state is not None:
+            self.opt_g.load_state_dict(state["opt_g"])
+            self.opt_d.load_state_dict(state["opt_d"])
+            self.sched_g.load_state_dict(state["sched_g"])
+            self.sched_d.load_state_dict(state["sched_d"])
+            self.step = int(state["step"])
         return self.step

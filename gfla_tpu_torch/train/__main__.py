@@ -8,6 +8,9 @@ takes `--niter` iterations (or `--max_iters`), prints the losses every
 `--print_freq` iterations, saves `latest_net_{G,D}.pth` every
 `--save_latest_freq` and `{iter}_net_{G,D}.pth` every `--save_iters_freq`
 and at the end, and resumes from `--which_iter` with `--continue_train`.
+`--model=poseflownet` trains the stage-1 flow head, which has no D; a later
+`--model=pose --continue_train` with the same `--name` starts the pose
+generator's flow net from it (the two-stage protocol).
 `--gpu_ids=-1` runs on the CPU. Counterpart of gfla_tpu's train.py without
 its visualizer and held-out evaluation: the card's machine has no image
 library, so those wait for a later slice.

@@ -6,7 +6,9 @@ Under {checkpoints_dir}/{name}/ each network goes to `{iter}_net_{G,D}.pth`
 the original's. The optimizer and scheduler states and the step go to a side
 file, `{iter}_train_state.pth` / `latest_train_state.pth`, so that a resume
 continues as gfla_tpu's full-state restore does; the text file `latest`
-holds the step of the newest save.
+holds the step of the newest save. A directory whose files do not match the
+networks (a stage-1 poseflownet run resumed by the pose task) loads
+tolerantly, as gfla_tpu's restore does after its strict restore fails.
 """
 
 from __future__ import annotations
@@ -64,26 +66,64 @@ def get_iteration(checkpoints_dir: str, name: str,
     return max(steps) if steps else None
 
 
+def _load_state_dict(path: str) -> Optional[Dict]:
+    if not os.path.exists(path):
+        return None
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def _by_module(keys) -> str:
+    """'source (40), target (96)': keys counted by their first component."""
+    counts: Dict[str, int] = {}
+    for key in keys:
+        head = key.split(".", 1)[0]
+        counts[head] = counts.get(head, 0) + 1
+    return ", ".join(f"{head} ({n})" for head, n in counts.items()) or "none"
+
+
 def load_checkpoint(checkpoints_dir: str, name: str,
                     nets: Dict[str, torch.nn.Module],
                     which_iter: str = "latest") -> Tuple[Optional[Dict],
                                                          Optional[int]]:
-    """Load `{which_iter}_net_*.pth` into `nets` (strict keys) and return
-    (train_state, step), or (None, None) when nothing is saved."""
+    """Load `{which_iter}_net_*.pth` into `nets` and return (train_state,
+    step), or (None, None) when nothing is saved.
+
+    As gfla_tpu's restore (train/checkpoint.py:80-110): when every net has a
+    file holding exactly its keys, the load is strict and the train state
+    comes back. Otherwise, as when the pose task resumes a directory that
+    stage-1 poseflownet wrote (the two-stage protocol), each file that exists
+    loads tolerantly (`partial_load`), what was loaded, skipped and left at
+    its init is printed, and the train state is None: the caller keeps the
+    step and starts fresh optimizers."""
     step = get_iteration(checkpoints_dir, name, which_iter)
     if step is None:
         return None, None
     base = _dir(checkpoints_dir, name)
     tag = which_iter if which_iter == "latest" else str(step)
-    for net_name, net in nets.items():
-        path = os.path.join(base, f"{tag}_net_{net_name}.pth")
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        net.load_state_dict({k.removeprefix("module."): v
-                             for k, v in sd.items()}, strict=True)
-    path = os.path.join(base, f"{tag}_train_state.pth")
-    state = (torch.load(path, map_location="cpu", weights_only=True)
-             if os.path.exists(path) else None)
-    return state, step
+    paths = {n: os.path.join(base, f"{tag}_net_{n}.pth") for n in nets}
+    sds = {n: _load_state_dict(path) for n, path in paths.items()}
+    if all(sds[n] is not None and sds[n].keys() == net.state_dict().keys()
+           for n, net in nets.items()):
+        for n, net in nets.items():
+            net.load_state_dict(sds[n], strict=True)
+        path = os.path.join(base, f"{tag}_train_state.pth")
+        state = (torch.load(path, map_location="cpu", weights_only=True)
+                 if os.path.exists(path) else None)
+        return state, step
+    print(f"{base} does not hold these networks as saved: loading what "
+          f"matches, optimizers start fresh")
+    for n, net in nets.items():
+        if sds[n] is None:
+            print(f"  {n}: no {os.path.basename(paths[n])}; left at its init")
+            continue
+        loaded, skipped = partial_load(net, sds[n])
+        at_init = sorted(set(net.state_dict()) - set(loaded))
+        print(f"  {n}: loaded {len(loaded)} tensors from "
+              f"{os.path.basename(paths[n])}: {_by_module(loaded)}; skipped "
+              f"{len(skipped)}: {skipped[:8]}; left at its init "
+              f"{len(at_init)}: {_by_module(at_init)}")
+    return None, step
 
 
 def partial_load(module: torch.nn.Module, state_dict: Dict
