@@ -6,8 +6,9 @@ Phases, each failing the run (non-zero exit) on the first error:
   1. card: CUDA must be present; prints nvidia-smi's name and power limit.
   2. build: compiles the CUDA kernels from gfla_tpu_torch/csrc with nvcc.
   3. kernel: the warp kernel against its plain torch version at both live
-     attention sites of the DeepFashion generator, with far-off flows and
-     at the sites of a 64x64 input; max errors and median times of both.
+     attention sites of the DeepFashion generator, with far-off flows, at
+     the sites of a 64x64 input and at a ragged shape (non-square, C and D
+     no multiples of 8); max errors and median times of both.
   4. bwd kernel: both backward kernels (per position; dW1s) against their
      plain versions in the same cases, each of the six outputs within
      1e-4 x its max |value|; median times of both.
@@ -26,8 +27,9 @@ Phases, each failing the run (non-zero exit) on the first error:
      float64 step; median ms per step of both paths and the peak memory.
   7. corr kernel: the max-correlation kernel against its plain scan at both
      sites of the correctness loss, at a ragged shape and with duplicated
-     and zero rows (exact ties); median ms of the kernel, the scan and one
-     unchunked torch.bmm + max, the yardstick the port never calls.
+     and zero rows (exact ties); cmax also against the float64 maximum;
+     median ms of the kernel, the scan and one unchunked torch.bmm + max,
+     the yardstick the port never calls.
   8. attn-math kernels: the math-fused forward and backward against their
      plain twins at both attention sites and a ragged N; median ms of each.
   9. poseflownet: stage-1 flow pretraining at full width, batch 8, with
@@ -41,6 +43,10 @@ Phases, each failing the run (non-zero exit) on the first error:
      setting selects, and agreement with the default path.
 The switches are set per phase with mock.patch.dict, so none leaks into the
 next; every other phase runs with GFLA_ATTN_PALLAS=auto, GFLA_PALLAS_CORR=0.
+The warp forward and the max-correlation multiply on the tensor cores as
+split-f32 products (three TF32 products per f32 product): their bound is
+taken at 495 / 3 TFLOP/s, with the FP32 cores' bound beside it; the other
+four kernels' at the FP32 cores' 67 TFLOP/s.
 Extra arguments go to the test options, e.g. `--checkpoints_dir DIR --name N
 --which_iter latest` to serve an original-GFLA `latest_net_G.pth` instead of
 the seeded random init. The last line is the JSON device record.
@@ -61,7 +67,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-KERNEL_ATOL = 1e-4  # f32, TF32 off: only the summation order differs
+KERNEL_ATOL = 1e-4  # f32, TF32 off: the summation order differs, and the
+                    # split-f32 products drop ~2^-22 of each term
 SLICE_ATOL = 1e-3   # the same, carried through ~20 conv/norm layers
 CPU_ATOL = 1e-3     # card vs CPU on a small input: cuDNN vs CPU convs
 FLOW_FAR = 2.5      # far-off flows reach +-2.5 H
@@ -90,6 +97,9 @@ CKPT_REL = 1e-5     # the step after a save/resume vs the uninterrupted one
 CORR_ATOL = 1e-5    # max-correlation: cmax, and argmax where the top-two
                     # gap of the plain correlation exceeds it
 F32_PEAK = 67e12    # H100 SXM: f32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12  # H100 SXM: dense TF32 FLOP/s of the tensor cores
+TF32X3_PEAK = TF32_PEAK / 3  # f32 work as split-f32 products: three TF32
+                    # products per f32 product (csrc/mma_tf32x3.cuh)
 HBM_RATE = 3.35e12  # H100 SXM: device memory bytes/s
 
 KERNEL_CASES = [  # name, B, H, W, C, D, k, flow scale (None: far-off)
@@ -98,6 +108,7 @@ KERNEL_CASES = [  # name, B, H, W, C, D, k, flow scale (None: far-off)
     ("k=5 far-off flows", 8, 64, 64, 128, 128, 5, None),
     ("k=5 site at 64x64 input", 2, 16, 16, 128, 128, 5, 1.5),
     ("k=3 site at 64x64 input", 2, 8, 8, 256, 128, 3, 1.5),
+    ("ragged k=3 12x10 C21 D42", 2, 12, 10, 21, 42, 3, 1.5),
 ]
 
 
@@ -184,9 +195,12 @@ def phase_kernel(device):
         rel = err / want.abs().max().item()
         ms = cuda_ms(lambda: warp.warp_fwd(*args, k))
         plain_ms = cuda_ms(lambda: warp.warp_fwd_plain(*args, k))
+        work = warp_work(B, H, W, C, D, k)["warp_fwd"]
         print(f"kernel {name}: B={B} max_abs_err={err:.3e} "
               f"max_rel_err={rel:.3e} (tol {KERNEL_ATOL:g} abs) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"{bound(*work, TF32X3_PEAK)[0]:.4f} ms (tensor cores as 3 "
+              f"TF32 products; {bound(*work)[0]:.4f} ms on the FP32 cores)")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= KERNEL_ATOL, f"{name}: kernel vs plain {err:.3e}")
         results[name] = (err, ms, plain_ms)
@@ -276,10 +290,12 @@ def phase_bwd_kernel(device):
     return results
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=F32_PEAK):
     """(bound_ms, bound_by): the least time one H100 SXM could take for work
-    of `flops` f32 operations that moves `nbytes` bytes."""
-    t_ops = flops / F32_PEAK * 1e3
+    of `flops` f32 operations that moves `nbytes` bytes, on the unit whose
+    rate for that work is `peak`: the FP32 cores, or for the two kernels
+    that multiply on the tensor cores, TF32X3_PEAK."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -360,9 +376,11 @@ def phase_corr_kernel(device):
               and tuple(amax.shape) == (B, Nt), f"{name}: output types")
         err = (cmax - want_max).abs().max().item()
         check(err <= CORR_ATOL, f"{name}: cmax off by {err:.3e}")
-        decided = at_err = 0
+        decided = at_err = err64 = 0
         for b in range(B):
             corr = s[b] @ t[b].T                                  # (Ns, Nt)
+            exact = (s[b].double() @ t[b].double().T).max(0).values
+            err64 = max(err64, (cmax[b] - exact).abs().max().item())
             top2 = corr.topk(2, dim=0).values
             sure = (top2[0] - top2[1]) > CORR_ATOL
             same = amax[b] == want_idx[b]
@@ -378,14 +396,18 @@ def phase_corr_kernel(device):
         ms = cuda_ms(lambda: max_corr.max_corr(s, t))
         plain_ms = cuda_ms(lambda: max_corr.max_corr_plain(s, t))
         library_ms = cuda_ms(lambda: torch.bmm(t, s.mT).max(-1))
-        bound_ms, bound_by = bound(*corr_work(B, Ns, Nt, C))
+        bound_ms, bound_by = bound(*corr_work(B, Ns, Nt, C), TF32X3_PEAK)
+        fp32_bound_ms = bound(*corr_work(B, Ns, Nt, C))[0]
         print(f"corr kernel {name}: cmax max_abs_err={err:.3e} (tol "
-              f"{CORR_ATOL:g}); argmax equal at all {decided} of {B * Nt} "
+              f"{CORR_ATOL:g}), {err64:.3e} off the float64 maximum; argmax "
+              f"equal at all {decided} of {B * Nt} "
               f"rows with a top-two gap > {CORR_ATOL:g}"
               + (" and at every tie" if ties else "")
               + f"; correlation at the kernel's argmax within {at_err:.3e}; "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bmm+max "
-              f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
+              f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
+              f"tensor cores as 3 TF32 products; {fp32_bound_ms:.4f} ms on "
+              f"the FP32 cores)")
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=library_ms, work=corr_work(B, Ns, Nt,
                                                                    C))
@@ -1123,13 +1145,21 @@ def phase_switches(serve, train):
 
 
 def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
-                 plain_ms, work, library_ms, shape):
-    bound_ms, bound_by = bound(*work)
+                 plain_ms, work, library_ms, shape, tensor_cores=False):
+    """One entry of the `kernels` line. `tensor_cores`: the kernel multiplies
+    by split-f32 products, so its bound is taken at TF32X3_PEAK; the bound
+    on the FP32 cores stands beside it, as for the other kernels."""
+    bound_ms, bound_by = bound(*work, TF32X3_PEAK if tensor_cores
+                               else F32_PEAK)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": err,
             "tolerance": tolerance, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_unit": ("tensor cores, 3 TF32 products per f32 product: "
+                           "165 TFLOP/s" if tensor_cores
+                           else "FP32 cores: 67 TFLOP/s"),
+            "bound_ms_fp32_cores": bound(*work)[0],
             "library_ms": library_ms, "ms_shape": shape}
 
 
@@ -1165,7 +1195,7 @@ def main(argv):
         {"serve": serve["launches"], "train": train["warp_fwd"],
          "train_corr": switched["train_corr"]["warp_fwd"]},
         max(e for e, _, _ in kernel.values()), f"{KERNEL_ATOL:g} abs", ms,
-        plain_ms, work["warp_fwd"], none, shape)]
+        plain_ms, work["warp_fwd"], none, shape, tensor_cores=True)]
     for name, part in (("warp_bwd_pos", "pos"), ("warp_bwd_w1", "w1")):
         entries.append(kernel_entry(
             name, "gfla_tpu_torch/csrc/warp_bwd.cu",
@@ -1184,7 +1214,7 @@ def main(argv):
          "train_corr": switched["train_corr"]["max_corr"]},
         max(r["err"] for r in corr.values()), f"{CORR_ATOL:g} abs (cmax)",
         c["ms"], c["plain_ms"], c["work"], c["library_ms"],
-        "B=8 Ns=Nt=4096 C=256"))
+        "B=8 Ns=Nt=4096 C=256", tensor_cores=True))
     a = attn[ATTN_CASES[0][0]]
     for name, part, paths in (
             ("attn_math_fwd", "fwd", ("serve_attn", "train_attn")),

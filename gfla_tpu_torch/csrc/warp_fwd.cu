@@ -11,142 +11,473 @@
 // What bounds it on this card: at the k=5 site of the DeepFashion generator
 // (B=8, 64x64, C=128, D=128) the dense layer is 8*4096 positions x 3200 x 128
 // FMAs, about 27 GFLOP, against a few MB of source, flow and hidden_bt and a
-// 1.6 MB W1s that stays in the 50 MB L2. It is compute-bound.
+// 1.6 MB W1s that stays in the 50 MB L2: operations. They run on the tensor
+// cores as split-f32 products (mma_tf32x3.cuh), three TF32 products per f32
+// product, so the bound is 495 / 3 = 165 TFLOP/s of f32 work. The product is
+// mma.sync m16n8k8 from register fragments, which runs at half of wgmma's
+// rate; wgmma takes TF32 operands only with the depth innermost, which W1s
+// (k^2 C x D, D innermost) is not.
 //
-// What this design does about it: a CTA takes kTile positions and D threads,
-// one per hidden unit, each keeping its kTile partial sums in registers. For
-// each of the k^2 offsets the CTA blends that offset's (kTile x C) block into
-// shared memory once, and every thread streams its W1s column against it, so
-// each W1s element is read once per CTA and each shared-memory read feeds
-// four FMAs (float4 broadcast). The softmax stage re-gathers the blocks from
-// L1/L2 instead of keeping k^2 * C floats per position. It runs on the FP32
-// cores: moving the dense layer to wgmma with TMA-fed tiles is later work.
+// What this design does about it: the dense layer is an implicit GEMM,
+// (positions) x (k^2 C) times W1s (k^2 C x D), whose left operand is made by
+// the gather. A CTA of 8 warps owns 64 positions and all D columns and walks
+// the depth in chunks of (one offset, 32 channels), so shared memory does not
+// grow with C. W1s chunks come by cp.async through a ring of three stages.
+// The left operand cannot come by a copy, since each value blends four
+// clamped taps; it is pipelined in software instead: every thread loads the
+// taps of the next chunk, 16 bytes along C at a time, before the products of
+// the current chunk, and blends and stores them after, into the other of two
+// buffers. Each position's clamped tap rows and columns and its four blend
+// weights are computed once per CTA. Both operands are split into hi and lo
+// as fragments are loaded; rows are padded so that fragment loads meet no
+// bank conflict, and C and D are zero-padded to the tile in shared memory.
+// The logits and the softmax stay on the FP32 cores (0.2 GFLOP in all), with
+// every thread at work. The output is not gathered block by block: all k^2
+// offsets share the blend weights, so sum_m attn_m block_m is a sum over the
+// (k+1)^2 footprint cells, each with a coefficient of at most four
+// attn x weight terms: (k+1)^2 loads per channel instead of 4 k^2.
 #include <cuda_runtime.h>
 
-#include "attn_tile.cuh"
+#include <cmath>
+#include <cstdint>
+
+#include "mma_tf32x3.cuh"
 #include "warp_common.cuh"
+
+#ifndef GFLA_SPLIT
+#define GFLA_SPLIT 0  // tools/kernel_split.py builds timing variants; 0: none
+#endif
 
 namespace {
 
-using gfla::kTile;
+constexpr int kPos = 64;     // positions per CTA: 2 rows of warps x 32
+constexpr int kChunk = 32;   // channels per depth chunk
+constexpr int kLda = gfla::mma_row_stride(kChunk);
+constexpr int kStagesB = 3;  // W1s ring
+constexpr int kThreads = 256;
 
-template <int K>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Four channels from c of pixel `pix` of an NHWC image, zero past C. kVec: C
+// is a multiple of 4 and the tensor 16-byte aligned.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ img,
+                                        int pix, int c, int C) {
+  const float* at = img + static_cast<size_t>(pix) * C + c;
+  if (kVec) {
+    return c < C ? __ldg(reinterpret_cast<const float4*>(at))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return make_float4(c < C ? __ldg(at) : 0.0f,
+                     c + 1 < C ? __ldg(at + 1) : 0.0f,
+                     c + 2 < C ? __ldg(at + 2) : 0.0f,
+                     c + 3 < C ? __ldg(at + 3) : 0.0f);
+}
+
+__device__ __forceinline__ float4 fma4(float w, float4 v, float4 acc) {
+  return make_float4(fmaf(w, v.x, acc.x), fmaf(w, v.y, acc.y),
+                     fmaf(w, v.z, acc.z), fmaf(w, v.w, acc.w));
+}
+
+// Where the walk over the depth stands: channels c0.. of offset m = i * K + j.
+// All K^2 offsets of one chunk of channels come before the next chunk:
+// neighbouring offsets share half their taps, which then hit L1.
+struct Cursor {
+  int m, i, j, c0;
+  __device__ __forceinline__ void advance(int K) {
+    ++m;
+    if (++j == K) {
+      j = 0;
+      if (++i == K) {
+        i = 0;
+        m = 0;
+        c0 += kChunk;
+      }
+    }
+  }
+};
+
+// NT: 8-column fragments per warp, so the tile is 32 NT >= D columns wide.
+// kVecA: C % 4 == 0 and source and out 16-byte aligned; kVecB: D % 4 == 0 and
+// W1s 16-byte aligned.
+template <int NT, bool kVecA, bool kVecB>
+__global__ void __launch_bounds__(kThreads)
     warp_fwd_kernel(const float* __restrict__ src,
                     const float* __restrict__ flow,
                     const float* __restrict__ hbt,
                     const float* __restrict__ w1s,
                     const float* __restrict__ w2,
                     const float* __restrict__ b2, float* __restrict__ out,
-                    int N, int H, int W, int C, int Cp, int D, float slope) {
-  constexpr int K2 = K * K;
-  extern __shared__ __align__(16) unsigned char smem[];
-  gfla::Footprint* fp = reinterpret_cast<gfla::Footprint*>(smem);
-  int* img_of = reinterpret_cast<int*>(fp + kTile);      // batch index or -1
-  float* blk = reinterpret_cast<float*>(img_of + kTile);  // kTile x Cp
-  float* hid = blk + kTile * Cp;                          // kTile x D
-  float* att = hid + kTile * D;                           // kTile x K2
+                    int N, int H, int W, int C, int D, int K, float slope) {
+  // two rows of four warps, each warp 32 positions x 8 NT hidden units
+  constexpr gfla::WarpGrid kGrid{4, 2, NT};
+  constexpr int kCols = 32 * NT;
+  constexpr int kLdb = gfla::mma_col_stride(kCols);
+  constexpr int kLdh = kCols + 4;
+  constexpr int kRing = 2 * kPos * kLda + kStagesB * kChunk * kLdb;
+  static_assert(kPos * kLdh <= kRing, "hid must fit into the ring it reuses");
+  const int K2 = K * K;
+  const int K1 = K + 1;
+
+  extern __shared__ __align__(16) float smem[];
+  float* a_ring = smem;                   // 2 x kPos x kLda
+  float* b_ring = smem + 2 * kPos * kLda; // kStagesB x kChunk x kLdb
+  float* hid = smem;                      // kPos x kLdh, once the ring is free
+  float* att = smem + kRing;              // kPos x K2
+  float* coef = att + kPos * K2;          // kPos x K1 x K1
+  gfla::TapWeights* wts = reinterpret_cast<gfla::TapWeights*>(
+      coef + kPos * K1 * K1);             // kPos
+  int* rowoff = reinterpret_cast<int*>(wts + kPos);  // kPos x K1: pixel of
+  int* col = rowoff + kPos * K1;          // (row, 0) in the batch; column
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int d = tid;  // blockDim.x == D: one hidden unit per thread
-  const int p0 = blockIdx.x * kTile;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int p0 = blockIdx.x * kPos;
   const int HW = H * W;
 
-  for (int t = tid; t < kTile; t += nthreads) {
+  for (int t = tid; t < kPos; t += kThreads) {
     const int p = p0 + t;
     if (p < N) {
       const int b = p / HW;
       const int rem = p - b * HW;
       const int y = rem / W;
       const int x = rem - y * W;
-      fp[t] = gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, K);
-      img_of[t] = b;
-    } else {
-      fp[t] = gfla::Footprint{0, 0, 0.0f, 0.0f};
-      img_of[t] = -1;
-    }
-  }
-
-  // hidden = blocks . W1s, accumulated over the k^2 offsets
-  float acc[kTile];
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) acc[t] = 0.0f;
-
-  for (int m = 0; m < K2; ++m) {
-    const int i = m / K;
-    const int j = m - i * K;
-    __syncthreads();  // footprints ready; previous block fully consumed
-    for (int e = tid; e < kTile * Cp; e += nthreads) {
-      const int t = e / Cp;
-      const int c = e - t * Cp;
-      const int b = img_of[t];
-      float v = 0.0f;
-      if (b >= 0 && c < C) {
-        v = gfla::block_value(src + static_cast<size_t>(b) * HW * C, fp[t],
-                              i, j, c, H, W, C);
+      const gfla::Footprint fp =
+          gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, K);
+      wts[t] = gfla::tap_weights(fp.wy, fp.wx);
+      for (int i = 0; i < K1; ++i) {
+        rowoff[t * K1 + i] = (b * H + gfla::tap_row(fp, i, H)) * W;
+        col[t * K1 + i] = gfla::tap_col(fp, i, W);
       }
-      blk[e] = v;
+    } else {  // past the end: weights 0 on pixel 0
+      wts[t] = gfla::TapWeights{0.0f, 0.0f, 0.0f, 0.0f};
+      for (int i = 0; i < K1; ++i) {
+        rowoff[t * K1 + i] = 0;
+        col[t * K1 + i] = 0;
+      }
     }
-    __syncthreads();
-    gfla::dense_accumulate(acc, blk, Cp,
-                           w1s + static_cast<size_t>(m) * C * D + d, C, D);
-  }
-
-  // + target stream (which carries b1), LeakyReLU
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) {
-    const int p = p0 + t;
-    float h = acc[t];
-    if (p < N) h += hbt[static_cast<size_t>(p) * D + d];
-    hid[t * D + d] = h >= 0.0f ? h : h * slope;
   }
   __syncthreads();
-  gfla::logits_softmax(hid, D, w2, b2, att, K2, D);
 
-  // out = (1/k^2) sum attn * block, re-gathering each block
-  for (int e = tid; e < kTile * C; e += nthreads) {
-    const int t = e / C;
-    const int c = e - t * C;
-    const int b = img_of[t];
-    if (b < 0) continue;
-    const float* img = src + static_cast<size_t>(b) * HW * C;
-    float o = 0.0f;
-    for (int mm = 0; mm < K2; ++mm) {
-      const int i = mm / K;
-      const int j = mm - i * K;
-      o = fmaf(att[t * K2 + mm],
-               gfla::block_value(img, fp[t], i, j, c, H, W, C), o);
+  // ---- hidden = blocks . W1s over chunks of (offset, 32 channels) ---------
+  // Gather: thread tid blends channels gc..gc+3 of positions gp and gp + 32.
+  const int gp = tid >> 3;
+  const int gc = 4 * (tid & 7);
+  const gfla::TapWeights tw[2] = {wts[gp], wts[gp + 32]};
+
+  auto load_taps = [&](const Cursor& cur, float4 (&taps)[2][4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (GFLA_SPLIT == 2) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) taps[h][q] = make_float4(1, 1, 1, 1);
+        continue;
+      }
+      const int at = (gp + 32 * h) * K1;
+      const int r0 = rowoff[at + cur.i], r1 = rowoff[at + cur.i + 1];
+      const int x0 = col[at + cur.j], x1 = col[at + cur.j + 1];
+      const int c = cur.c0 + gc;
+      taps[h][0] = load4<kVecA>(src, r0 + x0, c, C);
+      taps[h][1] = load4<kVecA>(src, r0 + x1, c, C);
+      taps[h][2] = load4<kVecA>(src, r1 + x0, c, C);
+      taps[h][3] = load4<kVecA>(src, r1 + x1, c, C);
     }
-    out[static_cast<size_t>(p0 + t) * C + c] = o / static_cast<float>(K2);
+  };
+  auto store_blend = [&](const float4 (&taps)[2][4], float* stage) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v = fma4(tw[h].tl, taps[h][0], v);
+      v = fma4(tw[h].tr, taps[h][1], v);
+      v = fma4(tw[h].bl, taps[h][2], v);
+      v = fma4(tw[h].br, taps[h][3], v);
+      *reinterpret_cast<float4*>(stage + (gp + 32 * h) * kLda + gc) = v;
+    }
+  };
+  // rows m C + c0 .. + 31 of W1s, all D columns, into one ring stage; one
+  // commit per call, empty past the end, so the group count stays in step
+  auto copy_b = [&](const Cursor& cur, bool live, float* stage) {
+    if (live) {
+      constexpr int kPer = kVecB ? 4 : 1;
+      constexpr int kAcross = kCols / kPer;
+#pragma unroll
+      for (int r = 0; r < kChunk * kAcross / kThreads; ++r) {
+        const int idx = tid + r * kThreads;
+        const int row = idx / kAcross;
+        const int n = kPer * (idx % kAcross);
+        const bool ok = cur.c0 + row < C && n < D;
+        const float* from =
+            ok ? w1s + static_cast<size_t>(cur.m * C + cur.c0 + row) * D + n
+               : w1s;
+        if (kVecB) {
+          gfla::cp_async16(stage + row * kLdb + n, from, ok);
+        } else {
+          gfla::cp_async4(stage + row * kLdb + n, from, ok);
+        }
+      }
+    }
+    gfla::cp_async_commit();
+  };
+
+  const int n_chunks = K2 * ((C + kChunk - 1) / kChunk);
+  Cursor next_a{0, 0, 0, 0};  // the chunk whose taps are loaded next
+  Cursor next_b{0, 0, 0, 0};  // the chunk whose W1s rows are copied next
+  int started_b = 0;
+  float4 taps[2][4];
+  for (; started_b < kStagesB - 1; ++started_b) {
+    copy_b(next_b, started_b < n_chunks, b_ring + started_b * kChunk * kLdb);
+    next_b.advance(K);
+  }
+  load_taps(next_a, taps);
+  next_a.advance(K);
+  store_blend(taps, a_ring);
+  gfla::cp_async_wait<kStagesB - 2>();
+  __syncthreads();
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    }
+  }
+  // this lane's first fragment elements: element e of an A fragment lies
+  // 8 (e & 1) rows and 4 (e >> 1) channels on, of a B fragment 4 e rows on
+  const int a_at =
+      (gfla::grid_first_row(kGrid, warp) + gfla::mma_a_row(lane, 0)) * kLda +
+      gfla::mma_a_depth(lane, 0);
+  const int b_at = gfla::mma_b_depth(lane, 0) * kLdb +
+                   gfla::grid_first_col(kGrid, warp) + gfla::mma_b_col(lane);
+
+  int stage_b = 0;  // ring stage of chunk q
+  for (int q = 0; q < n_chunks; ++q) {
+    const bool more = q + 1 < n_chunks;
+    if (more) load_taps(next_a, taps);  // in flight during the products
+    next_a.advance(K);
+    {
+      int to = stage_b + kStagesB - 1;
+      if (to >= kStagesB) to -= kStagesB;
+      copy_b(next_b, started_b < n_chunks, b_ring + to * kChunk * kLdb);
+      next_b.advance(K);
+      ++started_b;
+    }
+    const float* a_st = a_ring + (q & 1) * kPos * kLda + a_at;
+    const float* b_st = b_ring + stage_b * kChunk * kLdb + b_at;
+    if (GFLA_SPLIT == 1) {
+      acc[0][0][0] += a_st[0] + b_st[0];
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 8; ++kk) {
+        uint32_t a_hi[2][4], a_lo[2][4], b_hi[NT][2], b_lo[NT][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            gfla::tf32_split_bits(
+                a_st[(16 * mt + 8 * (e & 1)) * kLda + 8 * kk + 4 * (e >> 1)],
+                a_hi[mt][e], a_lo[mt][e]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            gfla::tf32_split_bits(b_st[(8 * kk + 4 * e) * kLdb + 8 * nt],
+                                  b_hi[nt][e], b_lo[nt][e]);
+          }
+        }
+        // the two small products before the large one
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            gfla::mma_tf32(acc[mt][nt], a_lo[mt], b_hi[nt]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            gfla::mma_tf32(acc[mt][nt], a_hi[mt], b_lo[nt]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            gfla::mma_tf32(acc[mt][nt], a_hi[mt], b_hi[nt]);
+          }
+        }
+      }
+    }
+    // the other A buffer was last read one chunk ago, before a barrier
+    if (more) store_blend(taps, a_ring + ((q + 1) & 1) * kPos * kLda);
+    gfla::cp_async_wait<kStagesB - 2>();  // the next chunk of W1s is in
+    __syncthreads();
+    if (++stage_b == kStagesB) stage_b = 0;
+  }
+  gfla::cp_async_wait<0>();  // only empty groups are left; the ring is free
+
+  // ---- + target stream (which carries b1), LeakyReLU -> hid ---------------
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = gfla::grid_row(kGrid, warp, lane, mt, e);
+        const int n = gfla::grid_col(kGrid, warp, lane, nt, e);
+        const int p = p0 + row;
+        if (n < D) {
+          float h = acc[mt][nt][e];
+          if (p < N) h += hbt[static_cast<size_t>(p) * D + n];
+          hid[row * kLdh + n] = h >= 0.0f ? h : h * slope;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- logits, softmax over the k^2 offsets (a warp per 8 positions) ------
+  for (int e = tid; e < kPos * K2; e += kThreads) {
+    const int t = e / K2;
+    const int mm = e - t * K2;
+    float s = 0.0f;
+    for (int dd = 0; dd < D; ++dd) {
+      s = fmaf(hid[t * kLdh + dd], w2[dd * K2 + mm], s);
+    }
+    att[e] = s + b2[mm];
+  }
+  __syncthreads();
+  for (int t = warp * (kPos / 8); t < (warp + 1) * (kPos / 8); ++t) {
+    float* a = att + t * K2;  // K2 <= 49: two values a lane
+    const float v0 = lane < K2 ? a[lane] : -INFINITY;
+    const float v1 = lane + 32 < K2 ? a[lane + 32] : -INFINITY;
+    const float mx = warp_max(fmaxf(v0, v1));
+    const float e0 = lane < K2 ? expf(v0 - mx) : 0.0f;
+    const float e1 = lane + 32 < K2 ? expf(v1 - mx) : 0.0f;
+    const float sum = warp_sum(e0 + e1);
+    if (lane < K2) a[lane] = e0 / sum;
+    if (lane + 32 < K2) a[lane + 32] = e1 / sum;
+  }
+  __syncthreads();
+
+  // ---- out = (1/k^2) sum_m attn_m block_m over the footprint cells --------
+  // cell (r, c) is the top-left tap of offset (r, c), the top-right of
+  // (r, c-1), the bottom-left of (r-1, c) and the bottom-right of (r-1, c-1)
+  const float scale = 1.0f / static_cast<float>(K2);
+  for (int e = tid; e < kPos * K1 * K1; e += kThreads) {
+    const int t = e / (K1 * K1);
+    const int cell = e - t * K1 * K1;
+    const int r = cell / K1;
+    const int c = cell - r * K1;
+    const float* a = att + t * K2;
+    const gfla::TapWeights w = wts[t];
+    float f = 0.0f;
+    if (r < K && c < K) f = fmaf(w.tl, a[r * K + c], f);
+    if (r < K && c > 0) f = fmaf(w.tr, a[r * K + c - 1], f);
+    if (r > 0 && c < K) f = fmaf(w.bl, a[(r - 1) * K + c], f);
+    if (r > 0 && c > 0) f = fmaf(w.br, a[(r - 1) * K + c - 1], f);
+    coef[e] = f * scale;
+  }
+  __syncthreads();
+  const int C4 = (C + 3) / 4;
+  for (int e = tid; e < kPos * C4; e += kThreads) {
+    const int t = e / C4;
+    const int c = 4 * (e - t * C4);
+    const int p = p0 + t;
+    if (p >= N) continue;
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (GFLA_SPLIT == 3) {
+      o.x = coef[t * K1 * K1];
+    } else {
+      for (int r = 0; r < K1; ++r) {
+        const int ro = rowoff[t * K1 + r];
+        for (int cc = 0; cc < K1; ++cc) {
+          o = fma4(coef[(t * K1 + r) * K1 + cc],
+                   load4<kVecA>(src, ro + col[t * K1 + cc], c, C), o);
+        }
+      }
+    }
+    float* to = out + static_cast<size_t>(p) * C + c;
+    if (kVecA) {
+      *reinterpret_cast<float4*>(to) = o;
+    } else {
+      to[0] = o.x;
+      if (c + 1 < C) to[1] = o.y;
+      if (c + 2 < C) to[2] = o.z;
+      if (c + 3 < C) to[3] = o.w;
+    }
   }
 }
 
-template <int K>
+template <int NT, bool kVecA, bool kVecB>
 int launch(const float* src, const float* flow, const float* hbt,
            const float* w1s, const float* w2, const float* b2, float* out,
-           int N, int H, int W, int C, int D, float slope,
+           int N, int H, int W, int C, int D, int K, float slope,
            cudaStream_t stream) {
-  const int Cp = (C + 3) / 4 * 4;
-  const size_t smem = kTile * (sizeof(gfla::Footprint) + sizeof(int)) +
-                      sizeof(float) * kTile * (Cp + D + K * K);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        warp_fwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((N + kTile - 1) / kTile);
-  warp_fwd_kernel<K><<<grid, D, smem, stream>>>(src, flow, hbt, w1s, w2, b2,
-                                                  out, N, H, W, C, Cp, D, slope);
+  const int K1 = K + 1;
+  const size_t smem =
+      sizeof(float) * (2 * kPos * kLda +
+                       kStagesB * kChunk * gfla::mma_col_stride(32 * NT) +
+                       kPos * (K * K + K1 * K1)) +
+      kPos * (sizeof(gfla::TapWeights) + 2 * K1 * sizeof(int));
+  const cudaError_t err = cudaFuncSetAttribute(
+      warp_fwd_kernel<NT, kVecA, kVecB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kPos - 1) / kPos);
+  warp_fwd_kernel<NT, kVecA, kVecB><<<grid, kThreads, smem, stream>>>(
+      src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D, K, slope);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int launch_aligned(const float* src, const float* flow, const float* hbt,
+                   const float* w1s, const float* w2, const float* b2,
+                   float* out, int N, int H, int W, int C, int D, int K,
+                   float slope, cudaStream_t s) {
+  const uintptr_t a_bits =
+      reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out);
+  const bool vec_a = C % 4 == 0 && a_bits % 16 == 0;
+  const bool vec_b = D % 4 == 0 && reinterpret_cast<uintptr_t>(w1s) % 16 == 0;
+  if (vec_a && vec_b) {
+    return launch<NT, true, true>(src, flow, hbt, w1s, w2, b2, out, N, H, W,
+                                  C, D, K, slope, s);
+  }
+  if (vec_a) {
+    return launch<NT, true, false>(src, flow, hbt, w1s, w2, b2, out, N, H, W,
+                                   C, D, K, slope, s);
+  }
+  if (vec_b) {
+    return launch<NT, false, true>(src, flow, hbt, w1s, w2, b2, out, N, H, W,
+                                   C, D, K, slope, s);
+  }
+  return launch<NT, false, false>(src, flow, hbt, w1s, w2, b2, out, N, H, W,
+                                  C, D, K, slope, s);
 }
 
 }  // namespace
 
 // source (B,H,W,C), flow (B,H,W,2) as (x, y), hbt (B*H*W, D), w1s (k*k*C, D),
-// w2 (D, k*k), b2 (k*k), out (B,H,W,C): float32, contiguous, on one device.
-// Returns a cudaError_t; 0 means the launch was accepted.
+// w2 (D, k*k), b2 (k*k), out (B,H,W,C): float32, contiguous, on one device;
+// k odd, at most 7; D at most 256. Returns a cudaError_t; 0 means the launch
+// was accepted.
 extern "C" int gfla_warp_fwd(const float* src, const float* flow,
                              const float* hbt, const float* w1s,
                              const float* w2, const float* b2, float* out,
@@ -154,13 +485,23 @@ extern "C" int gfla_warp_fwd(const float* src, const float* flow,
                              float slope, void* stream) {
   const int N = B * H * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: return launch<1>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D, slope, s);
-    case 3: return launch<3>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D, slope, s);
-    case 5: return launch<5>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D, slope, s);
-    case 7: return launch<7>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D, slope, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > 7 || k % 2 == 0 || D < 1 || D > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (D <= 32) {
+    return launch_aligned<1>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D,
+                             k, slope, s);
+  }
+  if (D <= 64) {
+    return launch_aligned<2>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D,
+                             k, slope, s);
+  }
+  if (D <= 128) {
+    return launch_aligned<4>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D,
+                             k, slope, s);
+  }
+  return launch_aligned<8>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D, k,
+                           slope, s);
 }
 
 extern "C" const char* gfla_cuda_error_string(int code) {

@@ -6,9 +6,11 @@ shapes and with duplicated and zero rows, where ties must go to the first
 index: cmax within 1e-5 (f32; sums in other orders), argmax equal. The
 correctness loss with GFLA_PALLAS_CORR=1 in both packages, on the same
 feature maps, agrees in value and in its gradients to 1e-5 x the largest
-|value|. The kernel's merge rule and its partition of the source rows over
-threads and CTAs (csrc/max_corr.cuh) are compiled here with g++: the emulated
-kernel must give numpy's first argmax at exact ties.
+|value|. The kernel's merge rule, its partition of a tile over the
+accumulator fragments of its threads and of the source rows over CTAs
+(csrc/max_corr.cuh, csrc/mma_tf32x3.cuh) are compiled here with g++: the
+emulated kernel must fold every pair once and give numpy's first argmax at
+exact ties.
 """
 
 import ctypes
@@ -134,56 +136,106 @@ def test_correctness_loss_with_corr_kernel_matches_jax(monkeypatch):
 # ---------------------------------------------------------------------------
 
 HARNESS = r"""
+#include <algorithm>
 #include <cmath>
+#include <vector>
 #include "max_corr.cuh"
+using namespace gfla;
 extern "C" {
 // The kernel's partition and merges over a precomputed correlation
-// corr (Ns x Nt): per split of `per` 128-row source tiles, 16 column groups
-// keep a running (max, argmax) with a strict > in index order, merge by the
-// xor-shuffle tree, then the splits merge in order.
+// corr (Ns x Nt). Per tile of kCorrRows target rows and per split of `per`
+// source tiles, the CTA's 256 threads fold their accumulator elements in
+// fragment order into one running (max, argmax) slot per target row they
+// see, skipping source rows past Ns; the four lanes of a quad merge by
+// xor-shuffle, the warps that share target rows (none in a grid one warp
+// wide) in order, then the splits in order.
+// seen (Ns x Nt) counts how often each pair was folded.
 void emulate(const float* corr, int Ns, int Nt, int per, float* cmax,
-             int* amax) {
-  const int n_tiles = (Ns + 127) / 128;
-  for (int j = 0; j < Nt; ++j) {
-    float out_v = -INFINITY;
-    int out_i = gfla::kNoIndex;
-    for (int t0 = 0; t0 < n_tiles; t0 += per) {
-      float best[16];
-      int best_i[16];
-      for (int g = 0; g < 16; ++g) {
-        best[g] = -INFINITY;
-        best_i[g] = gfla::kNoIndex;
-        for (int tile = t0; tile < t0 + per && tile < n_tiles; ++tile) {
-          for (int q = 0; q < 8; ++q) {
-            const int i = tile * 128 + gfla::corr_tile_row(g, q);
-            if (i >= Ns) continue;
-            const float v = corr[(size_t)i * Nt + j];
-            if (v > best[g]) { best[g] = v; best_i[g] = i; }
+             int* amax, int* seen) {
+  const WarpGrid g = corr_grid();
+  const int threads = 32 * kCorrWarps;
+  const int slots = 2 * g.tiles_m;  // target rows a thread sees
+  const int n_tiles = (Ns + kCorrRows - 1) / kCorrRows;
+  const int n_splits = (n_tiles + per - 1) / per;
+  for (int j0 = 0; j0 < Nt; j0 += kCorrRows) {
+    std::vector<float> part_v(n_splits * kCorrRows);
+    std::vector<int> part_i(n_splits * kCorrRows);
+    for (int sp = 0; sp < n_splits; ++sp) {
+      std::vector<float> best(threads * slots, -INFINITY);
+      std::vector<int> best_i(threads * slots, kNoIndex);
+      for (int tid = 0; tid < threads; ++tid) {
+        const int warp = tid / 32, lane = tid % 32;
+        const int end = std::min(n_tiles, (sp + 1) * per);
+        for (int tile = sp * per; tile < end; ++tile) {
+          for (int mt = 0; mt < g.tiles_m; ++mt) {
+            for (int nt = 0; nt < g.tiles_n; ++nt) {
+              for (int e = 0; e < 4; ++e) {
+                const int i =
+                    tile * kCorrRows + grid_col(g, warp, lane, nt, e);
+                const int j = j0 + grid_row(g, warp, lane, mt, e);
+                if (i >= Ns) continue;
+                float v = 0.0f;  // rows past Nt multiply zero-filled rows
+                if (j < Nt) {
+                  v = corr[(size_t)i * Nt + j];
+                  ++seen[(size_t)i * Nt + j];
+                }
+                const int r = tid * slots + corr_slot(mt, e);
+                corr_fold(v, i, best[r], best_i[r]);
+              }
+            }
           }
         }
       }
-      for (int off = 8; off > 0; off >>= 1) {
-        float nv[16];
-        int ni[16];
-        for (int g = 0; g < 16; ++g) {
-          const int o = g ^ off;
-          nv[g] = best[g];
-          ni[g] = best_i[g];
-          if (gfla::corr_beats(best[o], best_i[o], best[g], best_i[g])) {
-            nv[g] = best[o];
-            ni[g] = best_i[o];
+      for (int off = 1; off <= 2; off <<= 1) {
+        std::vector<float> nv(best);
+        std::vector<int> ni(best_i);
+        for (int tid = 0; tid < threads; ++tid) {
+          for (int r = 0; r < slots; ++r) {
+            corr_fold(best[(tid ^ off) * slots + r],
+                      best_i[(tid ^ off) * slots + r], nv[tid * slots + r],
+                      ni[tid * slots + r]);
           }
         }
-        for (int g = 0; g < 16; ++g) { best[g] = nv[g]; best_i[g] = ni[g]; }
+        best = nv;
+        best_i = ni;
       }
-      if (gfla::corr_beats(best[0], best_i[0], out_v, out_i)) {
-        out_v = best[0];
-        out_i = best_i[0];
+      std::vector<float> red_v(g.warps_n * kCorrRows);
+      std::vector<int> red_i(g.warps_n * kCorrRows);
+      for (int tid = 0; tid < threads; tid += 4) {
+        const int warp = tid / 32, lane = tid % 32;
+        for (int r = 0; r < slots; ++r) {
+          const int row = grid_row(g, warp, lane, r >> 1, 2 * (r & 1));
+          red_v[(warp % g.warps_n) * kCorrRows + row] = best[tid * slots + r];
+          red_i[(warp % g.warps_n) * kCorrRows + row] =
+              best_i[tid * slots + r];
+        }
+      }
+      for (int row = 0; row < kCorrRows; ++row) {
+        float v = red_v[row];
+        int i = red_i[row];
+        for (int w = 1; w < g.warps_n; ++w) {
+          corr_fold(red_v[w * kCorrRows + row], red_i[w * kCorrRows + row], v,
+                    i);
+        }
+        part_v[sp * kCorrRows + row] = v;
+        part_i[sp * kCorrRows + row] = i;
       }
     }
-    cmax[j] = out_v;
-    amax[j] = out_i;
+    for (int row = 0; row < kCorrRows && j0 + row < Nt; ++row) {
+      float v = -INFINITY;
+      int i = kNoIndex;
+      for (int sp = 0; sp < n_splits; ++sp) {
+        corr_fold(part_v[sp * kCorrRows + row], part_i[sp * kCorrRows + row],
+                  v, i);
+      }
+      cmax[j0 + row] = v;
+      amax[j0 + row] = i;
+    }
   }
+}
+
+int splits(int B, int Ns, int Nt, int sms) {
+  return corr_splits(B, Ns, Nt, sms);
 }
 }
 """
@@ -201,7 +253,9 @@ def harness(tmp_path_factory):
                     f"-I{CSRC}", "-o", str(out), str(src)], check=True)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.emulate.argtypes = [p, i, i, i, p, p]
+    lib.emulate.argtypes = [p, i, i, i, p, p, p]
+    lib.splits.argtypes = [i, i, i, i]
+    lib.splits.restype = i
     return lib
 
 
@@ -210,6 +264,7 @@ def harness(tmp_path_factory):
     (1000, 64, 3, 3),    # ... three tiles per split, ragged last split
     (777, 40, 1000, 8),  # fewer ties, one split
     (129, 7, 2, 1),      # a last tile of one row
+    (300, 200, 2, 2),    # two target tiles, the second ragged
 ])
 def test_header_merge_gives_the_first_argmax(harness, Ns, Nt, levels, per):
     rng = np.random.RandomState(Ns + levels)
@@ -217,9 +272,29 @@ def test_header_merge_gives_the_first_argmax(harness, Ns, Nt, levels, per):
     corr[:, 0] = 0.0  # a column of equal values: index 0
     cmax = np.empty(Nt, np.float32)
     amax = np.empty(Nt, np.int32)
+    seen = np.zeros((Ns, Nt), np.int32)
     harness.emulate(corr.ctypes.data_as(ctypes.c_void_p), Ns, Nt, per,
                     cmax.ctypes.data_as(ctypes.c_void_p),
-                    amax.ctypes.data_as(ctypes.c_void_p))
+                    amax.ctypes.data_as(ctypes.c_void_p),
+                    seen.ctypes.data_as(ctypes.c_void_p))
+    # the fragments of the ragged tiles cover every pair once
+    assert (seen == 1).all()
     np.testing.assert_array_equal(cmax, corr.max(0))
     np.testing.assert_array_equal(amax, corr.argmax(0))
     assert amax[0] == 0
+
+
+@pytest.mark.parametrize("B,Ns,Nt,sms,want", [
+    (8, 4096, 4096, 132, 1),  # relu3_1: 256 target tiles fill the card
+    (8, 1024, 1024, 132, 2),  # relu4_1: 64 target tiles, 128 CTAs
+    (3, 1000, 777, 132, 4),   # 21 target tiles, 8 source tiles in pairs
+    (1, 100, 100, 132, 1),    # one source tile cannot be split
+])
+def test_header_source_split_fills_the_card_once(harness, B, Ns, Nt, sms,
+                                                 want):
+    got = harness.splits(B, Ns, Nt, sms)
+    assert got == want
+    n_tiles = -(-Ns // 128)
+    per = -(-n_tiles // got)
+    assert (got - 1) * per < n_tiles       # no split without a tile
+    assert got * B * -(-Nt // 128) <= max(sms, B * -(-Nt // 128))

@@ -1,0 +1,259 @@
+"""The split-f32 ("3xTF32") building block of the tensor-core kernels, on CPU.
+
+csrc/mma_tf32x3.cuh and csrc/max_corr.cuh keep the split of an f32 value
+into two TF32 values and every map from a lane's fragment element to its row
+and column in `__host__ __device__` functions. They are compiled here with
+g++ into a small harness:
+
+- the fragment maps of one m16n8k8 product and the warp grids of
+  csrc/max_corr.cu and csrc/warp_fwd.cu cover each tile element once, and
+  the 128-byte swizzle of the wgmma tiles gives every float its own place;
+- the split is exact in its first part and leaves ~2^-22 of the value;
+- the split product, emulated with the kernel's arithmetic (tensor-core
+  accumulation by truncation within a stage of 32 channels, stages added
+  rounding to nearest), of unit-norm ReLU rows at C=256 and C=512 is within
+  1e-6 of the float64 product, so well within the 1e-5 that decides an
+  argmax, while one TF32 product is not: why the kernels multiply three
+  times.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+CSRC = Path(__file__).resolve().parents[1] / "gfla_tpu_torch" / "csrc"
+CORR_ATOL = 1e-5  # chip_smoke.py's tolerance on cmax
+
+HARNESS = r"""
+#include <cmath>
+#include "max_corr.cuh"
+using namespace gfla;
+
+// the tensor cores add into an f32 accumulator by truncation
+static float add_rz(float acc, double term) {
+  const double exact = static_cast<double>(acc) + term;
+  float f = static_cast<float>(exact);
+  if (std::fabs(static_cast<double>(f)) > std::fabs(exact)) {
+    f = std::nextafterf(f, 0.0f);
+  }
+  return f;
+}
+
+extern "C" {
+// which: 0 A (16 x 8), 1 B (8 deep x 8 columns), 2 C (16 x 8). Counts how
+// often each element (row-major, 8 wide) is held by a (lane, element).
+void fragment_cover(int which, int* count) {
+  for (int lane = 0; lane < 32; ++lane) {
+    for (int e = 0; e < (which == 1 ? 2 : 4); ++e) {
+      int r, c;
+      if (which == 0) { r = mma_a_row(lane, e); c = mma_a_depth(lane, e); }
+      else if (which == 1) { r = mma_b_depth(lane, e); c = mma_b_col(lane); }
+      else { r = mma_c_row(lane, e); c = mma_c_col(lane, e); }
+      ++count[r * 8 + c];
+    }
+  }
+}
+
+// Counts how often each element of a (rows x cols) tile is an accumulator
+// element of one of `warps` warps laid out as WarpGrid{warps_n, tm, tn}.
+// Returns 1 if an element fell outside the tile.
+int grid_cover(int warps, int warps_n, int tm, int tn, int rows, int cols,
+               int* count) {
+  const WarpGrid g{warps_n, tm, tn};
+  int outside = 0;
+  for (int warp = 0; warp < warps; ++warp) {
+    for (int lane = 0; lane < 32; ++lane) {
+      for (int mt = 0; mt < tm; ++mt) {
+        for (int nt = 0; nt < tn; ++nt) {
+          for (int e = 0; e < 4; ++e) {
+            const int r = grid_row(g, warp, lane, mt, e);
+            const int c = grid_col(g, warp, lane, nt, e);
+            if (r < 0 || r >= rows || c < 0 || c >= cols) outside = 1;
+            else ++count[r * cols + c];
+          }
+        }
+      }
+    }
+  }
+  return outside;
+}
+
+void corr_grid_shape(int* out) {
+  const WarpGrid g = corr_grid();
+  out[0] = g.warps_n; out[1] = g.tiles_m; out[2] = g.tiles_n;
+  out[3] = kCorrWarps; out[4] = kCorrRows;
+}
+
+// Byte offset of every float of a (rows x 32) tile under swizzle128.
+void swizzled(int rows, int* off) {
+  for (int r = 0; r < rows; ++r) {
+    for (int c = 0; c < 32; ++c) off[r * 32 + c] = swizzle128(r, c);
+  }
+}
+
+void split(const float* x, int n, float* hi, float* lo) {
+  for (int i = 0; i < n; ++i) {
+    const Tf32Pair p = tf32_split(x[i]);
+    hi[i] = p.hi;
+    lo[i] = p.lo;
+  }
+}
+
+// out3[r] = <a_r, b_r> as the kernels compute it: operands split, per 8
+// channels the products a_lo b_hi, a_hi b_lo, a_hi b_hi added in that order
+// into an accumulator that truncates, which starts from 0 every 32 channels
+// and is then added to the sum rounding to nearest. out1[r]: the same with
+// a_hi b_hi alone, one TF32 product.
+void dots(const float* a, const float* b, int rows, int C, float* out3,
+          float* out1) {
+  for (int r = 0; r < rows; ++r) {
+    float sum3 = 0.0f, sum1 = 0.0f;
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      float acc3 = 0.0f, acc1 = 0.0f;
+      for (int k0 = c0; k0 < c0 + 32 && k0 < C; k0 += 8) {
+        double lh = 0.0, hl = 0.0, hh = 0.0;
+        for (int k = k0; k < k0 + 8 && k < C; ++k) {
+          const Tf32Pair x = tf32_split(a[r * C + k]);
+          const Tf32Pair y = tf32_split(b[r * C + k]);
+          lh += static_cast<double>(x.lo) * y.hi;
+          hl += static_cast<double>(x.hi) * y.lo;
+          hh += static_cast<double>(x.hi) * y.hi;
+        }
+        acc3 = add_rz(add_rz(add_rz(acc3, lh), hl), hh);
+        acc1 = add_rz(acc1, hh);
+      }
+      sum3 += acc3;
+      sum1 += acc1;
+    }
+    out3[r] = sum3;
+    out1[r] = sum1;
+  }
+}
+}
+"""
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    out = tmp_path_factory.mktemp("mma_tf32x3") / "libmma.so"
+    src = out.with_suffix(".cpp")
+    src.write_text(HARNESS)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    f"-I{CSRC}", "-o", str(out), str(src)], check=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fragment_cover.argtypes = [i, p]
+    lib.grid_cover.argtypes = [i, i, i, i, i, i, p]
+    lib.grid_cover.restype = i
+    lib.corr_grid_shape.argtypes = [p]
+    lib.swizzled.argtypes = [i, p]
+    lib.split.argtypes = [p, i, p, p]
+    lib.dots.argtypes = [p, p, i, i, p, p]
+    return lib
+
+
+@pytest.mark.parametrize("which,rows", [(0, 16), (1, 8), (2, 16)],
+                         ids=["A", "B", "C"])
+def test_fragment_maps_cover_each_element_once(harness, which, rows):
+    count = np.zeros(16 * 8, np.int32)
+    harness.fragment_cover(which, _ptr(count))
+    assert (count[:rows * 8] == 1).all() and (count[rows * 8:] == 0).all()
+
+
+@pytest.mark.parametrize("nt", [1, 2, 4, 8])
+def test_warp_fwd_grid_covers_its_tile_once(harness, nt):
+    """csrc/warp_fwd.cu: 8 warps as WarpGrid{4, 2, NT} over 64 positions x
+    32 NT hidden units, for every NT the launcher picks."""
+    rows, cols = 64, 32 * nt
+    count = np.zeros(rows * cols, np.int32)
+    assert harness.grid_cover(8, 4, 2, nt, rows, cols, _ptr(count)) == 0
+    assert (count == 1).all()
+
+
+def test_max_corr_grid_covers_its_tile_once(harness):
+    shape = np.zeros(5, np.int32)
+    harness.corr_grid_shape(_ptr(shape))
+    warps_n, tm, tn, warps, rows = (int(v) for v in shape)
+    count = np.zeros(rows * rows, np.int32)
+    assert harness.grid_cover(warps, warps_n, tm, tn, rows, rows,
+                              _ptr(count)) == 0
+    assert (count == 1).all()
+
+
+def test_swizzle_permutes_16_byte_chunks_within_each_row(harness):
+    """The layout csrc/max_corr.cu copies its tiles into and names in its
+    wgmma descriptors: every float of a 128 x 32 tile has its own place, a
+    16-byte chunk stays whole and in its 128-byte row, and the same chunk of
+    8 consecutive rows falls into 8 different 16-byte columns."""
+    rows = 128
+    off = np.empty(rows * 32, np.int32)
+    harness.swizzled(rows, _ptr(off))
+    assert sorted(off.tolist()) == list(range(0, rows * 128, 4))
+    off = off.reshape(rows, 8, 4)
+    assert (off[:, :, 1:] - off[:, :, :1] == [4, 8, 12]).all()
+    assert (off[:, :, 0] // 128 == np.arange(rows)[:, None]).all()
+    columns = off[:, :, 0] % 128 // 16                      # (rows, 8)
+    for r0 in range(0, rows, 8):
+        for chunk in range(8):
+            assert sorted(columns[r0:r0 + 8, chunk]) == list(range(8))
+
+
+def test_split_is_exact_in_hi_and_leaves_2_to_minus_22(harness):
+    rng = np.random.RandomState(0)
+    x = np.concatenate([
+        rng.randn(4096) * np.exp(rng.uniform(-20, 20, 4096)),
+        [0.0, 1.0, -1.0, 1 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-10,
+         1 + 3 * 2.0**-11]]).astype(np.float32)
+    hi, lo = np.empty_like(x), np.empty_like(x)
+    harness.split(_ptr(x), x.size, _ptr(hi), _ptr(lo))
+    # both parts are TF32 values: the 13 low mantissa bits are 0
+    assert (hi.view(np.uint32) & 0x1FFF == 0).all()
+    assert (lo.view(np.uint32) & 0x1FFF == 0).all()
+    # hi is x to 11 significant bits, ties away from zero
+    assert (np.abs(x - hi) <= np.abs(x) * 2.0**-11).all()
+    ties = dict(zip(x[4096:].tolist(), hi[4096:].tolist()))
+    assert ties[1 + 2.0**-11] == 1 + 2.0**-10
+    assert ties[-(1 + 2.0**-11)] == -(1 + 2.0**-10)
+    assert ties[1 + 3 * 2.0**-11] == 1 + 2.0**-9
+    assert ties[1 + 2.0**-10] == 1 + 2.0**-10 and ties[0.0] == 0.0
+    # what the two parts leave of x (x - hi is exact in f32)
+    left = x.astype(np.float64) - hi.astype(np.float64) - lo
+    assert (np.abs(left) <= np.abs(x) * 2.0**-22).all()
+
+
+@pytest.mark.parametrize("C", [256, 512])
+def test_split_product_keeps_f32_where_one_tf32_product_does_not(harness, C):
+    """Unit-norm ReLU rows, as the correctness loss feeds max-correlation at
+    relu3_1 (C=256) and relu4_1 (C=512)."""
+    rng = np.random.RandomState(C)
+    rows = 4096
+
+    def unit(x):
+        x = np.maximum(x, 0.0)
+        return (x / np.sqrt((x * x).sum(-1, keepdims=True))).astype(
+            np.float32)
+
+    a, b = unit(rng.randn(rows, C)), unit(rng.randn(rows, C))
+    b[::2] = a[::2]  # and rows against themselves: products near 1
+    exact = (a.astype(np.float64) * b).sum(-1)
+    out3, out1 = np.empty(rows, np.float32), np.empty(rows, np.float32)
+    harness.dots(_ptr(a), _ptr(b), rows, C, _ptr(out3), _ptr(out1))
+    err3 = np.abs(out3 - exact).max()
+    err1 = np.abs(out1 - exact).max()
+    assert err3 <= 1e-6 < CORR_ATOL < err1, (err3, err1)
+    # equal rows give bitwise equal products, so exact ties stay ties
+    a[1] = a[3]
+    b[1] = b[3]
+    harness.dots(_ptr(a), _ptr(b), rows, C, _ptr(out3), _ptr(out1))
+    assert out3[1] == out3[3]

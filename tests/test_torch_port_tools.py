@@ -1,0 +1,47 @@
+"""The port's card-only measuring tools, as far as the CPU can hold them:
+they import without nvcc, triton or a card, refuse to run without CUDA with
+exit code 1 and no result, and serve_profile's grouping of kernel names puts
+the names a serving forward shows on an H100 into the expected families."""
+
+import pytest
+import torch
+
+from gfla_tpu_torch.tools import kernel_split, serve_profile
+
+needs_no_card = pytest.mark.skipif(torch.cuda.is_available(),
+                                   reason="checks the refusal without CUDA")
+
+
+@needs_no_card
+@pytest.mark.parametrize("tool", [kernel_split, serve_profile],
+                         ids=["kernel_split", "serve_profile"])
+def test_tool_refuses_without_cuda(tool, capsys):
+    assert tool.main([]) == 1
+    out, err = capsys.readouterr()
+    assert out == "" and "CUDA is not available" in err
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::warp_fwd_kernel<4, true, true>(float "
+     "const*)", "warp forward kernel"),
+    ("sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw_"
+     "tilesize256x64x8_stage3", "convolutions"),
+    ("void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>",
+     "transposed convolutions"),
+    ("void cudnn::engines_precompiled::nhwcToNchwKernel<float, float>",
+     "layout conversions"),
+    ("void at::native::reduce_kernel<128, 4, at::native::ReduceOp<float, "
+     "at::native::WelfordOps<float>>>", "norm reductions"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "CUDAFunctor_add<float>>", "elementwise"),
+    ("Memcpy HtoD (Pageable -> Device)", "memory copies"),
+    ("something_else", "other"),
+])
+def test_serve_profile_groups_kernel_names(name, want):
+    assert serve_profile.family(name) == want
+
+
+def test_kernel_split_variants_name_a_whole_kernel_first():
+    for variants in (kernel_split.WARP_VARIANTS, kernel_split.CORR_VARIANTS):
+        assert list(variants)[0] == 0 and variants[0] == "whole kernel"
+        assert sorted(variants) == list(range(len(variants)))
