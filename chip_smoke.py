@@ -7,11 +7,15 @@ Phases, each failing the run (non-zero exit) on the first error:
   2. build: compiles the CUDA kernels from gfla_tpu_torch/csrc with nvcc.
   3. kernel: the warp kernel against its plain torch version at both live
      attention sites of the DeepFashion generator, with far-off flows, at
-     the sites of a 64x64 input and at a ragged shape (non-square, C and D
-     no multiples of 8); max errors and median times of both.
-  4. bwd kernel: both backward kernels (per position; dW1s) against their
-     plain versions in the same cases, each of the six outputs within
-     1e-4 x its max |value|; median times of both.
+     the sites of a 64x64 input, at a ragged shape (non-square, C and D
+     no multiples of 8) and at k=7; max errors and median times of both,
+     and of the kernel storing hpre (the pre-activation hidden layer) for
+     the backward, held against the plain hpre.
+  4. bwd kernel: both backward kernels (per position, from the forward
+     kernel's hpre; dW1s) against their plain versions given that hpre in
+     the same cases, each of the six outputs within 1e-4 x its max |value|;
+     d_flow, dW1s, dW2 and db2 bitwise equal over two launches; median
+     times of both.
   5. slice: the full-width pose generator (ngf 64, img_f 512, attention at
      levels 2/3 with kernels 5/3) serves four batch-8 requests of 256x176
      content in 256x256 tensors through PoseTask.test_step; checks shape,
@@ -43,10 +47,11 @@ Phases, each failing the run (non-zero exit) on the first error:
      setting selects, and agreement with the default path.
 The switches are set per phase with mock.patch.dict, so none leaks into the
 next; every other phase runs with GFLA_ATTN_PALLAS=auto, GFLA_PALLAS_CORR=0.
-The warp forward and the max-correlation multiply on the tensor cores as
-split-f32 products (three TF32 products per f32 product): their bound is
-taken at 495 / 3 TFLOP/s, with the FP32 cores' bound beside it; the other
-four kernels' at the FP32 cores' 67 TFLOP/s.
+The warp forward, both warp backward kernels and the max-correlation
+multiply on the tensor cores as split-f32 products (three TF32 products per
+f32 product): their bound is taken at 495 / 3 TFLOP/s, with the FP32 cores'
+bound beside it; the two attention-math kernels' at the FP32 cores' 67
+TFLOP/s.
 Extra arguments go to the test options, e.g. `--checkpoints_dir DIR --name N
 --which_iter latest` to serve an original-GFLA `latest_net_G.pth` instead of
 the seeded random init. The last line is the JSON device record.
@@ -109,6 +114,7 @@ KERNEL_CASES = [  # name, B, H, W, C, D, k, flow scale (None: far-off)
     ("k=5 site at 64x64 input", 2, 16, 16, 128, 128, 5, 1.5),
     ("k=3 site at 64x64 input", 2, 8, 8, 256, 128, 3, 1.5),
     ("ragged k=3 12x10 C21 D42", 2, 12, 10, 21, 42, 3, 1.5),
+    ("ragged k=7 16x12 C22 D40", 2, 16, 12, 22, 40, 7, 1.5),
 ]
 
 
@@ -193,16 +199,27 @@ def phase_kernel(device):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         rel = err / want.abs().max().item()
+        got_h, hpre = warp.warp_fwd_with_hpre(*args, k)
+        want_hpre = warp.warp_fwd_plain(*args, k, with_hpre=True)[1]
+        torch.cuda.synchronize()
+        err_h = (hpre - want_hpre).abs().max().item()
+        tol_h = BWD_REL * want_hpre.abs().max().item()
         ms = cuda_ms(lambda: warp.warp_fwd(*args, k))
+        ms_hpre = cuda_ms(lambda: warp.warp_fwd_with_hpre(*args, k))
         plain_ms = cuda_ms(lambda: warp.warp_fwd_plain(*args, k))
         work = warp_work(B, H, W, C, D, k)["warp_fwd"]
         print(f"kernel {name}: B={B} max_abs_err={err:.3e} "
               f"max_rel_err={rel:.3e} (tol {KERNEL_ATOL:g} abs) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"kernel {ms:.4f} ms, storing hpre {ms_hpre:.4f} ms (hpre "
+              f"max_abs_err={err_h:.3e}, tol {tol_h:.3e} = {BWD_REL:g} x "
+              f"max|value|) plain {plain_ms:.4f} ms bound "
               f"{bound(*work, TF32X3_PEAK)[0]:.4f} ms (tensor cores as 3 "
               f"TF32 products; {bound(*work)[0]:.4f} ms on the FP32 cores)")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= KERNEL_ATOL, f"{name}: kernel vs plain {err:.3e}")
+        check(torch.equal(got_h, got), f"{name}: the output moved when "
+              f"hpre is stored")
+        check(err_h <= tol_h, f"{name}: hpre vs plain {err_h:.3e}")
         results[name] = (err, ms, plain_ms)
 
     # what the wrapper refuses on a CUDA tensor, before any launch
@@ -239,18 +256,24 @@ BWD_OUTPUTS = ("d_source", "d_flow", "d_hidden_bt", "dW1s", "dW2", "db2")
 
 
 def phase_bwd_kernel(device):
-    """Both backward kernels against warp_bwd_pos_plain/warp_bwd_w1_plain at
-    the two live sites and with far-off flows: each of the six outputs
-    within BWD_REL x its max |value|."""
+    """Both backward kernels, the per-position one from the forward
+    kernel's hpre, against warp_bwd_pos_plain/warp_bwd_w1_plain given that
+    hpre, at the two live sites, with far-off flows and at ragged shapes:
+    each of the six outputs within BWD_REL x its max |value|; d_flow,
+    dW1s, dW2 and db2 bitwise equal over two launches (d_source is added up
+    by vector reductions in no fixed order)."""
     from gfla_tpu_torch.ops import warp
 
     results = {}
     for i, (name, B, H, W, C, D, k, scale) in enumerate(KERNEL_CASES):
         args = warp_inputs(B, H, W, C, D, k, scale, 20 + i, device)
+        src, flow, _, w1s, w2, b2 = args
         g = torch.from_numpy(np.random.RandomState(30 + i).randn(
             B, H, W, C).astype(np.float32)).to(device)
-        got = warp.warp_bwd(*args, g, k)
-        want = warp.warp_bwd_plain(*args, g, k)
+        hpre = warp.warp_fwd_with_hpre(*args, k)[1]
+        got = warp.warp_bwd(src, flow, hpre, w1s, w2, b2, g, k)
+        again = warp.warp_bwd(src, flow, hpre, w1s, w2, b2, g, k)
+        want = warp.warp_bwd_plain(*args, g, k, hpre=hpre)
         torch.cuda.synchronize()
         errs = []
         for out, a, b in zip(BWD_OUTPUTS, got, want):
@@ -260,31 +283,45 @@ def phase_bwd_kernel(device):
             check(err <= bound, f"{name}: {out} kernel vs plain {err:.3e} > "
                   f"{bound:.3e}")
             errs.append(err)
+        fixed = [out for out, a, b in zip(BWD_OUTPUTS, got, again)
+                 if out != "d_source"]
+        moved = [out for out, a, b in zip(BWD_OUTPUTS, got, again)
+                 if out != "d_source" and not torch.equal(a, b)]
+        check(not moved, f"{name}: {moved} differ between two launches")
         d_hpre = want[2]
-        pos_ms = cuda_ms(lambda: warp.warp_bwd_pos(*args, g, k), iters=10)
-        pos_plain = cuda_ms(lambda: warp.warp_bwd_pos_plain(*args, g, k),
-                            iters=10)
-        w1_ms = cuda_ms(lambda: warp.warp_bwd_w1(args[0], args[1], d_hpre, k),
+        pos_ms = cuda_ms(lambda: warp.warp_bwd_pos(
+            src, flow, hpre, w1s, w2, b2, g, k), iters=10)
+        pos_plain = cuda_ms(lambda: warp.warp_bwd_pos_plain(
+            *args, g, k, hpre=hpre), iters=10)
+        w1_ms = cuda_ms(lambda: warp.warp_bwd_w1(src, flow, d_hpre, k),
                         iters=10)
         w1_plain = cuda_ms(lambda: warp.warp_bwd_w1_plain(
-            args[0], args[1], d_hpre, k), iters=10)
+            src, flow, d_hpre, k), iters=10)
+        work = warp_work(B, H, W, C, D, k)
         print(f"backward {name}: max_abs_err "
               + " ".join(f"{o}={e:.3e}" for o, e in zip(BWD_OUTPUTS, errs))
-              + f" (tol {BWD_REL:g} x max|value|); per-position kernel "
-              f"{pos_ms:.4f} ms plain {pos_plain:.4f} ms; dW1s kernel "
-              f"{w1_ms:.4f} ms plain {w1_plain:.4f} ms")
+              + f" (tol {BWD_REL:g} x max|value|); {', '.join(fixed)} "
+              f"bitwise equal over two launches; per-position kernel "
+              f"{pos_ms:.4f} ms plain {pos_plain:.4f} ms bound "
+              f"{bound_pair(work['warp_bwd_pos'])}; dW1s kernel "
+              f"{w1_ms:.4f} ms plain {w1_plain:.4f} ms bound "
+              f"{bound_pair(work['warp_bwd_w1'])}")
         results[name] = dict(pos=(max(errs[:3] + errs[4:]), pos_ms, pos_plain),
                              w1=(errs[3], w1_ms, w1_plain))
 
     args = warp_inputs(1, 8, 8, 16, 32, 3, 1.0, 9, device)
+    src, flow, hidden_bt, w1s, w2, b2 = args
+    hpre = hidden_bt.reshape(64, 32)
     g = torch.zeros(1, 8, 8, 16, device=device)
     refusals = {
         "g of the wrong shape": (ValueError, lambda: warp.warp_bwd(
-            *args, g[:, :4], 3)),
+            src, flow, hpre, w1s, w2, b2, g[:, :4], 3)),
         "non-contiguous g": (ValueError, lambda: warp.warp_bwd(
-            *args, g.transpose(1, 2), 3)),
+            src, flow, hpre, w1s, w2, b2, g.transpose(1, 2), 3)),
+        "hpre of the wrong shape": (ValueError, lambda: warp.warp_bwd(
+            src, flow, hidden_bt, w1s, w2, b2, g, 3)),
         "float64 d_hpre": (ValueError, lambda: warp.warp_bwd_w1(
-            args[0], args[1], args[2].double(), 3)),
+            src, flow, hidden_bt.double(), 3)),
     }
     expect_refusals("warp_bwd", refusals)
     return results
@@ -300,18 +337,29 @@ def bound(flops, nbytes, peak=F32_PEAK):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bound_pair(work):
+    """A kernel's bound on the tensor cores as split-f32 products, with
+    the FP32 cores' beside it, as text."""
+    ms, by = bound(*work, TF32X3_PEAK)
+    return (f"{ms:.4f} ms ({by}, tensor cores as 3 TF32 products; "
+            f"{bound(*work)[0]:.4f} ms on the FP32 cores)")
+
+
 def warp_work(B, H, W, C, D, k):
     """(FLOPs, bytes) of each warp kernel at one site. A multiply-add is 2
     FLOPs; the dense products dominate, plus the logits, the weighted sum
     and the bilinear blend (7 per block value); each input is read once and
-    each output written once, as 4-byte floats."""
+    each output written once, as 4-byte floats. The per-position backward
+    starts from the forward's hpre (an input of hidden_bt's size), so it
+    has one dense product, d_block = d_hpre W1s^T; a backward that
+    recomputes hpre, as gfla_tpu's does, has a second."""
     N, k2 = B * H * W, k * k
     dense = 2 * N * k2 * C * D
     small = 2 * N * (D * k2 + k2 * C) + 7 * N * k2 * C
     ins = N * C + 2 * N + N * D + k2 * C * D + D * k2 + k2
     return {
         "warp_fwd": (dense + small, 4 * (ins + N * C)),
-        "warp_bwd_pos": (2 * dense + 2 * small + 4 * N * D * k2,
+        "warp_bwd_pos": (dense + 2 * small + 4 * N * D * k2,
                          4 * (ins + N * C + N * C + 2 * N + N * D + D * k2
                               + k2)),
         "warp_bwd_w1": (dense + 7 * N * k2 * C,
@@ -1205,7 +1253,7 @@ def main(argv):
             max(r[part][0] for r in bwd.values()),
             f"{BWD_REL:g} x max|value| of each output",
             bwd[site[0]][part][1], bwd[site[0]][part][2], work[name], none,
-            shape))
+            shape, tensor_cores=True))
     c = corr[CORR_CASES[0][0]]
     entries.append(kernel_entry(
         "max_corr", "gfla_tpu_torch/csrc/max_corr.cu",

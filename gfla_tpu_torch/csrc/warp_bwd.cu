@@ -2,419 +2,962 @@
 //
 // Replaces gfla_tpu/ops/pallas_warp.py::_bwd_kernel (launched by
 // _warp_bwd_pallas, under the custom VJP's _core_bwd). Given the forward's
-// inputs and the output cotangent g it computes d_source, d_flow (x, y),
-// d_hidden_bt (= d_hpre, the cotangent of the pre-activation hidden layer),
-// dW1s, dW2 and db2. Two kernels share the work:
+// inputs, its pre-activation hidden layer hpre (stored by warp_fwd.cu's
+// epilogue, so nothing is recomputed) and the output cotangent g it
+// computes d_source, d_flow (x, y), d_hidden_bt (= d_hpre), dW1s, dW2 and
+// db2. Two kernels share the work:
 //
-//  * warp_bwd_pos_kernel, per position: recomputes the footprint, blocks,
-//    hidden layer and softmax exactly as warp_fwd.cu does; then
-//    d_attn = (1/k^2) <block, g>, d_logits = attn (d_attn - sum attn d_attn),
-//    d_hpre = LeakyReLU'(hpre) (d_logits W2^T), and for each offset
-//    d_block = d_hpre W1s^T + (1/k^2) attn g, which it scatters with atomicAdd
-//    into d_source through the four clamped taps (the clamp is what
-//    gfla_tpu's _fold_pad amounts to) and folds into d_flow. dW2 and db2
-//    are summed per CTA into a partial buffer.
-//  * warp_bwd_w1_kernel: dW1s = sum_p block_p^T d_hpre_p, a (k^2 C x N) x
-//    (N x D) product. Each CTA owns kRows channels of one offset and a chunk
-//    of kChunk positions, re-gathers its blocks from source and the
-//    footprints instead of reading materialised blocks (419 MB at the k=5
-//    site), and writes a partial sum.
-//  * reduce_parts sums the partials in a fixed order, so dW1s, dW2 and db2
-//    are deterministic; d_source is not (atomicAdd order).
+//  * warp_bwd_pos_kernel, per position: hidden = LeakyReLU(hpre), logits,
+//    softmax; d_attn = (1/k^2) <block, g> as the blend of the (k+1)^2
+//    footprint-cell dots <src[cell], g> (csrc/warp_cells.cuh);
+//    d_logits = attn (d_attn - sum attn d_attn); dW2 and db2 per CTA;
+//    d_hpre = LeakyReLU'(hpre) (d_logits W2^T); then d_block = d_hpre W1s^T
+//    + (1/k^2) attn g, pre-summed over the footprint cells and added into
+//    d_source, and d_flow = sum over cells of <src[cell], E[cell]>.
+//  * warp_bwd_w1_kernel: dW1s = sum_p block_p^T d_hpre_p, an implicit GEMM
+//    whose depth is the positions, split over position ranges.
+//  * reduce_parts sums the partials in a fixed order, so dW1s, dW2, db2 and
+//    d_flow are deterministic; d_source is not (the order of its vector
+//    reductions).
 //
 // What bounds it on an H100: at the k=5 site of the DeepFashion generator
-// (B=8, 64x64, C=128, D=128) each of the three dense products (the
-// recomputed hidden layer, d_block, dW1s) is 8*4096 x 3200 x 128 FMAs,
-// 27 GFLOP each, about 80 GFLOP in all, against a few MB of inputs: it is
-// compute-bound, plus 4 k^2 C atomic adds per position for d_source. It runs
-// on the FP32 cores, each shared-memory float4 read feeding four FMAs;
-// tensor cores (wgmma) and a shared-memory pre-sum of the scatter are later
-// work.
+// (B=8, 64x64, C=128, D=128) each of the two dense products (d_block and
+// dW1s) is 8*4096 x 3200 x 128 FMAs, 27 GFLOP, against a few MB of inputs:
+// operations. Both run on the tensor cores as split-f32 products
+// (mma_tf32x3.cuh): three TF32 products per f32 product, so the bound is
+// 495 / 3 = 165 TFLOP/s of f32 work; mma.sync m16n8k8 from register
+// fragments, split at fragment load, as in warp_fwd.cu.
+//
+// What the design does about it:
+//  * per-position: a CTA of 4 warps owns 64 positions, 16 a warp, two CTAs
+//    an SM. The product's columns are ordered so that one tile holds all
+//    k^2 offsets of 8 channels (one m16n8k8 fragment per offset; at k=7 a
+//    band of 3 offset rows), so each lane ends with every offset's d_block
+//    for its rows and channels in registers. W1s comes through a 3-stage
+//    cp.async ring, 16 hidden units a stage. The
+//    epilogue trades halves with the neighbouring lane (one row x 4
+//    channels a lane), adds (1/k^2) attn g, and for each footprint cell
+//    sums the <= 4 d_block vectors that use it as a tap: one 4-channel
+//    red.global.add.v4.f32 per cell instead of 4 k^2 scalar atomicAdds per
+//    channel, and d_flow from one 16-byte load of the cell. When a CTA's
+//    positions leave SMs idle (the k=3 site) its channel groups are split
+//    over CTAs, each with its own d_flow partial.
+//  * dW1s: a CTA owns 128 hidden units x (all offsets of 4-8 channels) and
+//    walks a range of positions 32 at a time. Each position's footprint
+//    cells come by cp.async, a chunk ahead, with the d_hpre rows; all
+//    threads blend the k^2 offsets from them into the product's tile, split
+//    into its TF32 hi and lo parts there, once per value. Each
+//    32-position stage is accumulated from 0 and added to the sum on the
+//    FP32 cores (the tensor cores add by truncation).
 #include <cuda_runtime.h>
 
-#include "attn_tile.cuh"
+#include <cmath>
+#include <cstdint>
+
+#include "mma_tf32x3.cuh"
 #include "reduce_parts.cuh"
+#include "warp_bwd_tiles.cuh"
+#include "warp_cells.cuh"
 #include "warp_common.cuh"
+
+// tools/kernel_split.py builds timing variants, each leaving one part out of
+// both kernels: 1 the products, 2 the footprint cells (the cell dots, the
+// epilogue's cell loads for d_flow; the dW1s kernel's cell copies and
+// blend), 3 the reductions into d_source; 0 (the kernels) leaves nothing.
+#ifndef GFLA_SPLIT
+#define GFLA_SPLIT 0
+#endif
 
 namespace {
 
-using gfla::kTile;            // positions per CTA of the per-position kernel
-using gfla::warp_sum;
-constexpr int kRows = 32;     // dW1s rows (channels of one offset) per CTA
-constexpr int kSub = 32;      // positions per shared-memory stage, dW1s
-constexpr int kChunk = 1024;  // positions per partial sum of dW1s
+using gfla::kPosRows;
+using gfla::kW1Chunk;
+using gfla::kW1Units;
+constexpr int kThreads = 256;  // dW1s kernel: 8 warps
+constexpr int kRows = kPosRows;
+constexpr int kPosThreads = 2 * kRows;  // a warp per 16 positions
+constexpr int kDepth = 16;     // hidden units per W1s stage
+constexpr int kLdw = kDepth + 4;  // = 4 mod 8: conflict-free fragment loads
+constexpr int kStages = 3;     // W1s ring
+constexpr int kChunk = kW1Chunk;
+constexpr int kLdh = gfla::mma_col_stride(kW1Units);
 
-// blockDim.x is D rounded up to a multiple of 32; thread d < D owns hidden
-// unit d, as in the forward.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Four channels from c of row `row` of an (rows x C) tensor, zero past C.
+// kVec: C is a multiple of 4 and the tensor 16-byte aligned.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ base,
+                                        int row, int c, int C) {
+  const float* at = base + static_cast<size_t>(row) * C + c;
+  if (kVec) {
+    return c < C ? __ldg(reinterpret_cast<const float4*>(at))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return make_float4(c < C ? __ldg(at) : 0.0f,
+                     c + 1 < C ? __ldg(at + 1) : 0.0f,
+                     c + 2 < C ? __ldg(at + 2) : 0.0f,
+                     c + 3 < C ? __ldg(at + 3) : 0.0f);
+}
+
+// base[row][c..c+3] += v, zero past C: one vector reduction when kVec.
+template <bool kVec>
+__device__ __forceinline__ void red4(float* base, int row, int c, int C,
+                                     float4 v) {
+  float* at = base + static_cast<size_t>(row) * C + c;
+  if (GFLA_SPLIT == 3) return;
+  if (kVec) {
+    if (c >= C) return;
+    // no memory clobber: nothing in these kernels reads d_source, and the
+    // loads of the cells may then be issued ahead of the reductions
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(at),
+                 "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w));
+  } else {
+    if (c < C) atomicAdd(at, v.x);
+    if (c + 1 < C) atomicAdd(at + 1, v.y);
+    if (c + 2 < C) atomicAdd(at + 2, v.z);
+    if (c + 3 < C) atomicAdd(at + 3, v.w);
+  }
+}
+
+__device__ __forceinline__ float4 fma4(float w, float4 v, float4 acc) {
+  return make_float4(fmaf(w, v.x, acc.x), fmaf(w, v.y, acc.y),
+                     fmaf(w, v.z, acc.z), fmaf(w, v.w, acc.w));
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+
+// One split-f32 product step: d += a . b as lo.hi, hi.lo, hi.hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_hi)[4],
+                                     const uint32_t (&a_lo)[4],
+                                     const uint32_t (&b_hi)[2],
+                                     const uint32_t (&b_lo)[2]) {
+  gfla::mma_tf32(d, a_lo, b_hi);
+  gfla::mma_tf32(d, a_hi, b_lo);
+  gfla::mma_tf32(d, a_hi, b_hi);
+}
+
+// ---- per-position kernel ----------------------------------------------------
+
+// The product tile of a band holds R x K offsets of 8 channels (R K
+// fragments of 8 columns, 4 accumulators each, a lane): warp_bwd_tiles.cuh.
 template <int K>
-__global__ void __launch_bounds__(256)
+struct PosShape {
+  static constexpr int K1 = K + 1;
+  static constexpr int K2 = K * K;
+  static constexpr int KC = K1 * K1;
+  static constexpr int R = gfla::pos_band_rows(K);
+  static constexpr int NT = R * K;
+  static constexpr int RowsB = NT * 8;  // W1s rows of a stage
+  static constexpr int Ring = kStages * RowsB * kLdw;
+};
+
+__host__ __device__ constexpr int pos_lda(int D) {
+  return (D + kDepth - 1) / kDepth * kDepth + 4;  // = 4 mod 8
+}
+
+// Floats of the region that holds the W1s ring during the product and,
+// before it, the cell dots, d_attn and W2.
+template <int K>
+__host__ __device__ int pos_ring_floats(int D) {
+  using S = PosShape<K>;
+  const int before = kRows * (S::KC + S::K2) + D * S::K2;
+  return (S::Ring > before ? S::Ring : before + 3) / 4 * 4;
+}
+
+template <int K>
+size_t pos_smem_bytes(int D) {
+  using S = PosShape<K>;
+  return sizeof(float) * (static_cast<size_t>(kRows) * pos_lda(D) +
+                          kRows * S::K2 + pos_ring_floats<K>(D)) +
+         kRows * (sizeof(float2) + 2 * S::K1 * sizeof(int));
+}
+
+// Grid (position tiles, channel splits). Split y takes items
+// [y * per_cta, (y + 1) * per_cta) of the n_items = Bands x ceil(C / 8)
+// (band, channel group) pairs and writes d_flow partial y; split 0 also
+// writes d_hpre and the dW2/db2 partial of its position tile.
+template <int K, bool kVec>
+__global__ void __launch_bounds__(kPosThreads, 2)
     warp_bwd_pos_kernel(const float* __restrict__ src,
                         const float* __restrict__ flow,
-                        const float* __restrict__ hbt,
+                        const float* __restrict__ hpre,
                         const float* __restrict__ w1s,
                         const float* __restrict__ w2,
                         const float* __restrict__ b2,
                         const float* __restrict__ g, float* __restrict__ dsrc,
-                        float* __restrict__ dflow, float* __restrict__ dhbt,
-                        float* __restrict__ w2_part, int N, int H, int W,
-                        int C, int Cp, int D, int Dp, float slope) {
-  constexpr int K2 = K * K;
+                        float* __restrict__ dflow_part,
+                        float* __restrict__ dhbt, float* __restrict__ w2_part,
+                        int N, int H, int W, int C, int D, float slope,
+                        int n_items, int per_cta) {
+  using S = PosShape<K>;
+  constexpr int K1 = S::K1, K2 = S::K2, KC = S::KC, NT = S::NT;
   const float inv_k2 = 1.0f / static_cast<float>(K2);
-  extern __shared__ __align__(16) unsigned char smem[];
-  gfla::Footprint* fp = reinterpret_cast<gfla::Footprint*>(smem);
-  int* img_of = reinterpret_cast<int*>(fp + kTile);      // batch index or -1
-  float* blk = reinterpret_cast<float*>(img_of + kTile);  // kTile x Cp
-  float* hid = blk + kTile * Cp;  // kTile x Dp: hidden, later d_hpre
-  float* att = hid + kTile * Dp;  // kTile x K2: softmax
-  float* dat = att + kTile * K2;  // kTile x K2: d_attn, later d_logits
-  float* dwy = dat + kTile * K2;  // kTile
-  float* dwx = dwy + kTile;       // kTile
+  const int lda = pos_lda(D);
+  extern __shared__ __align__(16) float smem[];
+  float* at = smem;                        // kRows x lda: hidden, then d_hpre
+  float* att = at + kRows * lda;           // kRows x K2: softmax
+  float* ring = att + kRows * K2;          // W1s ring; before it:
+  float* cdot = ring;                      //   kRows x KC cell dots
+  float* dat = ring + kRows * KC;          //   kRows x K2 d_attn, d_logits
+  float* w2s = dat + kRows * K2;           //   D x K2 W2
+  float2* wyx = reinterpret_cast<float2*>(ring + pos_ring_floats<K>(D));
+  int* rowoff = reinterpret_cast<int*>(wyx + kRows);  // kRows x K1: pixel of
+  int* col = rowoff + kRows * K1;          // (row, 0) in the batch; column
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  const int d = tid;
-  const bool owns_d = d < D;
-  const int p0 = blockIdx.x * kTile;
-  const int n_valid = min(kTile, N - p0);
+  const int lane = tid & 31;
+  const int p0 = blockIdx.x * kRows;
   const int HW = H * W;
+  const bool first = blockIdx.y == 0;
 
-  for (int t = tid; t < kTile; t += nthreads) {
+  for (int t = tid; t < kRows; t += kPosThreads) {
     const int p = p0 + t;
     if (p < N) {
       const int b = p / HW;
       const int rem = p - b * HW;
       const int y = rem / W;
       const int x = rem - y * W;
-      fp[t] = gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, K);
-      img_of[t] = b;
-    } else {
-      fp[t] = gfla::Footprint{0, 0, 0.0f, 0.0f};
-      img_of[t] = -1;
-    }
-    dwy[t] = 0.0f;
-    dwx[t] = 0.0f;
-  }
-
-  // ---- recompute hpre = blocks . W1s (+ hbt), and d_attn per offset ----
-  float acc[kTile];
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) acc[t] = 0.0f;
-
-  for (int m = 0; m < K2; ++m) {
-    const int i = m / K;
-    const int j = m - i * K;
-    __syncthreads();  // footprints ready; previous block fully consumed
-    for (int e = tid; e < kTile * Cp; e += nthreads) {
-      const int t = e / Cp;
-      const int c = e - t * Cp;
-      const int b = img_of[t];
-      float v = 0.0f;
-      if (b >= 0 && c < C) {
-        v = gfla::block_value(src + static_cast<size_t>(b) * HW * C, fp[t],
-                              i, j, c, H, W, C);
+      const gfla::Footprint fp =
+          gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, K);
+      wyx[t] = make_float2(fp.wy, fp.wx);
+      for (int i = 0; i < K1; ++i) {
+        rowoff[t * K1 + i] = (b * H + gfla::tap_row(fp, i, H)) * W;
+        col[t * K1 + i] = gfla::tap_col(fp, i, W);
       }
-      blk[e] = v;
-    }
-    __syncthreads();
-    if (owns_d) {
-      gfla::dense_accumulate(acc, blk, Cp,
-                             w1s + static_cast<size_t>(m) * C * D + d, C, D);
-    }
-    // d_attn[t][m] = (1/k^2) <block, g>: one warp per position
-    for (int t = warp; t < kTile; t += nwarps) {
-      const int b = img_of[t];
-      float s = 0.0f;
-      if (b >= 0) {
-        const float* gp = g + static_cast<size_t>(p0 + t) * C;
-        for (int c = lane; c < C; c += 32) s = fmaf(blk[t * Cp + c], gp[c], s);
+    } else {  // past the end: weights 0 on pixel 0
+      wyx[t] = make_float2(0.0f, 0.0f);
+      for (int i = 0; i < K1; ++i) {
+        rowoff[t * K1 + i] = 0;
+        col[t * K1 + i] = 0;
       }
-      s = warp_sum(s);
-      if (lane == 0) dat[t * K2 + m] = s * inv_k2;
     }
   }
-
-  // ---- + target stream, LeakyReLU; hpre stays in acc ----
-  if (owns_d) {
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      const int p = p0 + t;
-      float h = acc[t];
-      if (p < N) h += hbt[static_cast<size_t>(p) * D + d];
-      acc[t] = h;
-      hid[t * Dp + d] = h >= 0.0f ? h : h * slope;
+  // W2 (D x K2; K2 is odd, so a warp reading one column of it meets no
+  // bank conflict)
+  for (int e = tid; e < D * K2; e += kPosThreads) w2s[e] = w2[e];
+  // hidden = LeakyReLU(hpre), zero past D and past N
+  for (int e = tid; e < kRows * lda; e += kPosThreads) {
+    const int t = e / lda;
+    const int d = e - t * lda;
+    const int p = p0 + t;
+    float h = 0.0f;
+    if (p < N && d < D) {
+      h = hpre[static_cast<size_t>(p) * D + d];
+      h = h >= 0.0f ? h : h * slope;
     }
-  } else if (d < Dp) {
-    for (int t = 0; t < kTile; ++t) hid[t * Dp + d] = 0.0f;
+    at[e] = h;
   }
   __syncthreads();
-  gfla::logits_softmax(hid, Dp, w2, b2, att, K2, D);
-  // d_logits = attn (d_attn - sum attn d_attn); this CTA's dW2 and db2
-  gfla::softmax_bwd(att, dat, n_valid, K2);
-  float* part = w2_part + static_cast<size_t>(blockIdx.x) * (D * K2 + K2);
-  gfla::dw2_db2_partial(hid, Dp, dat, part, D * K2, K2, D);
+
+  // ---- logits, softmax over the k^2 offsets (a warp per 16 positions) ----
+  for (int e = tid; e < kRows * K2; e += kPosThreads) {
+    const int t = e / K2;
+    const int mm = e - t * K2;
+    float s = 0.0f;
+    for (int dd = 0; dd < D; ++dd) {
+      s = fmaf(at[t * lda + dd], w2s[dd * K2 + mm], s);
+    }
+    att[e] = s + b2[mm];
+  }
+  __syncthreads();
+  for (int t = 16 * warp; t < 16 * warp + 16; ++t) {
+    float* a = att + t * K2;  // K2 <= 49: two values a lane
+    const float v0 = lane < K2 ? a[lane] : -INFINITY;
+    const float v1 = lane + 32 < K2 ? a[lane + 32] : -INFINITY;
+    const float mx = warp_max(fmaxf(v0, v1));
+    const float e0 = lane < K2 ? expf(v0 - mx) : 0.0f;
+    const float e1 = lane + 32 < K2 ? expf(v1 - mx) : 0.0f;
+    const float sum = warp_sum(e0 + e1);
+    if (lane < K2) a[lane] = e0 / sum;
+    if (lane + 32 < K2) a[lane + 32] = e1 / sum;
+  }
+
+  // ---- cell dots <src[cell], g>: 8 lanes a position, 4 channels a lane ----
+  {
+    const int sub = lane & 7;
+    for (int t = tid >> 3; t < kRows; t += kPosThreads / 8) {
+      const int p = p0 + t;
+      float acc[KC];
+#pragma unroll
+      for (int q = 0; q < KC; ++q) acc[q] = 0.0f;
+      if (p < N && GFLA_SPLIT != 2) {
+        for (int c = 4 * sub; c < C; c += 32) {
+          const float4 gv = load4<kVec>(g, p, c, C);
+#pragma unroll
+          for (int r = 0; r < K1; ++r) {
+            const int ro = rowoff[t * K1 + r];
+#pragma unroll
+            for (int s = 0; s < K1; ++s) {
+              acc[r * K1 + s] = dot4(
+                  load4<kVec>(src, ro + col[t * K1 + s], c, C), gv,
+                  acc[r * K1 + s]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < KC; ++q) {
+        float v = acc[q];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        if (sub == (q & 7)) cdot[t * KC + q] = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- d_attn from the cell dots; d_logits = attn (d_attn - <attn, d_attn>)
+  for (int e = tid; e < kRows * K2; e += kPosThreads) {
+    const int t = e / K2;
+    const int m = e - t * K2;
+    const int i = m / K;
+    const float2 w = wyx[t];
+    dat[e] = p0 + t < N
+                 ? inv_k2 * gfla::cell_dattn(cdot + t * KC, K1,
+                                             gfla::tap_weights(w.x, w.y), i,
+                                             m - i * K)
+                 : 0.0f;
+  }
+  __syncthreads();
+  for (int t = tid; t < kRows; t += kPosThreads) {
+    const float* a = att + t * K2;
+    float* da = dat + t * K2;
+    float s = 0.0f;
+    for (int mm = 0; mm < K2; ++mm) s = fmaf(a[mm], da[mm], s);
+    for (int mm = 0; mm < K2; ++mm) da[mm] = a[mm] * (da[mm] - s);
+  }
+  __syncthreads();
+
+  // ---- this tile's dW2 = hidden^T d_logits and db2 = sum d_logits ---------
+  if (first) {
+    float* part = w2_part + static_cast<size_t>(blockIdx.x) * (D * K2 + K2);
+    for (int e = tid; e < D * K2; e += kPosThreads) {
+      const int d = e / K2;
+      const int mm = e - d * K2;
+      float s = 0.0f;
+      for (int t = 0; t < kRows; ++t) {
+        s = fmaf(at[t * lda + d], dat[t * K2 + mm], s);
+      }
+      part[e] = s;
+    }
+    for (int mm = tid; mm < K2; mm += kPosThreads) {
+      float s = 0.0f;
+      for (int t = 0; t < kRows; ++t) s += dat[t * K2 + mm];
+      part[D * K2 + mm] = s;
+    }
+  }
   __syncthreads();  // hidden fully read before d_hpre overwrites it
 
-  // ---- d_hpre = LeakyReLU'(hpre) (d_logits . W2^T) ----
-  if (owns_d) {
-    gfla::d_hpre_rows(acc, dat, w2, slope, hid, Dp, dhbt, p0, n_valid, K2, D);
+  // ---- d_hpre = LeakyReLU'(hpre) (d_logits . W2^T): the product's A -------
+  for (int e = tid; e < kRows * lda; e += kPosThreads) {
+    const int t = e / lda;
+    const int d = e - t * lda;
+    const int p = p0 + t;
+    float dh = 0.0f;
+    if (p < N && d < D) {
+      float s = 0.0f;
+      for (int mm = 0; mm < K2; ++mm) {
+        s = fmaf(dat[t * K2 + mm], w2s[d * K2 + mm], s);
+      }
+      dh = hpre[static_cast<size_t>(p) * D + d] >= 0.0f ? s : s * slope;
+      if (first) dhbt[static_cast<size_t>(p) * D + d] = dh;
+    }
+    at[e] = dh;
   }
 
-  // ---- per offset: d_block, scattered into d_source, folded into d_flow ----
-  for (int m = 0; m < K2; ++m) {
-    const int i = m / K;
-    const int j = m - i * K;
-    __syncthreads();  // d_hpre ready; previous d_block fully consumed
-    // d_block[t][c] = d_hpre[t] . W1s[m*C + c] + (1/k^2) attn[t][m] g[t][c]
-    for (int c = tid; c < C; c += nthreads) {
-      float a2[kTile];
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) a2[t] = 0.0f;
-      const float* wrow = w1s + (static_cast<size_t>(m) * C + c) * D;
-      for (int dd = 0; dd < Dp; dd += 4) {
-        float4 w;
-        if (D == Dp) {  // rows are 16-byte aligned
-          w = *reinterpret_cast<const float4*>(wrow + dd);
+  // ---- d_block = d_hpre . W1s^T per (band, channel group), on the tensor
+  // cores; chunk q of the walk is item q / n_dchunks, hidden units
+  // 16 (q % n_dchunks) ..
+  const int n_groups = (C + 7) / 8;
+  const int n_dchunks = (D + kDepth - 1) / kDepth;
+  const int item0 = blockIdx.y * per_cta;
+  const int my_items = max(0, min(per_cta, n_items - item0));
+  const int n_chunks = my_items * n_dchunks;
+
+  // W1s rows of chunk q into a ring stage: stage row n is the W1s row of
+  // column n of the item's tile (gfla::pos_column); zero past the band, C
+  // and D.
+  // One commit per call, empty past the end.
+  auto copy_b = [&](int q, float* stage) {
+    if (q < n_chunks) {
+      const int item = item0 + q / n_dchunks;
+      const int d0 = (q % n_dchunks) * kDepth;
+      const int band = item / n_groups;
+      const int group = item - band * n_groups;
+      const int nt_live = gfla::pos_band_fragments(K, band);
+      constexpr int kPer = kVec ? 4 : 1;
+      constexpr int kAcross = kDepth / kPer;
+      for (int idx = tid; idx < S::RowsB * kAcross; idx += kPosThreads) {
+        const int row = idx / kAcross;
+        const int d = d0 + kPer * (idx - row * kAcross);
+        const gfla::OffsetChannel mc = gfla::pos_column(K, band, group, row);
+        const bool ok = (row >> 3) < nt_live && mc.c < C && d < D;
+        const float* from =
+            ok ? w1s + static_cast<size_t>(mc.m * C + mc.c) * D + d : w1s;
+        float* to = stage + row * kLdw + (d - d0);
+        if (kVec) {
+          gfla::cp_async16(to, from, ok);
         } else {
-          w.x = dd < D ? wrow[dd] : 0.0f;
-          w.y = dd + 1 < D ? wrow[dd + 1] : 0.0f;
-          w.z = dd + 2 < D ? wrow[dd + 2] : 0.0f;
-          w.w = dd + 3 < D ? wrow[dd + 3] : 0.0f;
+          gfla::cp_async4(to, from, ok);
         }
-#pragma unroll
-        for (int t = 0; t < kTile; ++t) {
-          const float4 h = *reinterpret_cast<const float4*>(hid + t * Dp + dd);
-          a2[t] = fmaf(h.x, w.x, a2[t]);
-          a2[t] = fmaf(h.y, w.y, a2[t]);
-          a2[t] = fmaf(h.z, w.z, a2[t]);
-          a2[t] = fmaf(h.w, w.w, a2[t]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        float v = 0.0f;
-        if (img_of[t] >= 0) {
-          v = fmaf(inv_k2 * att[t * K2 + m],
-                   g[static_cast<size_t>(p0 + t) * C + c], a2[t]);
-        }
-        blk[t * Cp + c] = v;
       }
     }
-    __syncthreads();
-    // one warp per position, lanes over channels
-    for (int t = warp; t < kTile; t += nwarps) {
-      const int b = img_of[t];
-      if (b < 0) continue;
-      const gfla::Footprint f = fp[t];
-      const gfla::Taps tp = gfla::tap_pixels(f, i, j, H, W);
-      const gfla::TapWeights tw = gfla::tap_weights(f.wy, f.wx);
-      const float* img = src + static_cast<size_t>(b) * HW * C;
-      float* dimg = dsrc + static_cast<size_t>(b) * HW * C;
-      float sy = 0.0f;
-      float sx = 0.0f;
-      for (int c = lane; c < C; c += 32) {
-        const float v = blk[t * Cp + c];
-        atomicAdd(dimg + static_cast<size_t>(tp.tl) * C + c, tw.tl * v);
-        atomicAdd(dimg + static_cast<size_t>(tp.tr) * C + c, tw.tr * v);
-        atomicAdd(dimg + static_cast<size_t>(tp.bl) * C + c, tw.bl * v);
-        atomicAdd(dimg + static_cast<size_t>(tp.br) * C + c, tw.br * v);
-        const float tl = img[static_cast<size_t>(tp.tl) * C + c];
-        const float tr = img[static_cast<size_t>(tp.tr) * C + c];
-        const float bl = img[static_cast<size_t>(tp.bl) * C + c];
-        const float br = img[static_cast<size_t>(tp.br) * C + c];
-        sy = fmaf(v, gfla::dblend_dwy(f.wx, tl, tr, bl, br), sy);
-        sx = fmaf(v, gfla::dblend_dwx(f.wy, tl, tr, bl, br), sx);
-      }
-      sy = warp_sum(sy);
-      sx = warp_sum(sx);
-      if (lane == 0) {  // only this warp touches position t
-        dwy[t] += sy;
-        dwx[t] += sx;
-      }
-    }
+    gfla::cp_async_commit();
+  };
+
+  __syncthreads();  // d_logits fully read: the ring is free
+  for (int q = 0; q < kStages - 1; ++q) copy_b(q, ring + q * S::RowsB * kLdw);
+  gfla::cp_async_wait<kStages - 2>();
+  __syncthreads();  // d_hpre and the first stage are in
+
+  // this lane's first fragment elements
+  const int a_at = (16 * warp + gfla::mma_a_row(lane, 0)) * lda +
+                   gfla::mma_a_depth(lane, 0);
+  const int b_at = gfla::mma_b_col(lane) * kLdw + gfla::mma_b_depth(lane, 0);
+  // after the trade: this lane's row and first channel of the group
+  const int t_mine = 16 * warp + gfla::traded_row(lane);
+  const int p_mine = p0 + t_mine;
+  const bool live = p_mine < N;
+  const int cq = gfla::traded_col(lane);
+  float sy = 0.0f;
+  float sx = 0.0f;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
   }
-  __syncthreads();
-  for (int t = tid; t < kTile; t += nthreads) {
-    const int p = p0 + t;
-    if (p < N) {
-      dflow[2 * p] = dwx[t];  // (x, y) order, as the flow
-      dflow[2 * p + 1] = dwy[t];
+  int stage = 0;
+  for (int q = 0; q < n_chunks; ++q) {
+    {
+      int to = stage + kStages - 1;
+      if (to >= kStages) to -= kStages;
+      copy_b(q + kStages - 1, ring + to * S::RowsB * kLdw);
     }
+    const int dc = q % n_dchunks;
+    const float* a_st = at + a_at + dc * kDepth;
+    const float* b_st = ring + stage * S::RowsB * kLdw + b_at;
+    if (GFLA_SPLIT == 1) {
+      acc[0][0] += a_st[0] + b_st[0];
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kDepth / 8; ++kk) {
+        uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          gfla::tf32_split_bits(
+              a_st[8 * (e & 1) * lda + 8 * kk + 4 * (e >> 1)], a_hi[e],
+              a_lo[e]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t b_hi[2], b_lo[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            gfla::tf32_split_bits(b_st[8 * nt * kLdw + 8 * kk + 4 * e],
+                                  b_hi[e], b_lo[e]);
+          }
+          mma3(acc[nt], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+    }
+
+    if (dc == n_dchunks - 1) {
+      // ---- epilogue of one (band, channel group) ----
+      const int item = item0 + q / n_dchunks;
+      const int band = item / n_groups;
+      const int c = (item - band * n_groups) * 8 + cq;
+      const int i0 = band * S::R;
+      const int rows = min(S::R, K - i0);
+      // trade with lane ^ 1: one row and four channels a lane
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float s0, s1;
+        gfla::trade_out(lane, acc[nt], s0, s1);
+        const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        gfla::trade_in(lane, acc[nt], r0, r1);
+      }
+      // + (1/k^2) attn g
+      const float4 gv = live ? load4<kVec>(g, p_mine, c, C)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float* a_row = att + t_mine * K2 + i0 * K;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt < rows * K) {
+          const float w = inv_k2 * a_row[nt];
+          acc[nt][0] = fmaf(w, gv.x, acc[nt][0]);
+          acc[nt][1] = fmaf(w, gv.y, acc[nt][1]);
+          acc[nt][2] = fmaf(w, gv.z, acc[nt][2]);
+          acc[nt][3] = fmaf(w, gv.w, acc[nt][3]);
+        }
+      }
+      // each footprint cell of the band: the blend-weighted sum of the
+      // d_block vectors that use it as a tap goes into d_source; the same
+      // sums with the weights' derivatives, against the cell's source
+      // values, into d_flow. Two passes, so that the cell loads of the
+      // first do not wait on one another.
+      const float2 wv = wyx[t_mine];
+      gfla::TapCoef coef[4];
+#pragma unroll
+      for (int role = 0; role < 4; ++role) {
+        coef[role] = gfla::tap_coef(role, wv.x, wv.y);
+      }
+      // the d_block vector of the offset that holds cell (r, s) as `role`,
+      // 0 where no offset of the band does
+      auto tap_of = [&](int role, int r, int s) {
+        if (!gfla::role_valid(role, r, s, rows, K)) {
+          return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+        const float* v = acc[gfla::role_row(role, r) * K +
+                             gfla::role_col(role, s)];
+        return make_float4(v[0], v[1], v[2], v[3]);
+      };
+      const int* cols = col + t_mine * K1;
+      if (live && GFLA_SPLIT != 2) {
+#pragma unroll
+        for (int r = 0; r <= S::R; ++r) {
+          if (r > rows) continue;
+          const int ro = rowoff[t_mine * K1 + i0 + r];
+#pragma unroll
+          for (int s = 0; s < K1; ++s) {
+            const float4 sv = load4<kVec>(src, ro + cols[s], c, C);
+            float4 vy = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            float4 vx = vy;
+#pragma unroll
+            for (int role = 0; role < 4; ++role) {
+              const float4 v = tap_of(role, r, s);
+              vy = fma4(coef[role].y, v, vy);
+              vx = fma4(coef[role].x, v, vx);
+            }
+            sy = dot4(sv, vy, sy);
+            sx = dot4(sv, vx, sx);
+          }
+        }
+      }
+      if (live) {
+#pragma unroll
+        for (int r = 0; r <= S::R; ++r) {
+          if (r > rows) continue;
+          const int ro = rowoff[t_mine * K1 + i0 + r];
+#pragma unroll
+          for (int s = 0; s < K1; ++s) {
+            float4 vd = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+            for (int role = 0; role < 4; ++role) {
+              vd = fma4(coef[role].d, tap_of(role, r, s), vd);
+            }
+            red4<kVec>(dsrc, ro + cols[s], c, C, vd);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+      }
+    }
+    gfla::cp_async_wait<kStages - 2>();  // the next chunk of W1s is in
+    __syncthreads();
+    if (++stage == kStages) stage = 0;
+  }
+  gfla::cp_async_wait<0>();  // only empty groups are left
+
+  // lanes q and q ^ 2 hold the same row
+  sy += __shfl_xor_sync(0xffffffffu, sy, 2);
+  sx += __shfl_xor_sync(0xffffffffu, sx, 2);
+  if ((lane & 2) == 0 && live) {
+    float* to = dflow_part + (static_cast<size_t>(blockIdx.y) * N + p_mine) * 2;
+    to[0] = sx;  // (x, y) order, as the flow
+    to[1] = sy;
   }
 }
 
-// dW1s partial sums: CTA (m, channel tile, chunk) writes
-// part[chunk][m*C + c][d] = sum over the chunk's positions p of
-// block_p[m][c] * d_hpre_p[d].
+// ---- dW1s kernel ------------------------------------------------------------
+
+// A CTA's columns: MT offsets x CW channels, offset-major, in NT fragments
+// (warp_bwd_tiles.cuh).
 template <int K>
-__global__ void __launch_bounds__(256)
+struct W1Shape {
+  static constexpr int K1 = K + 1;
+  static constexpr int K2 = K * K;
+  static constexpr int KC = K1 * K1;
+  static constexpr int CW = gfla::w1_channels(K);
+  static constexpr int MT = gfla::w1_offsets(K);
+  static constexpr int NT = gfla::w1_fragments(K);
+  static constexpr int Ldb = gfla::mma_col_stride(NT * 8);
+  static constexpr int Cells = kChunk * KC * CW;  // floats of a cells stage
+  static constexpr int Fp = 2 * K1 + 2;           // ints and floats of a fp
+};
+
+template <int K>
+size_t w1_smem_bytes() {
+  using S = W1Shape<K>;
+  return sizeof(float) * (2 * kChunk * 2 + 2 * S::Cells + 2 * kChunk * kLdh +
+                          2 * kChunk * S::Ldb + 3 * kChunk * S::Fp);
+}
+
+// Grid (offset tiles x channel tiles, hidden-unit tiles, position ranges).
+// CTA (x, y, z) writes part[z][m * C + c][d] = sum over its positions p of
+// block_p[m][c] d_hpre_p[d], for its offsets m, channels c and units d.
+template <int K, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
     warp_bwd_w1_kernel(const float* __restrict__ src,
                        const float* __restrict__ flow,
                        const float* __restrict__ dhpre,
                        float* __restrict__ part, int N, int H, int W, int C,
-                       int D, int n_ctiles) {
-  constexpr int K2 = K * K;
-  __shared__ gfla::Footprint fp[kSub];
-  __shared__ int img_of[kSub];
-  __shared__ __align__(16) float blk[kSub * kRows];
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dh = reinterpret_cast<float*>(smem);  // kSub x D
+                       int D, int n_ctiles, int span) {
+  using S = W1Shape<K>;
+  constexpr int K1 = S::K1, K2 = S::K2, KC = S::KC, CW = S::CW, NT = S::NT;
+  extern __shared__ __align__(16) float smem[];
+  float* flow_st = smem;                      // 2 x kChunk x 2
+  float* cells = flow_st + 2 * kChunk * 2;    // 2 x kChunk x KC x CW
+  float* dh = cells + 2 * S::Cells;           // 2 x kChunk x kLdh
+  float* bt = dh + 2 * kChunk * kLdh;         // kChunk x Ldb blocks, TF32
+  //                                             hi parts, then lo parts
+  int* fp = reinterpret_cast<int*>(bt + 2 * kChunk * S::Ldb);
+  // 3 x kChunk footprints of Fp ints: rowoff[K1], col[K1], wy and wx bits
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int d = tid;
-  const int m = blockIdx.x / n_ctiles;
-  const int c0 = (blockIdx.x - m * n_ctiles) * kRows;
-  const int i = m / K;
-  const int j = m - i * K;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int HW = H * W;
-  const int pbeg = blockIdx.y * kChunk;
-  const int pend = min(N, pbeg + kChunk);
+  const int otile = blockIdx.x / n_ctiles;
+  const int m0 = otile * S::MT;
+  const int mt_here = min(S::MT, K2 - m0);
+  const int ctile = blockIdx.x - otile * n_ctiles;
+  const int c0 = ctile * CW;
+  const int u0 = blockIdx.y * kW1Units;
+  const int pbeg = blockIdx.z * span;
+  const int pend = min(N, pbeg + span);
+  const int nq = (pend - pbeg + kChunk - 1) / kChunk;
 
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+  // columns this tile never writes stay 0
+  for (int e = tid; e < 2 * kChunk * S::Ldb; e += kThreads) bt[e] = 0.0f;
 
-  for (int p0 = pbeg; p0 < pend; p0 += kSub) {
-    __syncthreads();  // previous stage fully consumed
-    for (int s = tid; s < kSub; s += nthreads) {
-      const int p = p0 + s;
+  auto copy_flow = [&](int q) {  // one float a thread
+    if (tid < 2 * kChunk) {
+      const int p = pbeg + q * kChunk + (tid >> 1);
+      gfla::cp_async4(flow_st + (q & 1) * kChunk * 2 + tid,
+                      p < pend ? flow + 2 * static_cast<size_t>(p) + (tid & 1)
+                               : flow,
+                      p < pend);
+    }
+  };
+  // footprints of chunk q from its flow
+  auto make_fp = [&](int q) {
+    if (tid < kChunk) {
+      const int p = pbeg + q * kChunk + tid;
+      int* f = fp + ((q % 3) * kChunk + tid) * S::Fp;
+      const float* fl = flow_st + (q & 1) * kChunk * 2 + 2 * tid;
       if (p < pend) {
         const int b = p / HW;
         const int rem = p - b * HW;
         const int y = rem / W;
         const int x = rem - y * W;
-        fp[s] = gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, K);
-        img_of[s] = b;
+        const gfla::Footprint ft = gfla::footprint(fl[0], fl[1], y, x, H, W, K);
+        for (int i = 0; i < K1; ++i) {
+          f[i] = (b * H + gfla::tap_row(ft, i, H)) * W;
+          f[K1 + i] = gfla::tap_col(ft, i, W);
+        }
+        f[2 * K1] = __float_as_int(ft.wy);
+        f[2 * K1 + 1] = __float_as_int(ft.wx);
       } else {
-        img_of[s] = -1;
+        for (int i = 0; i < 2 * K1 + 2; ++i) f[i] = 0;
       }
     }
-    for (int e = tid; e < kSub * D; e += nthreads) {
-      const int s = e / D;
-      const int p = p0 + s;
-      dh[e] = p < pend ? dhpre[static_cast<size_t>(p0) * D + e] : 0.0f;
-    }
-    __syncthreads();
-    for (int e = tid; e < kSub * kRows; e += nthreads) {
-      const int s = e / kRows;
-      const int c = c0 + (e - s * kRows);
-      const int b = img_of[s];
-      float v = 0.0f;
-      if (b >= 0 && c < C) {
-        v = gfla::block_value(src + static_cast<size_t>(b) * HW * C, fp[s],
-                              i, j, c, H, W, C);
-      }
-      blk[e] = v;
-    }
-    __syncthreads();
-    if (d < D) {
-      for (int s = 0; s < kSub; ++s) {
-        const float dv = dh[s * D + d];
+  };
+  // the footprint cells (CW channels) and d_hpre rows of chunk q
+  auto copy_tiles = [&](int q) {
+    float* cst = cells + (q & 1) * S::Cells;
+    if (GFLA_SPLIT != 2) {
+      constexpr int kQuads = CW / 4;
+      for (int idx = tid; idx < kChunk * KC * kQuads; idx += kThreads) {
+        const int t = idx / (KC * kQuads);
+        const int rest = idx - t * KC * kQuads;
+        const int cell = rest / kQuads;
+        const int c = c0 + 4 * (rest - cell * kQuads);
+        const int r = cell / K1;
+        const int* f = fp + ((q % 3) * kChunk + t) * S::Fp;
+        const bool in = pbeg + q * kChunk + t < pend;
+        const size_t pix = static_cast<size_t>(f[r] + f[K1 + cell - r * K1]);
+        float* to = cst + (t * KC + cell) * CW + (c - c0);
+        if (kVec) {
+          const bool ok = in && c < C;
+          gfla::cp_async16(to, ok ? src + pix * C + c : src, ok);
+        } else {
 #pragma unroll
-        for (int r = 0; r < kRows; r += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(blk + s * kRows + r);
-          acc[r] = fmaf(v.x, dv, acc[r]);
-          acc[r + 1] = fmaf(v.y, dv, acc[r + 1]);
-          acc[r + 2] = fmaf(v.z, dv, acc[r + 2]);
-          acc[r + 3] = fmaf(v.w, dv, acc[r + 3]);
+          for (int u = 0; u < 4; ++u) {
+            const bool ok = in && c + u < C;
+            gfla::cp_async4(to + u, ok ? src + pix * C + c + u : src, ok);
+          }
+        }
+      }
+    }
+    float* dst = dh + (q & 1) * kChunk * kLdh;
+    constexpr int kPer = kVec ? 4 : 1;
+    constexpr int kAcross = kW1Units / kPer;
+    for (int idx = tid; idx < kChunk * kAcross; idx += kThreads) {
+      const int t = idx / kAcross;
+      const int u = kPer * (idx - t * kAcross);
+      const int p = pbeg + q * kChunk + t;
+      const bool ok = p < pend && u0 + u < D;
+      const float* from = ok ? dhpre + static_cast<size_t>(p) * D + u0 + u
+                             : dhpre;
+      if (kVec) {
+        gfla::cp_async16(dst + t * kLdh + u, from, ok);
+      } else {
+        gfla::cp_async4(dst + t * kLdh + u, from, ok);
+      }
+    }
+  };
+
+  copy_flow(0);
+  if (nq > 1) copy_flow(1);
+  gfla::cp_async_commit();
+  gfla::cp_async_wait<0>();
+  __syncthreads();
+  make_fp(0);
+  if (nq > 1) make_fp(1);
+  __syncthreads();
+  copy_tiles(0);
+  if (nq > 2) copy_flow(2);
+  gfla::cp_async_commit();
+
+  // this warp's 16 hidden units; warps past D do no products
+  const bool busy = u0 + 16 * warp < D;
+  const int a_at = (gfla::mma_a_depth(lane, 0)) * kLdh + 16 * warp +
+                   gfla::mma_a_row(lane, 0);
+  const int b_at = gfla::mma_b_depth(lane, 0) * S::Ldb + gfla::mma_b_col(lane);
+  float sum[NT][4];
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[nt][e] = 0.0f;
+  }
+
+  for (int q = 0; q < nq; ++q) {
+    gfla::cp_async_wait<0>();
+    __syncthreads();  // chunk q's tiles and flow q + 2 are in; fp q + 1 made
+    if (q + 2 < nq) make_fp(q + 2);
+    if (q + 1 < nq) copy_tiles(q + 1);
+    if (q + 3 < nq) copy_flow(q + 3);
+    gfla::cp_async_commit();
+
+    // blend: block[t][mo * CW + c] from the four cells of offset m0 + mo
+    if (GFLA_SPLIT != 2) {
+      const float* cst = cells + (q & 1) * S::Cells;
+      constexpr int kQuads = CW / 4;
+      for (int idx = tid; idx < kChunk * S::MT * kQuads; idx += kThreads) {
+        const int t = idx / (S::MT * kQuads);
+        const int rest = idx - t * S::MT * kQuads;
+        const int mo = rest / kQuads;
+        if (mo >= mt_here) continue;
+        const int cw = 4 * (rest - mo * kQuads);
+        const int m = m0 + mo;
+        const int i = m / K;
+        const int j = m - i * K;
+        const int* f = fp + ((q % 3) * kChunk + t) * S::Fp;
+        const gfla::TapWeights w = gfla::tap_weights(
+            __int_as_float(f[2 * K1]), __int_as_float(f[2 * K1 + 1]));
+        const float* c00 = cst + (t * KC + i * K1 + j) * CW + cw;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        v = fma4(w.tl, *reinterpret_cast<const float4*>(c00), v);
+        v = fma4(w.tr, *reinterpret_cast<const float4*>(c00 + CW), v);
+        v = fma4(w.bl, *reinterpret_cast<const float4*>(c00 + K1 * CW), v);
+        v = fma4(w.br, *reinterpret_cast<const float4*>(c00 + (K1 + 1) * CW),
+                 v);
+        const gfla::Tf32Pair x = gfla::tf32_split(v.x);
+        const gfla::Tf32Pair y = gfla::tf32_split(v.y);
+        const gfla::Tf32Pair z = gfla::tf32_split(v.z);
+        const gfla::Tf32Pair u = gfla::tf32_split(v.w);
+        float* at_hi = bt + t * S::Ldb + mo * CW + cw;
+        *reinterpret_cast<float4*>(at_hi) = make_float4(x.hi, y.hi, z.hi, u.hi);
+        *reinterpret_cast<float4*>(at_hi + kChunk * S::Ldb) =
+            make_float4(x.lo, y.lo, z.lo, u.lo);
+      }
+    }
+    __syncthreads();
+
+    if (busy) {
+      const float* a_st = dh + (q & 1) * kChunk * kLdh + a_at;
+      const float* b_st = bt + b_at;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+      }
+      if (GFLA_SPLIT == 1) {
+        acc[0][0] += a_st[0] + b_st[0];
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 8; ++kk) {
+          uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // row 8 (e & 1), depth 4 (e >> 1)
+            gfla::tf32_split_bits(
+                a_st[(8 * kk + 4 * (e >> 1)) * kLdh + 8 * (e & 1)], a_hi[e],
+                a_lo[e]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t b_hi[2], b_lo[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float* at_b = b_st + (8 * kk + 4 * e) * S::Ldb + 8 * nt;
+              b_hi[e] = gfla::f32_bits(at_b[0]);
+              b_lo[e] = gfla::f32_bits(at_b[kChunk * S::Ldb]);
+            }
+            mma3(acc[nt], a_hi, a_lo, b_hi, b_lo);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[nt][e] += acc[nt][e];
+      }
+    }
+  }
+  gfla::cp_async_wait<0>();
+
+  if (busy) {
+    float* out = part + static_cast<size_t>(blockIdx.z) * K2 * C * D;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = u0 + 16 * warp + gfla::mma_c_row(lane, e);
+        const gfla::OffsetChannel mc = gfla::w1_column(
+            K, otile, ctile, 8 * nt + gfla::mma_c_col(lane, e));
+        if (mc.m < m0 + mt_here && mc.c < C && u < D) {
+          out[(static_cast<size_t>(mc.m) * C + mc.c) * D + u] = sum[nt][e];
         }
       }
     }
   }
-  if (d < D) {
-    float* out = part + (static_cast<size_t>(blockIdx.y) * K2 * C +
-                         static_cast<size_t>(m) * C) * D + d;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (c0 + r < C) out[static_cast<size_t>(c0 + r) * D] = acc[r];
-    }
-  }
 }
 
-int threads_for(int D) { return (D + 31) / 32 * 32; }
-
-template <int K>
-int launch_pos(const float* src, const float* flow, const float* hbt,
+template <int K, bool kVec>
+int launch_pos(const float* src, const float* flow, const float* hpre,
                const float* w1s, const float* w2, const float* b2,
                const float* g, float* dsrc, float* dflow, float* dhbt,
-               float* w2_part, float* dw2b2, int N, int H, int W, int C,
+               float* scratch, float* dw2b2, int N, int H, int W, int C,
                int D, float slope, cudaStream_t stream) {
   constexpr int K2 = K * K;
-  const int Cp = (C + 3) / 4 * 4;
-  const int Dp = (D + 3) / 4 * 4;
-  const size_t smem = kTile * (sizeof(gfla::Footprint) + sizeof(int)) +
-                      sizeof(float) * (kTile * (Cp + Dp + 2 * K2) + 2 * kTile);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        warp_bwd_pos_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int n_ctas = (N + kTile - 1) / kTile;
-  warp_bwd_pos_kernel<K><<<n_ctas, threads_for(D), smem, stream>>>(
-      src, flow, hbt, w1s, w2, b2, g, dsrc, dflow, dhbt, w2_part, N, H, W, C,
-      Cp, D, Dp, slope);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return gfla::launch_reduce(w2_part, n_ctas,
-                             static_cast<size_t>(D) * K2 + K2, dw2b2, stream);
+  const gfla::PosPlan plan = gfla::pos_plan(N, C, K);
+  const size_t smem = pos_smem_bytes<K>(D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      warp_bwd_pos_kernel<K, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* w2_part = scratch;
+  float* flow_part =
+      scratch + static_cast<size_t>(plan.tiles) * (D * K2 + K2);
+  const dim3 grid(plan.tiles, plan.splits);
+  warp_bwd_pos_kernel<K, kVec><<<grid, kPosThreads, smem, stream>>>(
+      src, flow, hpre, w1s, w2, b2, g, dsrc, flow_part, dhbt, w2_part, N, H,
+      W, C, D, slope, plan.items, plan.per_cta);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  e = gfla::launch_reduce(w2_part, plan.tiles,
+                          static_cast<size_t>(D) * K2 + K2, dw2b2, stream);
+  if (e != 0) return e;
+  return gfla::launch_reduce(flow_part, plan.splits,
+                             static_cast<size_t>(N) * 2, dflow, stream);
 }
 
-template <int K>
+template <int K, bool kVec>
 int launch_w1(const float* src, const float* flow, const float* dhpre,
               float* part, float* dw1s, int N, int H, int W, int C, int D,
               cudaStream_t stream) {
   constexpr int K2 = K * K;
-  const int n_ctiles = (C + kRows - 1) / kRows;
-  const int n_chunks = (N + kChunk - 1) / kChunk;
-  const size_t smem = sizeof(float) * kSub * D;
-  const dim3 grid(K2 * n_ctiles, n_chunks);
-  warp_bwd_w1_kernel<K><<<grid, threads_for(D), smem, stream>>>(
-      src, flow, dhpre, part, N, H, W, C, D, n_ctiles);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return gfla::launch_reduce(part, n_chunks, static_cast<size_t>(K2) * C * D,
-                             dw1s, stream);
+  const gfla::W1Plan plan = gfla::w1_plan(N, C, D, K);
+  const size_t smem = w1_smem_bytes<K>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      warp_bwd_w1_kernel<K, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(gfla::w1_offset_tiles(K) * plan.ctiles, plan.utiles,
+                  plan.splits);
+  warp_bwd_w1_kernel<K, kVec><<<grid, kThreads, smem, stream>>>(
+      src, flow, dhpre, part, N, H, W, C, D, plan.ctiles, plan.span);
+  const int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  return gfla::launch_reduce(part, plan.splits,
+                             static_cast<size_t>(K2) * C * D, dw1s, stream);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// Scratch sizes, in floats, that the wrapper allocates for the partial sums.
-extern "C" long long gfla_warp_bwd_pos_scratch(int N, int D, int k) {
-  return static_cast<long long>((N + kTile - 1) / kTile) * (D * k * k + k * k);
+// Scratch sizes, in floats, that the wrapper allocates for the partial sums:
+// the per-position kernel's dW2/db2 and d_flow partials; the dW1s partials.
+extern "C" long long gfla_warp_bwd_pos_scratch(int N, int C, int D, int k) {
+  const gfla::PosPlan plan = gfla::pos_plan(N, C, k);
+  return static_cast<long long>(plan.tiles) * (D * k * k + k * k) +
+         static_cast<long long>(plan.splits) * N * 2;
 }
 
 extern "C" long long gfla_warp_bwd_w1_scratch(int N, int C, int D, int k) {
-  return static_cast<long long>((N + kChunk - 1) / kChunk) * k * k * C * D;
+  return static_cast<long long>(gfla::w1_plan(N, C, D, k).splits) * k * k *
+         C * D;
 }
 
-// Per-position backward. Inputs as gfla_warp_fwd, plus g (B,H,W,C). Outputs:
-// dsrc (B,H,W,C), zeroed by the caller (atomicAdd target); dflow (B,H,W,2)
-// in (x, y) order; dhbt (B*H*W, D); dw2b2 (D*k*k + k*k): dW2 (D, k*k)
-// followed by db2. w2_part: gfla_warp_bwd_pos_scratch floats. Returns a
-// cudaError_t; 0 means both launches were accepted.
+// Per-position backward. source (B,H,W,C), flow (B,H,W,2) as (x, y), hpre
+// (B*H*W, D): the forward's pre-activation hidden layer, w1s (k*k*C, D), w2
+// (D, k*k), b2 (k*k), g (B,H,W,C). Outputs: dsrc (B,H,W,C), zeroed by the
+// caller (a reduction target); dflow (B,H,W,2) in (x, y) order; dhbt
+// (B*H*W, D); dw2b2 (D*k*k + k*k): dW2 (D, k*k) followed by db2. scratch:
+// gfla_warp_bwd_pos_scratch floats. Returns a cudaError_t; 0 means every
+// launch was accepted.
 extern "C" int gfla_warp_bwd_pos(const float* src, const float* flow,
-                                 const float* hbt, const float* w1s,
+                                 const float* hpre, const float* w1s,
                                  const float* w2, const float* b2,
                                  const float* g, float* dsrc, float* dflow,
-                                 float* dhbt, float* w2_part, float* dw2b2,
+                                 float* dhbt, float* scratch, float* dw2b2,
                                  int B, int H, int W, int C, int D, int k,
                                  float slope, void* stream) {
   const int N = B * H * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GFLA_POS(K)                                                          \
-  launch_pos<K>(src, flow, hbt, w1s, w2, b2, g, dsrc, dflow, dhbt, w2_part, \
-                dw2b2, N, H, W, C, D, slope, s)
+  const bool vec = C % 4 == 0 && D % 4 == 0 && aligned16(src) &&
+                   aligned16(g) && aligned16(dsrc) && aligned16(w1s);
+#define GFLA_POS(K, V)                                                     \
+  return launch_pos<K, V>(src, flow, hpre, w1s, w2, b2, g, dsrc, dflow,    \
+                          dhbt, scratch, dw2b2, N, H, W, C, D, slope, s)
+#define GFLA_POS_K(K)          \
+  if (vec) GFLA_POS(K, true);  \
+  GFLA_POS(K, false)
   switch (k) {
-    case 1: return GFLA_POS(1);
-    case 3: return GFLA_POS(3);
-    case 5: return GFLA_POS(5);
-    case 7: return GFLA_POS(7);
+    case 1: GFLA_POS_K(1);
+    case 3: GFLA_POS_K(3);
+    case 5: GFLA_POS_K(5);
+    case 7: GFLA_POS_K(7);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef GFLA_POS_K
 #undef GFLA_POS
 }
 
@@ -426,11 +969,20 @@ extern "C" int gfla_warp_bwd_w1(const float* src, const float* flow,
                                 void* stream) {
   const int N = B * H * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = C % 4 == 0 && D % 4 == 0 && aligned16(src) &&
+                   aligned16(dhpre);
+#define GFLA_W1(K, V) \
+  return launch_w1<K, V>(src, flow, dhpre, part, dw1s, N, H, W, C, D, s)
+#define GFLA_W1_K(K)          \
+  if (vec) GFLA_W1(K, true);  \
+  GFLA_W1(K, false)
   switch (k) {
-    case 1: return launch_w1<1>(src, flow, dhpre, part, dw1s, N, H, W, C, D, s);
-    case 3: return launch_w1<3>(src, flow, dhpre, part, dw1s, N, H, W, C, D, s);
-    case 5: return launch_w1<5>(src, flow, dhpre, part, dw1s, N, H, W, C, D, s);
-    case 7: return launch_w1<7>(src, flow, dhpre, part, dw1s, N, H, W, C, D, s);
+    case 1: GFLA_W1_K(1);
+    case 3: GFLA_W1_K(3);
+    case 5: GFLA_W1_K(5);
+    case 7: GFLA_W1_K(7);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef GFLA_W1_K
+#undef GFLA_W1
 }

@@ -66,50 +66,12 @@ GFLA_HD int tap_col(const Footprint& f, int j, int W) {
   return clamp_index(f.x0 + j, 0, W - 1);
 }
 
-GFLA_HD float blend(float wy, float wx, float tl, float tr, float bl,
-                    float br) {
-  return (1.0f - wy) * (1.0f - wx) * tl + (1.0f - wy) * wx * tr +
-         wy * (1.0f - wx) * bl + wy * wx * br;
-}
-
-// Channel c of block offset (i, j) for one position, reading an NHWC image
-// `img` (the position's batch element: H x W x C floats).
-GFLA_HD float block_value(const float* img, const Footprint& f, int i, int j,
-                          int c, int H, int W, int C) {
-  const int r0 = tap_row(f, i, H);
-  const int r1 = tap_row(f, i + 1, H);
-  const int c0 = tap_col(f, j, W);
-  const int c1 = tap_col(f, j + 1, W);
-  return blend(f.wy, f.wx, img[(r0 * W + c0) * C + c],
-               img[(r0 * W + c1) * C + c], img[(r1 * W + c0) * C + c],
-               img[(r1 * W + c1) * C + c]);
-}
-
-// ---- backward -------------------------------------------------------------
-//
-// A block value is blend(wy, wx, tl, tr, bl, br) of four clamped taps. Its
-// cotangent d goes back to the taps with the blend weights (scattered into
+// Blend weights of the four taps of an offset: top-left, top-right,
+// bottom-left, bottom-right. A block value is their weighted sum; its
+// cotangent goes back to the taps with the same weights (scattered into
 // d_source at the clamped pixels, so edge bands fold onto the border as
-// gfla_tpu's _fold_pad does), and to the fractional weights, whose
-// derivative with respect to the flow is 1 (floor is piecewise constant):
-// d_flow = (sum d * dblend/dwx, sum d * dblend/dwy) over offsets and
-// channels, as in gfla_tpu/ops/pallas_warp.py:340-347.
-
-// Pixel indices r * W + c of the four taps of offset (i, j): top-left,
-// top-right, bottom-left, bottom-right.
-struct Taps {
-  int tl, tr, bl, br;
-};
-
-GFLA_HD Taps tap_pixels(const Footprint& f, int i, int j, int H, int W) {
-  const int r0 = tap_row(f, i, H);
-  const int r1 = tap_row(f, i + 1, H);
-  const int c0 = tap_col(f, j, W);
-  const int c1 = tap_col(f, j + 1, W);
-  return Taps{r0 * W + c0, r0 * W + c1, r1 * W + c0, r1 * W + c1};
-}
-
-// Blend weights of the four taps, in Taps order.
+// gfla_tpu's _fold_pad does) and to wy and wx, whose derivative with respect
+// to the flow is 1 (floor is piecewise constant): csrc/warp_cells.cuh.
 struct TapWeights {
   float tl, tr, bl, br;
 };
@@ -117,14 +79,6 @@ struct TapWeights {
 GFLA_HD TapWeights tap_weights(float wy, float wx) {
   return TapWeights{(1.0f - wy) * (1.0f - wx), (1.0f - wy) * wx,
                     wy * (1.0f - wx), wy * wx};
-}
-
-GFLA_HD float dblend_dwy(float wx, float tl, float tr, float bl, float br) {
-  return (1.0f - wx) * (bl - tl) + wx * (br - tr);
-}
-
-GFLA_HD float dblend_dwx(float wy, float tl, float tr, float bl, float br) {
-  return (1.0f - wy) * (tr - tl) + wy * (br - bl);
 }
 
 }  // namespace gfla

@@ -6,7 +6,9 @@
 // computes hidden = blocks . W1s + hidden_bt, LeakyReLU, logits = hidden . W2
 // + b2, a softmax over the k^2 offsets, and out = (1/k^2) sum attn * block.
 // The target stream hidden_bt (a plain k x k convolution plus b1) is computed
-// outside, as gfla_tpu does.
+// outside, as gfla_tpu does. Under grad the caller also passes hpre, and the
+// epilogue stores the pre-activation hidden layer there, so that the
+// backward (warp_bwd.cu) starts from it instead of recomputing it.
 //
 // What bounds it on this card: at the k=5 site of the DeepFashion generator
 // (B=8, 64x64, C=128, D=128) the dense layer is 8*4096 positions x 3200 x 128
@@ -120,7 +122,8 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ w1s,
                     const float* __restrict__ w2,
                     const float* __restrict__ b2, float* __restrict__ out,
-                    int N, int H, int W, int C, int D, int K, float slope) {
+                    float* __restrict__ hpre, int N, int H, int W, int C,
+                    int D, int K, float slope) {
   // two rows of four warps, each warp 32 positions x 8 NT hidden units
   constexpr gfla::WarpGrid kGrid{4, 2, NT};
   constexpr int kCols = 32 * NT;
@@ -333,7 +336,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   gfla::cp_async_wait<0>();  // only empty groups are left; the ring is free
 
-  // ---- + target stream (which carries b1), LeakyReLU -> hid ---------------
+  // ---- + target stream (which carries b1) = hpre, stored when asked;
+  // LeakyReLU -> hid --------------------------------------------------------
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -345,7 +349,10 @@ __global__ void __launch_bounds__(kThreads)
         const int p = p0 + row;
         if (n < D) {
           float h = acc[mt][nt][e];
-          if (p < N) h += hbt[static_cast<size_t>(p) * D + n];
+          if (p < N) {
+            h += hbt[static_cast<size_t>(p) * D + n];
+            if (hpre != nullptr) hpre[static_cast<size_t>(p) * D + n] = h;
+          }
           hid[row * kLdh + n] = h >= 0.0f ? h : h * slope;
         }
       }
@@ -429,7 +436,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int NT, bool kVecA, bool kVecB>
 int launch(const float* src, const float* flow, const float* hbt,
            const float* w1s, const float* w2, const float* b2, float* out,
-           int N, int H, int W, int C, int D, int K, float slope,
+           float* hpre, int N, int H, int W, int C, int D, int K, float slope,
            cudaStream_t stream) {
   const int K1 = K + 1;
   const size_t smem =
@@ -443,65 +450,66 @@ int launch(const float* src, const float* flow, const float* hbt,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kPos - 1) / kPos);
   warp_fwd_kernel<NT, kVecA, kVecB><<<grid, kThreads, smem, stream>>>(
-      src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D, K, slope);
+      src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W, C, D, K, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NT>
 int launch_aligned(const float* src, const float* flow, const float* hbt,
                    const float* w1s, const float* w2, const float* b2,
-                   float* out, int N, int H, int W, int C, int D, int K,
-                   float slope, cudaStream_t s) {
+                   float* out, float* hpre, int N, int H, int W, int C, int D,
+                   int K, float slope, cudaStream_t s) {
   const uintptr_t a_bits =
       reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out);
   const bool vec_a = C % 4 == 0 && a_bits % 16 == 0;
   const bool vec_b = D % 4 == 0 && reinterpret_cast<uintptr_t>(w1s) % 16 == 0;
   if (vec_a && vec_b) {
-    return launch<NT, true, true>(src, flow, hbt, w1s, w2, b2, out, N, H, W,
-                                  C, D, K, slope, s);
+    return launch<NT, true, true>(src, flow, hbt, w1s, w2, b2, out, hpre, N,
+                                  H, W, C, D, K, slope, s);
   }
   if (vec_a) {
-    return launch<NT, true, false>(src, flow, hbt, w1s, w2, b2, out, N, H, W,
-                                   C, D, K, slope, s);
+    return launch<NT, true, false>(src, flow, hbt, w1s, w2, b2, out, hpre, N,
+                                   H, W, C, D, K, slope, s);
   }
   if (vec_b) {
-    return launch<NT, false, true>(src, flow, hbt, w1s, w2, b2, out, N, H, W,
-                                   C, D, K, slope, s);
+    return launch<NT, false, true>(src, flow, hbt, w1s, w2, b2, out, hpre, N,
+                                   H, W, C, D, K, slope, s);
   }
-  return launch<NT, false, false>(src, flow, hbt, w1s, w2, b2, out, N, H, W,
-                                  C, D, K, slope, s);
+  return launch<NT, false, false>(src, flow, hbt, w1s, w2, b2, out, hpre, N,
+                                  H, W, C, D, K, slope, s);
 }
 
 }  // namespace
 
 // source (B,H,W,C), flow (B,H,W,2) as (x, y), hbt (B*H*W, D), w1s (k*k*C, D),
 // w2 (D, k*k), b2 (k*k), out (B,H,W,C): float32, contiguous, on one device;
-// k odd, at most 7; D at most 256. Returns a cudaError_t; 0 means the launch
-// was accepted.
+// k odd, at most 7; D at most 256. hpre: null, or (B*H*W, D), which then
+// gets the pre-activation hidden layer blocks . W1s + hbt for the backward.
+// Returns a cudaError_t; 0 means the launch was accepted.
 extern "C" int gfla_warp_fwd(const float* src, const float* flow,
                              const float* hbt, const float* w1s,
                              const float* w2, const float* b2, float* out,
-                             int B, int H, int W, int C, int D, int k,
-                             float slope, void* stream) {
+                             float* hpre, int B, int H, int W, int C, int D,
+                             int k, float slope, void* stream) {
   const int N = B * H * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > 7 || k % 2 == 0 || D < 1 || D > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (D <= 32) {
-    return launch_aligned<1>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D,
-                             k, slope, s);
+    return launch_aligned<1>(src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W,
+                             C, D, k, slope, s);
   }
   if (D <= 64) {
-    return launch_aligned<2>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D,
-                             k, slope, s);
+    return launch_aligned<2>(src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W,
+                             C, D, k, slope, s);
   }
   if (D <= 128) {
-    return launch_aligned<4>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D,
-                             k, slope, s);
+    return launch_aligned<4>(src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W,
+                             C, D, k, slope, s);
   }
-  return launch_aligned<8>(src, flow, hbt, w1s, w2, b2, out, N, H, W, C, D, k,
-                           slope, s);
+  return launch_aligned<8>(src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W, C,
+                           D, k, slope, s);
 }
 
 extern "C" const char* gfla_cuda_error_string(int code) {

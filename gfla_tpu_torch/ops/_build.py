@@ -48,14 +48,13 @@ def _sources():
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gfla_warp_fwd.argtypes = [p, p, p, p, p, p, p,
-                                  i, i, i, i, i, i, ctypes.c_float, p]
+    lib.gfla_warp_fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
     lib.gfla_warp_fwd.restype = i
     lib.gfla_warp_bwd_pos.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, p]
     lib.gfla_warp_bwd_pos.restype = i
     lib.gfla_warp_bwd_w1.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.gfla_warp_bwd_w1.restype = i
-    lib.gfla_warp_bwd_pos_scratch.argtypes = [i, i, i]
+    lib.gfla_warp_bwd_pos_scratch.argtypes = [i, i, i, i]
     lib.gfla_warp_bwd_pos_scratch.restype = ctypes.c_longlong
     lib.gfla_warp_bwd_w1_scratch.argtypes = [i, i, i, i]
     lib.gfla_warp_bwd_w1_scratch.restype = ctypes.c_longlong

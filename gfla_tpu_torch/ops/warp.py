@@ -3,8 +3,10 @@
 `warp_fwd` is the counterpart of gfla_tpu's `attn_warp_core`
 (gfla_tpu/ops/pallas_warp.py:420-487), forward and backward. When an input
 requires grad it runs through `WarpFunction`, whose forward is the forward
-kernel (csrc/warp_fwd.cu) and whose backward is `warp_bwd`: the two backward
-kernels of csrc/warp_bwd.cu. On a CUDA tensor each wrapper launches its
+kernel (csrc/warp_fwd.cu), which then also stores the pre-activation hidden
+layer hpre for the backward, and whose backward is `warp_bwd`: the two
+backward kernels of csrc/warp_bwd.cu, which start from that hpre instead of
+recomputing it. On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs the plain torch twin of the same
 function (`warp_fwd_plain`, `warp_bwd_plain`). Nothing falls back from a
 kernel to a plain version.
@@ -39,17 +41,19 @@ KERNEL_SIZES = (1, 3, 5, 7)
 
 
 def warp_fwd_plain(source, flow, hidden_bt, w1s, w2, b2, kernel_size: int,
-                   negative_slope: float = 0.1):
+                   negative_slope: float = 0.1, with_hpre: bool = False):
     """The kernel's function in plain torch: gather, blend, matmul, softmax,
-    weighted sum."""
+    weighted sum. With `with_hpre`, (out, hpre): hpre (B*H*W, D) is the
+    pre-activation hidden layer, which the backward starts from."""
     k = kernel_size
     B, H, W, C = source.shape
     blocks = block_extract(source, flow, k).reshape(B, H * W, k * k, C)
-    hidden = blocks.reshape(B, H * W, k * k * C) @ w1s + hidden_bt
-    hidden = F.leaky_relu(hidden, negative_slope)
+    hpre = blocks.reshape(B, H * W, k * k * C) @ w1s + hidden_bt
+    hidden = F.leaky_relu(hpre, negative_slope)
     attn = torch.softmax(hidden @ w2 + b2, dim=-1)            # (B,HW,k²)
     out = torch.einsum("bnk,bnkc->bnc", attn, blocks) / float(k * k)
-    return out.reshape(B, H, W, C)
+    out = out.reshape(B, H, W, C)
+    return (out, hpre.reshape(B * H * W, -1)) if with_hpre else out
 
 
 def block_extract_bwd(source, flow, d_blocks, k):
@@ -81,17 +85,24 @@ def block_extract_bwd(source, flow, d_blocks, k):
 
 
 def warp_bwd_pos_plain(source, flow, hidden_bt, w1s, w2, b2, g,
-                       kernel_size: int, negative_slope: float = 0.1):
+                       kernel_size: int, negative_slope: float = 0.1,
+                       hpre=None):
     """What the per-position backward kernel computes, in plain torch:
     (d_source, d_flow, d_hidden_bt, dW2, db2), plus the block cotangents
     d_blocks (B,H*W,k*k,C) that the kernel keeps on chip. gfla_tpu's
-    `_bwd_kernel` math (pallas_warp.py:286-347)."""
+    `_bwd_kernel` math (pallas_warp.py:286-347). Given the forward's `hpre`
+    (B*H*W, D), as the kernel is, it starts from it (`hidden_bt` is then not
+    read); without it, it recomputes hpre from the blocks, as gfla_tpu
+    does."""
     k = kernel_size
     k2 = k * k
     B, H, W, C = source.shape
     N = H * W
     blocks = block_extract(source, flow, k).reshape(B, N, k2, C)
-    hpre = blocks.reshape(B, N, k2 * C) @ w1s + hidden_bt
+    if hpre is None:
+        hpre = blocks.reshape(B, N, k2 * C) @ w1s + hidden_bt
+    else:
+        hpre = hpre.reshape(B, N, -1)
     hidden = F.leaky_relu(hpre, negative_slope)
     attn = torch.softmax(hidden @ w2 + b2, dim=-1)             # (B,N,k²)
     g = g.reshape(B, N, C)
@@ -117,18 +128,23 @@ def warp_bwd_w1_plain(source, flow, d_hpre, kernel_size: int):
 
 
 def warp_bwd_plain(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
-                   negative_slope: float = 0.1):
+                   negative_slope: float = 0.1, hpre=None):
     """The backward in plain torch: (d_source, d_flow, d_hidden_bt, dW1s,
-    dW2, db2), as gfla_tpu's `_core_bwd` returns them."""
+    dW2, db2), as gfla_tpu's `_core_bwd` returns them; from the forward's
+    `hpre` when given (see `warp_bwd_pos_plain`)."""
     d_source, d_flow, d_hpre, dw2, db2, _ = warp_bwd_pos_plain(
-        source, flow, hidden_bt, w1s, w2, b2, g, kernel_size, negative_slope)
+        source, flow, hidden_bt, w1s, w2, b2, g, kernel_size, negative_slope,
+        hpre)
     dw1s = warp_bwd_w1_plain(source, flow, d_hpre, kernel_size)
     return d_source, d_flow, d_hpre, dw1s, dw2, db2
 
 
-def _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k, g=None):
-    tensors = dict(source=source, flow=flow, hidden_bt=hidden_bt, w1s=w1s,
-                   w2=w2, b2=b2)
+def _check_kernel_inputs(source, flow, hidden, w1s, w2, b2, k, g=None):
+    """`hidden` is hidden_bt (B, H*W, D) for the forward kernel and, with the
+    cotangent g, the forward's hpre (B*H*W, D) for the backward."""
+    hidden_name = "hidden_bt" if g is None else "hpre"
+    tensors = {"source": source, "flow": flow, hidden_name: hidden,
+               "w1s": w1s, "w2": w2, "b2": b2}
     if g is not None:
         tensors["g"] = g
     for name, t in tensors.items():
@@ -152,8 +168,9 @@ def _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k, g=None):
                          f"and 1 <= C <= {MAX_C}, got D={D}, C={C}")
     if B * H * W * max(C, D) >= 2**31:
         raise ValueError("warp: tensor too large for 32-bit indexing")
-    expected = dict(flow=(B, H, W, 2), hidden_bt=(B, H * W, D),
-                    w1s=(k * k * C, D), w2=(D, k * k), b2=(k * k,))
+    expected = {"flow": (B, H, W, 2),
+                hidden_name: (B, H * W, D) if g is None else (B * H * W, D),
+                "w1s": (k * k * C, D), "w2": (D, k * k), "b2": (k * k,)}
     if g is not None:
         expected["g"] = (B, H, W, C)
     for name, shape in expected.items():
@@ -162,39 +179,44 @@ def _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k, g=None):
                              f"{tuple(tensors[name].shape)}")
 
 
-def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope):
+def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope,
+                with_hpre=False):
     global launches
     _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k)
     lib = load_library()
     B, H, W, C = source.shape
+    D = w1s.shape[-1]
     out = torch.empty_like(source)
+    hpre = source.new_empty(B * H * W, D) if with_hpre else None
     with torch.cuda.device(source.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gfla_warp_fwd(
             source.data_ptr(), flow.data_ptr(), hidden_bt.data_ptr(),
             w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            B, H, W, C, w1s.shape[-1], k, float(slope), stream)
+            None if hpre is None else hpre.data_ptr(), B, H, W, C, D, k,
+            float(slope), stream)
     check_launch(lib, err, "warp_fwd")
     launches += 1
-    return out
+    return (out, hpre) if with_hpre else out
 
 
-def _launch_bwd_pos(source, flow, hidden_bt, w1s, w2, b2, g, k, slope):
+def _launch_bwd_pos(source, flow, hpre, w1s, w2, b2, g, k, slope):
     global bwd_pos_launches
-    _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k, g)
+    _check_kernel_inputs(source, flow, hpre, w1s, w2, b2, k, g)
     lib = load_library()
     B, H, W, C = source.shape
+    N = B * H * W
     D = w1s.shape[-1]
     k2 = k * k
-    d_source = torch.zeros_like(source)  # atomicAdd target
+    d_source = torch.zeros_like(source)  # reduction target
     d_flow = torch.empty_like(flow)
-    d_hpre = torch.empty_like(hidden_bt)
+    d_hpre = source.new_empty(B, H * W, D)
     dw2b2 = source.new_empty(D * k2 + k2)
-    part = source.new_empty(lib.gfla_warp_bwd_pos_scratch(B * H * W, D, k))
+    part = source.new_empty(lib.gfla_warp_bwd_pos_scratch(N, C, D, k))
     with torch.cuda.device(source.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gfla_warp_bwd_pos(
-            source.data_ptr(), flow.data_ptr(), hidden_bt.data_ptr(),
+            source.data_ptr(), flow.data_ptr(), hpre.data_ptr(),
             w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(),
             d_source.data_ptr(), d_flow.data_ptr(), d_hpre.data_ptr(),
             part.data_ptr(), dw2b2.data_ptr(), B, H, W, C, D, k,
@@ -233,15 +255,16 @@ def _launch_bwd_w1(source, flow, d_hpre, k):
     return dw1s
 
 
-def warp_bwd_pos(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
+def warp_bwd_pos(source, flow, hpre, w1s, w2, b2, g, kernel_size: int,
                  negative_slope: float = 0.1):
     """Per-position backward kernel on CUDA tensors, plain version on CPU
-    tensors: (d_source, d_flow, d_hidden_bt, dW2, db2); g is (B,H,W,C)."""
+    tensors: (d_source, d_flow, d_hidden_bt, dW2, db2) from the forward's
+    hpre (B*H*W, D); g is (B,H,W,C)."""
     if on_kernel_device(source, "warp_bwd_pos"):
-        return _launch_bwd_pos(source, flow, hidden_bt, w1s, w2, b2, g,
+        return _launch_bwd_pos(source, flow, hpre, w1s, w2, b2, g,
                                kernel_size, negative_slope)
-    return warp_bwd_pos_plain(source, flow, hidden_bt, w1s, w2, b2, g,
-                              kernel_size, negative_slope)[:5]
+    return warp_bwd_pos_plain(source, flow, None, w1s, w2, b2, g,
+                              kernel_size, negative_slope, hpre)[:5]
 
 
 def warp_bwd_w1(source, flow, d_hpre, kernel_size: int):
@@ -251,32 +274,47 @@ def warp_bwd_w1(source, flow, d_hpre, kernel_size: int):
     return warp_bwd_w1_plain(source, flow, d_hpre, kernel_size)
 
 
-def warp_bwd(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
+def warp_bwd(source, flow, hpre, w1s, w2, b2, g, kernel_size: int,
              negative_slope: float = 0.1):
-    """The backward: (d_source, d_flow, d_hidden_bt, dW1s, dW2, db2), through
-    the two backward kernels on CUDA tensors, plain on CPU tensors."""
+    """The backward from the forward's hpre (B*H*W, D): (d_source, d_flow,
+    d_hidden_bt, dW1s, dW2, db2), through the two backward kernels on CUDA
+    tensors, plain on CPU tensors."""
     d_source, d_flow, d_hpre, dw2, db2 = warp_bwd_pos(
-        source, flow, hidden_bt, w1s, w2, b2, g, kernel_size, negative_slope)
+        source, flow, hpre, w1s, w2, b2, g, kernel_size, negative_slope)
     dw1s = warp_bwd_w1(source, flow, d_hpre, kernel_size)
     return d_source, d_flow, d_hpre, dw1s, dw2, db2
 
 
+def warp_fwd_with_hpre(source, flow, hidden_bt, w1s, w2, b2,
+                       kernel_size: int, negative_slope: float = 0.1):
+    """(out, hpre): the forward kernel, which also stores the pre-activation
+    hidden layer hpre (B*H*W, D), on CUDA tensors (one launch); the plain
+    version on CPU tensors."""
+    if on_kernel_device(source, "warp_fwd"):
+        return _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, kernel_size,
+                           negative_slope, with_hpre=True)
+    return warp_fwd_plain(source, flow, hidden_bt, w1s, w2, b2, kernel_size,
+                          negative_slope, with_hpre=True)
+
+
 class WarpFunction(torch.autograd.Function):
-    """The warp with its hand-written backward: forward `warp_fwd`'s kernel
-    (or plain twin on the CPU), backward `warp_bwd`. Counterpart of the
-    custom VJP `attn_warp_core` (pallas_warp.py:420-487)."""
+    """The warp with its hand-written backward: forward `warp_fwd_with_hpre`
+    (kernel, or plain twin on the CPU), which saves hpre in place of
+    hidden_bt; backward `warp_bwd` from that hpre. Counterpart of the custom
+    VJP `attn_warp_core` (pallas_warp.py:420-487), whose backward recomputes
+    hpre."""
 
     @staticmethod
     def forward(ctx, source, flow, hidden_bt, w1s, w2, b2, kernel_size,
                 negative_slope):
         inputs = [t.contiguous() for t in (source, flow, hidden_bt, w1s, w2,
                                            b2)]
-        ctx.save_for_backward(*inputs)
+        out, hpre = warp_fwd_with_hpre(*inputs, kernel_size, negative_slope)
+        source, flow, _, w1s, w2, b2 = inputs
+        ctx.save_for_backward(source, flow, hpre, w1s, w2, b2)
         ctx.kernel_size = kernel_size
         ctx.negative_slope = negative_slope
-        if on_kernel_device(source, "warp_fwd"):
-            return _launch_fwd(*inputs, kernel_size, negative_slope)
-        return warp_fwd_plain(*inputs, kernel_size, negative_slope)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable

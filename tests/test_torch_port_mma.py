@@ -1,13 +1,19 @@
 """The split-f32 ("3xTF32") building block of the tensor-core kernels, on CPU.
 
-csrc/mma_tf32x3.cuh and csrc/max_corr.cuh keep the split of an f32 value
-into two TF32 values and every map from a lane's fragment element to its row
-and column in `__host__ __device__` functions. They are compiled here with
-g++ into a small harness:
+csrc/mma_tf32x3.cuh, csrc/max_corr.cuh and csrc/warp_bwd_tiles.cuh keep the
+split of an f32 value into two TF32 values, every map from a lane's
+fragment element to its row and column, and the tile maps and launch plans
+of the warp backward in `__host__ __device__` functions. They are compiled
+here with g++ into a small harness:
 
 - the fragment maps of one m16n8k8 product and the warp grids of
   csrc/max_corr.cu and csrc/warp_fwd.cu cover each tile element once, and
   the 128-byte swizzle of the wgmma tiles gives every float its own place;
+- csrc/warp_bwd.cu's maps cover their tiles once: the offset-major columns
+  of the d_block product (all offsets of a band x 8 channels a tile) and of
+  the dW1s product, the trade that leaves a lane one row and four channels,
+  the per-position kernel's split of (band, channel group) items and the
+  dW1s kernel's split of the positions into ranges;
 - the split is exact in its first part and leaves ~2^-22 of the value;
 - the split product, emulated with the kernel's arithmetic (tensor-core
   accumulation by truncation within a stage of 32 channels, stages added
@@ -31,6 +37,7 @@ CORR_ATOL = 1e-5  # chip_smoke.py's tolerance on cmax
 HARNESS = r"""
 #include <cmath>
 #include "max_corr.cuh"
+#include "warp_bwd_tiles.cuh"
 using namespace gfla;
 
 // the tensor cores add into an f32 accumulator by truncation
@@ -93,6 +100,104 @@ void swizzled(int rows, int* off) {
   for (int r = 0; r < rows; ++r) {
     for (int c = 0; c < 32; ++c) off[r * 32 + c] = swizzle128(r, c);
   }
+}
+
+// Counts how often each (offset, channel) of W1s (k*k x C) is a column of
+// the per-position product's tiles. Returns 1 if a column fell outside.
+int pos_cover(int k, int C, int* count) {
+  int outside = 0;
+  for (int band = 0; band < pos_bands(k); ++band) {
+    for (int group = 0; group < (C + 7) / 8; ++group) {
+      for (int n = 0; n < 8 * pos_band_fragments(k, band); ++n) {
+        const OffsetChannel oc = pos_column(k, band, group, n);
+        if (oc.c >= C) continue;  // zero-padded channels
+        if (oc.m < 0 || oc.m >= k * k || oc.m != pos_column(k, band, group,
+                                                          n & ~7).m) {
+          outside = 1;
+        } else {
+          ++count[oc.m * C + oc.c];
+        }
+      }
+    }
+  }
+  return outside;
+}
+
+// The trade of a C fragment between lanes: returns how many traded
+// elements are not where traded_row / traded_col say.
+int trade_mismatches() {
+  float v[32][4], s0[32], s1[32];
+  for (int lane = 0; lane < 32; ++lane) {
+    for (int e = 0; e < 4; ++e) {
+      v[lane][e] = static_cast<float>(mma_c_row(lane, e) * 8 +
+                                      mma_c_col(lane, e));
+    }
+    trade_out(lane, v[lane], s0[lane], s1[lane]);
+  }
+  int bad = 0;
+  for (int lane = 0; lane < 32; ++lane) {
+    trade_in(lane, v[lane], s0[lane ^ 1], s1[lane ^ 1]);
+    for (int e = 0; e < 4; ++e) {
+      bad += v[lane][e] != traded_row(lane) * 8 + traded_col(lane) + e;
+    }
+  }
+  return bad;
+}
+
+// The same for the dW1s product's columns.
+int w1_cover(int k, int C, int* count) {
+  int outside = 0;
+  const int ctiles = (C + w1_channels(k) - 1) / w1_channels(k);
+  for (int ot = 0; ot < w1_offset_tiles(k); ++ot) {
+    const int m_end = (ot + 1) * w1_offsets(k) < k * k
+                          ? (ot + 1) * w1_offsets(k) : k * k;
+    for (int ct = 0; ct < ctiles; ++ct) {
+      for (int col = 0; col < 8 * w1_fragments(k); ++col) {
+        const OffsetChannel oc = w1_column(k, ot, ct, col);
+        if (oc.m >= m_end || oc.c >= C) continue;  // padding
+        if (oc.m < ot * w1_offsets(k) || oc.c < ct * w1_channels(k)) {
+          outside = 1;
+        } else {
+          ++count[oc.m * C + oc.c];
+        }
+      }
+    }
+  }
+  return outside;
+}
+
+// Counts how often each position is in a dW1s range; info: span, splits,
+// CTAs. Returns 1 if a range is empty.
+int w1_ranges(int N, int C, int D, int k, int* count, int* info) {
+  const W1Plan p = w1_plan(N, C, D, k);
+  int empty = 0;
+  for (int z = 0; z < p.splits; ++z) {
+    const int hi = (z + 1) * p.span < N ? (z + 1) * p.span : N;
+    if (hi <= z * p.span) empty = 1;
+    for (int q = z * p.span; q < hi; ++q) ++count[q];
+  }
+  info[0] = p.span;
+  info[1] = p.splits;
+  info[2] = w1_offset_tiles(k) * p.ctiles * p.utiles * p.splits;
+  return empty;
+}
+
+// Counts how often each (band, channel group) item is taken by a split of
+// the per-position grid; info: items, splits, CTAs. Returns 1 if a split
+// is empty.
+int pos_items(int N, int C, int k, int* count, int* info) {
+  const PosPlan p = pos_plan(N, C, k);
+  int empty = 0;
+  for (int y = 0; y < p.splits; ++y) {
+    const int hi = (y + 1) * p.per_cta < p.items ? (y + 1) * p.per_cta
+                                                 : p.items;
+    if (hi <= y * p.per_cta) empty = 1;
+    for (int it = y * p.per_cta; it < hi; ++it) ++count[it];
+  }
+  info[0] = p.items;
+  info[1] = p.splits;
+  info[2] = p.tiles * p.splits;
+  return empty;
 }
 
 void split(const float* x, int n, float* hi, float* lo) {
@@ -159,6 +264,15 @@ def harness(tmp_path_factory):
     lib.corr_grid_shape.argtypes = [p]
     lib.swizzled.argtypes = [i, p]
     lib.split.argtypes = [p, i, p, p]
+    lib.pos_cover.argtypes = [i, i, p]
+    lib.pos_cover.restype = i
+    lib.trade_mismatches.restype = i
+    lib.w1_cover.argtypes = [i, i, p]
+    lib.w1_cover.restype = i
+    lib.w1_ranges.argtypes = [i, i, i, i, p, p]
+    lib.w1_ranges.restype = i
+    lib.pos_items.argtypes = [i, i, i, p, p]
+    lib.pos_items.restype = i
     lib.dots.argtypes = [p, p, i, i, p, p]
     return lib
 
@@ -257,3 +371,43 @@ def test_split_product_keeps_f32_where_one_tf32_product_does_not(harness, C):
     b[1] = b[3]
     harness.dots(_ptr(a), _ptr(b), rows, C, _ptr(out3), _ptr(out1))
     assert out3[1] == out3[3]
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("C", [21, 128])
+def test_warp_bwd_product_columns_cover_w1s_once(harness, k, C):
+    """csrc/warp_bwd.cu: the d_block product's offset-major tiles (every
+    fragment one offset of the band, 8 channels) and the dW1s product's
+    columns each take every (offset, channel) of W1s once."""
+    for cover in (harness.pos_cover, harness.w1_cover):
+        count = np.zeros(k * k * C, np.int32)
+        assert cover(k, C, _ptr(count)) == 0
+        assert (count == 1).all()
+
+
+def test_warp_bwd_trade_leaves_one_row_and_four_channels_a_lane(harness):
+    assert harness.trade_mismatches() == 0
+
+
+SITES = [  # N, C, D, k: the two live sites, a 64x64 input's, ragged
+    (8 * 64 * 64, 128, 128, 5), (8 * 32 * 32, 256, 128, 3),
+    (2 * 16 * 16, 128, 128, 5), (2 * 12 * 10, 21, 42, 3),
+    (2 * 16 * 12, 22, 40, 7), (1000, 36, 200, 1)]
+
+
+@pytest.mark.parametrize("N,C,D,k", SITES)
+def test_warp_bwd_splits_cover_their_work_once(harness, N, C, D, k):
+    """The dW1s kernel's position ranges tile [0, N) once, in whole 32-
+    position stages; the per-position kernel's splits take each (band,
+    channel group) once; both grids fill the card at the live sites."""
+    count = np.zeros(N, np.int32)
+    info = np.zeros(3, np.int32)
+    assert harness.w1_ranges(N, C, D, k, _ptr(count), _ptr(info)) == 0
+    assert (count == 1).all() and info[0] % 32 == 0
+    w1_ctas = info[2]
+    items = 7 * 7 * 128  # more than any case has
+    count = np.zeros(items, np.int32)
+    assert harness.pos_items(N, C, k, _ptr(count), _ptr(info)) == 0
+    assert (count[:info[0]] == 1).all() and (count[info[0]:] == 0).all()
+    if N >= 8 * 32 * 32:
+        assert w1_ctas >= 132 and info[2] >= 132

@@ -177,10 +177,20 @@ void blocks(const float* src, const float* flow, int B, int H, int W, int C,
     const int b = p / (H * W), y = (p / W) % H, x = p % W;
     const gfla::Footprint f =
         gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, k);
-    for (int m = 0; m < k * k; ++m)
+    const gfla::TapWeights w = gfla::tap_weights(f.wy, f.wx);
+    const float* img = src + (size_t)b * H * W * C;
+    for (int m = 0; m < k * k; ++m) {
+      const int r0 = gfla::tap_row(f, m / k, H);
+      const int r1 = gfla::tap_row(f, m / k + 1, H);
+      const int c0 = gfla::tap_col(f, m % k, W);
+      const int c1 = gfla::tap_col(f, m % k + 1, W);
       for (int c = 0; c < C; ++c)
-        out[(p * k * k + m) * C + c] = gfla::block_value(
-            src + (size_t)b * H * W * C, f, m / k, m % k, c, H, W, C);
+        out[(p * k * k + m) * C + c] =
+            w.tl * img[(r0 * W + c0) * C + c] +
+            w.tr * img[(r0 * W + c1) * C + c] +
+            w.bl * img[(r1 * W + c0) * C + c] +
+            w.br * img[(r1 * W + c1) * C + c];
+    }
   }
 }
 }

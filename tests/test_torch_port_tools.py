@@ -1,7 +1,10 @@
 """The port's card-only measuring tools, as far as the CPU can hold them:
 they import without nvcc, triton or a card, refuse to run without CUDA with
 exit code 1 and no result, and serve_profile's grouping of kernel names puts
-the names a serving forward shows on an H100 into the expected families."""
+the names a serving forward or a training step shows on an H100 into the
+expected families."""
+
+import types
 
 import pytest
 import torch
@@ -24,6 +27,15 @@ def test_tool_refuses_without_cuda(tool, capsys):
 @pytest.mark.parametrize("name,want", [
     ("void (anonymous namespace)::warp_fwd_kernel<4, true, true>(float "
      "const*)", "warp forward kernel"),
+    ("void (anonymous namespace)::warp_bwd_pos_kernel<5, true>(float "
+     "const*)", "warp backward kernels"),
+    ("void (anonymous namespace)::warp_bwd_w1_kernel<3, true>(float "
+     "const*)", "warp backward kernels"),
+    ("gfla::reduce_parts(float const*, int, unsigned long, float*)",
+     "warp backward kernels"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::"
+     "native::(anonymous namespace)::TensorListMetadata<4>, at::native::"
+     "(anonymous namespace)::FusedAdamMathFunctor<float, 4>>", "optimizer"),
     ("sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw_"
      "tilesize256x64x8_stage3", "convolutions"),
     ("void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>",
@@ -42,6 +54,20 @@ def test_serve_profile_groups_kernel_names(name, want):
 
 
 def test_kernel_split_variants_name_a_whole_kernel_first():
-    for variants in (kernel_split.WARP_VARIANTS, kernel_split.CORR_VARIANTS):
+    for variants in (kernel_split.WARP_VARIANTS, kernel_split.BWD_VARIANTS,
+                     kernel_split.CORR_VARIANTS):
         assert list(variants)[0] == 0 and variants[0] == "whole kernel"
         assert sorted(variants) == list(range(len(variants)))
+
+
+@pytest.mark.parametrize("name,flag,want", [
+    ("Optimizer.step#Adam.step", False, True),
+    ("aten::convolution", False, True),
+    ("my_range", True, True),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::"
+     "native::(anonymous namespace)::TensorListMetadata<4>>", False, False),
+], ids=["optimizer-range", "op-range", "user-annotation", "adam-kernel"])
+def test_serve_profile_skips_annotation_ranges(name, flag, want):
+    """Ranges drawn around kernels would count their time twice."""
+    evt = types.SimpleNamespace(name=name, is_user_annotation=flag)
+    assert serve_profile.is_annotation(evt) == want

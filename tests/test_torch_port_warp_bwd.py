@@ -7,11 +7,13 @@ kernels interpreted, under a random (non-symmetric) cotangent. Tolerance:
 1e-4 x the largest |gradient| of each input (f32; the sums run in other
 orders in torch, XLA and the Pallas interpreter; at most 1.1e-6 observed).
 
-The CUDA kernels run only on the card (chip_smoke.py); their per-position
-backward code in csrc/warp_common.cuh (tap pixels, tap weights, the
-derivatives of the blend) is compiled here with g++ and fed the block
-cotangents of the plain backward: its scatter into d_source and its d_flow
-must equal what gfla_tpu's `_core_bwd` returns.
+The CUDA kernels run only on the card (chip_smoke.py); the per-position
+kernel's scatter into d_source and its d_flow, pre-summed over each
+position's (k+1)^2 footprint cells in bands of offset rows
+(csrc/warp_cells.cuh, csrc/warp_common.cuh), are compiled here with g++ and
+fed the block cotangents of the plain backward: they must equal what
+gfla_tpu's `_core_bwd` returns, with the kernel's bands and with others,
+and at far-off flows (scale 40) that clamp cells onto one pixel.
 """
 
 import ctypes
@@ -116,35 +118,47 @@ def test_warp_fwd_needs_no_grad_for_plain_serving():
 
 
 # ---------------------------------------------------------------------------
-# g++ harness of the backward code in csrc/warp_common.cuh
+# g++ harness of the backward's footprint-cell code (csrc/warp_cells.cuh)
 # ---------------------------------------------------------------------------
 
 HARNESS = r"""
-#include "warp_common.cuh"
+#include "warp_cells.cuh"
+using namespace gfla;
 extern "C" {
-// d_blocks (B*H*W, k*k, C) -> d_source (B,H,W,C) (+=), d_flow (B,H,W,2)
+// d_blocks (B*H*W, k*k, C) -> d_source (+=) and d_flow (x, y): per band of
+// `band_rows` offset rows, each of its cells gets the tap-weighted sum of
+// the d_block values of the offsets that use it.
 void scatter(const float* src, const float* flow, const float* db, int B,
-             int H, int W, int C, int k, float* dsrc, float* dflow) {
+             int H, int W, int C, int k, int band_rows, float* dsrc,
+             float* dflow) {
+  const int k2 = k * k;
   for (int p = 0; p < B * H * W; ++p) {
     const int b = p / (H * W), y = (p / W) % H, x = p % W;
-    const gfla::Footprint f =
-        gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, k);
-    const gfla::TapWeights tw = gfla::tap_weights(f.wy, f.wx);
-    const float* img = src + (size_t)b * H * W * C;
-    float* dimg = dsrc + (size_t)b * H * W * C;
+    const Footprint f = footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, k);
+    TapCoef coef[4];
+    for (int role = 0; role < 4; ++role) coef[role] = tap_coef(role, f.wy, f.wx);
     float sy = 0.0f, sx = 0.0f;
-    for (int m = 0; m < k * k; ++m) {
-      const gfla::Taps t = gfla::tap_pixels(f, m / k, m % k, H, W);
-      for (int c = 0; c < C; ++c) {
-        const float v = db[((size_t)p * k * k + m) * C + c];
-        dimg[t.tl * C + c] += tw.tl * v;
-        dimg[t.tr * C + c] += tw.tr * v;
-        dimg[t.bl * C + c] += tw.bl * v;
-        dimg[t.br * C + c] += tw.br * v;
-        const float tl = img[t.tl * C + c], tr = img[t.tr * C + c];
-        const float bl = img[t.bl * C + c], br = img[t.br * C + c];
-        sy += v * gfla::dblend_dwy(f.wx, tl, tr, bl, br);
-        sx += v * gfla::dblend_dwx(f.wy, tl, tr, bl, br);
+    for (int i0 = 0; i0 < k; i0 += band_rows) {
+      const int rows = k - i0 < band_rows ? k - i0 : band_rows;
+      for (int r = 0; r <= rows; ++r) {
+        for (int s = 0; s <= k; ++s) {
+          const size_t pix = (size_t)(b * H + tap_row(f, i0 + r, H)) * W +
+                             tap_col(f, s, W);
+          for (int c = 0; c < C; ++c) {
+            float vd = 0.0f, vy = 0.0f, vx = 0.0f;
+            for (int role = 0; role < 4; ++role) {
+              if (!role_valid(role, r, s, rows, k)) continue;
+              const int m = (i0 + role_row(role, r)) * k + role_col(role, s);
+              const float v = db[((size_t)p * k2 + m) * C + c];
+              vd += coef[role].d * v;
+              vy += coef[role].y * v;
+              vx += coef[role].x * v;
+            }
+            dsrc[pix * C + c] += vd;
+            sy += src[pix * C + c] * vy;
+            sx += src[pix * C + c] * vx;
+          }
+        }
       }
     }
     dflow[2 * p] = sx;
@@ -167,7 +181,7 @@ def harness(tmp_path_factory):
                     f"-I{CSRC}", "-o", str(out), str(src)], check=True)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.scatter.argtypes = [p, p, p, i, i, i, i, i, p, p]
+    lib.scatter.argtypes = [p, p, p] + [i] * 6 + [p, p]
     return lib
 
 
@@ -175,8 +189,20 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-@pytest.mark.parametrize("k,scale,seed", CASES)
-def test_header_scatter_and_dflow_match_core_bwd(harness, k, scale, seed):
+SCATTER_CASES = [  # k, flow scale, seed, offset rows per band
+    pytest.param(3, 1.5, 0, 3, id="k3"),
+    pytest.param(5, 1.5, 1, 5, id="k5"),
+    pytest.param(3, 40.0, 2, 3, id="k3-far-flow"),
+    pytest.param(5, 40.0, 3, 5, id="k5-far-flow"),
+    pytest.param(7, 1.5, 4, 3, id="k7-bands"),  # the kernel's bands at k=7
+    pytest.param(5, 40.0, 5, 2, id="k5-far-flow-bands"),
+    pytest.param(7, 40.0, 6, 3, id="k7-far-flow-bands"),
+]
+
+
+@pytest.mark.parametrize("k,scale,seed,band_rows", SCATTER_CASES)
+def test_header_scatter_and_dflow_match_core_bwd(harness, k, scale, seed,
+                                                 band_rows):
     a, g = _inputs(k, flow_scale=scale, seed=10 + seed)
     B, H, W, C = a["source"].shape
     t = {n: torch.from_numpy(a[n]) for n in NAMES}
@@ -189,7 +215,7 @@ def test_header_scatter_and_dflow_match_core_bwd(harness, k, scale, seed):
     dsrc = np.zeros_like(a["source"])
     dflow = np.zeros_like(a["flow"])
     harness.scatter(_ptr(a["source"]), _ptr(a["flow"]), _ptr(db), B, H, W, C,
-                    k, _ptr(dsrc), _ptr(dflow))
+                    k, band_rows, _ptr(dsrc), _ptr(dflow))
 
     def core(source, flow):
         return attn_warp_core(source, flow, jnp.asarray(hbt.numpy()),
