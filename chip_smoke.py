@@ -34,8 +34,11 @@ Phases, each failing the run (non-zero exit) on the first error:
      and zero rows (exact ties); cmax also against the float64 maximum;
      median ms of the kernel, the scan and one unchunked torch.bmm + max,
      the yardstick the port never calls.
-  8. attn-math kernels: the math-fused forward and backward against their
-     plain twins at both attention sites and a ragged N; median ms of each.
+  8. attn-math kernels: the math-fused forward (also storing hpre) and
+     the backward from that hpre against their plain twins at both
+     attention sites, a ragged shape and a ReLU; the backward's outputs
+     bitwise equal over two launches; median ms of each, the plain
+     backward timed given hpre and recomputing it.
   9. poseflownet: stage-1 flow pretraining at full width, batch 8, with
      GFLA_PALLAS_CORR=1: four steps, 2 max-correlation launches each;
      finite losses; every parameter the losses reach moved; one step
@@ -47,11 +50,9 @@ Phases, each failing the run (non-zero exit) on the first error:
      setting selects, and agreement with the default path.
 The switches are set per phase with mock.patch.dict, so none leaks into the
 next; every other phase runs with GFLA_ATTN_PALLAS=auto, GFLA_PALLAS_CORR=0.
-The warp forward, both warp backward kernels and the max-correlation
-multiply on the tensor cores as split-f32 products (three TF32 products per
-f32 product): their bound is taken at 495 / 3 TFLOP/s, with the FP32 cores'
-bound beside it; the two attention-math kernels' at the FP32 cores' 67
-TFLOP/s.
+All six kernels multiply on the tensor cores as split-f32 products (three
+TF32 products per f32 product): their bound is taken at 495 / 3 TFLOP/s,
+with the FP32 cores' 67 TFLOP/s bound beside it.
 Extra arguments go to the test options, e.g. `--checkpoints_dir DIR --name N
 --which_iter latest` to serve an original-GFLA `latest_net_G.pth` instead of
 the seeded random init. The last line is the JSON device record.
@@ -503,79 +504,117 @@ def attn_inputs(N, k, C, D, seed, device):
 
 
 def attn_work(N, k, C, D):
-    """(FLOPs, bytes) of the forward and the backward kernel: the dense
-    layer over [bt || bs] (twice in the backward, recomputed and
-    transposed), logits, weighted sum and their gradients; each input read
-    once, each output written once."""
+    """(FLOPs, bytes) of the forward kernel, of the backward kernel, and of
+    the backward gfla_tpu's kernel computes. Each has the dense layer over
+    [bt || bs] once: the forward's product, the backward's d_[bt || bs] =
+    d_hpre W1^T, since it starts from the forward's hpre; the recomputing
+    backward has it twice. Plus the logits, the weighted sum and their
+    gradients on the FP32 cores; each input read once, each output written
+    once, as 4-byte floats: the forward reads bs and bt, the backward bs, g
+    and hpre (bt only for dW1, outside the kernel) and writes d_bs, d_bt and
+    d_hpre."""
     k2 = k * k
     dense = 2 * N * 2 * k2 * C * D
     weights = 2 * k2 * C * D + D + D * k2 + k2
+    sums = D * k2 + D + k2
+    small = 2 * N * (3 * D * k2 + 2 * k2 * C)
     fwd = (dense + 2 * N * (D * k2 + k2 * C),
            4 * (2 * N * k2 * C + weights + N * C))
-    bwd = (2 * dense + 2 * N * (3 * D * k2 + 2 * k2 * C),
-           4 * (2 * N * k2 * C + N * C + weights
-                + 2 * N * k2 * C + N * D + D * k2 + D + k2))
-    return fwd, bwd
+    bwd = (dense + small,
+           4 * (N * k2 * C + N * C + N * D + weights + 2 * N * k2 * C
+                + N * D + sums))
+    recompute = (2 * dense + small,
+                 4 * (2 * N * k2 * C + N * C + weights + 2 * N * k2 * C
+                      + N * D + sums))
+    return fwd, bwd, recompute
 
 
 def phase_attn_kernel(device):
-    """Both attention-math kernels against their plain twins: the forward
-    and each of the six backward outputs within BWD_REL x its max |value|."""
+    """Both attention-math kernels against their plain twins, the backward
+    from the forward kernel's hpre: the forward, hpre and each of the six
+    backward outputs within BWD_REL x its max |value|; the forward's output
+    unchanged when it stores hpre; all six backward outputs bitwise equal
+    over two launches (the sums over positions are added in a fixed order,
+    the rest written once with no atomics)."""
     from gfla_tpu_torch.ops import attn_math
 
     results = {}
     for i, (name, N, k, C, D, slope) in enumerate(ATTN_CASES):
         args, g = attn_inputs(N, k, C, D, 50 + i, device)
+        bs, bt, w1, b1, w2, b2 = args
         out = attn_math.attn_math_fwd(*args, slope)
-        want = attn_math.attn_math_plain(*args, slope)
-        got_b = attn_math.attn_math_bwd(args[0], args[1], g, *args[2:], slope)
-        want_b = attn_math.attn_math_bwd_plain(args[0], args[1], g, *args[2:],
-                                               slope)
+        out_h, hpre = attn_math.attn_math_fwd_with_hpre(*args, slope)
+        want, want_h = attn_math.attn_math_plain(*args, slope, with_hpre=True)
+        got_b = attn_math.attn_math_bwd(bs, bt, g, w1, b1, w2, b2, slope,
+                                        hpre)
+        again = attn_math.attn_math_bwd(bs, bt, g, w1, b1, w2, b2, slope,
+                                        hpre)
+        want_b = attn_math.attn_math_bwd_plain(bs, bt, g, w1, b1, w2, b2,
+                                               slope, hpre)
         torch.cuda.synchronize()
         errs, faults = [], []
-        for what, a, b in zip(("out",) + ATTN_OUTPUTS, (out, *got_b),
-                              (want, *want_b)):
+        for what, a, b in zip(("out", "hpre") + ATTN_OUTPUTS,
+                              (out, hpre, *got_b), (want, want_h, *want_b)):
             err = (a - b).abs().max().item()
             tol = BWD_REL * b.abs().max().item()
             if not (bool(torch.isfinite(a).all()) and err <= tol):
                 faults.append(f"{what} {err:.3e} > {tol:.3e}")
             errs.append(err)
         check(not faults, f"{name}: kernel vs plain: {', '.join(faults)}")
+        check(torch.equal(out_h, out), f"{name}: the output moved when hpre "
+              f"is stored")
+        moved = [o for o, a, b in zip(ATTN_OUTPUTS, got_b, again)
+                 if not torch.equal(a, b)]
+        check(not moved, f"{name}: {moved} differ between two launches")
         fwd_ms = cuda_ms(lambda: attn_math.attn_math_fwd(*args, slope),
                          iters=10)
+        fwd_hpre_ms = cuda_ms(lambda: attn_math.attn_math_fwd_with_hpre(
+            *args, slope), iters=10)
         fwd_plain = cuda_ms(lambda: attn_math.attn_math_plain(*args, slope),
                             iters=10)
         bwd_ms = cuda_ms(lambda: attn_math.attn_math_bwd(
-            args[0], args[1], g, *args[2:], slope), iters=10)
+            bs, bt, g, w1, b1, w2, b2, slope, hpre), iters=10)
         bwd_plain = cuda_ms(lambda: attn_math.attn_math_bwd_plain(
-            args[0], args[1], g, *args[2:], slope), iters=10)
-        dw1_ms = cuda_ms(lambda: attn_math.attn_math_dw1(
-            args[0], args[1], want_b[2]), iters=10)
-        (f_ops, f_bytes), (b_ops, b_bytes) = attn_work(N, k, C, D)
+            bs, bt, g, w1, b1, w2, b2, slope, hpre), iters=10)
+        bwd_recompute = cuda_ms(lambda: attn_math.attn_math_bwd_plain(
+            bs, bt, g, w1, b1, w2, b2, slope), iters=10)
+        dw1_ms = cuda_ms(lambda: attn_math.attn_math_dw1(bs, bt, want_b[2]),
+                         iters=10)
+        fwd_work, bwd_work, recompute_work = attn_work(N, k, C, D)
         print(f"attn-math {name}: max_abs_err out={errs[0]:.3e} "
+              f"hpre={errs[1]:.3e} "
               + " ".join(f"{o}={e:.3e}" for o, e in zip(ATTN_OUTPUTS,
-                                                        errs[1:]))
-              + f" (tol {BWD_REL:g} x max|value|); forward kernel "
-              f"{fwd_ms:.4f} ms plain {fwd_plain:.4f} ms bound "
-              f"{bound(f_ops, f_bytes)[0]:.4f} ms; backward kernel "
-              f"{bwd_ms:.4f} ms plain {bwd_plain:.4f} ms bound "
-              f"{bound(b_ops, b_bytes)[0]:.4f} ms; dW1 matmul outside "
+                                                        errs[2:]))
+              + f" (tol {BWD_REL:g} x max|value|); backward outputs bitwise "
+              f"equal over two launches; forward kernel {fwd_ms:.4f} ms, "
+              f"storing hpre {fwd_hpre_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
+              f"bound {bound_pair(fwd_work)}; backward kernel from hpre "
+              f"{bwd_ms:.4f} ms, plain given hpre {bwd_plain:.4f} ms, plain "
+              f"recomputing hpre {bwd_recompute:.4f} ms, bound "
+              f"{bound_pair(bwd_work)} (recomputing: "
+              f"{bound_pair(recompute_work)}); dW1 matmul outside "
               f"{dw1_ms:.4f} ms")
         results[name] = dict(
-            fwd=dict(err=errs[0], ms=fwd_ms, plain_ms=fwd_plain,
-                     work=(f_ops, f_bytes)),
-            bwd=dict(err=max(errs[1:]), ms=bwd_ms, plain_ms=bwd_plain,
-                     work=(b_ops, b_bytes)))
+            fwd=dict(err=max(errs[:2]), ms=fwd_ms, plain_ms=fwd_plain,
+                     work=fwd_work),
+            bwd=dict(err=max(errs[2:]), ms=bwd_ms, plain_ms=bwd_plain,
+                     work=bwd_work))
     args, g = attn_inputs(40, 3, 8, 16, 59, device)
+    bs, bt, w1, b1, w2, b2 = args
+    hpre = attn_math.attn_math_fwd_with_hpre(*args)[1]
     refusals = {
         "C > 512": (ValueError, lambda: attn_math.attn_math_fwd(
             *attn_inputs(4, 3, 520, 16, 59, device)[0])),
         "bfloat16": (TypeError, lambda: attn_math.attn_math_fwd(
-            args[0].bfloat16(), *args[1:])),
+            bs.bfloat16(), *args[1:])),
         "non-contiguous": (ValueError, lambda: attn_math.attn_math_fwd(
-            args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])),
+            bs.transpose(0, 1).contiguous().transpose(0, 1), *args[1:])),
         "g of the wrong shape": (ValueError, lambda: attn_math.attn_math_bwd(
-            args[0], args[1], g[:20], *args[2:])),
+            bs, bt, g[:20], w1, b1, w2, b2, 0.1, hpre)),
+        "no hpre": (ValueError, lambda: attn_math.attn_math_bwd(
+            bs, bt, g, w1, b1, w2, b2)),
+        "hpre of the wrong shape": (ValueError, lambda: attn_math.attn_math_bwd(
+            bs, bt, g, w1, b1, w2, b2, 0.1, hpre[:, :8].contiguous())),
     }
     expect_refusals("attn_math", refusals)
     return results
@@ -1193,20 +1232,18 @@ def phase_switches(serve, train):
 
 
 def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
-                 plain_ms, work, library_ms, shape, tensor_cores=False):
-    """One entry of the `kernels` line. `tensor_cores`: the kernel multiplies
-    by split-f32 products, so its bound is taken at TF32X3_PEAK; the bound
-    on the FP32 cores stands beside it, as for the other kernels."""
-    bound_ms, bound_by = bound(*work, TF32X3_PEAK if tensor_cores
-                               else F32_PEAK)
+                 plain_ms, work, library_ms, shape):
+    """One entry of the `kernels` line. Every kernel multiplies by split-f32
+    products, so its bound is taken at TF32X3_PEAK; the bound on the FP32
+    cores stands beside it."""
+    bound_ms, bound_by = bound(*work, TF32X3_PEAK)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": err,
             "tolerance": tolerance, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_unit": ("tensor cores, 3 TF32 products per f32 product: "
-                           "165 TFLOP/s" if tensor_cores
-                           else "FP32 cores: 67 TFLOP/s"),
+            "bound_unit": "tensor cores, 3 TF32 products per f32 product: "
+                          "165 TFLOP/s",
             "bound_ms_fp32_cores": bound(*work)[0],
             "library_ms": library_ms, "ms_shape": shape}
 
@@ -1243,7 +1280,7 @@ def main(argv):
         {"serve": serve["launches"], "train": train["warp_fwd"],
          "train_corr": switched["train_corr"]["warp_fwd"]},
         max(e for e, _, _ in kernel.values()), f"{KERNEL_ATOL:g} abs", ms,
-        plain_ms, work["warp_fwd"], none, shape, tensor_cores=True)]
+        plain_ms, work["warp_fwd"], none, shape)]
     for name, part in (("warp_bwd_pos", "pos"), ("warp_bwd_w1", "w1")):
         entries.append(kernel_entry(
             name, "gfla_tpu_torch/csrc/warp_bwd.cu",
@@ -1253,7 +1290,7 @@ def main(argv):
             max(r[part][0] for r in bwd.values()),
             f"{BWD_REL:g} x max|value| of each output",
             bwd[site[0]][part][1], bwd[site[0]][part][2], work[name], none,
-            shape, tensor_cores=True))
+            shape))
     c = corr[CORR_CASES[0][0]]
     entries.append(kernel_entry(
         "max_corr", "gfla_tpu_torch/csrc/max_corr.cu",
@@ -1262,7 +1299,7 @@ def main(argv):
          "train_corr": switched["train_corr"]["max_corr"]},
         max(r["err"] for r in corr.values()), f"{CORR_ATOL:g} abs (cmax)",
         c["ms"], c["plain_ms"], c["work"], c["library_ms"],
-        "B=8 Ns=Nt=4096 C=256", tensor_cores=True))
+        "B=8 Ns=Nt=4096 C=256"))
     a = attn[ATTN_CASES[0][0]]
     for name, part, paths in (
             ("attn_math_fwd", "fwd", ("serve_attn", "train_attn")),

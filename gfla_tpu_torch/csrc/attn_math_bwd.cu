@@ -2,216 +2,375 @@
 //
 // Replaces gfla_tpu/ops/pallas_attn.py::_bwd_kernel (launched by
 // _attn_math_bwd_pallas under the custom VJP attn_math_fused). Given the
-// forward's inputs and the output cotangent g (N, C), it recomputes the
-// forward per position and writes
+// blocks bs (N, k^2, C), the forward's pre-activation hidden layer hpre
+// (N, D), stored by attn_math_fwd.cu, so nothing is recomputed, and the
+// output cotangent g (N, C), it writes
 //     d_bs   = d_hpre . W1s^T + (1/k^2) attn g        (N, k^2, C)
 //     d_bt   = d_hpre . W1t^T                         (N, k^2, C)
 //     d_hpre = LeakyReLU'(hpre) (d_logits . W2^T)     (N, D)
 // with d_logits = attn (d_attn - sum attn d_attn), d_attn = (1/k^2) <bs, g>,
-// and the sums over positions dW2 = hidden^T d_logits, db1 = sum d_hpre,
-// db2 = sum d_logits. dW1 = [bt || bs]^T d_hpre is one matrix product outside
-// the kernel, as gfla_tpu computes it outside its kernel.
+// W1t and W1s the target and source halves of W1 (k^2, 2C, D), and the sums
+// over positions dW2 = hidden^T d_logits, db1 = sum d_hpre, db2 = sum
+// d_logits. dW1 = [bt || bs]^T d_hpre is one matrix product outside the
+// kernels, as gfla_tpu computes it outside its kernel. Two kernels share the
+// work:
 //
-// The TPU adds dW2, db1 and db2 across its sequential grid. CUDA CTAs run in
-// no order, so each CTA writes its partial sums and gfla::reduce_parts adds
-// them in CTA order: the weight gradients are deterministic. d_bs and d_bt are
-// written once per element, with no atomics.
+//  * attn_bwd_rows_kernel, per position: hidden = LeakyReLU(hpre), logits,
+//    softmax, d_attn (bs read once, 16 bytes a lane), d_logits, the CTA's
+//    dW2, db2 and db1, and d_hpre, which it writes with the softmax for the
+//    product kernel;
+//  * attn_bwd_product_kernel: d_[bt || bs] = d_hpre . W1^T on the tensor
+//    cores, and (1/k^2) attn g added into the source half.
+//  * reduce_parts sums the partials in a fixed order, so dW2, db1 and db2
+//    are deterministic; d_bs, d_bt and d_hpre are written once per element,
+//    with no atomics.
 //
 // What bounds it on an H100: at the k=5 site (N = 8*64*64, k^2 = 25, C = 128,
-// D = 128) the recomputed dense layer and d_[bs||bt] are 53.7 GFLOP each,
-// 107 GFLOP in all, 1.6 ms at the f32 peak, against 1.7 GB of block reads and
-// writes (0.51 ms at 3.35 TB/s): compute-bound, on the FP32 cores.
+// D = 128) the product is 2 * N * 6400 * 128 = 53.7 GFLOP, 0.33 ms at the
+// 165 TFLOP/s of f32 work that split-f32 products (mma_tf32x3.cuh) get from
+// the tensor cores; bs, g and hpre read once and d_bs, d_bt and d_hpre
+// written once are 1.3 GB, 0.39 ms at 3.35 TB/s: bytes, nearly balanced with
+// the operations.
 //
-// What this design does about it: a CTA of kTile positions and one thread per
-// hidden unit recomputes hpre as attn_math_fwd.cu does (register accumulators
-// over shared-memory rows of bt and bs) and runs the softmax and LeakyReLU
-// backward steps it shares with warp_bwd.cu (attn_tile.cuh). Then, for each
-// offset, one thread per channel streams the W1t and W1s rows of that channel
-// against the CTA's d_hpre in shared memory, keeping 2 * kTile sums in
-// registers.
+// What the design does about it:
+//  * per position: a CTA of 8 warps owns 32 positions (attn_math_steps.cuh's
+//    softmax); 8 lanes take each (position, offset) dot <bs, g>, 4 channels
+//    a lane, so the blocks are read once, coalesced. Its partial sums go to
+//    scratch.
+//  * product: both operands lie with the depth D innermost, as wgmma takes
+//    TF32 operands (attn_math_steps.cuh): a CTA multiplies the d_hpre rows
+//    of 128 positions by items of 128 columns, each a run of 128 channels of
+//    one (offset, half) (attn_math_tiles.cuh), so an item's output rows are
+//    contiguous; W1 is read once per 128 positions, 256 times at the k=5
+//    site. When the position tiles leave SMs idle (the k=3 site) the items
+//    are split over CTAs. mma.sync from fragments split at load took 1.6x
+//    as long for this product on an H100 (PERF.md, section 6).
 #include <cuda_runtime.h>
 
-#include "attn_tile.cuh"
+#include <cmath>
+#include <cstdint>
+
+// tools/kernel_split.py builds timing variants, each leaving one part out:
+// 1 the product, 2 the tile copies and splits (W1 and d_hpre stages), 3 the
+// product's epilogue (+ attn g, the stores of d_bs and d_bt), 4 the d_attn
+// read of the blocks; 0 (the kernels) leaves nothing out.
+#ifndef GFLA_SPLIT
+#define GFLA_SPLIT 0
+#endif
+
+#include "attn_math_steps.cuh"
+#include "attn_math_tiles.cuh"
 #include "reduce_parts.cuh"
 
 namespace {
 
-using gfla::kTile;
+using gfla::kAttnRowPos;
+using gfla::kAttnTile;
+using gfla::kGemmThreads;
 
-// blockDim.x is D rounded up to a multiple of 32; thread d < D owns hidden
-// unit d.
-__global__ void __launch_bounds__(256)
-    attn_math_bwd_kernel(const float* __restrict__ bs,
-                         const float* __restrict__ bt,
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+
+// ---- per-position kernel ----------------------------------------------------
+
+__host__ __device__ constexpr int rows_ld(int D) { return D + 1; }
+
+size_t rows_smem_bytes(int k2, int D) {
+  return sizeof(float) *
+         (static_cast<size_t>(kAttnRowPos) * (rows_ld(D) + 2 * k2) + D * k2);
+}
+
+// CTA x: positions p0 = 32 x .. p0 + 31, of which the first n_valid exist.
+// Writes d_hpre and att_out (N, k2), the softmax, for those rows, and its
+// partial sums part[x] = dW2 (D x k2), db1 (D), db2 (k2).
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads)
+    attn_bwd_rows_kernel(const float* __restrict__ bs,
+                         const float* __restrict__ hpre,
                          const float* __restrict__ g,
-                         const float* __restrict__ w1t,
-                         const float* __restrict__ w1s,
-                         const float* __restrict__ b1,
                          const float* __restrict__ w2,
                          const float* __restrict__ b2,
-                         float* __restrict__ d_bs, float* __restrict__ d_bt,
-                         float* __restrict__ d_hpre, float* __restrict__ part,
-                         int N, int K2, int C, int Cp, int D, int Dp,
-                         float slope) {
+                         float* __restrict__ d_hpre,
+                         float* __restrict__ att_out,
+                         float* __restrict__ part, int N, int K2, int C,
+                         int D, float slope) {
+  constexpr int kRows = kAttnRowPos;
   const float inv_k2 = 1.0f / static_cast<float>(K2);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* blk_t = reinterpret_cast<float*>(smem);  // kTile x Cp
-  float* blk_s = blk_t + kTile * Cp;              // kTile x Cp
-  float* hid = blk_s + kTile * Cp;  // kTile x Dp: hidden, later d_hpre
-  float* att = hid + kTile * Dp;    // kTile x K2: softmax
-  float* dat = att + kTile * K2;    // kTile x K2: d_attn, later d_logits
+  const int ld = rows_ld(D);
+  extern __shared__ __align__(16) float smem[];
+  float* hid = smem;                  // kRows x ld: hidden
+  float* att = hid + kRows * ld;      // kRows x K2: softmax
+  float* dat = att + kRows * K2;      // kRows x K2: d_attn, then d_logits
+  float* w2s = dat + kRows * K2;      // D x K2
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  const int d = tid;
-  const bool owns_d = d < D;
-  const int p0 = blockIdx.x * kTile;
-  const int n_valid = min(kTile, N - p0);
+  const int lane = tid & 31;
+  const int p0 = blockIdx.x * kRows;
+  const int n_valid = min(kRows, N - p0);
 
-  // ---- recompute hpre = bt . W1t + bs . W1s, and d_attn per offset ----
-  float acc[kTile];
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) acc[t] = 0.0f;
-
-  for (int m = 0; m < K2; ++m) {
-    __syncthreads();  // the previous offset's rows are consumed
-    gfla::stage_offset_pair(bt, bs, m, p0, n_valid, K2, C, Cp, blk_t, blk_s);
-    __syncthreads();
-    if (owns_d) {
-      const size_t w = static_cast<size_t>(m) * C * D + d;
-      gfla::dense_accumulate_pair(acc, blk_t, w1t + w, blk_s, w1s + w, Cp, C,
-                                  D);
-    }
-    // d_attn[t][m] = (1/k^2) <bs, g>: one warp per position
-    for (int t = warp; t < kTile; t += nwarps) {
+  // d_attn[t][m] = (1/k^2) <bs[p][m], g[p]>: 8 lanes a (position, offset),
+  // the four groups of a warp on neighbouring pairs; every lane of a warp
+  // takes the same number of turns, for the shuffles
+  {
+    const int sub = lane & 7;
+    for (int base = 4 * warp; base < kRows * K2; base += kGemmThreads / 8) {
+      const int e = base + (lane >> 3);
+      const int t = e / K2;
+      const int m = e - t * K2;
       float s = 0.0f;
+      if (e < kRows * K2 && t < n_valid && GFLA_SPLIT != 4) {
+        const size_t p = static_cast<size_t>(p0 + t);
+        for (int c = 4 * sub; c < C; c += 32) {
+          s = dot4(gfla::load4<kVec>(bs, p * K2 + m, c, C),
+                   gfla::load4<kVec>(g, p, c, C), s);
+        }
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      if (sub == 0 && e < kRows * K2) dat[e] = s * inv_k2;
+    }
+  }
+  auto hpre_row = [&](int t, int d) {
+    return hpre[static_cast<size_t>(p0 + t) * D + d];
+  };
+  gfla::rows_softmax(hpre_row, n_valid, w2, b2, hid, ld, w2s, att, K2, D,
+                     slope);
+
+  // d_logits = attn (d_attn - <attn, d_attn>), 0 past n_valid; the softmax
+  // to att_out (a warp per 4 positions)
+  for (int t = warp * (kRows / 8); t < (warp + 1) * (kRows / 8); ++t) {
+    const float* a = att + t * K2;
+    float* da = dat + t * K2;
+    float ad = 0.0f;
+    for (int mm = lane; mm < K2; mm += 32) ad = fmaf(a[mm], da[mm], ad);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ad += __shfl_xor_sync(0xffffffffu, ad, o);
+    for (int mm = lane; mm < K2; mm += 32) {
+      da[mm] = t < n_valid ? a[mm] * (da[mm] - ad) : 0.0f;
       if (t < n_valid) {
-        const float* gp = g + static_cast<size_t>(p0 + t) * C;
-        for (int c = lane; c < C; c += 32) s = fmaf(blk_s[t * Cp + c], gp[c], s);
+        att_out[static_cast<size_t>(p0 + t) * K2 + mm] = a[mm];
       }
-      s = gfla::warp_sum(s);
-      if (lane == 0) dat[t * K2 + m] = s * inv_k2;
     }
-  }
-
-  // ---- + b1, LeakyReLU; hpre stays in acc ----
-  if (owns_d) {
-    const float bias = b1[d];
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      const float h = acc[t] + bias;
-      acc[t] = h;
-      hid[t * Dp + d] = h >= 0.0f ? h : h * slope;
-    }
-  } else if (d < Dp) {
-    for (int t = 0; t < kTile; ++t) hid[t * Dp + d] = 0.0f;
   }
   __syncthreads();
-  gfla::logits_softmax(hid, Dp, w2, b2, att, K2, D);
-  // d_logits = attn (d_attn - sum attn d_attn); this CTA's dW2, db2, db1
-  gfla::softmax_bwd(att, dat, n_valid, K2);
+
+  // ---- this CTA's dW2 = hidden^T d_logits, db2 = sum d_logits -------------
   float* my_part = part + static_cast<size_t>(blockIdx.x) * (D * K2 + D + K2);
-  gfla::dw2_db2_partial(hid, Dp, dat, my_part, D * K2 + D, K2, D);
-  __syncthreads();  // hidden fully read before d_hpre overwrites it
-
-  // ---- d_hpre = LeakyReLU'(hpre) (d_logits . W2^T), and db1 ----
-  if (owns_d) {
-    my_part[D * K2 + d] = gfla::d_hpre_rows(acc, dat, w2, slope, hid, Dp,
-                                            d_hpre, p0, n_valid, K2, D);
+  for (int e = tid; e < D * K2; e += kGemmThreads) {
+    const int d = e / K2;
+    const int mm = e - d * K2;
+    float s = 0.0f;
+#pragma unroll 8
+    for (int t = 0; t < kRows; ++t) {
+      s = fmaf(hid[t * ld + d], dat[t * K2 + mm], s);
+    }
+    my_part[e] = s;
   }
-  __syncthreads();
+  for (int mm = tid; mm < K2; mm += kGemmThreads) {
+    float s = 0.0f;
+    for (int t = 0; t < kRows; ++t) s += dat[t * K2 + mm];
+    my_part[D * K2 + D + mm] = s;
+  }
 
-  // ---- per offset: d_bt = d_hpre . W1t^T, d_bs = d_hpre . W1s^T + attn g ----
-  for (int m = 0; m < K2; ++m) {
-    for (int c = tid; c < C; c += nthreads) {
-      float at[kTile], as[kTile];
+  // ---- d_hpre = LeakyReLU'(hpre) (d_logits . W2^T), and db1 ----------------
+  for (int d = tid; d < D; d += kGemmThreads) {
+    const float* w2row = w2s + d * K2;
+    float sum = 0.0f;
+    for (int t = 0; t < n_valid; ++t) {
+      float s = 0.0f;
+      for (int mm = 0; mm < K2; ++mm) s = fmaf(dat[t * K2 + mm], w2row[mm], s);
+      const size_t at = static_cast<size_t>(p0 + t) * D + d;
+      const float dh = hpre[at] >= 0.0f ? s : s * slope;
+      d_hpre[at] = dh;
+      sum += dh;
+    }
+    my_part[D * K2 + d] = sum;
+  }
+}
+
+// ---- product kernel -----------------------------------------------------------
+
+// Grid (position tiles, item splits). CTA (x, y) multiplies the d_hpre rows
+// of positions 128 x .. by the W1 rows of items [y * per_cta, min(items,
+// (y + 1) * per_cta)), the depth D in stages of 32.
+template <bool kVec, bool kResidentA>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    attn_bwd_product_kernel(const float* __restrict__ d_hpre,
+                            const float* __restrict__ w1,
+                            const float* __restrict__ att,
+                            const float* __restrict__ g,
+                            float* __restrict__ d_bs, float* __restrict__ d_bt,
+                            int N, int K2, int C, int D, int n_items,
+                            int per_cta) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = gfla::gemm_ring(smem_raw);
+  constexpr gfla::WarpGrid kGrid = gfla::attn_grid();
+  const float inv_k2 = 1.0f / static_cast<float>(K2);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int p0 = blockIdx.x * kAttnTile;
+  const int per_item = (D + gfla::kAttnDepth - 1) / gfla::kAttnDepth;
+  const int item0 = blockIdx.y * per_cta;
+  const int my_items = max(0, min(per_cta, n_items - item0));
+
+  auto tiles = [&](int step) {
+    const gfla::OffsetRun it = gfla::bwd_item(item0 + step / per_item, C);
+    const int d0 = (step % per_item) * gfla::kAttnDepth;
+    const size_t w_row = static_cast<size_t>(2 * it.m + it.h) * C + it.c0;
+    return gfla::GemmStage{
+        {d_hpre + static_cast<size_t>(p0) * D + d0, static_cast<size_t>(D),
+         N - p0, D - d0},
+        {w1 + w_row * D + d0, static_cast<size_t>(D), C - it.c0, D - d0}};
+  };
+  // columns 2 q and 2 q + 1 of the item: channels c and c + 1. A row's g
+  // values are all loaded before its first store, which might alias them
+  // as far as the compiler knows.
+  auto epilogue = [&](int item, const float(&sum)[64]) {
+    const gfla::OffsetRun it = gfla::bwd_item(item0 + item, C);
+    float* out = it.h ? d_bs : d_bt;
+    const bool pairs = C % 2 == 0;  // 8-byte aligned pairs
 #pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        at[t] = 0.0f;
-        as[t] = 0.0f;
+    for (int half = 0; half < 2; ++half) {  // rows r and r + 8
+      const int p = p0 + gfla::grid_row(kGrid, warp, lane, 0, 2 * half);
+      if (p >= N) continue;
+      const size_t row = (static_cast<size_t>(p) * K2 + it.m) * C;
+      const int c_first = it.c0 + gfla::grid_col(kGrid, warp, lane, 0, 0);
+      float2 ag[16];  // (1/k^2) attn g at channels c, c + 1
+      if (it.h) {
+        const float w = inv_k2 * att[static_cast<size_t>(p) * K2 + it.m];
+        const float* gp = g + static_cast<size_t>(p) * C;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = c_first + 8 * j;
+          float2 v = make_float2(0.0f, 0.0f);
+          if (pairs && c < C) {
+            v = __ldg(reinterpret_cast<const float2*>(gp + c));
+          } else {
+            if (c < C) v.x = __ldg(gp + c);
+            if (c + 1 < C) v.y = __ldg(gp + c + 1);
+          }
+          ag[j] = make_float2(w * v.x, w * v.y);
+        }
       }
-      const float* wt = w1t + (static_cast<size_t>(m) * C + c) * D;
-      const float* ws = w1s + (static_cast<size_t>(m) * C + c) * D;
-      for (int dd = 0; dd < Dp; dd += 4) {
-        float4 u, v;
-        if (D == Dp) {  // rows are 16-byte aligned
-          u = *reinterpret_cast<const float4*>(wt + dd);
-          v = *reinterpret_cast<const float4*>(ws + dd);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = c_first + 8 * j;
+        if (c >= C) continue;
+        float v0 = sum[4 * j + 2 * half];
+        float v1 = sum[4 * j + 2 * half + 1];
+        const bool two = c + 1 < C;
+        if (it.h) {
+          v0 += ag[j].x;
+          v1 += ag[j].y;
+        }
+        float* to = out + row + c;
+        if (GFLA_SPLIT == 3) {
+          if (v0 == -1.2345e-38f) *to = v1;  // keeps the product live
+        } else if (pairs) {
+          *reinterpret_cast<float2*>(to) = make_float2(v0, v1);
         } else {
-          u.x = dd < D ? wt[dd] : 0.0f;
-          u.y = dd + 1 < D ? wt[dd + 1] : 0.0f;
-          u.z = dd + 2 < D ? wt[dd + 2] : 0.0f;
-          u.w = dd + 3 < D ? wt[dd + 3] : 0.0f;
-          v.x = dd < D ? ws[dd] : 0.0f;
-          v.y = dd + 1 < D ? ws[dd + 1] : 0.0f;
-          v.z = dd + 2 < D ? ws[dd + 2] : 0.0f;
-          v.w = dd + 3 < D ? ws[dd + 3] : 0.0f;
+          to[0] = v0;
+          if (two) to[1] = v1;
         }
-#pragma unroll
-        for (int t = 0; t < kTile; ++t) {
-          const float4 h = *reinterpret_cast<const float4*>(hid + t * Dp + dd);
-          at[t] = fmaf(h.x, u.x, at[t]);
-          at[t] = fmaf(h.y, u.y, at[t]);
-          at[t] = fmaf(h.z, u.z, at[t]);
-          at[t] = fmaf(h.w, u.w, at[t]);
-          as[t] = fmaf(h.x, v.x, as[t]);
-          as[t] = fmaf(h.y, v.y, as[t]);
-          as[t] = fmaf(h.z, v.z, as[t]);
-          as[t] = fmaf(h.w, v.w, as[t]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        if (t >= n_valid) continue;
-        const int p = p0 + t;
-        const size_t off = (static_cast<size_t>(p) * K2 + m) * C + c;
-        d_bt[off] = at[t];
-        d_bs[off] = fmaf(inv_k2 * att[t * K2 + m],
-                         g[static_cast<size_t>(p) * C + c], as[t]);
       }
     }
-  }
+  };
+  gfla::gemm_walk<kVec, kResidentA>(ring, my_items * per_item, per_item, tiles,
+                                    epilogue);
+}
+
+// kResidentA: d_hpre's D <= 128 hidden units stay in shared memory for the
+// whole CTA, so only W1 is copied and split a stage (attn_math_steps.cuh);
+// a wider D does not fit and streams with W1.
+template <bool kVec, bool kResidentA>
+int launch_product(const gfla::AttnBwdPlan& plan, const float* d_hpre,
+                   const float* w1, const float* att, const float* g,
+                   float* d_bs, float* d_bt, int N, int k2, int C, int D,
+                   cudaStream_t stream) {
+  const size_t smem = gfla::gemm_smem_bytes(kResidentA);
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_product_kernel<kVec, kResidentA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(plan.tiles, plan.splits);
+  attn_bwd_product_kernel<kVec, kResidentA>
+      <<<grid, kGemmThreads, smem, stream>>>(d_hpre, w1, att, g, d_bs, d_bt,
+                                             N, k2, C, D, plan.items,
+                                             plan.per_cta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec>
+int launch(const float* bs, const float* hpre, const float* g,
+           const float* w1, const float* w2, const float* b2, float* d_bs,
+           float* d_bt, float* d_hpre, float* scratch, float* sums, int N,
+           int k2, int C, int D, float slope, cudaStream_t stream) {
+  const int row_ctas = (N + kAttnRowPos - 1) / kAttnRowPos;
+  float* part = scratch;
+  float* att = scratch + static_cast<size_t>(row_ctas) * (D * k2 + D + k2);
+  const size_t rows_smem = rows_smem_bytes(k2, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_rows_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(rows_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_rows_kernel<kVec><<<row_ctas, kGemmThreads, rows_smem, stream>>>(
+      bs, hpre, g, w2, b2, d_hpre, att, part, N, k2, C, D, slope);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+
+  const gfla::AttnBwdPlan plan = gfla::attn_bwd_plan(N, C, k2);
+  e = D <= gfla::kGemmResidentStages * gfla::kAttnDepth
+          ? launch_product<kVec, true>(plan, d_hpre, w1, att, g, d_bs, d_bt,
+                                       N, k2, C, D, stream)
+          : launch_product<kVec, false>(plan, d_hpre, w1, att, g, d_bs, d_bt,
+                                        N, k2, C, D, stream);
+  if (e != 0) return e;
+  return gfla::launch_reduce(part, row_ctas,
+                             static_cast<size_t>(D) * k2 + D + k2, sums,
+                             stream);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// Scratch size, in floats, that the wrapper allocates for the partial sums.
+// Scratch size, in floats, that the wrapper allocates: the per-position
+// kernel's partial sums and the softmax it hands to the product kernel.
 extern "C" long long gfla_attn_math_bwd_scratch(int N, int k2, int D) {
-  return static_cast<long long>((N + kTile - 1) / kTile) *
-         (static_cast<long long>(D) * k2 + D + k2);
+  return static_cast<long long>((N + kAttnRowPos - 1) / kAttnRowPos) *
+             (static_cast<long long>(D) * k2 + D + k2) +
+         static_cast<long long>(N) * k2;
 }
 
-// Inputs as gfla_attn_math_fwd, plus g (N, C). Outputs: d_bs, d_bt
-// (N, k2, C); d_hpre (N, D); sums (D*k2 + D + k2): dW2 (D, k2), then db1 (D),
-// then db2 (k2). part: gfla_attn_math_bwd_scratch floats. Returns a
-// cudaError_t; 0 means both launches were accepted.
-extern "C" int gfla_attn_math_bwd(const float* bs, const float* bt,
-                                  const float* g, const float* w1t,
-                                  const float* w1s, const float* b1,
+// bs (N, k2, C); hpre (N, D): the forward's pre-activation hidden layer; g
+// (N, C); w1 (k2, 2C, D); w2 (D, k2); b2 (k2). Outputs: d_bs, d_bt
+// (N, k2, C); d_hpre (N, D); sums (D*k2 + D + k2): dW2 (D, k2), then db1
+// (D), then db2 (k2). scratch: gfla_attn_math_bwd_scratch floats. float32,
+// contiguous, on one device; D at most 256. Returns a cudaError_t; 0 means
+// every launch was accepted.
+extern "C" int gfla_attn_math_bwd(const float* bs, const float* hpre,
+                                  const float* g, const float* w1,
                                   const float* w2, const float* b2,
                                   float* d_bs, float* d_bt, float* d_hpre,
-                                  float* part, float* sums, int N, int k2,
+                                  float* scratch, float* sums, int N, int k2,
                                   int C, int D, float slope, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Cp = (C + 3) / 4 * 4;
-  const int Dp = (D + 3) / 4 * 4;
-  const size_t smem = sizeof(float) * kTile * (2 * Cp + Dp + 2 * k2);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_math_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || k2 < 1 || C < 1 || D < 1 || D > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = (D + 31) / 32 * 32;
-  const int n_ctas = (N + kTile - 1) / kTile;
-  attn_math_bwd_kernel<<<n_ctas, threads, smem, st>>>(
-      bs, bt, g, w1t, w1s, b1, w2, b2, d_bs, d_bt, d_hpre, part, N, k2, C, Cp,
-      D, Dp, slope);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return gfla::launch_reduce(part, n_ctas,
-                             static_cast<size_t>(D) * k2 + D + k2, sums, st);
+  // kVec: 16-byte copies of the product's operands (rows of D floats) and
+  // of the per-position kernel's bs and g rows (C floats)
+  const bool vec = C % 4 == 0 && D % 4 == 0 && aligned16(bs) &&
+                   aligned16(g) && aligned16(w1) && aligned16(d_hpre);
+  if (vec) {
+    return launch<true>(bs, hpre, g, w1, w2, b2, d_bs, d_bt, d_hpre, scratch,
+                        sums, N, k2, C, D, slope, s);
+  }
+  return launch<false>(bs, hpre, g, w1, w2, b2, d_bs, d_bt, d_hpre, scratch,
+                       sums, N, k2, C, D, slope, s);
 }

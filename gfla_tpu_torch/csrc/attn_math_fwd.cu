@@ -3,142 +3,246 @@
 // Replaces gfla_tpu/ops/pallas_attn.py::_kernel (launched by
 // _attn_math_pallas). The blocks are already gathered: bs, bt (N, k^2, C).
 // Per position it computes
-//     hidden = LeakyReLU(bt . W1t + bs . W1s + b1)    (D units)
-//     attn   = softmax(hidden . W2 + b2)              (over the k^2 offsets)
-//     out    = (1/k^2) sum_m attn_m * bs_m            (C channels)
-// where W1t and W1s are the target and source halves of W1 (k^2, 2C, D), so
-// the [bt || bs] concatenation is never built (gfla_tpu's _split_w1).
+//     hpre   = [bt || bs] . W1 + b1                  (D units)
+//     attn   = softmax(LeakyReLU(hpre) . W2 + b2)    (over the k^2 offsets)
+//     out    = (1/k^2) sum_m attn_m * bs_m           (C channels)
+// with W1 (k^2, 2C, D) as gfla_tpu lays it out, so the [bt || bs]
+// concatenation is never built. Under grad the caller also passes an (N, D)
+// buffer and hpre is stored there, so that the backward (attn_math_bwd.cu)
+// starts from it instead of recomputing it.
 //
 // What bounds it on an H100: at the k=5 site of the DeepFashion generator
 // (N = 8*64*64, k^2 = 25, C = 128, D = 128) the dense layer is 2 * N * 6400 *
-// 128 = 53.7 GFLOP, 0.80 ms at the 67 TFLOP/s f32 peak, against 839 MB of
-// bs and bt, 0.25 ms at 3.35 TB/s: compute-bound, on the FP32 cores.
+// 128 = 53.7 GFLOP against 839 MB of bs and bt: operations. They run on the
+// tensor cores as split-f32 products (mma_tf32x3.cuh), three TF32 products
+// per f32 product, so the bound is 495 / 3 = 165 TFLOP/s of f32 work, 0.33
+// ms; the blocks' bytes take 0.25 ms at 3.35 TB/s.
 //
-// What this design does about it: the CTA design of warp_fwd.cu without the
-// gather, sharing its steps (attn_tile.cuh). A CTA takes kTile positions and
-// one thread per hidden unit, each keeping kTile partial sums in registers.
-// For each offset it stages that offset's (kTile x C) rows of bt and bs in
-// shared memory (coalesced rows of C floats) and every thread streams its W1t
-// and W1s columns against them, so each weight is read once per CTA and each
-// shared-memory float4 feeds four FMAs. The weighted sum re-reads the bs rows
-// from L2 rather than keep k^2 * C floats per position on chip.
+// What this design does about it: two kernels.
+//  * attn_fwd_product_kernel: the dense layer as a GEMM, (positions) x
+//    (k^2 2C) times W1, whose left operand is the blocks as they lie, on
+//    wgmma (attn_math_steps.cuh): 128 positions x 128 hidden units a CTA,
+//    the depth walked in stages of (offset, half, 32 channels)
+//    (attn_math_tiles.cuh), so shared memory does not grow with C. wgmma
+//    takes TF32 operands only with the depth innermost, which W1 (D
+//    innermost) is not, so the wrapper passes the transposed copy W1^T (D x
+//    k^2 2C), 3.3 MB at the k=5 site. When the position tiles alone would
+//    leave SMs idle (the k=3 site) the depth is split over CTAs, each with
+//    its own partial sum. mma.sync from fragments split at load, with the
+//    epilogue below fused in, took 1.2x as long on an H100 (PERF.md,
+//    section 6).
+//  * attn_fwd_rows_kernel, 32 positions a CTA: hpre = the partials in a
+//    fixed order + b1 (stored when asked), LeakyReLU, the logits, the
+//    softmax over k^2 and the weighted sum on the FP32 cores, reading each
+//    bs row 16 bytes a lane. It is memory-bound and small enough to keep
+//    many CTAs an SM, where a fused epilogue would idle the tensor cores.
 #include <cuda_runtime.h>
 
-#include "attn_tile.cuh"
+#include <cmath>
+#include <cstdint>
+
+// tools/kernel_split.py builds timing variants, each leaving one part out:
+// 1 the product, 2 the tile copies and splits, 3 the weighted sum; 0 (the
+// kernels) leaves nothing out.
+#ifndef GFLA_SPLIT
+#define GFLA_SPLIT 0
+#endif
+
+#include "attn_math_steps.cuh"
+#include "attn_math_tiles.cuh"
 
 namespace {
 
-using gfla::kTile;
+using gfla::kAttnDepth;
+using gfla::kAttnRowPos;
+using gfla::kAttnTile;
+using gfla::kGemmThreads;
 
-__global__ void __launch_bounds__(256)
-    attn_math_fwd_kernel(const float* __restrict__ bs,
-                         const float* __restrict__ bt,
-                         const float* __restrict__ w1t,
-                         const float* __restrict__ w1s,
+// Grid (position tiles x column tiles, splits). CTA (x, y) writes
+// part[y][p][d] = sum over its depth stages of [bt || bs][p] . W1[:, d] for
+// the positions p and hidden units d of its tile.
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    attn_fwd_product_kernel(const float* __restrict__ bs,
+                            const float* __restrict__ bt,
+                            const float* __restrict__ w1t,
+                            float* __restrict__ part, int N, int K2, int C,
+                            int D, int col_tiles, int per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = gfla::gemm_ring(smem_raw);
+  constexpr gfla::WarpGrid kGrid = gfla::attn_grid();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int p0 = (blockIdx.x / col_tiles) * kAttnTile;
+  const int n0 = (blockIdx.x % col_tiles) * kAttnTile;
+  const int stages = gfla::attn_runs(K2, C, kAttnDepth);
+  const int q0 = blockIdx.y * per_split;
+  const int steps = max(0, min(per_split, stages - q0));
+  const size_t ldx = static_cast<size_t>(K2) * C;  // a row of bt, bs
+  const size_t ldw = 2 * ldx;                      // a row of W1^T
+
+  auto tiles = [&](int step) {
+    const gfla::OffsetRun ch = gfla::attn_run(q0 + step, C, kAttnDepth);
+    const float* x = ch.h ? bs : bt;
+    const int cols = C - ch.c0;
+    return gfla::GemmStage{
+        {x + p0 * ldx + static_cast<size_t>(ch.m) * C + ch.c0, ldx, N - p0,
+         cols},
+        {w1t + n0 * ldw + static_cast<size_t>(2 * ch.m + ch.h) * C + ch.c0,
+         ldw, D - n0, cols}};
+  };
+  float* out = part + static_cast<size_t>(blockIdx.y) * N * D;
+  auto epilogue = [&](int, const float(&sum)[64]) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + gfla::grid_row(kGrid, warp, lane, 0, e);
+        const int d = n0 + gfla::grid_col(kGrid, warp, lane, j, e);
+        if (p < N && d < D) out[static_cast<size_t>(p) * D + d] = sum[4 * j + e];
+      }
+    }
+  };
+  gfla::gemm_walk<kVec, false>(ring, steps, steps, tiles, epilogue);
+}
+
+__host__ __device__ constexpr int rows_ld(int D) { return D + 1; }
+
+size_t rows_smem_bytes(int k2, int D) {
+  return sizeof(float) *
+         (static_cast<size_t>(kAttnRowPos) * (rows_ld(D) + k2) + D * k2);
+}
+
+// CTA x: positions 32 x .., of which the first n_valid exist.
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads)
+    attn_fwd_rows_kernel(const float* __restrict__ bs,
+                         const float* __restrict__ part, int splits,
                          const float* __restrict__ b1,
                          const float* __restrict__ w2,
                          const float* __restrict__ b2, float* __restrict__ out,
-                         int N, int K2, int C, int Cp, int D, float slope) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* blk_t = reinterpret_cast<float*>(smem);  // kTile x Cp
-  float* blk_s = blk_t + kTile * Cp;              // kTile x Cp
-  float* hid = blk_s + kTile * Cp;                // kTile x D
-  float* att = hid + kTile * D;                   // kTile x K2
-
+                         float* __restrict__ hpre, int N, int K2, int C,
+                         int D, float slope) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = rows_ld(D);
+  float* hid = smem;                       // kAttnRowPos x ld
+  float* att = hid + kAttnRowPos * ld;     // kAttnRowPos x K2
+  float* w2s = att + kAttnRowPos * K2;     // D x K2
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int d = tid;  // hidden unit of this thread, if d < D
-  const int p0 = blockIdx.x * kTile;
-  const int n_valid = min(kTile, N - p0);
+  const int p0 = blockIdx.x * kAttnRowPos;
+  const int n_valid = min(kAttnRowPos, N - p0);
+  const size_t ND = static_cast<size_t>(N) * D;
 
-  // hpre = bt . W1t + bs . W1s, accumulated over the k^2 offsets
-  float acc[kTile];
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) acc[t] = 0.0f;
+  // hpre = the partial sums in split order + b1; stored when asked (each
+  // (t, d) is asked for once)
+  auto hpre_row = [&](int t, int d) {
+    const size_t at = static_cast<size_t>(p0 + t) * D + d;
+    float h = 0.0f;
+    for (int z = 0; z < splits; ++z) h += part[z * ND + at];
+    h += b1[d];
+    if (hpre != nullptr) hpre[at] = h;
+    return h;
+  };
+  gfla::rows_softmax(hpre_row, n_valid, w2, b2, hid, ld, w2s, att, K2, D,
+                     slope);
 
-  for (int m = 0; m < K2; ++m) {
-    __syncthreads();  // the previous offset's rows are consumed
-    gfla::stage_offset_pair(bt, bs, m, p0, n_valid, K2, C, Cp, blk_t, blk_s);
-    __syncthreads();
-    if (d < D) {
-      const size_t w = static_cast<size_t>(m) * C * D + d;
-      gfla::dense_accumulate_pair(acc, blk_t, w1t + w, blk_s, w1s + w, Cp, C,
-                                  D);
+  // out = (1/k^2) sum_m attn_m bs_m: 16 bytes of a bs row a lane
+  const float scale = 1.0f / static_cast<float>(K2);
+  const int C4 = (C + 3) / 4;
+  for (int e = tid; e < n_valid * C4; e += kGemmThreads) {
+    const int t = e / C4;
+    const int c = 4 * (e - t * C4);
+    const size_t p = static_cast<size_t>(p0 + t);
+    const float* a = att + t * K2;
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (GFLA_SPLIT == 3) {
+      o.x = a[0];
+    } else {
+#pragma unroll 5
+      for (int mm = 0; mm < K2; ++mm) {
+        const float4 v = gfla::load4<kVec>(bs, p * K2 + mm, c, C);
+        const float w = a[mm];
+        o = make_float4(fmaf(w, v.x, o.x), fmaf(w, v.y, o.y),
+                        fmaf(w, v.z, o.z), fmaf(w, v.w, o.w));
+      }
+    }
+    o = make_float4(o.x * scale, o.y * scale, o.z * scale, o.w * scale);
+    float* to = out + p * C + c;
+    if (kVec) {
+      *reinterpret_cast<float4*>(to) = o;
+    } else {
+      to[0] = o.x;
+      if (c + 1 < C) to[1] = o.y;
+      if (c + 2 < C) to[2] = o.z;
+      if (c + 3 < C) to[3] = o.w;
     }
   }
+}
 
-  // + b1, LeakyReLU
-  if (d < D) {
-    const float bias = b1[d];
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      const float h = acc[t] + bias;
-      hid[t * D + d] = h >= 0.0f ? h : h * slope;
-    }
-  }
-  __syncthreads();
+template <bool kVec>
+int launch(const float* bs, const float* bt, const float* w1t,
+           const float* b1, const float* w2, const float* b2, float* out,
+           float* hpre, float* part, int N, int k2, int C, int D, float slope,
+           cudaStream_t stream) {
+  const gfla::AttnFwdPlan plan = gfla::attn_fwd_plan(N, C, D, k2);
+  const size_t gemm_smem = gfla::gemm_smem_bytes(false);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_product_kernel<kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(gemm_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(plan.tiles * plan.col_tiles, plan.splits);
+  attn_fwd_product_kernel<kVec>
+      <<<grid, kGemmThreads, gemm_smem, stream>>>(
+          bs, bt, w1t, part, N, k2, C, D, plan.col_tiles, plan.per_split);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
 
-  // logits = hidden . W2 + b2, then the softmax over the k^2 offsets. Not
-  // gfla::logits_softmax: inlined from there this kernel ran slower on an
-  // H100, with the same arithmetic.
-  for (int e = tid; e < kTile * K2; e += nthreads) {
-    const int t = e / K2;
-    const int mm = e - t * K2;
-    float s = 0.0f;
-    for (int dd = 0; dd < D; ++dd) {
-      s = fmaf(hid[t * D + dd], w2[dd * K2 + mm], s);
-    }
-    att[e] = s + b2[mm];
-  }
-  __syncthreads();
-  for (int t = tid; t < kTile; t += nthreads) {
-    float* a = att + t * K2;
-    float mx = a[0];
-    for (int mm = 1; mm < K2; ++mm) mx = fmaxf(mx, a[mm]);
-    float sum = 0.0f;
-    for (int mm = 0; mm < K2; ++mm) {
-      a[mm] = expf(a[mm] - mx);
-      sum += a[mm];
-    }
-    for (int mm = 0; mm < K2; ++mm) a[mm] = a[mm] / sum;
-  }
-  __syncthreads();
+  const size_t smem = rows_smem_bytes(k2, D);
+  err = cudaFuncSetAttribute(attn_fwd_rows_kernel<kVec>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_rows_kernel<kVec>
+      <<<(N + kAttnRowPos - 1) / kAttnRowPos, kGemmThreads, smem, stream>>>(
+          bs, part, plan.splits, b1, w2, b2, out, hpre, N, k2, C, D, slope);
+  return static_cast<int>(cudaGetLastError());
+}
 
-  // out = (1/k^2) sum attn * bs
-  for (int e = tid; e < n_valid * C; e += nthreads) {
-    const int t = e / C;
-    const int c = e - t * C;
-    const float* row = bs + static_cast<size_t>(p0 + t) * K2 * C + c;
-    float o = 0.0f;
-    for (int mm = 0; mm < K2; ++mm) {
-      o = fmaf(att[t * K2 + mm], row[static_cast<size_t>(mm) * C], o);
-    }
-    out[static_cast<size_t>(p0 + t) * C + c] = o / static_cast<float>(K2);
-  }
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// bs, bt (N, k2, C); w1t, w1s (k2*C, D), the target and source halves of
-// W1; b1 (D); w2 (D, k2); b2 (k2); out (N, C): float32, contiguous, on one
-// device. Returns a cudaError_t; 0 means the launch was accepted.
+// Scratch size, in floats, that the wrapper allocates: the product's
+// partial sums, one (N, D) array per depth split.
+extern "C" long long gfla_attn_math_fwd_scratch(int N, int k2, int C, int D) {
+  return static_cast<long long>(gfla::attn_fwd_plan(N, C, D, k2).splits) *
+         N * D;
+}
+
+// bs, bt (N, k2, C); w1t (D, k2*2C): W1 (k2, 2C, D), channels [target ||
+// source], transposed; b1 (D); w2 (D, k2); b2 (k2); out (N, C): float32,
+// contiguous, on one device; D at most 256. hpre: null, or (N, D), which
+// then gets the pre-activation hidden layer [bt || bs] . W1 + b1 for the
+// backward. scratch: gfla_attn_math_fwd_scratch floats. Returns a
+// cudaError_t; 0 means every launch was accepted.
 extern "C" int gfla_attn_math_fwd(const float* bs, const float* bt,
-                                  const float* w1t, const float* w1s,
-                                  const float* b1, const float* w2,
-                                  const float* b2, float* out, int N, int k2,
+                                  const float* w1t, const float* b1,
+                                  const float* w2, const float* b2, float* out,
+                                  float* hpre, float* scratch, int N, int k2,
                                   int C, int D, float slope, void* stream) {
-  const int Cp = (C + 3) / 4 * 4;
-  const size_t smem = sizeof(float) * kTile * (2 * Cp + D + k2);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_math_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || k2 < 1 || C < 1 || D < 1 || D > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = (D + 31) / 32 * 32;
-  const dim3 grid((N + kTile - 1) / kTile);
-  attn_math_fwd_kernel<<<grid, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      bs, bt, w1t, w1s, b1, w2, b2, out, N, k2, C, Cp, D, slope);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = C % 4 == 0 && aligned16(bs) && aligned16(bt) &&
+                   aligned16(w1t) && aligned16(out);
+  if (vec) {
+    return launch<true>(bs, bt, w1t, b1, w2, b2, out, hpre, scratch, N, k2,
+                        C, D, slope, s);
+  }
+  return launch<false>(bs, bt, w1t, b1, w2, b2, out, hpre, scratch, N, k2, C,
+                       D, slope, s);
 }

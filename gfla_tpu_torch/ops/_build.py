@@ -62,9 +62,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gfla_max_corr_splits.restype = i
     lib.gfla_max_corr.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.gfla_max_corr.restype = i
-    lib.gfla_attn_math_fwd.argtypes = [p] * 8 + [i] * 4 + [ctypes.c_float, p]
+    lib.gfla_attn_math_fwd.argtypes = [p] * 9 + [i] * 4 + [ctypes.c_float, p]
     lib.gfla_attn_math_fwd.restype = i
-    lib.gfla_attn_math_bwd.argtypes = [p] * 13 + [i] * 4 + [ctypes.c_float,
+    lib.gfla_attn_math_fwd_scratch.argtypes = [i, i, i, i]
+    lib.gfla_attn_math_fwd_scratch.restype = ctypes.c_longlong
+    lib.gfla_attn_math_bwd.argtypes = [p] * 11 + [i] * 4 + [ctypes.c_float,
                                                             p]
     lib.gfla_attn_math_bwd.restype = i
     lib.gfla_attn_math_bwd_scratch.argtypes = [i, i, i]

@@ -12,11 +12,14 @@ weights in gfla_tpu's layout, w1 (k*k, 2C, D) with channels
 
 `attn_math` launches csrc/attn_math_fwd.cu on CUDA tensors and runs
 `attn_math_plain` on CPU tensors; when an input requires grad it goes
-through `AttnMathFunction`, whose backward is `attn_math_bwd`
-(csrc/attn_math_bwd.cu, or `attn_math_bwd_plain` on the CPU) plus dW1 as
-one matrix product over the saved blocks (`attn_math_dw1`), which gfla_tpu
-also forms outside its kernel. Nothing falls back from a kernel to a plain
-version.
+through `AttnMathFunction`, whose forward also keeps the pre-activation
+hidden layer hpre = [bt || bs] . W1 + b1 (the forward kernels store it on
+the way, in the same call) and whose backward is `attn_math_bwd` from
+that hpre (csrc/attn_math_bwd.cu, or `attn_math_bwd_plain` on the CPU) plus
+dW1 as one matrix product over the saved blocks (`attn_math_dw1`), which
+gfla_tpu also forms outside its kernel. gfla_tpu's backward recomputes hpre;
+the plain twin still does when it is not given one. Nothing falls back from
+a kernel to a plain version.
 """
 
 from __future__ import annotations
@@ -35,8 +38,8 @@ from gfla_tpu_torch.ops._build import (
 fwd_launches = 0  # attn_math_fwd.cu
 bwd_launches = 0  # attn_math_bwd.cu (+ its reduction of the weight sums)
 
-MAX_D = 256  # one thread per hidden unit
-MAX_C = 512  # two (32 x C) rows of blocks stay within 227 KB of shared memory
+MAX_D = 256  # the widest hidden layer the kernels accept
+MAX_C = 512  # the widest blocks the kernels accept
 
 
 def split_w1(w1):
@@ -53,21 +56,29 @@ def _hidden_pre(bs, bt, w1, b1):
     return bt.reshape(N, -1) @ w1t + bs.reshape(N, -1) @ w1s + b1
 
 
-def attn_math_plain(bs, bt, w1, b1, w2, b2, negative_slope: float = 0.1):
-    """The forward kernel's function in plain torch."""
-    hidden = F.leaky_relu(_hidden_pre(bs, bt, w1, b1), negative_slope)
+def attn_math_plain(bs, bt, w1, b1, w2, b2, negative_slope: float = 0.1,
+                    with_hpre: bool = False):
+    """The forward kernel's function in plain torch. With `with_hpre`,
+    (out, hpre): hpre (N, D) is the pre-activation hidden layer, which the
+    backward starts from."""
+    hpre = _hidden_pre(bs, bt, w1, b1)
+    hidden = F.leaky_relu(hpre, negative_slope)
     attn = torch.softmax(hidden @ w2 + b2, dim=-1)               # (N, k²)
-    return torch.einsum("nk,nkc->nc", attn, bs) / float(bs.shape[1])
+    out = torch.einsum("nk,nkc->nc", attn, bs) / float(bs.shape[1])
+    return (out, hpre) if with_hpre else out
 
 
 def attn_math_bwd_plain(bs, bt, g, w1, b1, w2, b2,
-                        negative_slope: float = 0.1):
+                        negative_slope: float = 0.1, hpre=None):
     """What the backward kernel computes, in plain torch: (d_bs, d_bt,
     d_hpre, dW2, db1, db2), as gfla_tpu's `_bwd_kernel` (pallas_attn.py:
-    155-228) does."""
+    155-228) does. Given the forward's `hpre` (N, D) it starts from it, as
+    the kernel does; without it, it recomputes hpre from the blocks, as
+    gfla_tpu does."""
     N, k2, C = bs.shape
     w1t, w1s = split_w1(w1)
-    hpre = _hidden_pre(bs, bt, w1, b1)
+    if hpre is None:
+        hpre = _hidden_pre(bs, bt, w1, b1)
     hidden = F.leaky_relu(hpre, negative_slope)
     attn = torch.softmax(hidden @ w2 + b2, dim=-1)
     d_attn = torch.einsum("nkc,nc->nk", bs, g) / float(k2)
@@ -91,11 +102,15 @@ def attn_math_dw1(bs, bt, d_hpre):
     return torch.cat([dw1t, dw1s], dim=1)
 
 
-def _check_inputs(bs, bt, w1, b1, w2, b2, g=None):
+def _check_inputs(bs, bt, w1, b1, w2, b2, g=None, hpre=None):
     tensors = dict(bs=bs, bt=bt, w1=w1, b1=b1, w2=w2, b2=b2)
     if g is not None:
         tensors["g"] = g
+        tensors["hpre"] = hpre
     for name, t in tensors.items():
+        if t is None:
+            raise ValueError(f"attn_math: the backward kernel starts from "
+                             f"the forward's {name}; it is missing")
         if t.device != bs.device:
             raise ValueError(f"attn_math: {name} is on {t.device}, bs on "
                              f"{bs.device}")
@@ -118,52 +133,54 @@ def _check_inputs(bs, bt, w1, b1, w2, b2, g=None):
     expected = dict(bt=(N, k2, C), w1=(k2, 2 * C, D), b1=(D,), w2=(D, k2),
                     b2=(k2,))
     if g is not None:
-        expected["g"] = (N, C)
+        expected.update(g=(N, C), hpre=(N, D))
     for name, shape in expected.items():
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"attn_math: {name} must be {shape}, got "
                              f"{tuple(tensors[name].shape)}")
 
 
-def _launch_fwd(bs, bt, w1, b1, w2, b2, slope):
+def _launch_fwd(bs, bt, w1, b1, w2, b2, slope, with_hpre=False):
     global fwd_launches
     _check_inputs(bs, bt, w1, b1, w2, b2)
     lib = load_library()
     N, k2, C = bs.shape
     D = w1.shape[-1]
-    w1t, w1s = (w.contiguous() for w in split_w1(w1))
+    # the product takes W1 depth-innermost, as wgmma takes TF32 operands
+    w1t = w1.reshape(k2 * 2 * C, D).t().contiguous()
     out = bs.new_empty(N, C)
+    hpre = bs.new_empty(N, D) if with_hpre else None
+    scratch = bs.new_empty(lib.gfla_attn_math_fwd_scratch(N, k2, C, D))
     with torch.cuda.device(bs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gfla_attn_math_fwd(
-            bs.data_ptr(), bt.data_ptr(), w1t.data_ptr(), w1s.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            N, k2, C, D, float(slope), stream)
+            bs.data_ptr(), bt.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            None if hpre is None else hpre.data_ptr(), scratch.data_ptr(), N,
+            k2, C, D, float(slope), stream)
     check_launch(lib, err, "attn_math_fwd")
     fwd_launches += 1
-    return out
+    return (out, hpre) if with_hpre else out
 
 
-def _launch_bwd(bs, bt, g, w1, b1, w2, b2, slope):
+def _launch_bwd(bs, bt, hpre, g, w1, b1, w2, b2, slope):
     global bwd_launches
-    _check_inputs(bs, bt, w1, b1, w2, b2, g)
+    _check_inputs(bs, bt, w1, b1, w2, b2, g, hpre)
     lib = load_library()
     N, k2, C = bs.shape
     D = w1.shape[-1]
-    w1t, w1s = (w.contiguous() for w in split_w1(w1))
     d_bs = torch.empty_like(bs)
     d_bt = torch.empty_like(bt)
     d_hpre = bs.new_empty(N, D)
     sums = bs.new_empty(D * k2 + D + k2)
-    part = bs.new_empty(lib.gfla_attn_math_bwd_scratch(N, k2, D))
+    scratch = bs.new_empty(lib.gfla_attn_math_bwd_scratch(N, k2, D))
     with torch.cuda.device(bs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gfla_attn_math_bwd(
-            bs.data_ptr(), bt.data_ptr(), g.data_ptr(), w1t.data_ptr(),
-            w1s.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            d_bs.data_ptr(), d_bt.data_ptr(), d_hpre.data_ptr(),
-            part.data_ptr(), sums.data_ptr(), N, k2, C, D, float(slope),
-            stream)
+            bs.data_ptr(), hpre.data_ptr(), g.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), d_bs.data_ptr(), d_bt.data_ptr(),
+            d_hpre.data_ptr(), scratch.data_ptr(), sums.data_ptr(), N, k2, C,
+            D, float(slope), stream)
     check_launch(lib, err, "attn_math_bwd")
     bwd_launches += 1
     return (d_bs, d_bt, d_hpre, sums[:D * k2].view(D, k2),
@@ -178,31 +195,51 @@ def attn_math_fwd(bs, bt, w1, b1, w2, b2, negative_slope: float = 0.1):
     return attn_math_plain(bs, bt, w1, b1, w2, b2, negative_slope)
 
 
-def attn_math_bwd(bs, bt, g, w1, b1, w2, b2, negative_slope: float = 0.1):
-    """Backward kernel on CUDA tensors, plain version on CPU tensors:
-    (d_bs, d_bt, d_hpre, dW2, db1, db2); g is (N, C)."""
+def attn_math_fwd_with_hpre(bs, bt, w1, b1, w2, b2,
+                            negative_slope: float = 0.1):
+    """(out, hpre): the forward kernel, which also stores the pre-activation
+    hidden layer hpre (N, D), on CUDA tensors (one launch); the plain
+    version on CPU tensors."""
+    if on_kernel_device(bs, "attn_math_fwd"):
+        return _launch_fwd(bs, bt, w1, b1, w2, b2, negative_slope,
+                           with_hpre=True)
+    return attn_math_plain(bs, bt, w1, b1, w2, b2, negative_slope,
+                           with_hpre=True)
+
+
+def attn_math_bwd(bs, bt, g, w1, b1, w2, b2, negative_slope: float = 0.1,
+                  hpre=None):
+    """Backward kernel on CUDA tensors, from the forward's `hpre` (N, D),
+    which it needs; plain version on CPU tensors, which recomputes hpre
+    when it is not given: (d_bs, d_bt, d_hpre, dW2, db1, db2); g is
+    (N, C)."""
     if on_kernel_device(bs, "attn_math_bwd"):
-        return _launch_bwd(bs, bt, g, w1, b1, w2, b2, negative_slope)
-    return attn_math_bwd_plain(bs, bt, g, w1, b1, w2, b2, negative_slope)
+        return _launch_bwd(bs, bt, hpre, g, w1, b1, w2, b2, negative_slope)
+    return attn_math_bwd_plain(bs, bt, g, w1, b1, w2, b2, negative_slope,
+                               hpre)
 
 
 class AttnMathFunction(torch.autograd.Function):
-    """The attention math with its hand-written backward. Counterpart of the
-    custom VJP `attn_math_fused` (pallas_attn.py:124-309)."""
+    """The attention math with its hand-written backward: forward
+    `attn_math_fwd_with_hpre` (kernel, or plain twin on the CPU), which
+    saves hpre; backward `attn_math_bwd` from it. Counterpart of the custom
+    VJP `attn_math_fused` (pallas_attn.py:124-309), whose backward
+    recomputes hpre."""
 
     @staticmethod
     def forward(ctx, bs, bt, w1, b1, w2, b2, negative_slope):
         inputs = [t.contiguous() for t in (bs, bt, w1, b1, w2, b2)]
-        ctx.save_for_backward(*inputs)
+        out, hpre = attn_math_fwd_with_hpre(*inputs, negative_slope)
+        ctx.save_for_backward(*inputs, hpre)
         ctx.negative_slope = negative_slope
-        return attn_math_fwd(*inputs, negative_slope)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        bs, bt, w1, b1, w2, b2 = ctx.saved_tensors
+        bs, bt, w1, b1, w2, b2, hpre = ctx.saved_tensors
         d_bs, d_bt, d_hpre, dw2, db1, db2 = attn_math_bwd(
-            bs, bt, g.contiguous(), w1, b1, w2, b2, ctx.negative_slope)
+            bs, bt, g.contiguous(), w1, b1, w2, b2, ctx.negative_slope, hpre)
         return (d_bs, d_bt, attn_math_dw1(bs, bt, d_hpre), db1, dw2, db2,
                 None)
 

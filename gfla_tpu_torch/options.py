@@ -67,6 +67,43 @@ def resolve_use_spect_d(opt) -> bool:
     return not getattr(opt, "no_spect_d", False)
 
 
+MULTI_GPU_TODO = ("multi-GPU runs are not ported yet (ROADMAP.md, queue 1, "
+                  "item 9)")
+
+
+def refuse_parallel_flags(opt) -> None:
+    """Raise NotImplementedError for a parallelism flag of gfla_tpu that asks
+    for more than one device: `--mesh_devices` other than 0 or 1, `--spatial`
+    above 1 (gfla_tpu's train.py reads 0 as 1 too, and `--halo` only under
+    it) or `--distributed`. The port runs on one device."""
+    if opt.mesh_devices not in (0, 1):
+        raise NotImplementedError(
+            f"--mesh_devices={opt.mesh_devices}: {MULTI_GPU_TODO}")
+    if (opt.spatial or 1) > 1:
+        raise NotImplementedError(f"--spatial={opt.spatial}: {MULTI_GPU_TODO}")
+    if opt.distributed:
+        raise NotImplementedError(f"--distributed: {MULTI_GPU_TODO}")
+
+
+def unhonoured_train_flags(opt, start_iter: int, max_iters: int) -> list:
+    """The flags of gfla_tpu's train.py that would act in a run of
+    iterations start_iter + 1 .. max_iters and that the port's trainer does
+    not honour yet: `--display_freq` (visuals at its multiples),
+    `--eval_iters_freq` (a held-out batch whenever it is set, evaluation at
+    its multiples) and `--profile_iters` (a trace from iteration
+    start_iter + 2)."""
+    flags = []
+    f = opt.display_freq
+    if f and max_iters // f > start_iter // f:
+        flags.append(f"--display_freq={f} (visuals)")
+    if opt.eval_iters_freq:
+        flags.append(f"--eval_iters_freq={opt.eval_iters_freq} (held-out "
+                     "batch and evaluation)")
+    if opt.profile_iters and start_iter + 2 < max_iters:
+        flags.append(f"--profile_iters={opt.profile_iters} (profiler trace)")
+    return flags
+
+
 class BaseOptions:
     isTrain = False
 
@@ -115,8 +152,9 @@ class BaseOptions:
         add("--compute_dtype", type=str, default="float32",
             choices=["float32", "bfloat16"],
             help="the port serves in float32; bfloat16 is not ported yet")
-        # parallelism flags of gfla_tpu, accepted so its command lines parse;
-        # the port runs on one device
+        # parallelism flags of gfla_tpu: the defaults parse, any other value
+        # is refused by both CLIs (refuse_parallel_flags); the port runs on
+        # one device
         add("--mesh_devices", type=int, default=0)
         add("--spatial", type=int, default=1)
         add("--halo", type=int, default=8)

@@ -8,10 +8,10 @@ ndf 32, img_f 128), with the frozen VGG19, the six G losses and two Adams,
 betas (0, 0.999), D lr = 0.1 G lr.
 
 `train_step` is gfla_tpu's step (tasks/pose.py:190-284, the original's
-pose_model.py:130-196) in its order: one G forward; a D step on the detached
-fake, D(real) then D(fake), each storing its spectral-norm u; the G losses
-against the updated D, which iterates u without storing it; the G backward
-and Adam step. Serving runs G in eval mode under `torch.inference_mode()`.
+pose_model.py:130-196) in its order: one G forward (recomputed in the
+backward under `--remat`); a D step on the detached fake, D(real) then
+D(fake), each storing its spectral-norm u; the G losses against the updated
+D, which iterates u without storing it; the G backward and Adam step. Serving runs G in eval mode under `torch.inference_mode()`.
 Checkpoints are the original GFLA's per-network files, `{iter}_net_G.pth`
 and `{iter}_net_D.pth`.
 """
@@ -21,6 +21,7 @@ from __future__ import annotations
 import os
 
 import torch
+from torch.utils.checkpoint import checkpoint as recompute
 
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
 from gfla_tpu_torch.losses import (
@@ -162,13 +163,39 @@ class PoseTask:
         with torch.inference_mode():
             return self.net_g(batch["P1"], batch["BP1"], batch["BP2"])
 
+    def g_forward(self, p1, bp1, bp2):
+        """G's training forward. With `--remat` it is recomputed in the
+        backward instead of keeping its activations, as gfla_tpu wraps it in
+        jax.checkpoint (tasks/pose.py:201-205). The recomputation starts
+        from the spectral-norm u the forward started from and leaves the u
+        the forward stored, so the step's values and gradients are those of
+        the step without it."""
+        if not getattr(self.opt, "remat", False):
+            return self.net_g(p1, bp1, bp2)
+        spectral = [m for m in self.net_g.modules() if hasattr(m, "weight_u")]
+        before = [(m.weight_u, m.weight_v) for m in spectral]
+        runs = []
+
+        def run(p1, bp1, bp2):
+            after = [(m.weight_u, m.weight_v) for m in spectral]
+            for m, (u, v) in zip(spectral, before):
+                m.weight_u, m.weight_v = u, v
+            out = self.net_g(p1, bp1, bp2)
+            if runs:  # the recomputation in the backward
+                for m, (u, v) in zip(spectral, after):
+                    m.weight_u, m.weight_v = u, v
+            runs.append(1)
+            return out
+
+        return recompute(run, p1, bp1, bp2, use_reentrant=False)
+
     # ------------------------------------------------------------------
     def train_step(self, batch):
         """One D-then-G step on a prepared batch. Returns the losses as
         0-dim tensors: `loss_names` plus `total_G`."""
         opt = self.opt
         p1, bp1, p2, bp2 = batch["P1"], batch["BP1"], batch["P2"], batch["BP2"]
-        img_gen, flows, _ = self.net_g(p1, bp1, bp2)
+        img_gen, flows, _ = self.g_forward(p1, bp1, bp2)
 
         # D step on the detached fake; each pass stores its power iteration
         self.net_d.requires_grad_(True)

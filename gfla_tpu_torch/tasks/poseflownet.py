@@ -59,10 +59,8 @@ class PoseFlowNetTask:
         return parser
 
     def __init__(self, opt, device: torch.device | None = None):
-        if getattr(opt, "compute_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                f"--compute_dtype={opt.compute_dtype}: the port runs in "
-                "float32")
+        # runs in float32 whatever --compute_dtype says, as gfla_tpu's
+        # poseflownet task, which never reads the flag
         self.opt = opt
         self.device = device if device is not None \
             else select_device(opt.gpu_ids)

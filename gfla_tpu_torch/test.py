@@ -5,13 +5,13 @@
 
 loads `{checkpoints_dir}/{name}/{which_iter}_net_G.pth` (random init if
 absent) and writes `{src}_2_{tgt}_vis.jpg` under `{results_dir}/{name}`.
-`--gpu_ids=-1` runs on the CPU.
+`--gpu_ids=-1` runs on the CPU. gfla_tpu's multi-device flags are refused.
 """
 
 from __future__ import annotations
 
 from gfla_tpu_torch.data import get_dataset_class, iterate_batches
-from gfla_tpu_torch.options import TestOptions
+from gfla_tpu_torch.options import TestOptions, refuse_parallel_flags
 from gfla_tpu_torch.runtime import card_line, select_device, set_tf32
 from gfla_tpu_torch.tasks import create_task
 from gfla_tpu_torch.tasks.testing import run_test_pose
@@ -19,6 +19,7 @@ from gfla_tpu_torch.tasks.testing import run_test_pose
 
 def main(args=None) -> int:
     opt = TestOptions().parse(args)
+    refuse_parallel_flags(opt)
     device = select_device(opt.gpu_ids)
     if device.type == "cuda":
         set_tf32(False)  # float32 serving, as gfla_tpu's float32 path

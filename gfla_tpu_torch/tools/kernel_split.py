@@ -1,12 +1,15 @@
 """Where the time of the tensor-core kernels goes, by timing variants.
 
-    python3 -m gfla_tpu_torch.tools.kernel_split [--iters N]
+    python3 -m gfla_tpu_torch.tools.kernel_split [--iters N] [--only SRC,..]
 
 The card's counters cannot be read from every machine, so this splits a
 kernel's time by building it several times with `-DGFLA_SPLIT=<n>`: each
-value leaves one part of the kernel out (csrc/warp_fwd.cu, csrc/warp_bwd.cu
-and csrc/max_corr.cu say which), and the time that goes missing is that
-part's share. Every variant is compiled from the source in the package by its own
+value leaves one part of the kernel out (each source under csrc/ says
+which), and the time that goes missing is that part's share. `--only`
+takes some of the sources: warp_fwd, warp_bwd, max_corr, attn_math_fwd,
+attn_math_bwd. The attention-math kernels are two or three launches
+behind one entry point; the whole of each is also traced once with
+torch.profiler, which gives each kernel's own time. Every variant is compiled from the source in the package by its own
 nvcc process into its own library under build/, launched at the shapes of
 the main paths and timed by CUDA events; the variants' outputs are wrong by
 design and are not checked. Needs one CUDA card and nvcc. Prints one table
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import sys
 
@@ -35,21 +39,30 @@ CORR_VARIANTS = {0: "whole kernel", 1: "tile copies and splits, no product",
 BWD_VARIANTS = {0: "whole kernel", 1: "without the product",
                 2: "without the footprint cells (dots, loads, copies, blend)",
                 3: "without the reductions into d_source"}
+ATTN_FWD_VARIANTS = {0: "whole kernel", 1: "without the product",
+                     2: "without the tile copies and splits",
+                     3: "without the weighted sum of the output"}
+ATTN_BWD_VARIANTS = {0: "whole kernel", 1: "without the product",
+                     2: "without the tile copies and splits",
+                     3: "without the product's epilogue (+ attn g, stores)",
+                     4: "without the d_attn read of the blocks"}
+SOURCES = {"warp_fwd": WARP_VARIANTS, "warp_bwd": BWD_VARIANTS,
+           "max_corr": CORR_VARIANTS, "attn_math_fwd": ATTN_FWD_VARIANTS,
+           "attn_math_bwd": ATTN_BWD_VARIANTS}
+ATTN_SITES = [("k=5 N=32768 C=128 D=128", 8 * 64 * 64, 5, 128, 128),
+              ("k=3 N=8192 C=256 D=128", 8 * 32 * 32, 3, 256, 128)]
 WARP_SITES = [("k=5 B=8 64x64 C=128 D=128", 8, 64, 64, 128, 128, 5),
               ("k=3 B=8 32x32 C=256 D=128", 8, 32, 32, 256, 128, 3)]
 CORR_SITES = [("relu3_1 B=8 4096x4096 C=256", 8, 4096, 4096, 256),
               ("relu4_1 B=8 1024x1024 C=512", 8, 1024, 1024, 512)]
 
 
-def build_variants():
+def build_variants(stems):
     """One library per (source, GFLA_SPLIT value), all compiled at once."""
     out_dir = BUILD_DIR / "kernel_split"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    jobs = [(stem, n) for stem, variants in (("warp_fwd", WARP_VARIANTS),
-                                             ("warp_bwd", BWD_VARIANTS),
-                                             ("max_corr", CORR_VARIANTS))
-            for n in variants]
+    jobs = [(stem, n) for stem in stems for n in SOURCES[stem]]
     paths = {job: out_dir / f"{job[0]}_{job[1]}.so" for job in jobs}
     _run_all([[nvcc, *NVCC_FLAGS, f"-DGFLA_SPLIT={n}", "-shared", "-o",
                str(paths[stem, n]), str(CSRC / f"{stem}.cu")]
@@ -69,9 +82,19 @@ def build_variants():
                        lib.gfla_warp_bwd_w1_scratch):
                 fn.argtypes = [i] * 4
                 fn.restype = ctypes.c_longlong
-        else:
+        elif stem == "max_corr":
             lib.gfla_max_corr_splits.argtypes = [i, i, i]
             lib.gfla_max_corr.argtypes = [p] * 6 + [i] * 5 + [p]
+        elif stem == "attn_math_fwd":
+            lib.gfla_attn_math_fwd.argtypes = [p] * 9 + [i] * 4 + [
+                ctypes.c_float, p]
+            lib.gfla_attn_math_fwd_scratch.argtypes = [i] * 4
+            lib.gfla_attn_math_fwd_scratch.restype = ctypes.c_longlong
+        else:
+            lib.gfla_attn_math_bwd.argtypes = [p] * 11 + [i] * 4 + [
+                ctypes.c_float, p]
+            lib.gfla_attn_math_bwd_scratch.argtypes = [i, i, i]
+            lib.gfla_attn_math_bwd_scratch.restype = ctypes.c_longlong
         libs[stem, n] = lib
     return libs
 
@@ -208,17 +231,113 @@ def time_corr(libs, iters):
     return rows
 
 
+def attn_inputs(N, k, C, D, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * scale
+
+    k2 = k * k
+    w1 = rand(k2, 2 * C, D, scale=0.05)
+    return dict(bs=rand(N, k2, C), bt=rand(N, k2, C), w1=w1,
+                w1t=w1.reshape(-1, D).t().contiguous(), b1=rand(D, scale=0.1),
+                w2=rand(D, k2, scale=0.01), b2=rand(k2, scale=0.1),
+                hpre=rand(N, D), g=rand(N, C))
+
+
+def time_attn(libs, iters, stems):
+    """The attention-math forward (serving: no hpre store) and the backward
+    from a random hpre, at the two attention sites."""
+    rows = []
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, N, k, C, D in ATTN_SITES:
+        x = attn_inputs(N, k, C, D, dev, 3)
+        k2 = k * k
+        out = torch.empty(N, C, device=dev)
+        d_bs, d_bt = torch.empty_like(x["bs"]), torch.empty_like(x["bt"])
+        d_hpre = torch.empty(N, D, device=dev)
+        sums = torch.empty(D * k2 + D + k2, device=dev)
+        for stem in stems:
+            for n, label in SOURCES[stem].items():
+                lib = libs[stem, n]
+                if stem == "attn_math_fwd":
+                    scratch = torch.empty(
+                        lib.gfla_attn_math_fwd_scratch(N, k2, C, D),
+                        device=dev)
+
+                    def launch(lib=lib, n=n, scratch=scratch):
+                        must(lib.gfla_attn_math_fwd(
+                            *(x[t].data_ptr() for t in ("bs", "bt", "w1t",
+                                                        "b1", "w2", "b2")),
+                            out.data_ptr(), None, scratch.data_ptr(), N, k2,
+                            C, D, 0.1, stream), f"attn_math_fwd variant {n}")
+                else:
+                    scratch = torch.empty(
+                        lib.gfla_attn_math_bwd_scratch(N, k2, D), device=dev)
+
+                    def launch(lib=lib, n=n, scratch=scratch):
+                        must(lib.gfla_attn_math_bwd(
+                            *(x[t].data_ptr() for t in ("bs", "hpre", "g",
+                                                        "w1", "w2", "b2")),
+                            d_bs.data_ptr(), d_bt.data_ptr(),
+                            d_hpre.data_ptr(), scratch.data_ptr(),
+                            sums.data_ptr(), N, k2, C, D, 0.1, stream),
+                            f"attn_math_bwd variant {n}")
+                rows.append(dict(kernel=stem, site=name, variant=n,
+                                 what=label, ms=cuda_ms(launch, iters)))
+                if n == 0:
+                    rows.extend(profile_parts(launch, stem, name, iters))
+    return rows
+
+
+def profile_parts(fn, stem, site, iters):
+    """Each CUDA kernel's mean time over `iters` calls of fn, by
+    torch.profiler, as rows of variant "kernel"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        ms = evt.device_time_total / 1e3 / iters
+        name = re.search(r"(\w+)(<[^>]*>)?\(", evt.key)
+        if ms > 0:
+            rows.append(dict(kernel=stem, site=site, variant="kernel",
+                             what=name.group(1) if name else evt.key[:40],
+                             ms=ms))
+    return rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--only", default=",".join(SOURCES),
+                        help="comma-separated sources to split")
     args = parser.parse_args(argv)
+    stems = [s for s in args.only.split(",") if s]
+    unknown = set(stems) - set(SOURCES)
+    if unknown:
+        parser.error(f"unknown sources {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("kernel_split: CUDA is not available", file=sys.stderr)
         return 1
     print(card_line())
-    libs = build_variants()
-    rows = (time_warp(libs, args.iters) + time_bwd(libs, args.iters)
-            + time_corr(libs, args.iters))
+    libs = build_variants(stems)
+    rows = []
+    if "warp_fwd" in stems:
+        rows += time_warp(libs, args.iters)
+    if "warp_bwd" in stems:
+        rows += time_bwd(libs, args.iters)
+    if "max_corr" in stems:
+        rows += time_corr(libs, args.iters)
+    attn = [s for s in stems if s.startswith("attn_math")]
+    if attn:
+        rows += time_attn(libs, args.iters, attn)
     torch.cuda.synchronize()
     whole = {}
     for row in rows:
@@ -226,6 +345,9 @@ def main(argv=None):
         if row["variant"] == 0:
             whole[key] = row["ms"]
             print(f"{row['kernel']} at {row['site']}")
+        if row["variant"] == "kernel":
+            print(f"  kernel {row['what']:<41} {row['ms']:8.4f} ms")
+            continue
         print(f"  {row['what']:<48} {row['ms']:8.4f} ms  "
               f"({whole[key] - row['ms']:+.4f} ms missing)")
     print(json.dumps({"kernel_split": rows}))

@@ -11,9 +11,12 @@ and at the end, and resumes from `--which_iter` with `--continue_train`.
 `--model=poseflownet` trains the stage-1 flow head, which has no D; a later
 `--model=pose --continue_train` with the same `--name` starts the pose
 generator's flow net from it (the two-stage protocol).
-`--gpu_ids=-1` runs on the CPU. Counterpart of gfla_tpu's train.py without
-its visualizer and held-out evaluation: the card's machine has no image
-library, so those wait for a later slice.
+`--gpu_ids=-1` runs on the CPU; `--remat` recomputes the pose generator's
+forward in the backward. Counterpart of gfla_tpu's train.py without its
+visualizer, held-out evaluation and profiler trace: it prints one line at
+the start naming the `--display_freq`, `--eval_iters_freq` and
+`--profile_iters` settings that would act in gfla_tpu and are not honoured
+here, and it refuses gfla_tpu's multi-device flags.
 """
 
 from __future__ import annotations
@@ -24,13 +27,18 @@ import numpy as np
 import torch
 
 from gfla_tpu_torch.data import get_dataset_class, train_batches
-from gfla_tpu_torch.options import TrainOptions
+from gfla_tpu_torch.options import (
+    TrainOptions,
+    refuse_parallel_flags,
+    unhonoured_train_flags,
+)
 from gfla_tpu_torch.runtime import card_line, select_device, set_tf32
 from gfla_tpu_torch.tasks import create_task
 
 
 def main(args=None) -> int:
     opt = TrainOptions().parse(args)
+    refuse_parallel_flags(opt)
     device = select_device(opt.gpu_ids)
     if device.type == "cuda":
         set_tf32(False)  # float32 training, as gfla_tpu's float32 path
@@ -58,6 +66,10 @@ def main(args=None) -> int:
             print(f"resumed from iteration {start_iter}")
 
     max_iters = opt.max_iters or opt.niter * opt.iters_per_epoch
+    ignored = unhonoured_train_flags(opt, start_iter, max_iters)
+    if ignored:
+        print("not honoured yet (ROADMAP.md, queue 1, item 2): "
+              + ", ".join(ignored))
     batches = train_batches(dataset, opt.batchSize,
                             shuffle=not opt.serial_batches,
                             seed=opt.seed + start_iter)

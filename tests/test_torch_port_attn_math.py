@@ -4,7 +4,9 @@ The plain twins of csrc/attn_math_fwd.cu and csrc/attn_math_bwd.cu are held
 against gfla_tpu's Pallas kernels `_attn_math_pallas` and
 `_attn_math_bwd_pallas` in interpret mode, at N that no tile divides: the
 forward and each of the six gradients (blocks, weights, biases) within
-2e-4 x its largest |value| (f32; sums in other orders). `local_attn_warp`
+2e-4 x its largest |value| (f32; sums in other orders); the backward from
+the forward's saved hpre, as the kernels run it, in the ReLU case too.
+`local_attn_warp`
 under GFLA_ATTN_PALLAS=0 and =1 matches gfla_tpu's under the same setting,
 output and the gradients to source, target, flow and the four weights; and
 each setting selects the route gfla_tpu selects.
@@ -74,6 +76,66 @@ def test_attn_math_matches_pallas(N, k, C, D):
     for name, x, w in zip(("d_bs", "d_bt", "dW1", "db1", "dW2", "db2"),
                           leaves, want):
         _close(x.grad.numpy(), w, what=f"autograd {name}")
+
+
+@pytest.mark.parametrize("N,k,C,D,slope", [
+    pytest.param(70, 3, 8, 16, 0.1, id="k3"),
+    pytest.param(37, 5, 5, 12, 0.1, id="k5-ragged"),
+    pytest.param(50, 3, 6, 10, 0.0, id="k3-relu"),
+])
+def test_attn_math_bwd_from_hpre_matches_recompute_and_pallas(N, k, C, D,
+                                                               slope):
+    """The backward kernels start from the forward's hpre; so does the plain
+    twin given `hpre=`: bitwise equal to the twin that recomputes it (the
+    same products), and within REL of each output's max of gfla_tpu's
+    interpreted `_attn_math_bwd_pallas`, which recomputes."""
+    bs, bt, w1, b1, w2, b2, g = _blocks(N, k, C, D, 3 * N + k)
+    jargs = [jnp.asarray(a) for a in (bs, bt, w1, b1, w2, b2)]
+    want = _attn_math_bwd_pallas(jargs[0], jargs[1], jnp.asarray(g),
+                                 *jargs[2:], slope, interpret=True)
+    t = [torch.from_numpy(a) for a in (bs, bt, w1, b1, w2, b2)]
+    g = torch.from_numpy(g)
+    out, hpre = attn_math.attn_math_plain(*t, slope, with_hpre=True)
+    assert tuple(hpre.shape) == (N, D)
+    assert torch.equal(out, attn_math.attn_math_plain(*t, slope))
+    given = attn_math.attn_math_bwd(t[0], t[1], g, *t[2:], slope, hpre)
+    again = attn_math.attn_math_bwd_plain(t[0], t[1], g, *t[2:], slope)
+    names = ("d_bs", "d_bt", "d_hpre", "dW2", "db1", "db2")
+    for name, a, b in zip(names, given, again):
+        assert torch.equal(a, b), name
+    d_bs, d_bt, d_hpre, dw2, db1, db2 = given
+    dw1 = attn_math.attn_math_dw1(t[0], t[1], d_hpre)
+    for name, got, w in zip(("d_bs", "d_bt", "dW1", "db1", "dW2", "db2"),
+                            (d_bs, d_bt, dw1, db1, dw2, db2), want):
+        _close(got.numpy(), w, what=name)
+
+
+@pytest.mark.parametrize("slope", [0.1, 0.0], ids=["leaky", "relu"])
+def test_attn_math_function_saves_hpre(slope):
+    """On CPU tensors AttnMathFunction keeps the forward's hpre (N, D) for
+    its backward, as on the card, launches nothing, and its gradients match
+    gfla_tpu's custom VJP over the interpreted Pallas kernels."""
+    N, k, C, D = 45, 3, 7, 9
+    bs, bt, w1, b1, w2, b2, g = _blocks(N, k, C, D, 11)
+    jargs = [jnp.asarray(a) for a in (bs, bt, w1, b1, w2, b2)]
+    out_j, vjp = jax.vjp(lambda *a: pallas_attn.attn_math_fused(
+        *a, slope, True), *jargs)
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (bs, bt, w1, b1, w2, b2)]
+    before = (attn_math.fwd_launches, attn_math.bwd_launches)
+    out = attn_math.attn_math(*leaves, slope)
+    saved = out.grad_fn.saved_tensors
+    hpre = attn_math.attn_math_plain(*(x.detach() for x in leaves), slope,
+                                     with_hpre=True)[1]
+    assert any(tuple(x.shape) == (N, D) and torch.equal(x, hpre)
+               for x in saved)
+    out.backward(torch.from_numpy(g))
+    assert (attn_math.fwd_launches, attn_math.bwd_launches) == before
+    _close(out.detach().numpy(), out_j, rel=2e-5, what="out")
+    for name, x, w in zip(("d_bs", "d_bt", "dW1", "db1", "dW2", "db2"),
+                          leaves, want):
+        _close(x.grad.numpy(), w, what=name)
 
 
 def test_attn_math_function_gradcheck_f64():

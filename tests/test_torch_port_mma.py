@@ -1,10 +1,11 @@
 """The split-f32 ("3xTF32") building block of the tensor-core kernels, on CPU.
 
-csrc/mma_tf32x3.cuh, csrc/max_corr.cuh and csrc/warp_bwd_tiles.cuh keep the
-split of an f32 value into two TF32 values, every map from a lane's
-fragment element to its row and column, and the tile maps and launch plans
-of the warp backward in `__host__ __device__` functions. They are compiled
-here with g++ into a small harness:
+csrc/mma_tf32x3.cuh, csrc/max_corr.cuh, csrc/warp_bwd_tiles.cuh and
+csrc/attn_math_tiles.cuh keep the split of an f32 value into two TF32
+values, every map from a lane's fragment element to its row and column, and
+the tile maps and launch plans of the warp backward and the attention math
+in `__host__ __device__` functions. They are compiled here with g++ into a
+small harness:
 
 - the fragment maps of one m16n8k8 product and the warp grids of
   csrc/max_corr.cu and csrc/warp_fwd.cu cover each tile element once, and
@@ -15,6 +16,9 @@ here with g++ into a small harness:
   the per-position kernel's split of (band, channel group) items and the
   dW1s kernel's split of the positions into ranges;
 - the split is exact in its first part and leaves ~2^-22 of the value;
+- csrc/attn_math_tiles.cuh's maps: the attention-math products' runs of
+  channels take every W1 row once, their splits take every depth stage and
+  every item once, and the wgmma accumulators cover the 128 x 128 tile;
 - the split product, emulated with the kernel's arithmetic (tensor-core
   accumulation by truncation within a stage of 32 channels, stages added
   rounding to nearest), of unit-norm ReLU rows at C=256 and C=512 is within
@@ -36,6 +40,7 @@ CORR_ATOL = 1e-5  # chip_smoke.py's tolerance on cmax
 
 HARNESS = r"""
 #include <cmath>
+#include "attn_math_tiles.cuh"
 #include "max_corr.cuh"
 #include "warp_bwd_tiles.cuh"
 using namespace gfla;
@@ -200,6 +205,56 @@ int pos_items(int N, int C, int k, int* count, int* info) {
   return empty;
 }
 
+void attn_grid_shape(int* out) {
+  const WarpGrid g = attn_grid();
+  out[0] = g.warps_n; out[1] = g.tiles_m; out[2] = g.tiles_n;
+  out[3] = kAttnTile;
+}
+
+// Counts how often each W1 row (2 m + h) C + c is in a run of `width`
+// channels of attn_run's walk. Returns 1 if a run leaves its (m, h) or the
+// walk reaches past k2.
+int attn_runs_cover(int k2, int C, int width, int* count) {
+  int outside = 0;
+  for (int q = 0; q < attn_runs(k2, C, width); ++q) {
+    const OffsetRun r = attn_run(q, C, width);
+    if (r.m < 0 || r.m >= k2 || r.h < 0 || r.h > 1 || r.c0 % width != 0) {
+      outside = 1;
+      continue;
+    }
+    for (int c = r.c0; c < r.c0 + width && c < C; ++c) {
+      ++count[(2 * r.m + r.h) * C + c];
+    }
+  }
+  return outside;
+}
+
+// Counts how often each depth stage of the forward product is taken by a
+// split, and each item of the backward product by a split; info: forward
+// stages, splits, CTAs; backward items, splits, CTAs. Returns 1 if a split
+// is empty.
+int attn_plans(int N, int C, int D, int k2, int* fwd, int* bwd, int* info) {
+  const AttnFwdPlan f = attn_fwd_plan(N, C, D, k2);
+  int empty = 0;
+  for (int z = 0; z < f.splits; ++z) {
+    const int hi = (z + 1) * f.per_split < f.stages ? (z + 1) * f.per_split
+                                                    : f.stages;
+    if (hi <= z * f.per_split) empty = 1;
+    for (int q = z * f.per_split; q < hi; ++q) ++fwd[q];
+  }
+  const AttnBwdPlan b = attn_bwd_plan(N, C, k2);
+  for (int y = 0; y < b.splits; ++y) {
+    const int hi = (y + 1) * b.per_cta < b.items ? (y + 1) * b.per_cta
+                                                 : b.items;
+    if (hi <= y * b.per_cta) empty = 1;
+    for (int it = y * b.per_cta; it < hi; ++it) ++bwd[it];
+  }
+  info[0] = f.stages; info[1] = f.splits;
+  info[2] = f.tiles * f.col_tiles * f.splits;
+  info[3] = b.items; info[4] = b.splits; info[5] = b.tiles * b.splits;
+  return empty;
+}
+
 void split(const float* x, int n, float* hi, float* lo) {
   for (int i = 0; i < n; ++i) {
     const Tf32Pair p = tf32_split(x[i]);
@@ -274,6 +329,11 @@ def harness(tmp_path_factory):
     lib.pos_items.argtypes = [i, i, i, p, p]
     lib.pos_items.restype = i
     lib.dots.argtypes = [p, p, i, i, p, p]
+    lib.attn_grid_shape.argtypes = [p]
+    lib.attn_runs_cover.argtypes = [i, i, i, p]
+    lib.attn_runs_cover.restype = i
+    lib.attn_plans.argtypes = [i, i, i, i, p, p, p]
+    lib.attn_plans.restype = i
     return lib
 
 
@@ -411,3 +471,49 @@ def test_warp_bwd_splits_cover_their_work_once(harness, N, C, D, k):
     assert (count[:info[0]] == 1).all() and (count[info[0]:] == 0).all()
     if N >= 8 * 32 * 32:
         assert w1_ctas >= 132 and info[2] >= 132
+
+
+def test_attn_math_grid_covers_its_tile_once(harness):
+    """csrc/attn_math_steps.cuh: the two warpgroups' wgmma accumulators of
+    a product CTA (8 warps, each 16 rows x 16 fragments) cover its
+    128 x 128 tile once."""
+    shape = np.zeros(4, np.int32)
+    harness.attn_grid_shape(_ptr(shape))
+    warps_n, tm, tn, tile = (int(v) for v in shape)
+    count = np.zeros(tile * tile, np.int32)
+    assert harness.grid_cover(8, warps_n, tm, tn, tile, tile,
+                              _ptr(count)) == 0
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("C", [21, 128, 256])
+@pytest.mark.parametrize("width", [32, 128], ids=["fwd-depth", "bwd-items"])
+def test_attn_math_runs_cover_w1_once(harness, k, C, width):
+    """The forward's depth stages (runs of 32 channels) and the backward
+    product's items (runs of 128) each take every row (2 m + h) C + c of
+    W1 (k^2, 2C, D) once, every run inside one (offset, half)."""
+    count = np.zeros(2 * k * k * C, np.int32)
+    assert harness.attn_runs_cover(k * k, C, width, _ptr(count)) == 0
+    assert (count == 1).all()
+
+
+ATTN_SITES = [  # N, C, D, k: the two live sites, ragged, wide D, one tile
+    (8 * 64 * 64, 128, 128, 5), (8 * 32 * 32, 256, 128, 3),
+    (1000, 21, 42, 3), (150, 64, 256, 3), (40, 36, 64, 1)]
+
+
+@pytest.mark.parametrize("N,C,D,k", ATTN_SITES)
+def test_attn_math_splits_cover_their_work_once(harness, N, C, D, k):
+    """The forward product's depth splits take each stage once and the
+    backward product's splits each item once, none empty; at the live
+    sites both grids give at least 3/4 of the H100's 132 SMs a CTA."""
+    fwd = np.zeros(2 * k * k * ((C + 31) // 32), np.int32)
+    bwd = np.zeros(2 * k * k * ((C + 127) // 128), np.int32)
+    info = np.zeros(6, np.int32)
+    assert harness.attn_plans(N, C, D, k * k, _ptr(fwd), _ptr(bwd),
+                              _ptr(info)) == 0
+    assert info[0] == fwd.size and info[3] == bwd.size
+    assert (fwd == 1).all() and (bwd == 1).all()
+    if N >= 8 * 32 * 32:
+        assert info[2] >= 99 and info[5] >= 99

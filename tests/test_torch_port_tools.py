@@ -4,6 +4,7 @@ exit code 1 and no result, and serve_profile's grouping of kernel names puts
 the names a serving forward or a training step shows on an H100 into the
 expected families."""
 
+import re
 import types
 
 import pytest
@@ -54,10 +55,29 @@ def test_serve_profile_groups_kernel_names(name, want):
 
 
 def test_kernel_split_variants_name_a_whole_kernel_first():
-    for variants in (kernel_split.WARP_VARIANTS, kernel_split.BWD_VARIANTS,
-                     kernel_split.CORR_VARIANTS):
+    for variants in kernel_split.SOURCES.values():
         assert list(variants)[0] == 0 and variants[0] == "whole kernel"
         assert sorted(variants) == list(range(len(variants)))
+
+
+@pytest.mark.parametrize("stem", ["warp_fwd", "warp_bwd", "max_corr",
+                                  "attn_math_fwd", "attn_math_bwd"])
+def test_kernel_split_sources_exist_and_take_split_values(stem):
+    """Every source the tool splits is a kernel file whose GFLA_SPLIT
+    values, in it and in the headers it includes, are the tool's
+    variants."""
+    src = (kernel_split.CSRC / f"{stem}.cu").read_text()
+    assert "#ifndef GFLA_SPLIT" in src
+    text = src + "".join(
+        (kernel_split.CSRC / name).read_text()
+        for name in re.findall(r'#include "(\w+\.cuh)"', src))
+    used = {int(n) for n in re.findall(r"GFLA_SPLIT [!=]= (\d)", text)}
+    assert used == set(kernel_split.SOURCES[stem]) - {0}
+
+
+def test_kernel_split_refuses_unknown_sources():
+    with pytest.raises(SystemExit):
+        kernel_split.main(["--only", "attn_math_fwd,nonesuch"])
 
 
 @pytest.mark.parametrize("name,flag,want", [
