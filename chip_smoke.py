@@ -4,7 +4,9 @@
 
 Phases, each failing the run (non-zero exit) on the first error:
   1. card: CUDA must be present; prints nvidia-smi's name and power limit.
-  2. build: compiles the CUDA kernels from gfla_tpu_torch/csrc with nvcc.
+  2. build: compiles the CUDA kernels from gfla_tpu_torch/csrc with nvcc,
+     and csrc/jpeg_nvjpeg.cpp (linked with the toolkit's nvJPEG) beside
+     them.
   3. kernel: the warp kernel against its plain torch version at both live
      attention sites of the DeepFashion generator, with far-off flows, at
      the sites of a 64x64 input, at a ragged shape (non-square, C and D
@@ -48,6 +50,20 @@ Phases, each failing the run (non-zero exit) on the first error:
  10. switches: the pose head under GFLA_ATTN_PALLAS=1 (serving, one training
      step) and GFLA_PALLAS_CORR=1 (one training step): the kernels each
      setting selects, and agreement with the default path.
+ 11. disk data: a DeepFashion-layout tree (16 images of 256x176 a phase, 24
+     train and 8 test pairs) and a Market-layout one (128x64) written
+     through nvJPEG (image_io.encode_jpeg) and decoded back (PSNR >= 35 dB
+     each; the same decode queued behind a busy stream bitwise equal;
+     nvJPEG's pixels against PIL's on a committed fixture); three
+     full-width batch-8 pose steps from each through the training CLI's
+     entry point with --eval_iters_freq=2 --display_freq=2 (and
+     --profile_iters=1 for fashion): train.py's held-out batch, never in a
+     training batch, evaluated (finite SSIM, PSNR, L1), the logs, PNGs
+     and trace written, the launches counted; the serving CLI writes the
+     test pairs' _vis.jpg through nvJPEG and one decodes back; market
+     serving on the kernels against the plain warp; each prepared image
+     against its source picture; decode and prepare_batch ms per batch
+     beside the step time.
 The switches are set per phase with mock.patch.dict, so none leaks into the
 next; every other phase runs with GFLA_ATTN_PALLAS=auto, GFLA_PALLAS_CORR=0.
 All six kernels multiply on the tensor cores as split-f32 products (three
@@ -116,6 +132,8 @@ KERNEL_CASES = [  # name, B, H, W, C, D, k, flow scale (None: far-off)
     ("k=3 site at 64x64 input", 2, 8, 8, 256, 128, 3, 1.5),
     ("ragged k=3 12x10 C21 D42", 2, 12, 10, 21, 42, 3, 1.5),
     ("ragged k=7 16x12 C22 D40", 2, 16, 12, 22, 40, 7, 1.5),
+    ("market k=5 site 32x16 C128", 8, 32, 16, 128, 128, 5, 1.5),
+    ("market k=3 site 16x8 C256", 8, 16, 8, 256, 128, 3, 1.5),
 ]
 
 
@@ -150,10 +168,14 @@ def phase_card():
 
 
 def phase_build():
-    from gfla_tpu_torch.ops._build import load_library
+    """The kernel library and the nvJPEG library, every nvcc at once."""
+    from gfla_tpu_torch.ops._build import (build, load_jpeg_library,
+                                           load_library)
 
     t0 = time.perf_counter()
-    load_library(verbose=True)
+    build(verbose=True)
+    load_library()
+    load_jpeg_library()
     print(f"build: {time.perf_counter() - t0:.2f} s")
 
 
@@ -374,6 +396,8 @@ CORR_CASES = [  # name, B, Ns, Nt, C, exact ties
     ("ragged B=3 Ns=1000 Nt=777 C3", 3, 1000, 777, 3, False),
     ("duplicated and zero rows B=2 4096x4096 C256", 2, 4096, 4096, 256,
      True),
+    ("market relu3_1 B=8 512x512 C256", 8, 512, 512, 256, False),
+    ("market relu4_1 B=8 128x128 C512", 8, 128, 128, 512, False),
 ]
 
 
@@ -1231,11 +1255,421 @@ def phase_switches(serve, train):
                 train_corr=counts["corr"])
 
 
+DISK_PSNR_MIN = 35.0   # dB: nvJPEG encode + decode at quality 75, each image
+FIXTURE_MEAN_ABS = 0.1  # levels: nvJPEG's planes, upsampled and converted
+FIXTURE_MAX_ABS = 4     # as libjpeg does, vs PIL's pixels on the committed
+                        # fixture: only the inverse DCT differs (an H100:
+                        # mean 0.0192, max 2, 1.62% of values differ)
+PREPARED_MEAN_ABS = 0.05  # a prepared image vs its source picture, mean
+                        # |diff| in [-1, 1]: JPEG at quality 75 (>= 35 dB,
+                        # <= 0.03); another picture differs by ~0.2-0.4
+DISK_IMAGES = 16        # images in each phase of each tree
+DISK_PAIRS = {"train": 24, "test": 8}  # 3 batches of 8: 1 held out, 2 trained
+DISK_STEPS = 3
+DISK_BATCH = 8          # the trainer's and the server's batch
+DISK_LOAD = 256         # --load_size (market's apply_defaults sets 128x64)
+FIXTURE = "tests/fixtures/pil_q75_96x64"
+
+
+def disk_images(n, H, W, seed):
+    """`n` seeded uint8 (H, W, 3) pictures: a vertical colour gradient and
+    one soft-edged ellipse (a ~4 pixel edge), smooth as photographs are."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:H, :W].astype(np.float32)
+    out = []
+    for _ in range(n):
+        c0, c1 = rng.uniform(40, 215, 3), rng.uniform(40, 215, 3)
+        t = (yy / H)[..., None]
+        img = c0 * (1 - t) + c1 * t
+        cy, cx = rng.uniform(0.35, 0.65) * H, rng.uniform(0.35, 0.65) * W
+        ry, rx = rng.uniform(0.2, 0.35) * H, rng.uniform(0.15, 0.3) * W
+        r = np.sqrt(((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2)
+        a = np.clip((1.0 - r) * min(ry, rx) / 4.0, 0, 1)[..., None]
+        img = img * (1 - a) + rng.uniform(40, 215, 3) * a
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def write_disk_tree(root, prefix, H, W, seed, device):
+    """A DeepFashion- (prefix fasion) or Market-layout (market) tree of
+    DISK_IMAGES images a phase, encoded on the card by image_io.encode_jpeg;
+    keypoints in the image's own frame (a sixth missing); DISK_PAIRS
+    distinct pairs. Returns {path: source array}."""
+    import csv
+
+    from gfla_tpu_torch.data.image_io import encode_jpeg
+
+    rng = np.random.RandomState(seed)
+    sources = {}
+    for p, phase in enumerate(("train", "test")):
+        os.makedirs(os.path.join(root, phase))
+        names, rows = [], []
+        for i, img in enumerate(disk_images(DISK_IMAGES, H, W, seed + p)):
+            name = f"{phase}{i:02d}.jpg"
+            path = os.path.join(root, phase, name)
+            with open(path, "wb") as f:
+                f.write(encode_jpeg(torch.from_numpy(img).to(device)))
+            sources[path] = img
+            kp = np.stack([rng.randint(0, H, 18), rng.randint(0, W, 18)], 1)
+            kp[rng.rand(18) < 1 / 6] = -1
+            names.append(name)
+            rows.append([name, str(kp[:, 0].tolist()),
+                         str(kp[:, 1].tolist())])
+        with open(os.path.join(root, f"{prefix}-annotation-{phase}.csv"),
+                  "w", newline="") as f:
+            writer = csv.writer(f, delimiter=":")
+            writer.writerow(["name", "keypoints_y", "keypoints_x"])
+            writer.writerows(rows)
+        every = [(a, b) for a in range(DISK_IMAGES) for b in range(DISK_IMAGES)
+                 if a != b]
+        chosen = rng.permutation(len(every))[:DISK_PAIRS[phase]]
+        with open(os.path.join(root, f"{prefix}-pairs-{phase}.csv"), "w",
+                  newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["from", "to"])
+            writer.writerows([names[every[c][0]], names[every[c][1]]]
+                             for c in chosen)
+    return sources
+
+
+def psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
+
+
+def host_ms(fn, iters=10, warmup=2):
+    """Median milliseconds of `fn()` by the host clock, synchronised: for
+    work that is partly on the host (nvJPEG's Huffman decode)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def cli_run(what):
+    """Run a CLI in-process with its stdout captured: its lines are
+    returned; on a failure they are printed before the error."""
+    import io
+
+    buf = io.StringIO()
+    lines = []
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield lines
+    except BaseException:
+        print(f"{what} output:\n{buf.getvalue()[-6000:]}")
+        raise
+    finally:
+        lines.extend(buf.getvalue().splitlines())
+
+
+def train_from_disk(what, args, steps):
+    """`python -m gfla_tpu_torch.train` in-process on a tree: returns its
+    output lines, the launch counts, the task, the (P1, P2) paths of each
+    batch it prepared in order, and each step's synchronised ms."""
+    import gfla_tpu_torch.train.__main__ as train_cli
+    from gfla_tpu_torch.tasks.pose import PoseTask
+
+    tasks, prepared, step_ms = [], [], []
+    prepare, train_step = PoseTask.prepare_batch, PoseTask.train_step
+    create_task = train_cli.create_task
+
+    def recording_prepare(self, batch):
+        prepared.append(list(zip(batch["P1_path"], batch["P2_path"])))
+        return prepare(self, batch)
+
+    def timed_step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(self, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def capture(opt, device=None):
+        tasks.append(create_task(opt, device))
+        return tasks[-1]
+
+    with mock.patch.object(PoseTask, "prepare_batch", recording_prepare), \
+            mock.patch.object(PoseTask, "train_step", timed_step), \
+            mock.patch.object(train_cli, "create_task", capture), \
+            cli_run(what) as lines:
+        reset_launch_counts()
+        check(train_cli.main(args) == 0, f"{what}: exit code")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    check(len(step_ms) == steps, f"{what}: {len(step_ms)} steps")
+    return lines, counts, tasks[0], prepared, step_ms
+
+
+def serve_from_disk(what, args):
+    """`python -m gfla_tpu_torch.test` in-process: output lines, counts."""
+    import gfla_tpu_torch.test as test_cli
+
+    with cli_run(what) as lines:
+        reset_launch_counts()
+        test_cli.main(args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    return lines, counts
+
+
+def eval_lines(lines):
+    """{iteration: {metric: value}} of the trainer's held-out lines."""
+    out = {}
+    for line in lines:
+        if line.startswith("(epoch:") and "ssim:" in line:
+            head, tail = line.split(") ", 1)
+            fields = tail.split()
+            out[int(head.split("iters: ")[1])] = {
+                k.rstrip(":"): float(v)
+                for k, v in zip(fields[::2], fields[1::2])}
+    return out
+
+
+def phase_disk_data(device):
+    """The pose head from files: DeepFashion- and Market-layout trees
+    written here through nvJPEG, decoded back, trained and served through
+    the two CLIs' entry points (in-process, so the launches are counted)."""
+    from gfla_tpu_torch.data import collate, get_dataset_class
+    from gfla_tpu_torch.data import image_io
+    from gfla_tpu_torch.data.resample import resample_images
+    from gfla_tpu_torch.options import TestOptions
+    from gfla_tpu_torch.tasks import create_task
+    from gfla_tpu_torch.train.evaluate import holdout_indices
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.TemporaryDirectory()
+    trees = {"fashion": (os.path.join(work.name, "fashion"), "fasion",
+                         256, 176),
+             "market": (os.path.join(work.name, "market"), "market",
+                        128, 64)}
+    t0 = time.perf_counter()
+    sources = {}
+    for i, (root, prefix, H, W) in enumerate(trees.values()):
+        sources.update(write_disk_tree(root, prefix, H, W, 70 + 10 * i,
+                                       device))
+    check(image_io.nvjpeg_encodes == len(sources), "encodes not on nvJPEG")
+
+    # the round trip, and nvJPEG's pixels against PIL's
+    paths = sorted(sources)
+    datas = [np.fromfile(p, np.uint8) for p in paths]
+    decoded = image_io.decode_jpeg_batch(datas, device, paths)
+    torch.cuda.synchronize()
+    psnrs = [psnr(img.cpu().numpy(), sources[p])
+             for img, p in zip(decoded, paths)]
+    fixture = np.fromfile(os.path.join(here, FIXTURE + ".jpg"), np.uint8)
+    want = np.load(os.path.join(here, FIXTURE + ".npy")).astype(np.int16)
+    got = image_io.decode_jpeg_batch([fixture], device, [FIXTURE])[0]
+    diff = np.abs(got.cpu().numpy().astype(np.int16) - want)
+    print(f"disk: wrote {len(sources)} JPEGs through nvJPEG in "
+          f"{time.perf_counter() - t0:.2f} s; encode+decode PSNR min "
+          f"{min(psnrs):.2f} dB mean {np.mean(psnrs):.2f} (bound "
+          f"{DISK_PSNR_MIN:g} per image); nvJPEG vs PIL on {FIXTURE}.jpg: "
+          f"mean |diff| {diff.mean():.4f} levels, max {diff.max()}, "
+          f"{(diff > 0).mean() * 100:.2f}% of values differ (bounds: mean "
+          f"{FIXTURE_MEAN_ABS:g}, max {FIXTURE_MAX_ABS})")
+    check(min(psnrs) >= DISK_PSNR_MIN, f"round-trip PSNR {min(psnrs):.2f}")
+    # the same decode queued behind ~0.1 s of work on the caller's stream,
+    # as a batch is decoded while the previous training step runs
+    x = torch.randn(4096, 4096, device=device)
+    y = torch.empty_like(x)
+    for _ in range(40):
+        torch.mm(x, x, out=y)
+    behind = image_io.decode_jpeg_batch(datas, device, paths)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(behind, decoded)),
+          "the decode behind a busy stream differs from the decode alone")
+    print(f"disk: the {len(paths)} images decoded behind ~40 queued 4096^3 "
+          f"products equal the ones decoded alone")
+    del x, y, behind
+    try:
+        image_io.decode_jpeg_batch([np.zeros(64, np.uint8)], device,
+                                   ["broken.jpg"])
+        refused = ""
+    except ValueError as err:
+        refused = str(err)
+    check("nvJPEG" in refused and "broken.jpg" in refused,
+          f"64 zero bytes: {refused or 'decoded'}")
+    print(f"decode_jpeg_batch refuses a file that is no JPEG: {refused}")
+    check(got.shape == want.shape and diff.mean() <= FIXTURE_MEAN_ABS
+          and diff.max() <= FIXTURE_MAX_ABS,
+          f"nvJPEG vs PIL |diff| mean {diff.mean():.4f} max {diff.max()}")
+
+    counts = {}
+    for mode, (root, prefix, H, W) in trees.items():
+        name = f"disk_{mode}"
+        ckpt = os.path.join(work.name, "ckpt")
+        common = [f"--dataset_mode={mode}", f"--dataroot={root}",
+                  "--gpu_ids=0", f"--batchSize={DISK_BATCH}",
+                  f"--load_size={DISK_LOAD}", f"--checkpoints_dir={ckpt}",
+                  f"--name={name}"]
+        train_args = [*common, "--model=pose",
+                      f"--max_iters={DISK_STEPS}", "--eval_iters_freq=2",
+                      "--display_freq=2", "--print_freq=1"]
+        if mode == "fashion":  # the trace, and the loader's two workers
+            train_args += ["--profile_iters=1"]
+        else:
+            train_args += ["--nThreads=0"]
+        decodes = image_io.nvjpeg_decodes
+        lines, train_counts, task, prepared, step_ms = train_from_disk(
+            f"{mode} train", train_args, DISK_STEPS)
+        decodes = image_io.nvjpeg_decodes - decodes
+        print(f"{mode} train from disk: launches {train_counts}; nvJPEG "
+              f"decodes {decodes}")
+        for line in lines:
+            if line.startswith(("held out", "dataset [", "(epoch:",
+                                "profiler trace")):
+                print(f"  {line}")
+        # held out: train.py's indices, evaluated, never trained on
+        pairs = list(task_pairs(root, prefix))
+        held = holdout_indices(len(pairs), DISK_BATCH, 0)
+        check(f"held out {DISK_BATCH} samples for eval (indices "
+              f"{held.tolist()})"
+              in lines, f"{mode}: held-out line")
+        held_pairs = [pairs[i] for i in held]
+        check(prepared.count(held_pairs) == 1,
+              f"{mode}: the held-out batch was prepared "
+              f"{prepared.count(held_pairs)} times")
+        trained = [b for b in prepared if b != held_pairs]
+        check(len(trained) == DISK_STEPS and not any(
+            set(b) & set(held_pairs) for b in trained),
+            f"{mode}: a held-out pair reached a training batch")
+        evals = eval_lines(lines)
+        check(list(evals) == [2] and all(
+            np.isfinite(v) for v in evals[2].values())
+            and sorted(evals[2]) == ["l1", "psnr", "ssim"],
+            f"{mode}: held-out evaluation {evals}")
+        run = os.path.join(ckpt, name)
+        images = sorted(os.listdir(os.path.join(run, "web", "images")))
+        check(os.path.exists(os.path.join(run, "eval_log.txt"))
+              and len(images) == 8
+              and all(n.startswith("iter00000002_") for n in images)
+              and os.path.exists(os.path.join(run, "web", "index.html")),
+              f"{mode}: logs and visuals {images}")
+        check(decodes == 2 * DISK_BATCH * (DISK_STEPS + 1),
+              f"{mode}: {decodes} nvJPEG decodes")
+        if mode == "fashion":
+            trace = os.path.join(run, "profile", "trace_3.json")
+            check(os.path.getsize(trace) > 0, "no profiler trace")
+            check(task.net_d.layers == 4, "fashion: not the 4-layer D")
+        else:
+            check(task.net_d.layers == 3 and task.opt.load_size == (128, 64)
+                  and task.opt.angle == (-5, 5), "market: not its config")
+        check(only(train_counts, warp_fwd=2 * DISK_STEPS + 2 * 2,
+                   warp_bwd_pos=2 * DISK_STEPS, warp_bwd_w1=2 * DISK_STEPS),
+              f"{mode} train launches {train_counts}: expected 2 forward "
+              f"and 2 of each backward a step, 2 forwards for the "
+              f"evaluation and 2 for the visuals")
+        counts[f"{'disk' if mode == 'fashion' else mode}_train"] = \
+            train_counts
+
+        # serve the test pairs from the last checkpoint
+        results = os.path.join(work.name, "results")
+        encodes = image_io.nvjpeg_encodes
+        lines, serve_counts = serve_from_disk(
+            f"{mode} serve", [*common, "--model=pose", "--which_iter=3",
+                              f"--results_dir={results}", "--nThreads=0"])
+        encodes = image_io.nvjpeg_encodes - encodes
+        vis = sorted(n for n in os.listdir(os.path.join(results, name))
+                     if n.endswith("_vis.jpg"))
+        back = image_io.decode_jpeg_batch(
+            [np.fromfile(os.path.join(results, name, vis[0]), np.uint8)],
+            device, [vis[0]])[0]
+        hw = (DISK_LOAD, DISK_LOAD) if mode == "fashion" else (128, 64)
+        n_test = DISK_PAIRS["test"]
+        print(f"{mode} serve from disk: launches {serve_counts}; "
+              f"{len(vis)} _vis.jpg by nvJPEG ({encodes} encodes); "
+              f"{vis[0]} decodes to {tuple(back.shape)}")
+        check(f"wrote {n_test} results to {os.path.join(results, name)}"
+              in lines and len(vis) == n_test and encodes == n_test
+              and tuple(back.shape) == (*hw, 3), f"{mode}: served files")
+        check(only(serve_counts, warp_fwd=2 * n_test // DISK_BATCH),
+              f"{mode} serve launches {serve_counts}")
+        counts[f"{'disk' if mode == 'fashion' else mode}_serve"] = \
+            serve_counts
+
+        # the host's share: decode and prepare_batch against the step
+        opt = TestOptions().parse(common[:3] + ["--gpu_ids=0"], save=False)
+        dataset = get_dataset_class(mode)(opt)
+        batch = collate([dataset[i] for i in range(DISK_BATCH)])
+        decode_ms = host_ms(lambda: image_io.decode_jpeg_batch(
+            batch["P1"], device, batch["P1_path"]))  # DISK_BATCH images
+        prepare_ms = host_ms(lambda: task.prepare_batch(batch))
+        # each prepared image against its source array, warped the same way
+        prepared = task.prepare_batch(batch)
+        for key in ("P1", "P2"):
+            src = torch.stack([torch.from_numpy(sources[os.path.join(
+                root, "test", name)]) for name in batch[f"{key}_path"]])
+            want = resample_images(
+                list(src.to(device)), prepared[key].shape[2:],
+                torch.from_numpy(batch[f"{key}_inv"]).to(device))
+            err = (prepared[key].permute(0, 2, 3, 1) - want).abs().mean(
+                dim=(1, 2, 3))
+            check(err.max().item() <= PREPARED_MEAN_ABS,
+                  f"{mode}: prepared {key} off its sources by "
+                  f"{err.max().item():.4f} mean")
+        print(f"{mode}: each prepared P1 and P2 within "
+              f"{err.max().item():.4f} mean |diff| of its source picture, "
+              f"warped alike (bound {PREPARED_MEAN_ABS:g})")
+        step = statistics.median(step_ms[1:])
+        print(f"{mode} from disk: decode {decode_ms:.3f} ms per batch of 8 "
+              f"images, prepare_batch {prepare_ms:.3f} ms per batch "
+              f"({2 * DISK_BATCH} decodes, warp-resize, heatmaps), train step {step:.3f} ms "
+              f"(steps {', '.join(f'{t:.1f}' for t in step_ms)}): the host "
+              f"pass is {prepare_ms / (prepare_ms + step) * 100:.1f}% of a "
+              f"step from disk if not overlapped")
+        if mode == "market":  # kernel path vs plain warp, serving
+            serve_task = create_task(opt)
+            serve_task.net_g.load_state_dict(task.net_g.state_dict())
+            request = serve_task.prepare_batch(batch)
+            img = serve_task.test_step(request)[0]
+            with plain_warp():
+                plain_img = serve_task.test_step(request)[0]
+            diff = (img - plain_img).abs().max().item()
+            print(f"market serving, kernel path vs plain path: "
+                  f"max_abs_diff={diff:.3e} (bound {SLICE_ATOL:g})")
+            check(diff <= SLICE_ATOL, f"market kernel vs plain {diff:.3e}")
+            del serve_task
+        del task
+    work.cleanup()
+    return counts
+
+
+def task_pairs(root, prefix):
+    """The (from, to) names of a tree's training pairs, in file order."""
+    import csv
+
+    with open(os.path.join(root, f"{prefix}-pairs-train.csv")) as f:
+        return [(row["from"], row["to"]) for row in csv.DictReader(f)]
+
+
+def market_cases(cases, results, unpack, work_of):
+    """{case: max_abs_err, ms, plain_ms, bound_ms} of the market cases in
+    `cases`, from each case's result as `unpack` reads it: (err, ms,
+    plain_ms)."""
+    out = {}
+    for case in cases:
+        if case[0].startswith("market"):
+            err, ms, plain_ms = unpack(results[case[0]])
+            out[case[0]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound(*work_of(case), TF32X3_PEAK)[0]}
+    return out
+
+
 def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
-                 plain_ms, work, library_ms, shape):
+                 plain_ms, work, library_ms, shape, cases=None):
     """One entry of the `kernels` line. Every kernel multiplies by split-f32
     products, so its bound is taken at TF32X3_PEAK; the bound on the FP32
-    cores stands beside it."""
+    cores stands beside it. `cases`: market_cases' times at market's
+    shapes."""
     bound_ms, bound_by = bound(*work, TF32X3_PEAK)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -1245,7 +1679,8 @@ def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
             "bound_unit": "tensor cores, 3 TF32 products per f32 product: "
                           "165 TFLOP/s",
             "bound_ms_fp32_cores": bound(*work)[0],
-            "library_ms": library_ms, "ms_shape": shape}
+            "library_ms": library_ms, "ms_shape": shape,
+            "market_cases": cases or {}}
 
 
 def main(argv):
@@ -1268,6 +1703,7 @@ def main(argv):
         train = phase_train()
         flow = phase_poseflownet()
         switched = phase_switches(serve, train)
+        disk = phase_disk_data(device)
     train = train["counts"]
     site = KERNEL_CASES[0]
     work = warp_work(*site[1:7])
@@ -1278,19 +1714,26 @@ def main(argv):
         "warp_fwd", "gfla_tpu_torch/csrc/warp_fwd.cu",
         "gfla_tpu/ops/pallas_warp.py:166",
         {"serve": serve["launches"], "train": train["warp_fwd"],
-         "train_corr": switched["train_corr"]["warp_fwd"]},
+         "train_corr": switched["train_corr"]["warp_fwd"],
+         **{path: c["warp_fwd"] for path, c in disk.items()}},
         max(e for e, _, _ in kernel.values()), f"{KERNEL_ATOL:g} abs", ms,
-        plain_ms, work["warp_fwd"], none, shape)]
+        plain_ms, work["warp_fwd"], none, shape,
+        market_cases(KERNEL_CASES, kernel, lambda r: r,
+                     lambda c: warp_work(*c[1:7])["warp_fwd"]))]
     for name, part in (("warp_bwd_pos", "pos"), ("warp_bwd_w1", "w1")):
         entries.append(kernel_entry(
             name, "gfla_tpu_torch/csrc/warp_bwd.cu",
             "gfla_tpu/ops/pallas_warp.py:243",
             {"train": train[name],
-             "train_corr": switched["train_corr"][name]},
+             "train_corr": switched["train_corr"][name],
+             **{path: c[name] for path, c in disk.items()
+                if path.endswith("_train")}},
             max(r[part][0] for r in bwd.values()),
             f"{BWD_REL:g} x max|value| of each output",
             bwd[site[0]][part][1], bwd[site[0]][part][2], work[name], none,
-            shape))
+            shape, market_cases(
+                KERNEL_CASES, bwd, lambda r, part=part: r[part],
+                lambda c, name=name: warp_work(*c[1:7])[name])))
     c = corr[CORR_CASES[0][0]]
     entries.append(kernel_entry(
         "max_corr", "gfla_tpu_torch/csrc/max_corr.cu",
@@ -1299,7 +1742,9 @@ def main(argv):
          "train_corr": switched["train_corr"]["max_corr"]},
         max(r["err"] for r in corr.values()), f"{CORR_ATOL:g} abs (cmax)",
         c["ms"], c["plain_ms"], c["work"], c["library_ms"],
-        "B=8 Ns=Nt=4096 C=256"))
+        "B=8 Ns=Nt=4096 C=256", market_cases(
+            CORR_CASES, corr, lambda r: (r["err"], r["ms"], r["plain_ms"]),
+            lambda c: corr_work(*c[1:5]))))
     a = attn[ATTN_CASES[0][0]]
     for name, part, paths in (
             ("attn_math_fwd", "fwd", ("serve_attn", "train_attn")),

@@ -1,17 +1,18 @@
-"""Data for the port: the synthetic paired dataset, a serial batch loader
-for testing, an endless shuffled one for training, and on-device heatmap
-encoding. The file-backed fashion and market datasets are not ported yet."""
+"""Data for the port (counterpart of gfla_tpu/data/__init__.py:25-53): the
+file-backed DeepFashion and Market-1501 pose datasets, the synthetic paired
+dataset, gfla_tpu's batch order on torch's DataLoader, and the registry that
+`--dataset_mode` reads. JPEG decoding, the warp-resize and the heatmaps run
+on the task's device (tasks/pose.py `prepare_batch`)."""
 
 from __future__ import annotations
 
+from gfla_tpu_torch.data.loader import collate, infinite, make_loader
+from gfla_tpu_torch.data.paired_dataset import FashionDataset, MarketDataset
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
-from gfla_tpu_torch.data.synthetic import (
-    SyntheticPoseDataset,
-    iterate_batches,
-    train_batches,
-)
+from gfla_tpu_torch.data.synthetic import SyntheticPoseDataset
 
-DATASETS = {"synthetic": SyntheticPoseDataset}
+DATASETS = {"fashion": FashionDataset, "market": MarketDataset,
+            "synthetic": SyntheticPoseDataset}
 
 
 def get_dataset_class(name: str):
@@ -21,5 +22,6 @@ def get_dataset_class(name: str):
     return DATASETS[name]
 
 
-__all__ = ["DATASETS", "SyntheticPoseDataset", "encode_heatmaps",
-           "get_dataset_class", "iterate_batches", "train_batches"]
+__all__ = ["DATASETS", "FashionDataset", "MarketDataset",
+           "SyntheticPoseDataset", "collate", "encode_heatmaps",
+           "get_dataset_class", "infinite", "make_loader"]

@@ -4,7 +4,7 @@ drawn from RandomState(i), so both packages yield identical arrays."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List
+from typing import Dict
 
 import numpy as np
 
@@ -50,36 +50,3 @@ class SyntheticPoseDataset:
             "P2_path": f"syn_{index}_b.jpg",
         }
 
-
-def collate(samples: List[Dict]) -> Dict:
-    """Stack array fields; keep other fields (paths) as lists."""
-    return {key: (np.stack([s[key] for s in samples])
-                  if isinstance(samples[0][key], np.ndarray)
-                  else [s[key] for s in samples])
-            for key in samples[0]}
-
-
-def iterate_batches(dataset, batch_size: int) -> Iterator[Dict]:
-    """Serial batches in index order, the last one possibly short (the test
-    phase's loader: serial_batches, no drop_last)."""
-    for start in range(0, len(dataset), batch_size):
-        stop = min(start + batch_size, len(dataset))
-        yield collate([dataset[i] for i in range(start, stop)])
-
-
-def train_batches(dataset, batch_size: int, shuffle: bool = True,
-                  seed: int = 0) -> Iterator[Dict]:
-    """Endless full batches, as the training loader gives them: each epoch
-    in a fresh order from RandomState(seed + epoch) (index order with
-    `shuffle` off), the short tail dropped."""
-    if len(dataset) < batch_size:
-        raise ValueError(f"dataset has {len(dataset)} samples, fewer than "
-                         f"batchSize={batch_size}")
-    epoch = 0
-    while True:
-        order = (np.random.RandomState(seed + epoch).permutation(len(dataset))
-                 if shuffle else np.arange(len(dataset)))
-        for start in range(0, len(order) - batch_size + 1, batch_size):
-            yield collate([dataset[int(i)]
-                           for i in order[start:start + batch_size]])
-        epoch += 1

@@ -1,11 +1,14 @@
-"""Build the package's CUDA kernels with nvcc and bind them with ctypes.
+"""Build the package's CUDA sources with nvcc and bind them with ctypes.
 
 On first CUDA use, every `gfla_tpu_torch/csrc/*.cu` is compiled for Hopper
 (`sm_90a`), one nvcc process per source, all started together, and the
 objects are linked into one shared library with a plain C interface under
-`build/gfla_tpu_torch/` at the repo root. The file name carries a hash of the
-sources, so an edited kernel is rebuilt and a current one is loaded as is.
-Importing this module needs neither nvcc nor a GPU.
+`build/gfla_tpu_torch/` at the repo root. `csrc/jpeg_nvjpeg.cpp`, host code
+that calls nvJPEG, is built beside it into a library of its own, linked with
+the toolkit's `-lnvjpeg`, so that the kernels never need nvJPEG. Each file
+name carries a hash of its sources, so an edited source is rebuilt and a
+current one is loaded as is. Importing this module needs neither nvcc nor a
+GPU.
 """
 
 from __future__ import annotations
@@ -107,27 +110,87 @@ def _run_all(cmds):
     return "".join(outs)
 
 
-@functools.cache
-def load_library(verbose: bool = False) -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library. With `verbose`,
+JPEG_SOURCE = CSRC / "jpeg_nvjpeg.cpp"
+
+
+def _jpeg_target() -> Path:
+    digest = hashlib.sha256(JPEG_SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libgfla_jpeg_{digest}.so"
+
+
+def build(verbose: bool = False, kernels: bool = True,
+          jpeg: bool = True) -> None:
+    """Compile what is missing of the kernel library and (with `jpeg`) the
+    nvJPEG library, every nvcc process started together. With `verbose`,
     ptxas reports registers, shared memory and spills per kernel."""
     sources, digest = _sources()
-    target = BUILD_DIR / f"libgfla_kernels_{digest}.so"
-    if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        ptxas = ["-Xptxas", "-v"] if verbose else []
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
-            objs = [Path(tmp_dir) / f"{src.stem}.o" for src in sources]
-            out = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj),
-                             str(src)] for src, obj in zip(sources, objs)])
-            tmp = Path(tmp_dir) / target.name
+    kernel_target = BUILD_DIR / f"libgfla_kernels_{digest}.so"
+    jpeg_target = _jpeg_target()
+    kernels = kernels and not kernel_target.exists()
+    jpeg = jpeg and not jpeg_target.exists()
+    if not (kernels or jpeg):
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        tmp = Path(tmp_dir)
+        objs = [tmp / f"{src.stem}.o" for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)] if kernels else []
+        if jpeg:
+            lib_dir = Path(nvcc).resolve().parents[1] / "lib64"
+            cmds.append([nvcc, "-std=c++17", "-O2", "-Xcompiler", "-fPIC",
+                         "-shared", "-o", str(tmp / jpeg_target.name),
+                         str(JPEG_SOURCE), f"-L{lib_dir}", "-lnvjpeg",
+                         "-Xlinker", f"-rpath={lib_dir}"])
+        out = _run_all(cmds)
+        if kernels:
             out += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
-                              str(tmp), *map(str, objs)]])
-            os.replace(tmp, target)  # atomic: concurrent builds race safely
-        if verbose:
-            print(out, end="")
-            print(f"nvcc built {target.name} from {len(sources)} sources in "
-                  f"{time.perf_counter() - t0:.1f} s")
-    return _bind(ctypes.CDLL(str(target)))
+                              str(tmp / kernel_target.name),
+                              *map(str, objs)]])
+            # atomic: concurrent builds race safely
+            os.replace(tmp / kernel_target.name, kernel_target)
+        if jpeg:
+            os.replace(tmp / jpeg_target.name, jpeg_target)
+    if verbose:
+        print(out, end="")
+        built = ([f"{kernel_target.name} from {len(sources)} sources"]
+                 if kernels else []) + ([jpeg_target.name] if jpeg else [])
+        print(f"nvcc built {' and '.join(built)} in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+@functools.cache
+def load_library(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library."""
+    build(verbose, jpeg=False)
+    return _bind(ctypes.CDLL(str(BUILD_DIR / (
+        f"libgfla_kernels_{_sources()[1]}.so"))))
+
+
+def _bind_jpeg(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    size_p, int_p = ctypes.POINTER(size), ctypes.POINTER(i)
+    lib.gfla_jpeg_create.argtypes = [ctypes.POINTER(p)]
+    lib.gfla_jpeg_info.argtypes = [p, p, size, int_p, int_p, int_p, int_p]
+    lib.gfla_jpeg_decode.argtypes = [p, p, size, i, p, p, p, i, i, i, p]
+    lib.gfla_jpeg_encode.argtypes = [p, p, i, i, i, p, size_p]
+    lib.gfla_jpeg_encode_fetch.argtypes = [p, p, size_p, p]
+    for fn in (lib.gfla_jpeg_create, lib.gfla_jpeg_info, lib.gfla_jpeg_decode,
+               lib.gfla_jpeg_encode, lib.gfla_jpeg_encode_fetch):
+        fn.restype = i
+    lib.gfla_jpeg_constants.argtypes = [int_p]
+    lib.gfla_jpeg_constants.restype = None
+    lib.gfla_jpeg_cuda_error_string.argtypes = [i]
+    lib.gfla_jpeg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_jpeg_library(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (if needed) and load the nvJPEG library; raises if the
+    toolkit has no nvJPEG to link."""
+    build(verbose, kernels=False)
+    return _bind_jpeg(ctypes.CDLL(str(_jpeg_target())))

@@ -85,25 +85,6 @@ def refuse_parallel_flags(opt) -> None:
         raise NotImplementedError(f"--distributed: {MULTI_GPU_TODO}")
 
 
-def unhonoured_train_flags(opt, start_iter: int, max_iters: int) -> list:
-    """The flags of gfla_tpu's train.py that would act in a run of
-    iterations start_iter + 1 .. max_iters and that the port's trainer does
-    not honour yet: `--display_freq` (visuals at its multiples),
-    `--eval_iters_freq` (a held-out batch whenever it is set, evaluation at
-    its multiples) and `--profile_iters` (a trace from iteration
-    start_iter + 2)."""
-    flags = []
-    f = opt.display_freq
-    if f and max_iters // f > start_iter // f:
-        flags.append(f"--display_freq={f} (visuals)")
-    if opt.eval_iters_freq:
-        flags.append(f"--eval_iters_freq={opt.eval_iters_freq} (held-out "
-                     "batch and evaluation)")
-    if opt.profile_iters and start_iter + 2 < max_iters:
-        flags.append(f"--profile_iters={opt.profile_iters} (profiler trace)")
-    return flags
-
-
 class BaseOptions:
     isTrain = False
 
@@ -211,8 +192,7 @@ class TestOptions(BaseOptions):
 
 class TrainOptions(BaseOptions):
     """gfla_tpu's TrainOptions flags (options.py:231-), which follow the
-    original's train_options.py. The visualizer and held-out evaluation
-    flags parse but the port's trainer does not use them yet."""
+    original's train_options.py."""
 
     isTrain = True
 

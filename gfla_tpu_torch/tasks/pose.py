@@ -20,10 +20,13 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint as recompute
 
+from gfla_tpu_torch.data.image_io import decode_jpeg_batch
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
+from gfla_tpu_torch.data.resample import resample_images
 from gfla_tpu_torch.losses import (
     MultiAffineRegularizationLoss,
     PerceptualCorrectness,
@@ -45,13 +48,27 @@ from gfla_tpu_torch.train import checkpoint
 from gfla_tpu_torch.train.state import make_optimizer
 
 
-def prepare_batch(batch, device):
-    """Host batch (numpy NHWC images, (B, K, 2) keypoints) -> device NCHW
-    tensors in channels_last memory; heatmaps are encoded on the device."""
+def prepare_batch(batch, device, load_size):
+    """Host batch -> device NCHW tensors in channels_last memory. A
+    file-backed batch (JPEG bytes, 2x3 inverse matrices) is decoded on the
+    device and warped and resized to `load_size` in one batched pass; a
+    synthetic one's NHWC float images move as they are. Heatmaps are encoded
+    on the device from the (B, K, 2) keypoints."""
     dev = {}
-    for key in ("P1", "P2"):
-        img = torch.from_numpy(batch[key]).to(device)
-        dev[key] = img.permute(0, 3, 1, 2)
+    if "P1_inv" in batch:
+        n = len(batch["P1"])
+        images = decode_jpeg_batch(batch["P1"] + batch["P2"], device,
+                                   batch["P1_path"] + batch["P2_path"])
+        inverse = torch.from_numpy(np.concatenate(
+            [batch["P1_inv"], batch["P2_inv"]])).to(device)
+        hw = (load_size, load_size) if isinstance(load_size, int) \
+            else tuple(load_size)
+        both = resample_images(images, hw, inverse).permute(0, 3, 1, 2)
+        dev["P1"], dev["P2"] = both[:n], both[n:]
+    else:
+        for key in ("P1", "P2"):
+            img = torch.from_numpy(batch[key]).to(device)
+            dev[key] = img.permute(0, 3, 1, 2)
     H, W = dev["P1"].shape[2:]
     for kp, bp in (("KP1", "BP1"), ("KP2", "BP2")):
         cords = torch.from_numpy(batch[kp]).to(device)
@@ -156,12 +173,18 @@ class PoseTask:
         return True
 
     def prepare_batch(self, batch):
-        return prepare_batch(batch, self.device)
+        return prepare_batch(batch, self.device, self.opt.load_size)
 
     def test_step(self, batch):
-        """Eval-mode forward; returns (img_gen, flows, masks)."""
-        with torch.inference_mode():
-            return self.net_g(batch["P1"], batch["BP1"], batch["BP2"])
+        """Eval-mode forward, also between training steps (no spectral-norm
+        u is stored); returns (img_gen, flows, masks)."""
+        training = self.net_g.training
+        self.net_g.eval()
+        try:
+            with torch.inference_mode():
+                return self.net_g(batch["P1"], batch["BP1"], batch["BP2"])
+        finally:
+            self.net_g.train(training)
 
     def g_forward(self, p1, bp1, bp2):
         """G's training forward. With `--remat` it is recomputed in the

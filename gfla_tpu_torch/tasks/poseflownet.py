@@ -89,12 +89,18 @@ class PoseFlowNetTask:
         self.net_g.train()
 
     def prepare_batch(self, batch):
-        return prepare_batch(batch, self.device)
+        return prepare_batch(batch, self.device, self.opt.load_size)
 
     def test_step(self, batch):
-        """Eval-mode forward; returns (flows, masks)."""
-        with torch.inference_mode():
-            return self.net_g(batch["P1"], batch["BP1"], batch["BP2"])
+        """Eval-mode forward, also between training steps; returns (flows,
+        masks)."""
+        training = self.net_g.training
+        self.net_g.eval()
+        try:
+            with torch.inference_mode():
+                return self.net_g(batch["P1"], batch["BP1"], batch["BP2"])
+        finally:
+            self.net_g.train(training)
 
     def train_step(self, batch):
         """One G step on a prepared batch (gfla_tpu's _train_step_impl).

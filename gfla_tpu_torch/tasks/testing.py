@@ -1,25 +1,17 @@
 """Test-time runner of the pose head (counterpart of
 gfla_tpu/tasks/testing.py:34-65): writes `{src}_2_{tgt}_vis.jpg` per sample,
-plus ref/gt/all panels with --save_input or in the val phase."""
+plus the ref, gt and all panels with --save_input or in the val phase,
+through data/image_io's encoder: nvJPEG from the card's memory on CUDA, PIL
+on the CPU."""
 
 from __future__ import annotations
 
 import os
 
-import numpy as np
+import torch
 
-
-def tensor2im(x, index: int = 0) -> np.ndarray:
-    """(B,3,H,W) tensor in [-1, 1] -> uint8 (H, W, 3)."""
-    arr = x[index].detach().float().permute(1, 2, 0).cpu().numpy()
-    return ((np.clip(arr, -1.0, 1.0) + 1.0) / 2.0 * 255.0).astype(np.uint8)
-
-
-def _save(path: str, img: np.ndarray):
-    import imageio  # only the writer needs an image library
-
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    imageio.imwrite(path, img)
+from gfla_tpu_torch.data.image_io import write_jpeg
+from gfla_tpu_torch.utils.images import tensor2im
 
 
 def run_test_pose(task, opt, loader) -> int:
@@ -33,15 +25,15 @@ def run_test_pose(task, opt, loader) -> int:
             # name = splitext(splitext(src)[0] + '_2_' + tgt)[0] + '_vis.jpg'
             # (pose_model.py:108-110, base_model.py:224-237 of the original)
             src = os.path.splitext(batch["P1_path"][i])[0]
-            base = os.path.splitext(f"{src}_2_{batch['P2_path'][i]}")[0]
-            _save(os.path.join(out_dir, f"{base}_vis.jpg"),
-                  tensor2im(img_gen, i))
+            base = os.path.join(out_dir, os.path.splitext(
+                f"{src}_2_{batch['P2_path'][i]}")[0])
+            gen = tensor2im(img_gen, i)
+            write_jpeg(f"{base}_vis.jpg", gen)
             if getattr(opt, "save_input", False) or opt.phase == "val":
                 ref, gt = tensor2im(dev["P1"], i), tensor2im(dev["P2"], i)
-                _save(os.path.join(out_dir, f"{base}_ref.jpg"), ref)
-                _save(os.path.join(out_dir, f"{base}_gt.jpg"), gt)
-                _save(os.path.join(out_dir, f"{base}_all.jpg"),
-                      np.concatenate([ref, tensor2im(img_gen, i), gt], 1))
+                write_jpeg(f"{base}_ref.jpg", ref)
+                write_jpeg(f"{base}_gt.jpg", gt)
+                write_jpeg(f"{base}_all.jpg", torch.cat([ref, gen, gt], 1))
             n += 1
         if n >= opt.max_dataset_size:
             break

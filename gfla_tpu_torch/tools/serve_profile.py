@@ -28,7 +28,7 @@ import tempfile
 
 import torch
 
-from gfla_tpu_torch.data import get_dataset_class, iterate_batches
+from gfla_tpu_torch.data import collate, get_dataset_class
 from gfla_tpu_torch.options import TestOptions, TrainOptions
 from gfla_tpu_torch.runtime import card_line, select_device, set_tf32
 from gfla_tpu_torch.tasks import create_task
@@ -89,7 +89,8 @@ def main(argv=None) -> int:
         task.load_checkpoint()
     step = task.train_step if args.train else task.test_step
     dataset = get_dataset_class(opt.dataset_mode)(opt)
-    batch = task.prepare_batch(next(iterate_batches(dataset, opt.batchSize)))
+    batch = task.prepare_batch(collate([dataset[i]
+                                        for i in range(opt.batchSize)]))
 
     for _ in range(3):  # builds the kernels, lets cuDNN choose
         step(batch)

@@ -8,8 +8,6 @@
 - `--mesh_devices` other than 0 or 1, `--spatial` above 1 and
   `--distributed` ask for more than one device: both CLIs raise
   NotImplementedError naming the flag, before any data or network is built.
-- `--display_freq`, `--eval_iters_freq` and `--profile_iters` where they
-  would act in gfla_tpu's train.py: the trainer names them on one line.
 - `--model=poseflownet --compute_dtype=bfloat16` trains in float32, as
   gfla_tpu's poseflownet task does: its step equals the float32 step.
 """
@@ -26,7 +24,6 @@ import pytest
 import torch
 
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
-from gfla_tpu_torch.options import TrainOptions, unhonoured_train_flags
 from gfla_tpu_torch.tasks.pose import PoseTask
 from gfla_tpu_torch.tasks.poseflownet import PoseFlowNetTask
 
@@ -123,42 +120,6 @@ def test_parallel_flags_are_refused(tmp_path, module, flag):
     assert "NotImplementedError" in proc.stderr
     assert flag in proc.stderr and "queue 1, item 9" in proc.stderr
     assert "dataset [" not in proc.stdout
-
-
-@pytest.mark.parametrize("args,start,end,want", [
-    ([], 0, 2, ["--eval_iters_freq"]),
-    (["--eval_iters_freq=0"], 0, 2, []),
-    (["--eval_iters_freq=0", "--display_freq=2"], 0, 2, ["--display_freq"]),
-    (["--eval_iters_freq=0", "--display_freq=2"], 2, 3, []),
-    (["--eval_iters_freq=0", "--profile_iters=3"], 0, 3, ["--profile_iters"]),
-    (["--eval_iters_freq=0", "--profile_iters=3"], 0, 2, []),
-    (["--display_freq=1", "--profile_iters=1"], 5, 9,
-     ["--display_freq", "--eval_iters_freq", "--profile_iters"]),
-], ids=["defaults", "none", "display", "display-missed", "profile",
-        "profile-missed", "all"])
-def test_unhonoured_flags_are_named(tmp_path, args, start, end, want):
-    """Each flag is named where gfla_tpu's train.py would act on it in a
-    run of iterations start + 1 .. end: visuals at a multiple of
-    --display_freq; a held-out batch whenever --eval_iters_freq is set; a
-    trace from iteration start + 2."""
-    opt = TrainOptions().parse(["--model=pose", "--dataset_mode=synthetic",
-                                f"--checkpoints_dir={tmp_path}", *args],
-                               save=False)
-    got = unhonoured_train_flags(opt, start, end)
-    assert [g.split("=")[0] for g in got] == want
-
-
-def test_trainer_prints_the_unhonoured_flags(tmp_path):
-    proc = _cli("gfla_tpu_torch.train", "--max_iters=1", "--batchSize=2",
-                "--max_dataset_size=2", "--display_freq=1",
-                f"--checkpoints_dir={tmp_path}", "--name=flags")
-    assert proc.returncode == 0, proc.stderr
-    lines = [line for line in proc.stdout.splitlines()
-             if line.startswith("not honoured yet")]
-    assert len(lines) == 1
-    assert "--display_freq=1" in lines[0]
-    assert "--eval_iters_freq=15000" in lines[0]
-    assert "--profile_iters" not in lines[0]
 
 
 def test_poseflownet_bfloat16_trains_in_float32():
