@@ -17,13 +17,23 @@ Phases, each failing the run (non-zero exit) on the first error:
      kernel's hpre; dW1s) against their plain versions given that hpre in
      the same cases, each of the six outputs within 1e-4 x its max |value|;
      d_flow, dW1s, dW2 and db2 bitwise equal over two launches; median
-     times of both.
-  5. slice: the full-width pose generator (ngf 64, img_f 512, attention at
+     times of both. Both refuse float16, and a bf16 source with f32
+     weights.
+  4b. bf16 kernels: the three kernels' bf16 instances (warp_fwd_bf16.cu,
+     warp_bwd_bf16.cu) against their bf16 plain twins at every KERNEL_CASES
+     shape, each output by the bf16 rule (BF16_SLACK) against the f32
+     result of the same values; d_flow, d_hidden_bt, dW1s, dW2 and db2
+     bitwise equal over two launches; median times, bounds at the bf16
+     rate. the full-width pose generator (ngf 64, img_f 512, attention at
      levels 2/3 with kernels 5/3) serves four batch-8 requests of 256x176
      content in 256x256 tensors through PoseTask.test_step; checks shape,
      range, the kernel launch count, the plain-warp path and a CPU run on a
      small input; median ms per forward of both paths.
-  6. train: the full-width pose training step (G as in 5, the 4-layer
+  5b. bf16 serving: the same weights and requests under
+     --compute_dtype=bfloat16: 2 bf16 warp launches a request and no other
+     kernel, shape and range, the image against the plain bf16 path and
+     both against the f32 image by the bf16 rule; ms per forward beside the
+     f32 path's in turns; GFLA_ATTN_PALLAS=1 refused (NotImplementedError). the full-width pose training step (G as in 5, the 4-layer
      spectral-norm ResDiscriminator, VGG19, six G losses, two Adams) takes
      four batch-8 steps through the kernels: finite losses, every parameter
      moved, u stored by the two D passes and not by the G-loss pass, 2
@@ -31,6 +41,15 @@ Phases, each failing the run (non-zero exit) on the first error:
      same next step; one step against the plain path from one state and
      one card step against a CPU step at 2x64x64, gradients held against a
      float64 step; median ms per step of both paths and the peak memory.
+  6b. bf16 train: four full-width batch-8 steps under
+     --compute_dtype=bfloat16 through the bf16 warp kernels (2 launches of
+     each a step, nothing else): finite losses, every parameter moved and
+     f32, u computed in bf16 by the two D passes and stored in f32; one
+     step on the kernel path against the plain bf16 path from one state,
+     losses within 1e-2 rel, each tensor's gradient directly against the
+     plain path's by cosine and norm ratio (BF16_STEP_HOLD), both paths'
+     gradients against the f32 step's by the bf16 rule on each network's
+     mean; save/resume; ms per step and peak memory beside the f32 step's.
   7. corr kernel: the max-correlation kernel against its plain scan at both
      sites of the correctness loss, at a ragged shape and with duplicated
      and zero rows (exact ties); cmax also against the float64 maximum;
@@ -66,9 +85,11 @@ Phases, each failing the run (non-zero exit) on the first error:
      beside the step time.
 The switches are set per phase with mock.patch.dict, so none leaks into the
 next; every other phase runs with GFLA_ATTN_PALLAS=auto, GFLA_PALLAS_CORR=0.
-All six kernels multiply on the tensor cores as split-f32 products (three
-TF32 products per f32 product): their bound is taken at 495 / 3 TFLOP/s,
-with the FP32 cores' 67 TFLOP/s bound beside it.
+All six f32 kernels multiply on the tensor cores as split-f32 products
+(three TF32 products per f32 product): their bound is taken at 495 / 3
+TFLOP/s, with the FP32 cores' 67 TFLOP/s bound beside it. The warp kernels'
+three bf16 instances multiply bf16 operands: their bound is taken at the
+dense bf16 rate, 989 TFLOP/s.
 Extra arguments go to the test options, e.g. `--checkpoints_dir DIR --name N
 --which_iter latest` to serve an original-GFLA `latest_net_G.pth` instead of
 the seeded random init. The last line is the JSON device record.
@@ -123,6 +144,32 @@ TF32_PEAK = 495e12  # H100 SXM: dense TF32 FLOP/s of the tensor cores
 TF32X3_PEAK = TF32_PEAK / 3  # f32 work as split-f32 products: three TF32
                     # products per f32 product (csrc/mma_tf32x3.cuh)
 HBM_RATE = 3.35e12  # H100 SXM: device memory bytes/s
+BF16_PEAK = 989e12  # H100 SXM: dense bf16 FLOP/s of the tensor cores
+# bf16: each bf16 kernel against its bf16 plain twin on the same inputs, and
+# both against the f32 result of the same values (the plain twin in f32):
+# the kernel's error there at most 2x the twin's + BF16_SLACK x max|f32|,
+# and kernel vs twin within a tolerance x max|f32|: BF16_OUT_REL for the
+# output, hpre and d_source (one bf16 ulp is 3.9e-3 of the largest value;
+# the kernel and the twin sum in other orders, so a rounding may land one
+# ulp apart), BF16_GRAD_REL for the other gradients, whose sums cancel
+BF16_SLACK = 1e-3
+BF16_OUT_REL = 1e-2
+BF16_GRAD_REL = 3e-2
+SERVE_BF16_REL = 5e-2  # the served image, kernel vs plain bf16 path: the
+                       # kernels' one-ulp differences carried through the
+                       # decoder's bf16 convs and norms (read: 1.96e-2)
+BF16_LOSS_REL = 1e-2   # bf16 step, kernel vs plain path: each loss
+# bf16 step, kernel vs plain path, each network's gradients tensor by
+# tensor: cosine floor, the whole network's cosine floor, norm ratio band.
+# A max error cannot hold them: the warp kernels' one-ulp differences
+# carried through the rest of the step leave a G tensor up to 38% of its
+# max apart on the two paths. Read at the seeded init: G's 172 tensors at
+# cosine 0.9587 (attention's W1) and up, median 0.99977, norm ratios
+# 0.901-1.039, the whole network 0.999999; D's 26 at 1.00000 (its fake
+# images are ~1e-3). G's tensor floor and band stand 2.4x further from 1
+# than its readings; the others, read at 1 within 1e-6, at 1e-5 to 1e-3.
+BF16_STEP_HOLD = {"G": (0.9, 0.99999, (0.75, 1.33)),
+                  "D": (0.9999, 0.99999, (0.999, 1.001))}
 
 KERNEL_CASES = [  # name, B, H, W, C, D, k, flow scale (None: far-off)
     ("k=5 site 64x64 C128", 8, 64, 64, 128, 128, 5, 1.5),
@@ -254,8 +301,11 @@ def phase_kernel(device):
             *warp_inputs(1, 8, 8, 16, 320, 3, 1.0, 9, device), 3)),
         "non-contiguous": (ValueError, lambda: warp.warp_fwd(
             args[0].transpose(1, 2), *args[1:], 3)),
-        "bfloat16": (TypeError, lambda: warp.warp_fwd(
-            args[0].detach().bfloat16(), *args[1:], 3)),
+        "float16": (TypeError, lambda: warp.warp_fwd(
+            args[0].detach().half(), *args[1:], 3)),
+        "a bfloat16 source with float32 weights": (TypeError,
+            lambda: warp.warp_fwd(args[0].detach().bfloat16(), *args[1:],
+                                  3)),
     }
     expect_refusals("warp_fwd", refusals)
 
@@ -345,6 +395,8 @@ def phase_bwd_kernel(device):
             src, flow, hidden_bt, w1s, w2, b2, g, 3)),
         "float64 d_hpre": (ValueError, lambda: warp.warp_bwd_w1(
             src, flow, hidden_bt.double(), 3)),
+        "float16": (TypeError, lambda: warp.warp_bwd(
+            src.half(), flow, hpre, w1s.half(), w2.half(), b2, g.half(), 3)),
     }
     expect_refusals("warp_bwd", refusals)
     return results
@@ -388,6 +440,123 @@ def warp_work(B, H, W, C, D, k):
         "warp_bwd_w1": (dense + 7 * N * k2 * C,
                         4 * (N * C + 2 * N + N * D + k2 * C * D)),
     }
+
+
+def warp_work_bf16(B, H, W, C, D, k):
+    """(FLOPs, bytes) of each bf16 warp kernel at one site: warp_work's
+    operations, and bytes with the source, g, the output, W1s and W2 in bf16
+    and the flow, hidden_bt, hpre, d_hpre, d_source, d_flow and the weight
+    gradients in f32."""
+    N, k2 = B * H * W, k * k
+    ops = {name: w[0] for name, w in warp_work(B, H, W, C, D, k).items()}
+    fwd_in = 2 * N * C + 8 * N + 4 * N * D + 2 * k2 * C * D + 2 * D * k2 \
+        + 4 * k2
+    return {
+        "warp_fwd": (ops["warp_fwd"], fwd_in + 2 * N * C),
+        "warp_bwd_pos": (ops["warp_bwd_pos"],
+                         fwd_in + 2 * N * C + 4 * N * C + 8 * N + 4 * N * D
+                         + 4 * D * k2 + 4 * k2),
+        "warp_bwd_w1": (ops["warp_bwd_w1"],
+                        2 * N * C + 8 * N + 4 * N * D + 4 * k2 * C * D),
+    }
+
+
+def bf16_rule(what, kernel, plain, f32, tol):
+    """The bf16 rule (see BF16_SLACK): returns the kernel's max abs error
+    against its plain twin and that error x max|f32|^-1."""
+    kernel, plain = kernel.float(), plain.float()
+    top = max(f32.abs().max().item(), 1e-30)
+    e_kernel = (kernel - f32).abs().max().item()
+    e_plain = (plain - f32).abs().max().item()
+    err = (kernel - plain).abs().max().item()
+    check(bool(torch.isfinite(kernel).all()), f"{what}: non-finite")
+    check(e_kernel <= 2 * e_plain + BF16_SLACK * top,
+          f"{what}: {e_kernel / top:.3e} of max|f32| off the f32 result, "
+          f"its plain twin {e_plain / top:.3e}")
+    check(err <= tol * top, f"{what}: kernel vs plain {err / top:.3e} > "
+          f"{tol:g} x max|f32|")
+    return err, err / top
+
+
+BF16_FWD = ("out", "hpre")
+
+
+def phase_bf16_kernels(device):
+    """The warp's three bf16 kernels (warp_fwd_bf16.cu, warp_bwd_bf16.cu)
+    against their bf16 plain twins at every KERNEL_CASES shape, from bf16
+    source, W1s, W2 and g: each output by the bf16 rule against the f32
+    result of the same values; d_flow, d_hidden_bt, dW1s, dW2 and db2 bitwise
+    equal over two launches; median ms of each kernel and twin, and the
+    bound at the tensor cores' bf16 rate."""
+    from gfla_tpu_torch.ops import warp
+
+    bf = torch.bfloat16
+    results = {}
+    for i, (name, B, H, W, C, D, k, scale) in enumerate(KERNEL_CASES):
+        src, flow, hbt, w1s, w2, b2 = warp_inputs(B, H, W, C, D, k, scale,
+                                                  40 + i, device)
+        args = (src.to(bf), flow, hbt, w1s.to(bf), w2.to(bf), b2)
+        wide = (args[0].float(), flow, hbt, args[3].float(),
+                args[4].float(), b2)  # the same values, computed in f32
+        g = torch.from_numpy(np.random.RandomState(50 + i).randn(
+            B, H, W, C).astype(np.float32)).to(device).to(bf)
+        out, hpre = warp.warp_fwd_with_hpre(*args, k)
+        plain = warp.warp_fwd_plain(*args, k, with_hpre=True)
+        f32 = warp.warp_fwd_plain(*wide, k, with_hpre=True)
+        check(out.dtype == bf and hpre.dtype == torch.float32,
+              f"{name}: bf16 forward gave {out.dtype}, hpre {hpre.dtype}")
+        got = warp.warp_bwd(args[0], flow, hpre, args[3], args[4], b2, g, k)
+        again = warp.warp_bwd(args[0], flow, hpre, args[3], args[4], b2, g,
+                              k)
+        want = warp.warp_bwd_plain(*args, g, k, hpre=hpre)
+        f32_bwd = warp.warp_bwd_plain(*wide, g.float(), k, hpre=f32[1])
+        torch.cuda.synchronize()
+        errs = {}
+        for out_name, a, b, f in zip(BF16_FWD + BWD_OUTPUTS,
+                                     (out, hpre, *got), (*plain, *want),
+                                     (*f32, *f32_bwd)):
+            tol = (BF16_OUT_REL if out_name in ("out", "hpre", "d_source")
+                   else BF16_GRAD_REL)
+            errs[out_name] = bf16_rule(f"bf16 {name} {out_name}", a, b, f,
+                                       tol)
+        moved = [o for o, a, b in zip(BWD_OUTPUTS, got, again)
+                 if o != "d_source" and not torch.equal(a, b)]
+        check(not moved, f"bf16 {name}: {moved} differ between two launches")
+        d_hpre = got[2]
+        ms = {
+            "fwd": (cuda_ms(lambda: warp.warp_fwd(*args, k)),
+                    cuda_ms(lambda: warp.warp_fwd_plain(*args, k))),
+            "pos": (cuda_ms(lambda: warp.warp_bwd_pos(
+                args[0], flow, hpre, args[3], args[4], b2, g, k), iters=10),
+                    cuda_ms(lambda: warp.warp_bwd_pos_plain(
+                        *args, g, k, hpre=hpre), iters=10)),
+            "w1": (cuda_ms(lambda: warp.warp_bwd_w1(args[0], flow, d_hpre, k),
+                           iters=10),
+                   cuda_ms(lambda: warp.warp_bwd_w1_plain(args[0], flow,
+                                                          d_hpre, k),
+                           iters=10)),
+        }
+        work = warp_work_bf16(B, H, W, C, D, k)
+        bounds = {part: bound(*work[kern], BF16_PEAK) for part, kern in (
+            ("fwd", "warp_fwd"), ("pos", "warp_bwd_pos"),
+            ("w1", "warp_bwd_w1"))}
+        print(f"bf16 kernels {name}: B={B} kernel vs bf16 plain twin, "
+              f"x max|f32|: " + " ".join(
+                  f"{o}={rel:.3e}" for o, (_, rel) in errs.items())
+              + " (tol out, hpre, d_source "
+              f"{BF16_OUT_REL:g}, others {BF16_GRAD_REL:g}; each within 2x "
+              f"the twin's error against f32 + {BF16_SLACK:g}); "
+              + "; ".join(f"{part} kernel {ms[part][0]:.4f} ms plain "
+                          f"{ms[part][1]:.4f} ms bound {bounds[part][0]:.4f} "
+                          f"ms ({bounds[part][1]}, bf16 989 TFLOP/s)"
+                          for part in ms))
+        results[name] = {part: (max(errs[o][0] for o in outs), *ms[part])
+                         for part, outs in (
+                             ("fwd", BF16_FWD),
+                             ("pos", ("d_source", "d_flow", "d_hidden_bt",
+                                      "dW2", "db2")),
+                             ("w1", ("dW1s",)))}
+    return results
 
 
 CORR_CASES = [  # name, B, Ns, Nt, C, exact ties
@@ -731,7 +900,69 @@ def phase_slice(extra_args):
     print(f"forward batch 8 at 256x256: kernel path {ms:.3f} ms "
           f"(again {ms_again:.3f}), plain path {plain_ms:.3f} ms, "
           f"peak {peak:.0f} MiB")
-    return dict(launches=launches, task=task, request=requests[0])
+    return dict(launches=launches, task=task, request=requests[0],
+                requests=requests)
+
+
+def phase_serve_bf16(serve, extra_args):
+    """Serving under --compute_dtype=bfloat16: the same weights and requests
+    as phase_slice through PoseTask.test_step, the bf16 warp kernel launched
+    twice a request and nothing else; the image against the plain bf16 path
+    and both against the f32 output by the bf16 rule; ms per forward beside
+    the f32 path's, in turns; GFLA_ATTN_PALLAS=1 refused."""
+    from gfla_tpu_torch.options import TestOptions
+    from gfla_tpu_torch.tasks import create_task
+
+    opt = TestOptions().parse(
+        ["--model=pose", "--dataset_mode=synthetic", "--load_size=256",
+         "--batchSize=8", "--gpu_ids=0", "--compute_dtype=bfloat16",
+         *extra_args], save=False)
+    task, f32_task = create_task(opt), serve["task"]
+    task.net_g.load_state_dict(f32_task.net_g.state_dict())
+    requests = serve["requests"]
+    reset_launch_counts()
+    outs = [task.test_step(batch) for batch in requests]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"bf16 served {len(requests)} requests: launches {counts}")
+    check(only(counts, warp_fwd_bf16=2 * len(requests)),
+          f"bf16 serving launched {counts}, expected 2 warp_fwd_bf16 a "
+          f"request and nothing else")
+    for img, flows, masks in outs:
+        check(tuple(img.shape) == (8, 3, 256, 256)
+              and img.dtype == torch.float32, f"bf16 image {img.shape} "
+              f"{img.dtype}")
+        check(bool(torch.isfinite(img).all()), "bf16: non-finite output")
+        check(img.min().item() >= -1 and img.max().item() <= 1,
+              "bf16: output outside [-1, 1]")
+    with plain_warp():
+        plain_img = task.test_step(requests[0])[0]
+    f32_img = f32_task.test_step(requests[0])[0]
+    err, rel = bf16_rule("bf16 serving", outs[0][0], plain_img, f32_img,
+                         SERVE_BF16_REL)
+    top = f32_img.abs().max().item()
+    print(f"bf16 serving: kernel vs plain bf16 path max_abs_diff={err:.3e} "
+          f"= {rel:.3e} x max|f32 image| (bound {SERVE_BF16_REL:g}); off the "
+          f"f32 image by {(outs[0][0] - f32_img).abs().max().item() / top:.3e}"
+          f" (kernel) and {(plain_img - f32_img).abs().max().item() / top:.3e}"
+          f" (plain) of its max {top:.3e}")
+    times = {"f32": [], "bf16": []}
+    for path in ("f32", "bf16", "bf16", "f32"):
+        run = task if path == "bf16" else f32_task
+        times[path].append(cuda_ms(lambda: run.test_step(requests[1]),
+                                   iters=10))
+    with plain_warp():
+        plain_ms = cuda_ms(lambda: task.test_step(requests[1]), iters=10)
+    print(f"bf16 forward batch 8 at 256x256: kernel path "
+          f"{', '.join(f'{t:.3f}' for t in times['bf16'])} ms, plain bf16 "
+          f"path {plain_ms:.3f} ms; f32 kernel path "
+          f"{', '.join(f'{t:.3f}' for t in times['f32'])} ms (in turns)")
+    with switches(GFLA_ATTN_PALLAS="1"):
+        expect_refusals("bf16 serving under GFLA_ATTN_PALLAS=1", {
+            "the attention-math kernels in bf16": (
+                NotImplementedError, lambda: task.test_step(requests[0]))})
+    return dict(launches=counts["warp_fwd_bf16"], err=err,
+                ms=statistics.median(times["bf16"]))
 
 
 def launch_counts():
@@ -739,6 +970,9 @@ def launch_counts():
 
     return {"warp_fwd": warp.launches, "warp_bwd_pos": warp.bwd_pos_launches,
             "warp_bwd_w1": warp.bwd_w1_launches,
+            "warp_fwd_bf16": warp.bf16_launches,
+            "warp_bwd_pos_bf16": warp.bf16_bwd_pos_launches,
+            "warp_bwd_w1_bf16": warp.bf16_bwd_w1_launches,
             "max_corr": max_corr.launches,
             "attn_math_fwd": attn_math.fwd_launches,
             "attn_math_bwd": attn_math.bwd_launches}
@@ -748,6 +982,8 @@ def reset_launch_counts():
     from gfla_tpu_torch.ops import attn_math, max_corr, warp
 
     warp.launches = warp.bwd_pos_launches = warp.bwd_w1_launches = 0
+    warp.bf16_launches = warp.bf16_bwd_pos_launches = 0
+    warp.bf16_bwd_w1_launches = 0
     max_corr.launches = 0
     attn_math.fwd_launches = attn_math.bwd_launches = 0
 
@@ -965,29 +1201,32 @@ def compare_steps(what, state, batch, lrs, to_cpu=False,
                     masked=not to_cpu, grad_rel=grad_rel, pair_rel=pair_rel)
 
 
-def phase_train():
-    """The full-width pose training step (D then G) through the kernels."""
+def train_opt(*extra):
+    """The training CLI's options at full width, batch 8, checkpoints in a
+    temporary directory (returned beside them, for the caller to clean)."""
     from gfla_tpu_torch.options import TrainOptions
-    from gfla_tpu_torch.tasks import create_task
 
     ckpt = tempfile.TemporaryDirectory()
     opt = TrainOptions().parse(
         ["--model=pose", "--dataset_mode=synthetic", "--load_size=256",
          "--batchSize=8", "--gpu_ids=0", f"--checkpoints_dir={ckpt.name}",
-         "--name=train_smoke"], save=False)
+         *extra], save=False)
     opt.iters_per_epoch = 1000
-    task = create_task(opt)
-    check(task.net_g.source.block0.model[2].out_channels == 64
-          and task.net_d.block0.model[1].weight_orig.shape[0] == 32
-          and task.net_d.layers == 4, "not the full-width train config")
-    lrs = {"G": opt.lr, "D": opt.lr * opt.ratio_g2d}
-    batches = [task.prepare_batch(deepfashion_batch(100 + s))
-               for s in range(TRAIN_STEPS + 1)]
-    state0 = copy.deepcopy(task)
-    s0 = snapshot(state0)
+    return opt, ckpt
 
-    # the main path: TRAIN_STEPS kernel steps, counted and timed; step 1
-    # records the D u buffers after each D pass
+
+def train_main_path(task, opt, batches, what, **launches):
+    """The main path of a training phase: TRAIN_STEPS steps of `task`,
+    counted (`launches`, and no other kernel) and timed, with the peak
+    memory; finite losses; every parameter moved, every parameter and
+    buffer still f32; u computed in the task's dtype by D(real) and D(fake)
+    (step 1's D passes, recorded inside each call) and stored, in f32, by
+    them alone; the plain path's time per step from the state reached;
+    a save, then resume, gives the same next step. Returns (counts, times,
+    plain_times, peak)."""
+    from gfla_tpu_torch.tasks import create_task
+
+    s0 = snapshot(task)
     u_seen = []
     hook = task.net_d.register_forward_hook(
         lambda mod, args, kwargs, out: u_seen.append(
@@ -1005,39 +1244,40 @@ def phase_train():
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     times, logs = times + more_times, logs + more_logs
-    print(f"trained {TRAIN_STEPS} steps: kernel launches {counts}")
-    check(only(counts, warp_fwd=2 * TRAIN_STEPS,
-               warp_bwd_pos=2 * TRAIN_STEPS, warp_bwd_w1=2 * TRAIN_STEPS),
-          f"launches {counts} for {TRAIN_STEPS} steps, expected 2 forward "
-          f"and 2 of each backward warp kernel per step, nothing else")
+    print(f"{what}trained {TRAIN_STEPS} steps: kernel launches {counts}")
+    check(only(counts, **launches), f"{what}launches {counts} for "
+          f"{TRAIN_STEPS} steps, expected {launches} and nothing else")
 
-    # losses finite; parameters moved; u stored by the D step only
     for i, step_logs in enumerate(logs):
         check(sorted(step_logs) == sorted(task.loss_names + ["total_G"]),
               f"loss names {sorted(step_logs)}")
         for name, v in step_logs.items():
-            check(bool(torch.isfinite(v)), f"step {i + 1}: {name} not finite")
+            check(bool(torch.isfinite(v)),
+                  f"{what}step {i + 1}: {name} not finite")
     for i in (0, TRAIN_STEPS - 1):
-        print(f"losses, step {i + 1}: " + " ".join(
+        print(f"{what}losses, step {i + 1}: " + " ".join(
             f"{k} {float(v):.5f}" for k, v in logs[i].items()))
     for tag, net in nets(task).items():
         still = [n for n, p in net.named_parameters()
                  if torch.equal(p, s0[tag]["params"][n])]
-        check(not still, f"{tag}: parameters unchanged: {still}")
+        check(not still, f"{what}{tag}: parameters unchanged: {still}")
+        kinds = {t.dtype for t in (*net.parameters(), *net.buffers())}
+        check(kinds == {torch.float32}, f"{what}{tag}: state in {kinds}")
     check([flag for flag, _ in u_seen] == [True, True, False],
-          f"D passes of step 1: update_stats {[f for f, _ in u_seen]}")
+          f"{what}D passes of step 1: update_stats {[f for f, _ in u_seen]}")
     u0, (_, u_real), (_, u_fake), (_, u_gen) = s0["D"]["u"], *u_seen
     spectral = [n for n in u0 if u0[n].numel() > 1]  # 1 output: u is 1
     for n in spectral:
-        check(not torch.equal(u_real[n], u0[n])
+        check(u_real[n].dtype == task.dtype
+              and not torch.equal(u_real[n].float(), u0[n])
               and not torch.equal(u_fake[n], u_real[n]),
-              f"D step left {n} unchanged")
+              f"{what}the D step left {n} unchanged, or not in {task.dtype}")
         check(torch.equal(u_gen[n], u_fake[n])
-              and torch.equal(u_after["D"]["u"][n], u_fake[n]),
-              f"the G-loss pass stored {n}")
-    print(f"u: D(real) and D(fake) each stored a new u in the "
-          f"{len(spectral)} spectral convs with more than one output; the "
-          f"G-loss pass stored none")
+              and torch.equal(u_after["D"]["u"][n], u_fake[n].float()),
+              f"{what}the G-loss pass stored {n}")
+    print(f"{what}u: D(real) and D(fake) each stored a new u, computed in "
+          f"{task.dtype}, in the {len(spectral)} spectral convs with more "
+          f"than one output; the G-loss pass stored none")
 
     # the plain path's time per step, from the state the main path reached
     plain = copy.deepcopy(task)
@@ -1048,15 +1288,33 @@ def phase_train():
     # checkpoint round trip: the resumed task's next step equals this one's
     task.save(TRAIN_STEPS)
     resumed = create_task(opt)
-    check(resumed.resume("latest") == TRAIN_STEPS, "resume step")
+    check(resumed.resume("latest") == TRAIN_STEPS, f"{what}resume step")
     want = task.train_step(batches[TRAIN_STEPS])
     got = resumed.train_step(batches[TRAIN_STEPS])
-    ckpt_rel = max(abs(float(got[n]) - float(want[n]))
-                   / max(abs(float(want[n])), 1e-30) for n in want)
-    print(f"checkpoint save/resume at step {TRAIN_STEPS}: next-step losses "
-          f"within {ckpt_rel:.3e} rel (bound {CKPT_REL:g})")
-    check(ckpt_rel <= CKPT_REL, f"resumed step {got} vs {want}")
-    del resumed, task
+    ckpt_rel = rel_diff(got, want)
+    print(f"{what}checkpoint save/resume at step {TRAIN_STEPS}: next-step "
+          f"losses within {ckpt_rel:.3e} rel (bound {CKPT_REL:g})")
+    check(ckpt_rel <= CKPT_REL, f"{what}resumed step {got} vs {want}")
+    return counts, times, plain_times, peak
+
+
+def phase_train():
+    """The full-width pose training step (D then G) through the kernels."""
+    from gfla_tpu_torch.tasks import create_task
+
+    opt, ckpt = train_opt("--name=train_smoke")
+    task = create_task(opt)
+    check(task.net_g.source.block0.model[2].out_channels == 64
+          and task.net_d.block0.model[1].weight_orig.shape[0] == 32
+          and task.net_d.layers == 4, "not the full-width train config")
+    lrs = {"G": opt.lr, "D": opt.lr * opt.ratio_g2d}
+    batches = [task.prepare_batch(deepfashion_batch(100 + s))
+               for s in range(TRAIN_STEPS + 1)]
+    state0 = copy.deepcopy(task)
+    counts, times, plain_times, peak = train_main_path(
+        task, opt, batches, "", warp_fwd=2 * TRAIN_STEPS,
+        warp_bwd_pos=2 * TRAIN_STEPS, warp_bwd_w1=2 * TRAIN_STEPS)
+    del task
     ckpt.cleanup()
 
     # one step from one state: kernel vs plain path; card vs CPU
@@ -1075,7 +1333,128 @@ def phase_train():
           f"{plain_ms:.3f} ms (steps "
           f"{', '.join(f'{t:.1f}' for t in plain_times)}), "
           f"peak {peak:.2f} GiB")
-    return dict(counts=counts, state=state, batch=batches[0])
+    return dict(counts=counts, state=state, batch=batches[0], ms=ms,
+                peak=peak)
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    return (a @ b).item() / (na * nb) if na and nb else 0.0
+
+
+def grads_by_rule(what, kernel, plain, f32):
+    """One step's gradients on the kernel path against the plain bf16 path
+    directly, each tensor by its cosine and norm ratio and each network by
+    its concatenated cosine (BF16_STEP_HOLD), the flow net's and the
+    attention's printed apart; and both against the f32 step's by the bf16
+    rule's first clause on each network's mean over tensors. A tensor whose
+    f32 gradient is rounding only (a conv bias feeding an instance norm)
+    is left out: of the direct hold where its f32 gradient's norm is below
+    1e-2 of the plain path's, of the mean where its max is below 1e-5 of
+    the network's."""
+    for tag in f32:
+        grads = {side: s[tag]["grads"] for side, s in (
+            ("f32", f32), ("kernel", kernel), ("plain", plain))}
+        scale = max(g.abs().max().item() for g in grads["f32"].values())
+        rows, errs = {}, []
+        for name, g32 in grads["f32"].items():
+            gk, gp = grads["kernel"][name], grads["plain"][name]
+            if g32.abs().max().item() > 1e-5 * scale:
+                top = g32.abs().max().item()
+                errs.append([(g - g32).abs().max().item() / top
+                             for g in (gk, gp)])
+            if g32.norm().item() > 1e-2 * gp.norm().item() and (
+                    gk.norm().item() or gp.norm().item()):
+                rows[name] = (cosine(gk, gp),
+                              gk.norm().item() / max(gp.norm().item(), 1e-30),
+                              (gk - gp).abs().max().item()
+                              / max(gp.abs().max().item(), 1e-30))
+        groups = {"flow net": [n for n in rows if n.startswith("flow_net.")],
+                  "attention": [n for n in rows if ".attn" in n],
+                  "all": list(rows)}
+        for group, names in groups.items():
+            if not names:
+                continue
+            cos = [rows[n][0] for n in names]
+            ratio = [rows[n][1] for n in names]
+            print(f"{what}: {tag} {group} gradients, kernel vs plain path, "
+                  f"{len(names)} tensors: cosine min {min(cos):.5f} "
+                  f"({min(names, key=lambda n: rows[n][0])}) median "
+                  f"{statistics.median(cos):.5f}, norm ratio "
+                  f"{min(ratio):.4f}-{max(ratio):.4f}, max error up to "
+                  f"{max(rows[n][2] for n in names):.3e} of the plain "
+                  f"path's max")
+        floor, whole_floor, band = BF16_STEP_HOLD[tag]
+        bad = [(n, *rows[n][:2]) for n in rows
+               if rows[n][0] < floor or not band[0] <= rows[n][1] <= band[1]]
+        check(not bad, f"{what}: {tag} gradients unheld {bad}")
+        whole = cosine(*(torch.cat([grads[side][n].flatten() for n in rows])
+                         for side in ("kernel", "plain")))
+        print(f"{what}: {tag} whole network cosine {whole:.6f} (floor "
+              f"{whole_floor}, tensor floor {floor}, band {band[0]:.3f}-"
+              f"{band[1]:.3f}; {len(grads['f32']) - len(rows)} tensors of "
+              f"rounding only left out)")
+        check(whole >= whole_floor, f"{what}: {tag} whole cosine {whole}")
+        e_kernel, e_plain = np.mean(errs, axis=0)
+        print(f"{what}: {tag} gradients off the f32 step's by "
+              f"{e_kernel:.3e} (kernel path) and {e_plain:.3e} (plain path) "
+              f"of each tensor's max, mean over {len(errs)} tensors")
+        check(e_kernel <= 2 * e_plain + BF16_SLACK,
+              f"{what}: {tag} gradients {e_kernel:.3e} vs {e_plain:.3e}")
+
+
+def phase_train_bf16(train):
+    """Four full-width batch-8 pose steps under --compute_dtype=bfloat16
+    through the bf16 warp kernels (train_main_path's checks, 2 launches of
+    each bf16 kernel a step); one step on the kernel path against the plain
+    bf16 path from one state, both against the f32 step; ms per step and
+    peak memory beside the f32 step's of phase_train."""
+    from gfla_tpu_torch.tasks import create_task
+
+    opt, ckpt = train_opt("--compute_dtype=bfloat16", "--name=train_bf16")
+    task = create_task(opt)
+    check(task.vgg.conv1_1.weight.dtype == torch.bfloat16,
+          "bf16: VGG19 not cast once at set-up")
+    batches = [task.prepare_batch(deepfashion_batch(200 + s))
+               for s in range(TRAIN_STEPS + 1)]
+    state0 = copy.deepcopy(task)
+    counts, times, plain_times, peak = train_main_path(
+        task, opt, batches, "bf16 ", warp_fwd_bf16=2 * TRAIN_STEPS,
+        warp_bwd_pos_bf16=2 * TRAIN_STEPS, warp_bwd_w1_bf16=2 * TRAIN_STEPS)
+    del task
+    ckpt.cleanup()
+
+    # one step from one state: kernel vs plain bf16 path, both vs f32
+    state = off_the_kinks(state0)
+    del state0
+    f32 = copy.deepcopy(state)
+    f32.dtype = torch.float32
+    f32.vgg.float()
+    f32.train_step(batches[0])
+    snap32 = snapshot(f32)
+    del f32
+    sides = []
+    for path in (contextlib.nullcontext, plain_warp):
+        side = copy.deepcopy(state)
+        with path():
+            side_logs = side.train_step(batches[0])
+        sides.append((side_logs, snapshot(side)))
+        del side
+    loss_rel = rel_diff(sides[0][0], sides[1][0])
+    print(f"bf16 kernel vs plain path, batch 8 at 256x256: losses within "
+          f"{loss_rel:.3e} rel (bound {BF16_LOSS_REL:g})")
+    check(loss_rel <= BF16_LOSS_REL, f"bf16 step losses {sides}")
+    grads_by_rule("bf16 kernel vs plain path", sides[0][1], sides[1][1],
+                  snap32)
+
+    ms = statistics.median(times[1:])
+    print(f"bf16 train step batch 8 at 256x256: kernel path {ms:.3f} ms "
+          f"(steps {', '.join(f'{t:.1f}' for t in times)}), plain bf16 path "
+          f"{statistics.median(plain_times):.3f} ms, peak {peak:.2f} GiB; "
+          f"f32 step {train['ms']:.3f} ms, peak {train['peak']:.2f} GiB "
+          f"(phase_train)")
+    return counts
 
 
 def phase_poseflownet():
@@ -1651,7 +2030,7 @@ def task_pairs(root, prefix):
         return [(row["from"], row["to"]) for row in csv.DictReader(f)]
 
 
-def market_cases(cases, results, unpack, work_of):
+def market_cases(cases, results, unpack, work_of, peak=TF32X3_PEAK):
     """{case: max_abs_err, ms, plain_ms, bound_ms} of the market cases in
     `cases`, from each case's result as `unpack` reads it: (err, ms,
     plain_ms)."""
@@ -1660,24 +2039,29 @@ def market_cases(cases, results, unpack, work_of):
         if case[0].startswith("market"):
             err, ms, plain_ms = unpack(results[case[0]])
             out[case[0]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound(*work_of(case), TF32X3_PEAK)[0]}
+                            "bound_ms": bound(*work_of(case), peak)[0]}
     return out
 
 
+UNITS = {TF32X3_PEAK: "tensor cores, 3 TF32 products per f32 product: "
+                      "165 TFLOP/s",
+         BF16_PEAK: "tensor cores, dense bf16: 989 TFLOP/s"}
+
+
 def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
-                 plain_ms, work, library_ms, shape, cases=None):
-    """One entry of the `kernels` line. Every kernel multiplies by split-f32
-    products, so its bound is taken at TF32X3_PEAK; the bound on the FP32
-    cores stands beside it. `cases`: market_cases' times at market's
-    shapes."""
-    bound_ms, bound_by = bound(*work, TF32X3_PEAK)
+                 plain_ms, work, library_ms, shape, cases=None,
+                 peak=TF32X3_PEAK):
+    """One entry of the `kernels` line. The f32 kernels multiply by
+    split-f32 products, so their bound is taken at TF32X3_PEAK, the bf16
+    instances' at BF16_PEAK; the bound on the FP32 cores stands beside it.
+    `cases`: market_cases' times at market's shapes."""
+    bound_ms, bound_by = bound(*work, peak)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": err,
             "tolerance": tolerance, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_unit": "tensor cores, 3 TF32 products per f32 product: "
-                          "165 TFLOP/s",
+            "bound_unit": UNITS[peak],
             "bound_ms_fp32_cores": bound(*work)[0],
             "library_ms": library_ms, "ms_shape": shape,
             "market_cases": cases or {}}
@@ -1697,10 +2081,13 @@ def main(argv):
         phase_build()
         kernel = phase_kernel(device)
         bwd = phase_bwd_kernel(device)
+        bf16 = phase_bf16_kernels(device)
         corr = phase_corr_kernel(device)
         attn = phase_attn_kernel(device)
         serve = phase_slice(argv)
+        serve_bf16 = phase_serve_bf16(serve, argv)
         train = phase_train()
+        train_bf16 = phase_train_bf16(train)
         flow = phase_poseflownet()
         switched = phase_switches(serve, train)
         disk = phase_disk_data(device)
@@ -1734,6 +2121,27 @@ def main(argv):
             shape, market_cases(
                 KERNEL_CASES, bwd, lambda r, part=part: r[part],
                 lambda c, name=name: warp_work(*c[1:7])[name])))
+    work16 = warp_work_bf16(*site[1:7])
+    for name, part, source, replaces, paths in (
+            ("warp_fwd_bf16", "fwd", "warp_fwd_bf16.cu", "166",
+             {"serve_bf16": serve_bf16["launches"],
+              "train_bf16": train_bf16["warp_fwd_bf16"]}),
+            ("warp_bwd_pos_bf16", "pos", "warp_bwd_bf16.cu", "243",
+             {"train_bf16": train_bf16["warp_bwd_pos_bf16"]}),
+            ("warp_bwd_w1_bf16", "w1", "warp_bwd_bf16.cu", "243",
+             {"train_bf16": train_bf16["warp_bwd_w1_bf16"]})):
+        kern = name.removesuffix("_bf16")
+        entries.append(kernel_entry(
+            name, f"gfla_tpu_torch/csrc/{source}",
+            f"gfla_tpu/ops/pallas_warp.py:{replaces}", paths,
+            max(r[part][0] for r in bf16.values()),
+            f"{BF16_OUT_REL:g} (out, hpre, d_source), {BF16_GRAD_REL:g} "
+            f"(other gradients) x max|f32 value| against the bf16 plain twin",
+            bf16[site[0]][part][1], bf16[site[0]][part][2], work16[kern],
+            none, shape, market_cases(
+                KERNEL_CASES, bf16, lambda r, part=part: r[part],
+                lambda c, kern=kern: warp_work_bf16(*c[1:7])[kern],
+                BF16_PEAK), peak=BF16_PEAK))
     c = corr[CORR_CASES[0][0]]
     entries.append(kernel_entry(
         "max_corr", "gfla_tpu_torch/csrc/max_corr.cu",

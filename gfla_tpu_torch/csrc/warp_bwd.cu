@@ -49,11 +49,27 @@
 //    into its TF32 hi and lo parts there, once per value. Each
 //    32-position stage is accumulated from 0 and added to the sum on the
 //    FP32 cores (the tensor cores add by truncation).
+//
+// bf16 (warp_bwd_bf16.cu builds this file with GFLA_WARP_BF16 = 1, entries
+// gfla_warp_bwd_pos_bf16 and gfla_warp_bwd_w1_bf16): gfla_tpu's backward
+// with a bf16 source (pallas_warp.py:456-481). They read the source, g and
+// W2 in bf16 and blend in f32 (the dW1s kernel copies the footprint cells
+// as bf16), and W1s widened to f32 by the wrapper (exact), so the W1s ring is
+// the f32 kernel's. Where gfla_tpu's body rounds to bf16, these do: the hidden
+// layer before W2 (:286) and d_logits before W2^T (:305), d_hpre, which
+// d_hidden_bt, dW1s and d_block are taken from (:308), and d_block before
+// the scatter and d_flow (:319); every sum stays f32, and d_source is
+// accumulated in f32 and rounded by the wrapper, as gfla_tpu's f32 dsrc_pad
+// is (:400, :470). d_block and dW1s are one bf16 mma.sync m16n8k16 per 16
+// deep (mma_bf16.cuh), so the bound is the tensor cores' 989 TFLOP/s bf16
+// rate. The cell dots take d_attn from the unrounded blend.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 #include "reduce_parts.cuh"
 #include "warp_bwd_tiles.cuh"
@@ -67,8 +83,20 @@
 #ifndef GFLA_SPLIT
 #define GFLA_SPLIT 0
 #endif
+#ifndef GFLA_WARP_BF16
+#define GFLA_WARP_BF16 0  // 1: the bf16 instances (warp_bwd_bf16.cu)
+#endif
 
 namespace {
+
+constexpr bool kBf16 = GFLA_WARP_BF16;
+// the source, g and W2: f32, or bf16 as bits
+using SrcT = std::conditional_t<kBf16, uint16_t, float>;
+
+// a value at a point where gfla_tpu's bf16 body rounds it
+__device__ __forceinline__ float at_bf16(float x) {
+  return kBf16 ? gfla::bf16_round(x) : x;
+}
 
 using gfla::kPosRows;
 using gfla::kW1Chunk;
@@ -96,20 +124,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Four channels from c of row `row` of an (rows x C) tensor, zero past C.
-// kVec: C is a multiple of 4 and the tensor 16-byte aligned.
-template <bool kVec>
-__device__ __forceinline__ float4 load4(const float* __restrict__ base,
-                                        int row, int c, int C) {
-  const float* at = base + static_cast<size_t>(row) * C + c;
+// Four channels from c of row `row` of an (rows x C) tensor, zero past C,
+// as floats. kVec: C is a multiple of 4 and the tensor 16-byte aligned.
+template <bool kVec, typename T>
+__device__ __forceinline__ float4 load4(const T* __restrict__ base, int row,
+                                        int c, int C) {
+  const T* at = base + static_cast<size_t>(row) * C + c;
   if (kVec) {
-    return c < C ? __ldg(reinterpret_cast<const float4*>(at))
-                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return c < C ? gfla::ldg4(at) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  return make_float4(c < C ? __ldg(at) : 0.0f,
-                     c + 1 < C ? __ldg(at + 1) : 0.0f,
-                     c + 2 < C ? __ldg(at + 2) : 0.0f,
-                     c + 3 < C ? __ldg(at + 3) : 0.0f);
+  return make_float4(c < C ? gfla::to_float(__ldg(at)) : 0.0f,
+                     c + 1 < C ? gfla::to_float(__ldg(at + 1)) : 0.0f,
+                     c + 2 < C ? gfla::to_float(__ldg(at + 2)) : 0.0f,
+                     c + 3 < C ? gfla::to_float(__ldg(at + 3)) : 0.0f);
 }
 
 // base[row][c..c+3] += v, zero past C: one vector reduction when kVec.
@@ -193,13 +220,13 @@ size_t pos_smem_bytes(int D) {
 // writes d_hpre and the dW2/db2 partial of its position tile.
 template <int K, bool kVec>
 __global__ void __launch_bounds__(kPosThreads, 2)
-    warp_bwd_pos_kernel(const float* __restrict__ src,
+    warp_bwd_pos_kernel(const SrcT* __restrict__ src,
                         const float* __restrict__ flow,
                         const float* __restrict__ hpre,
                         const float* __restrict__ w1s,
-                        const float* __restrict__ w2,
+                        const SrcT* __restrict__ w2,
                         const float* __restrict__ b2,
-                        const float* __restrict__ g, float* __restrict__ dsrc,
+                        const SrcT* __restrict__ g, float* __restrict__ dsrc,
                         float* __restrict__ dflow_part,
                         float* __restrict__ dhbt, float* __restrict__ w2_part,
                         int N, int H, int W, int C, int D, float slope,
@@ -250,7 +277,9 @@ __global__ void __launch_bounds__(kPosThreads, 2)
   }
   // W2 (D x K2; K2 is odd, so a warp reading one column of it meets no
   // bank conflict)
-  for (int e = tid; e < D * K2; e += kPosThreads) w2s[e] = w2[e];
+  for (int e = tid; e < D * K2; e += kPosThreads) {
+    w2s[e] = gfla::to_float(w2[e]);
+  }
   // hidden = LeakyReLU(hpre), zero past D and past N
   for (int e = tid; e < kRows * lda; e += kPosThreads) {
     const int t = e / lda;
@@ -271,7 +300,7 @@ __global__ void __launch_bounds__(kPosThreads, 2)
     const int mm = e - t * K2;
     float s = 0.0f;
     for (int dd = 0; dd < D; ++dd) {
-      s = fmaf(at[t * lda + dd], w2s[dd * K2 + mm], s);
+      s = fmaf(at_bf16(at[t * lda + dd]), w2s[dd * K2 + mm], s);
     }
     att[e] = s + b2[mm];
   }
@@ -374,9 +403,10 @@ __global__ void __launch_bounds__(kPosThreads, 2)
     if (p < N && d < D) {
       float s = 0.0f;
       for (int mm = 0; mm < K2; ++mm) {
-        s = fmaf(dat[t * K2 + mm], w2s[d * K2 + mm], s);
+        s = fmaf(at_bf16(dat[t * K2 + mm]), w2s[d * K2 + mm], s);
       }
-      dh = hpre[static_cast<size_t>(p) * D + d] >= 0.0f ? s : s * slope;
+      dh = at_bf16(hpre[static_cast<size_t>(p) * D + d] >= 0.0f ? s
+                                                                 : s * slope);
       if (first) dhbt[static_cast<size_t>(p) * D + d] = dh;
     }
     at[e] = dh;
@@ -457,6 +487,29 @@ __global__ void __launch_bounds__(kPosThreads, 2)
     const float* b_st = ring + stage * S::RowsB * kLdw + b_at;
     if (GFLA_SPLIT == 1) {
       acc[0][0] += a_st[0] + b_st[0];
+    } else if (kBf16) {
+      // the stage's 16 hidden units in one step (mma_bf16.cuh's maps), from
+      // depth 0 of this lane's A row and B column
+      const float* a16 = a_st - gfla::mma_a_depth(lane, 0);
+      const float* b16 = b_st - gfla::mma_b_depth(lane, 0);
+      uint32_t a[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            a16 + 8 * (r & 1) * lda + gfla::mma16_a_depth(lane, r, 0));
+        a[r] = gfla::pack_bf16x2(v.x, v.y);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              b16 + 8 * nt * kLdw + gfla::mma16_b_depth(lane, r, 0));
+          b[r] = gfla::pack_bf16x2(v.x, v.y);
+        }
+        gfla::mma_bf16(acc[nt], a, b);
+      }
     } else {
 #pragma unroll
       for (int kk = 0; kk < kDepth / 8; ++kk) {
@@ -504,10 +557,10 @@ __global__ void __launch_bounds__(kPosThreads, 2)
       for (int nt = 0; nt < NT; ++nt) {
         if (nt < rows * K) {
           const float w = inv_k2 * a_row[nt];
-          acc[nt][0] = fmaf(w, gv.x, acc[nt][0]);
-          acc[nt][1] = fmaf(w, gv.y, acc[nt][1]);
-          acc[nt][2] = fmaf(w, gv.z, acc[nt][2]);
-          acc[nt][3] = fmaf(w, gv.w, acc[nt][3]);
+          acc[nt][0] = at_bf16(fmaf(w, gv.x, acc[nt][0]));
+          acc[nt][1] = at_bf16(fmaf(w, gv.y, acc[nt][1]));
+          acc[nt][2] = at_bf16(fmaf(w, gv.z, acc[nt][2]));
+          acc[nt][3] = at_bf16(fmaf(w, gv.w, acc[nt][3]));
         }
       }
       // each footprint cell of the band: the blend-weighted sum of the
@@ -620,7 +673,7 @@ size_t w1_smem_bytes() {
 // block_p[m][c] d_hpre_p[d], for its offsets m, channels c and units d.
 template <int K, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-    warp_bwd_w1_kernel(const float* __restrict__ src,
+    warp_bwd_w1_kernel(const SrcT* __restrict__ src,
                        const float* __restrict__ flow,
                        const float* __restrict__ dhpre,
                        float* __restrict__ part, int N, int H, int W, int C,
@@ -629,8 +682,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int K1 = S::K1, K2 = S::K2, KC = S::KC, CW = S::CW, NT = S::NT;
   extern __shared__ __align__(16) float smem[];
   float* flow_st = smem;                      // 2 x kChunk x 2
-  float* cells = flow_st + 2 * kChunk * 2;    // 2 x kChunk x KC x CW
-  float* dh = cells + 2 * S::Cells;           // 2 x kChunk x kLdh
+  // 2 x kChunk x KC x CW source values (in the room of as many floats)
+  SrcT* cells = reinterpret_cast<SrcT*>(flow_st + 2 * kChunk * 2);
+  float* dh = flow_st + 2 * kChunk * 2 + 2 * S::Cells;  // 2 x kChunk x kLdh
   float* bt = dh + 2 * kChunk * kLdh;         // kChunk x Ldb blocks, TF32
   //                                             hi parts, then lo parts
   int* fp = reinterpret_cast<int*>(bt + 2 * kChunk * S::Ldb);
@@ -687,7 +741,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
   // the footprint cells (CW channels) and d_hpre rows of chunk q
   auto copy_tiles = [&](int q) {
-    float* cst = cells + (q & 1) * S::Cells;
+    SrcT* cst = cells + (q & 1) * S::Cells;
     if (GFLA_SPLIT != 2) {
       constexpr int kQuads = CW / 4;
       for (int idx = tid; idx < kChunk * KC * kQuads; idx += kThreads) {
@@ -699,15 +753,23 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int* f = fp + ((q % 3) * kChunk + t) * S::Fp;
         const bool in = pbeg + q * kChunk + t < pend;
         const size_t pix = static_cast<size_t>(f[r] + f[K1 + cell - r * K1]);
-        float* to = cst + (t * KC + cell) * CW + (c - c0);
+        SrcT* to = cst + (t * KC + cell) * CW + (c - c0);
         if (kVec) {
           const bool ok = in && c < C;
-          gfla::cp_async16(to, ok ? src + pix * C + c : src, ok);
+          if (kBf16) {
+            gfla::cp_async8(to, ok ? src + pix * C + c : src, ok);
+          } else {
+            gfla::cp_async16(to, ok ? src + pix * C + c : src, ok);
+          }
         } else {
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const bool ok = in && c + u < C;
-            gfla::cp_async4(to + u, ok ? src + pix * C + c + u : src, ok);
+            if (kBf16) {  // 2 bytes: no cp.async that small, a plain copy
+              to[u] = ok ? src[pix * C + c + u] : SrcT{0};
+            } else {
+              gfla::cp_async4(to + u, ok ? src + pix * C + c + u : src, ok);
+            }
           }
         }
       }
@@ -765,7 +827,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // blend: block[t][mo * CW + c] from the four cells of offset m0 + mo
     if (GFLA_SPLIT != 2) {
-      const float* cst = cells + (q & 1) * S::Cells;
+      const SrcT* cst = cells + (q & 1) * S::Cells;
       constexpr int kQuads = CW / 4;
       for (int idx = tid; idx < kChunk * S::MT * kQuads; idx += kThreads) {
         const int t = idx / (S::MT * kQuads);
@@ -779,18 +841,23 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int* f = fp + ((q % 3) * kChunk + t) * S::Fp;
         const gfla::TapWeights w = gfla::tap_weights(
             __int_as_float(f[2 * K1]), __int_as_float(f[2 * K1 + 1]));
-        const float* c00 = cst + (t * KC + i * K1 + j) * CW + cw;
+        const SrcT* c00 = cst + (t * KC + i * K1 + j) * CW + cw;
         float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        v = fma4(w.tl, *reinterpret_cast<const float4*>(c00), v);
-        v = fma4(w.tr, *reinterpret_cast<const float4*>(c00 + CW), v);
-        v = fma4(w.bl, *reinterpret_cast<const float4*>(c00 + K1 * CW), v);
-        v = fma4(w.br, *reinterpret_cast<const float4*>(c00 + (K1 + 1) * CW),
-                 v);
+        v = fma4(w.tl, gfla::lds4(c00), v);
+        v = fma4(w.tr, gfla::lds4(c00 + CW), v);
+        v = fma4(w.bl, gfla::lds4(c00 + K1 * CW), v);
+        v = fma4(w.br, gfla::lds4(c00 + (K1 + 1) * CW), v);
+        float* at_hi = bt + t * S::Ldb + mo * CW + cw;
+        if (kBf16) {  // the block rounded to bf16; no lo part
+          *reinterpret_cast<float4*>(at_hi) =
+              make_float4(at_bf16(v.x), at_bf16(v.y), at_bf16(v.z),
+                          at_bf16(v.w));
+          continue;
+        }
         const gfla::Tf32Pair x = gfla::tf32_split(v.x);
         const gfla::Tf32Pair y = gfla::tf32_split(v.y);
         const gfla::Tf32Pair z = gfla::tf32_split(v.z);
         const gfla::Tf32Pair u = gfla::tf32_split(v.w);
-        float* at_hi = bt + t * S::Ldb + mo * CW + cw;
         *reinterpret_cast<float4*>(at_hi) = make_float4(x.hi, y.hi, z.hi, u.hi);
         *reinterpret_cast<float4*>(at_hi + kChunk * S::Ldb) =
             make_float4(x.lo, y.lo, z.lo, u.lo);
@@ -808,6 +875,35 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       if (GFLA_SPLIT == 1) {
         acc[0][0] += a_st[0] + b_st[0];
+      } else if (kBf16) {
+        // 16 positions a step (mma_bf16.cuh's maps): A is d_hpre^T (rows
+        // the units, depth the positions), B the blocks; from depth 0 of
+        // this lane's A row and B column
+        const float* a16 = a_st - gfla::mma_a_depth(lane, 0) * kLdh;
+        const float* b16 = b_st - gfla::mma_b_depth(lane, 0) * S::Ldb;
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          uint32_t a[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float* at_a =
+                a16 + (16 * kk + gfla::mma16_a_depth(lane, r, 0)) * kLdh +
+                8 * (r & 1);
+            a[r] = gfla::pack_bf16x2(at_a[0], at_a[kLdh]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t b[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float* at_b =
+                  b16 + (16 * kk + gfla::mma16_b_depth(lane, r, 0)) * S::Ldb +
+                  8 * nt;
+              b[r] = gfla::pack_bf16x2(at_b[0], at_b[S::Ldb]);
+            }
+            gfla::mma_bf16(acc[nt], a, b);
+          }
+        }
       } else {
 #pragma unroll
         for (int kk = 0; kk < kChunk / 8; ++kk) {
@@ -858,9 +954,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <int K, bool kVec>
-int launch_pos(const float* src, const float* flow, const float* hpre,
-               const float* w1s, const float* w2, const float* b2,
-               const float* g, float* dsrc, float* dflow, float* dhbt,
+int launch_pos(const SrcT* src, const float* flow, const float* hpre,
+               const float* w1s, const SrcT* w2, const float* b2,
+               const SrcT* g, float* dsrc, float* dflow, float* dhbt,
                float* scratch, float* dw2b2, int N, int H, int W, int C,
                int D, float slope, cudaStream_t stream) {
   constexpr int K2 = K * K;
@@ -887,7 +983,7 @@ int launch_pos(const float* src, const float* flow, const float* hpre,
 }
 
 template <int K, bool kVec>
-int launch_w1(const float* src, const float* flow, const float* dhpre,
+int launch_w1(const SrcT* src, const float* flow, const float* dhpre,
               float* part, float* dw1s, int N, int H, int W, int C, int D,
               cudaStream_t stream) {
   constexpr int K2 = K * K;
@@ -913,15 +1009,29 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+#if GFLA_WARP_BF16
+#define GFLA_WARP_BWD_POS gfla_warp_bwd_pos_bf16
+#define GFLA_WARP_BWD_W1 gfla_warp_bwd_w1_bf16
+#define GFLA_WARP_BWD_POS_SCRATCH gfla_warp_bwd_pos_scratch_bf16
+#define GFLA_WARP_BWD_W1_SCRATCH gfla_warp_bwd_w1_scratch_bf16
+#else
+#define GFLA_WARP_BWD_POS gfla_warp_bwd_pos
+#define GFLA_WARP_BWD_W1 gfla_warp_bwd_w1
+#define GFLA_WARP_BWD_POS_SCRATCH gfla_warp_bwd_pos_scratch
+#define GFLA_WARP_BWD_W1_SCRATCH gfla_warp_bwd_w1_scratch
+#endif
+
 // Scratch sizes, in floats, that the wrapper allocates for the partial sums:
 // the per-position kernel's dW2/db2 and d_flow partials; the dW1s partials.
-extern "C" long long gfla_warp_bwd_pos_scratch(int N, int C, int D, int k) {
+// The bf16 instances have the same plans (and their own copies, so that a
+// library of either alone is whole).
+extern "C" long long GFLA_WARP_BWD_POS_SCRATCH(int N, int C, int D, int k) {
   const gfla::PosPlan plan = gfla::pos_plan(N, C, k);
   return static_cast<long long>(plan.tiles) * (D * k * k + k * k) +
          static_cast<long long>(plan.splits) * N * 2;
 }
 
-extern "C" long long gfla_warp_bwd_w1_scratch(int N, int C, int D, int k) {
+extern "C" long long GFLA_WARP_BWD_W1_SCRATCH(int N, int C, int D, int k) {
   return static_cast<long long>(gfla::w1_plan(N, C, D, k).splits) * k * k *
          C * D;
 }
@@ -932,11 +1042,13 @@ extern "C" long long gfla_warp_bwd_w1_scratch(int N, int C, int D, int k) {
 // caller (a reduction target); dflow (B,H,W,2) in (x, y) order; dhbt
 // (B*H*W, D); dw2b2 (D*k*k + k*k): dW2 (D, k*k) followed by db2. scratch:
 // gfla_warp_bwd_pos_scratch floats. Returns a cudaError_t; 0 means every
-// launch was accepted.
-extern "C" int gfla_warp_bwd_pos(const float* src, const float* flow,
+// launch was accepted. gfla_warp_bwd_pos_bf16: the same, with source, W2
+// and g in bf16 (bits), W1s holding bf16 values in f32, and d_hidden_bt
+// rounded to bf16.
+extern "C" int GFLA_WARP_BWD_POS(const SrcT* src, const float* flow,
                                  const float* hpre, const float* w1s,
-                                 const float* w2, const float* b2,
-                                 const float* g, float* dsrc, float* dflow,
+                                 const SrcT* w2, const float* b2,
+                                 const SrcT* g, float* dsrc, float* dflow,
                                  float* dhbt, float* scratch, float* dw2b2,
                                  int B, int H, int W, int C, int D, int k,
                                  float slope, void* stream) {
@@ -963,7 +1075,10 @@ extern "C" int gfla_warp_bwd_pos(const float* src, const float* flow,
 
 // dW1s (k*k*C, D) from source, flow and d_hpre (B*H*W, D). part:
 // gfla_warp_bwd_w1_scratch floats. Returns a cudaError_t.
-extern "C" int gfla_warp_bwd_w1(const float* src, const float* flow,
+// gfla_warp_bwd_w1_bf16: the same, with the source in bf16 (bits) and d_hpre
+// holding bf16 values in f32 (the blocks are rounded to bf16 as they are
+// blended).
+extern "C" int GFLA_WARP_BWD_W1(const SrcT* src, const float* flow,
                                 const float* dhpre, float* part, float* dw1s,
                                 int B, int H, int W, int C, int D, int k,
                                 void* stream) {

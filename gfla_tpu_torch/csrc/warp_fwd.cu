@@ -38,13 +38,31 @@
 // offsets share the blend weights, so sum_m attn_m block_m is a sum over the
 // (k+1)^2 footprint cells, each with a coefficient of at most four
 // attn x weight terms: (k+1)^2 loads per channel instead of 4 k^2.
+//
+// bf16 (warp_fwd_bf16.cu builds this file with GFLA_WARP_BF16 = 1, entry
+// gfla_warp_fwd_bf16): gfla_tpu's kernel with a bf16 source
+// (pallas_warp.py:435-451). It reads the source and W2 in bf16 and blends
+// in f32, as gfla_tpu's _prep widens the source, and W1s widened to f32 by
+// the wrapper (exact), so the ring and its copies are the f32 kernel's. Where
+// gfla_tpu's body rounds to bf16, this one does: the blended block (:183),
+// the hidden layer before W2 (:195) and the attention weights (:200); every
+// sum stays f32. The product is one bf16 mma.sync m16n8k16 per 16 deep
+// (mma_bf16.cuh) in place of six TF32 products, so its bound is the tensor
+// cores' 989 TFLOP/s bf16 rate. The weighted sum is taken over the footprint
+// cells, from the unrounded blend, and the output is stored in bf16.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 #include "warp_common.cuh"
+
+#ifndef GFLA_WARP_BF16
+#define GFLA_WARP_BF16 0  // 1: the bf16 instances (warp_fwd_bf16.cu)
+#endif
 
 #ifndef GFLA_SPLIT
 #define GFLA_SPLIT 0  // tools/kernel_split.py builds timing variants; 0: none
@@ -57,6 +75,14 @@ constexpr int kChunk = 32;   // channels per depth chunk
 constexpr int kLda = gfla::mma_row_stride(kChunk);
 constexpr int kStagesB = 3;  // W1s ring
 constexpr int kThreads = 256;
+constexpr bool kBf16 = GFLA_WARP_BF16;
+// the source, W2 and the output: f32, or bf16 as bits
+using SrcT = std::conditional_t<kBf16, uint16_t, float>;
+
+// a value at a point where gfla_tpu's bf16 body rounds it
+__device__ __forceinline__ float at_bf16(float x) {
+  return kBf16 ? gfla::bf16_round(x) : x;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -72,20 +98,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Four channels from c of pixel `pix` of an NHWC image, zero past C. kVec: C
-// is a multiple of 4 and the tensor 16-byte aligned.
+// Four channels from c of pixel `pix` of an NHWC image, zero past C, as
+// floats. kVec: C is a multiple of 4 and the tensor 16-byte aligned.
 template <bool kVec>
-__device__ __forceinline__ float4 load4(const float* __restrict__ img,
+__device__ __forceinline__ float4 load4(const SrcT* __restrict__ img,
                                         int pix, int c, int C) {
-  const float* at = img + static_cast<size_t>(pix) * C + c;
+  const SrcT* at = img + static_cast<size_t>(pix) * C + c;
   if (kVec) {
-    return c < C ? __ldg(reinterpret_cast<const float4*>(at))
-                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return c < C ? gfla::ldg4(at) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  return make_float4(c < C ? __ldg(at) : 0.0f,
-                     c + 1 < C ? __ldg(at + 1) : 0.0f,
-                     c + 2 < C ? __ldg(at + 2) : 0.0f,
-                     c + 3 < C ? __ldg(at + 3) : 0.0f);
+  return make_float4(c < C ? gfla::to_float(__ldg(at)) : 0.0f,
+                     c + 1 < C ? gfla::to_float(__ldg(at + 1)) : 0.0f,
+                     c + 2 < C ? gfla::to_float(__ldg(at + 2)) : 0.0f,
+                     c + 3 < C ? gfla::to_float(__ldg(at + 3)) : 0.0f);
 }
 
 __device__ __forceinline__ float4 fma4(float w, float4 v, float4 acc) {
@@ -116,12 +141,12 @@ struct Cursor {
 // W1s 16-byte aligned.
 template <int NT, bool kVecA, bool kVecB>
 __global__ void __launch_bounds__(kThreads)
-    warp_fwd_kernel(const float* __restrict__ src,
+    warp_fwd_kernel(const SrcT* __restrict__ src,
                     const float* __restrict__ flow,
                     const float* __restrict__ hbt,
                     const float* __restrict__ w1s,
-                    const float* __restrict__ w2,
-                    const float* __restrict__ b2, float* __restrict__ out,
+                    const SrcT* __restrict__ w2,
+                    const float* __restrict__ b2, SrcT* __restrict__ out,
                     float* __restrict__ hpre, int N, int H, int W, int C,
                     int D, int K, float slope) {
   // two rows of four warps, each warp 32 positions x 8 NT hidden units
@@ -207,6 +232,7 @@ __global__ void __launch_bounds__(kThreads)
       v = fma4(tw[h].tr, taps[h][1], v);
       v = fma4(tw[h].bl, taps[h][2], v);
       v = fma4(tw[h].br, taps[h][3], v);
+      v = make_float4(at_bf16(v.x), at_bf16(v.y), at_bf16(v.z), at_bf16(v.w));
       *reinterpret_cast<float4*>(stage + (gp + 32 * h) * kLda + gc) = v;
     }
   };
@@ -283,6 +309,42 @@ __global__ void __launch_bounds__(kThreads)
     const float* b_st = b_ring + stage_b * kChunk * kLdb + b_at;
     if (GFLA_SPLIT == 1) {
       acc[0][0][0] += a_st[0] + b_st[0];
+    } else if (kBf16) {
+      // 16 deep a step (mma_bf16.cuh's maps), from depth 0 of this lane's
+      // first A row and B column
+      const float* a16 = a_st - gfla::mma_a_depth(lane, 0);
+      const float* b16 = b_st - gfla::mma_b_depth(lane, 0) * kLdb;
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        uint32_t a[2][4], b[NT][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                a16 + (16 * mt + 8 * (r & 1)) * kLda + 16 * kk +
+                gfla::mma16_a_depth(lane, r, 0));
+            a[mt][r] = gfla::pack_bf16x2(v.x, v.y);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float* at_b =
+                b16 + (16 * kk + gfla::mma16_b_depth(lane, r, 0)) * kLdb +
+                8 * nt;
+            b[nt][r] = gfla::pack_bf16x2(at_b[0], at_b[kLdb]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            gfla::mma_bf16(acc[mt][nt], a[mt], b[nt]);
+          }
+        }
+      }
     } else {
 #pragma unroll
       for (int kk = 0; kk < kChunk / 8; ++kk) {
@@ -353,7 +415,7 @@ __global__ void __launch_bounds__(kThreads)
             h += hbt[static_cast<size_t>(p) * D + n];
             if (hpre != nullptr) hpre[static_cast<size_t>(p) * D + n] = h;
           }
-          hid[row * kLdh + n] = h >= 0.0f ? h : h * slope;
+          hid[row * kLdh + n] = at_bf16(h >= 0.0f ? h : h * slope);
         }
       }
     }
@@ -366,7 +428,7 @@ __global__ void __launch_bounds__(kThreads)
     const int mm = e - t * K2;
     float s = 0.0f;
     for (int dd = 0; dd < D; ++dd) {
-      s = fmaf(hid[t * kLdh + dd], w2[dd * K2 + mm], s);
+      s = fmaf(hid[t * kLdh + dd], gfla::to_float(w2[dd * K2 + mm]), s);
     }
     att[e] = s + b2[mm];
   }
@@ -379,8 +441,8 @@ __global__ void __launch_bounds__(kThreads)
     const float e0 = lane < K2 ? expf(v0 - mx) : 0.0f;
     const float e1 = lane + 32 < K2 ? expf(v1 - mx) : 0.0f;
     const float sum = warp_sum(e0 + e1);
-    if (lane < K2) a[lane] = e0 / sum;
-    if (lane + 32 < K2) a[lane + 32] = e1 / sum;
+    if (lane < K2) a[lane] = at_bf16(e0 / sum);
+    if (lane + 32 < K2) a[lane + 32] = at_bf16(e1 / sum);
   }
   __syncthreads();
 
@@ -421,8 +483,18 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    float* to = out + static_cast<size_t>(p) * C + c;
-    if (kVecA) {
+    SrcT* to = out + static_cast<size_t>(p) * C + c;
+    if constexpr (kBf16) {
+      const uint16_t v[4] = {gfla::bf16_bits(o.x), gfla::bf16_bits(o.y),
+                             gfla::bf16_bits(o.z), gfla::bf16_bits(o.w)};
+      if (kVecA) {  // 8 bytes: C % 4 == 0, out 16-byte aligned
+        *reinterpret_cast<uint2*>(to) =
+            make_uint2(v[0] | (uint32_t{v[1]} << 16),
+                       v[2] | (uint32_t{v[3]} << 16));
+      } else {
+        for (int u = 0; u < 4 && c + u < C; ++u) to[u] = v[u];
+      }
+    } else if (kVecA) {
       *reinterpret_cast<float4*>(to) = o;
     } else {
       to[0] = o.x;
@@ -434,8 +506,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int NT, bool kVecA, bool kVecB>
-int launch(const float* src, const float* flow, const float* hbt,
-           const float* w1s, const float* w2, const float* b2, float* out,
+int launch(const SrcT* src, const float* flow, const float* hbt,
+           const float* w1s, const SrcT* w2, const float* b2, SrcT* out,
            float* hpre, int N, int H, int W, int C, int D, int K, float slope,
            cudaStream_t stream) {
   const int K1 = K + 1;
@@ -455,9 +527,9 @@ int launch(const float* src, const float* flow, const float* hbt,
 }
 
 template <int NT>
-int launch_aligned(const float* src, const float* flow, const float* hbt,
-                   const float* w1s, const float* w2, const float* b2,
-                   float* out, float* hpre, int N, int H, int W, int C, int D,
+int launch_aligned(const SrcT* src, const float* flow, const float* hbt,
+                   const float* w1s, const SrcT* w2, const float* b2,
+                   SrcT* out, float* hpre, int N, int H, int W, int C, int D,
                    int K, float slope, cudaStream_t s) {
   const uintptr_t a_bits =
       reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out);
@@ -481,14 +553,22 @@ int launch_aligned(const float* src, const float* flow, const float* hbt,
 
 }  // namespace
 
+#if GFLA_WARP_BF16
+#define GFLA_WARP_FWD gfla_warp_fwd_bf16
+#else
+#define GFLA_WARP_FWD gfla_warp_fwd
+#endif
+
 // source (B,H,W,C), flow (B,H,W,2) as (x, y), hbt (B*H*W, D), w1s (k*k*C, D),
 // w2 (D, k*k), b2 (k*k), out (B,H,W,C): float32, contiguous, on one device;
 // k odd, at most 7; D at most 256. hpre: null, or (B*H*W, D), which then
 // gets the pre-activation hidden layer blocks . W1s + hbt for the backward.
-// Returns a cudaError_t; 0 means the launch was accepted.
-extern "C" int gfla_warp_fwd(const float* src, const float* flow,
+// gfla_warp_fwd_bf16: the same with source, W2 and out in bf16 (bits) and
+// W1s holding bf16 values in f32. Returns a cudaError_t; 0 means the
+// launch was accepted.
+extern "C" int GFLA_WARP_FWD(const SrcT* src, const float* flow,
                              const float* hbt, const float* w1s,
-                             const float* w2, const float* b2, float* out,
+                             const SrcT* w2, const float* b2, SrcT* out,
                              float* hpre, int B, int H, int W, int C, int D,
                              int k, float slope, void* stream) {
   const int N = B * H * W;
@@ -512,6 +592,8 @@ extern "C" int gfla_warp_fwd(const float* src, const float* flow,
                            D, k, slope, s);
 }
 
+#if !GFLA_WARP_BF16
 extern "C" const char* gfla_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif

@@ -5,6 +5,12 @@ external_function.py:121-319), on the port's NCHW feature maps. Left out
 until the face and dance heads need them: `_bilinear_warp`
 (`use_bilinear_sampling`) and the `mask` and `frames` branches of the
 correctness loss.
+
+Under a bf16 compute dtype the VGG features are bf16, and the losses sum as
+gfla_tpu's `_acc` does (perceptual.py:29-47, 263-266): the L1 differences
+and the Gram products in f32, and the correctness loss promotes its
+features to f32 before the normalisation, the max-correlation and the
+resampling, so `GFLA_PALLAS_CORR=1` still hands the kernel f32.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Sequence
 
 import torch
 
+from gfla_tpu_torch.ops import acc_dtype
 from gfla_tpu_torch.ops.gaussian_resample import gaussian_resample
 from gfla_tpu_torch.ops.max_corr import max_corr, max_corr_plain
 
@@ -27,13 +34,15 @@ STYLE_LAYERS = ["relu2_2", "relu3_4", "relu4_4", "relu5_2"]
 
 
 def l1_loss(a, b):
-    return (a - b).abs().mean()
+    dt = torch.promote_types(acc_dtype(a.dtype), acc_dtype(b.dtype))
+    return (a.to(dt) - b.to(dt)).abs().mean()
 
 
 def gram_matrix(x):
-    """(B, C, H, W) -> (B, C, C), normalised by h*w*c."""
+    """(B, C, H, W) -> (B, C, C), normalised by h*w*c; the products of x's
+    values summed in `acc_dtype`."""
     B, C, H, W = x.shape
-    f = x.reshape(B, C, H * W)
+    f = x.reshape(B, C, H * W).to(acc_dtype(x.dtype))
     return f @ f.transpose(1, 2) / (H * W * C)
 
 
@@ -131,7 +140,10 @@ class PerceptualCorrectness:
 
     @staticmethod
     def layer_loss(target_vgg, source_vgg, flow):
-        """Features (B,C,H,W), flow (B,2,h,w) in feature pixels."""
+        """Features (B,C,H,W), flow (B,2,h,w) in feature pixels; the
+        features are promoted to `acc_dtype` first."""
+        target_vgg = target_vgg.to(acc_dtype(target_vgg.dtype))
+        source_vgg = source_vgg.to(acc_dtype(source_vgg.dtype))
         B, C, H, W = target_vgg.shape
         if flow.shape[2:] != (H, W):
             flow = _nearest_resize(flow, H, W)

@@ -12,6 +12,10 @@ training runs end to end, but the losses are not comparable with the
 original's. gfla_tpu's own fallback comes from a JAX key that torch cannot
 reproduce, so tests carry its parameters across with
 `gfla_tpu_torch.convert.vgg19_state_dict`.
+
+The network runs in its parameters' type, the input cast to it, as
+gfla_tpu's `vgg19_features` does (models/vgg.py:97-104): a task that
+computes in bfloat16 casts the frozen parameters once at set-up.
 """
 
 from __future__ import annotations
@@ -56,7 +60,8 @@ class VGG19(nn.Module):
         self.requires_grad_(False)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        x = x.contiguous(memory_format=torch.channels_last)
+        x = x.to(self.conv1_1.weight.dtype).contiguous(
+            memory_format=torch.channels_last)
         feats = {}
         for item in CFG:
             if item == "M":

@@ -7,6 +7,12 @@ with `use_spect` (and `ConvTranspose2x` likewise); its reflect padding is a
 separate `nn.ReflectionPad2d` in the blocks that use it, as in the original,
 which keeps the key indices.
 Conv3d and CoordConv are not ported yet.
+
+Under a bf16 compute dtype (`train.precision.cast_call`) these modules run
+on bf16 copies of their parameters and buffers: InstanceNorm's reductions
+then accumulate in f32 and round to bf16, as gfla_tpu's jnp reductions do,
+and the spectral norm's power iteration runs on the bf16 weight and u; the
+u it stores is kept in f32 by `cast_call`, as gfla_tpu's `to_f32` keeps it.
 """
 
 from __future__ import annotations

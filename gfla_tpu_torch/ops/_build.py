@@ -1,7 +1,8 @@
 """Build the package's CUDA sources with nvcc and bind them with ctypes.
 
 On first CUDA use, every `gfla_tpu_torch/csrc/*.cu` is compiled for Hopper
-(`sm_90a`), one nvcc process per source, all started together, and the
+(`sm_90a`), one nvcc process per source, all started together (the warp
+kernels' bf16 instances, `warp_*_bf16.cu`, are sources of their own), and the
 objects are linked into one shared library with a plain C interface under
 `build/gfla_tpu_torch/` at the repo root. `csrc/jpeg_nvjpeg.cpp`, host code
 that calls nvJPEG, is built beside it into a library of its own, linked with
@@ -51,12 +52,15 @@ def _sources():
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gfla_warp_fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
-    lib.gfla_warp_fwd.restype = i
-    lib.gfla_warp_bwd_pos.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, p]
-    lib.gfla_warp_bwd_pos.restype = i
-    lib.gfla_warp_bwd_w1.argtypes = [p] * 5 + [i] * 6 + [p]
-    lib.gfla_warp_bwd_w1.restype = i
+    for suffix in ("", "_bf16"):  # warp_*.cu and their bf16 instances
+        fwd = getattr(lib, f"gfla_warp_fwd{suffix}")
+        fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
+        pos = getattr(lib, f"gfla_warp_bwd_pos{suffix}")
+        pos.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, p]
+        w1 = getattr(lib, f"gfla_warp_bwd_w1{suffix}")
+        w1.argtypes = [p] * 5 + [i] * 6 + [p]
+        for fn in (fwd, pos, w1):
+            fn.restype = i
     lib.gfla_warp_bwd_pos_scratch.argtypes = [i, i, i, i]
     lib.gfla_warp_bwd_pos_scratch.restype = ctypes.c_longlong
     lib.gfla_warp_bwd_w1_scratch.argtypes = [i, i, i, i]

@@ -25,6 +25,11 @@ read when called:
 setting, as gfla_tpu does. An activation that no kernel computes runs the
 composite on the CPU and raises on CUDA unless `0` asks for the composite:
 the kernel routes never give way silently.
+
+In bfloat16 (`--compute_dtype=bfloat16`) the warp route runs the warp
+kernels' bf16 instances; the attention-math kernels have none yet (ROADMAP
+queue 2, rows 4-5), so `1` raises on a bf16 CUDA tensor, and on the CPU its
+plain twin runs in bf16. The composite sums in f32, as gfla_tpu's does.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gfla_tpu_torch.ops import attn_math, warp
+from gfla_tpu_torch.ops import acc_dtype, attn_math, warp
 from gfla_tpu_torch.ops.block_extract import block_extract, extract_patches
 
 
@@ -51,28 +56,37 @@ def _leaky_slope(activation):
 
 
 def target_stream(target, w1, b1, kernel_size: int):
-    """hidden_bt = conv(edge_pad(target), W1[:, :C]) + b1 -> (B, H*W, D)."""
+    """hidden_bt = conv(edge_pad(target), W1[:, :C]) + b1 -> (B, H*W, D): the
+    conv in the target's type, then b1 added in f32, in gfla_tpu's order
+    (pallas_warp.py:515-522)."""
     B, H, W, C = target.shape
     k = kernel_size
     r = k // 2
     D = w1.shape[-1]
+    acc = acc_dtype(target.dtype)
     w_bt = w1[:, :C, :].reshape(k, k, C, D).permute(3, 2, 0, 1)  # (D,C,k,k)
     padded = F.pad(target.permute(0, 3, 1, 2), (r, k - 1 - r, r, k - 1 - r),
                    mode="replicate")
-    hidden = F.conv2d(padded, w_bt, b1)                            # (B,D,H,W)
+    hidden = F.conv2d(padded, w_bt.to(target.dtype)).to(acc) \
+        + b1.to(acc)[:, None, None]                               # (B,D,H,W)
     return hidden.permute(0, 2, 3, 1).reshape(B, H * W, D).contiguous()
 
 
 def _composite(source, target, flow, k, w1, b1, w2, b2, activation,
                return_attn):
-    """gfla_tpu's XLA composition (ops/local_attn.py:122-171) in torch."""
+    """gfla_tpu's XLA composition (ops/local_attn.py:122-171) in torch: the
+    products of the inputs' values summed in `acc_dtype` of their type, the
+    attention weights in the source's type for the weighted sum."""
+    acc = acc_dtype(source.dtype)
     block_source = block_extract(source, flow, k)            # (B,H,W,k²,C)
     block_target = extract_patches(target, k)
     cat = torch.cat([block_target, block_source], dim=-1)
-    hidden = activation(torch.einsum("bhwkc,kcd->bhwd", cat, w1) + b1)
-    attn = torch.softmax(torch.einsum("bhwd,dk->bhwk", hidden, w2) + b2,
-                         dim=-1)
-    out = torch.einsum("bhwk,bhwkc->bhwc", attn, block_source) / float(k * k)
+    hidden = activation(torch.einsum("bhwkc,kcd->bhwd", cat.to(acc),
+                                     w1.to(acc)) + b1.to(acc))
+    attn = torch.softmax(torch.einsum("bhwd,dk->bhwk", hidden,
+                                      w2.to(acc)) + b2.to(acc), dim=-1)
+    out = (torch.einsum("bhwk,bhwkc->bhwc", attn.to(source.dtype).to(acc),
+                        block_source.to(acc)) / float(k * k)).to(source.dtype)
     return (attn, out) if return_attn else out
 
 
@@ -94,6 +108,12 @@ def local_attn_warp(source, target, flow, kernel_size: int, w1, b1, w2, b2,
                           return_attn)
     B, H, W, C = source.shape
     if route == "1":
+        if source.is_cuda and source.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "local_attn_warp: GFLA_ATTN_PALLAS=1 has no bfloat16 CUDA "
+                "kernels yet (the attention-math kernels' bf16 variants, "
+                "ROADMAP queue 2, rows 4-5); the default route runs the "
+                "warp kernels in bfloat16")
         bs = block_extract(source, flow, k).reshape(-1, k * k, C)
         bt = extract_patches(target, k).reshape(-1, k * k, C)
         out = attn_math.attn_math(bs, bt, w1, b1, w2, b2, slope)

@@ -15,6 +15,16 @@ Layouts follow gfla_tpu: source (B,H,W,C); flow (B,H,W,2) as (x, y);
 hidden_bt (B,H*W,D), the target-stream dense term including b1;
 w1s (k*k*C, D), the source half of the first projection; w2 (D, k*k);
 b2 (k*k,). Returns (B,H,W,C).
+
+Element types follow gfla_tpu's `_compute_dtype` (pallas_warp.py:435-438):
+a float32 source runs the f32 kernels, a bfloat16 source their bf16
+instances (csrc/warp_fwd_bf16.cu, csrc/warp_bwd_bf16.cu), which read the
+source, g and W2 in bf16, round to bf16 where gfla_tpu's kernel body does
+and accumulate in f32; the wrapper hands them W1s widened to f32. W1s and W2
+are in the source's type; flow, b2 and hidden_bt are taken in f32, as
+gfla_tpu's `_core_fwd` casts them, and hpre is f32. The plain twins round at
+the same points. The backward's outputs are f32, as the kernels leave them;
+`WarpFunction` casts each gradient to its input's type, as `_core_bwd` does.
 """
 
 from __future__ import annotations
@@ -34,25 +44,55 @@ from gfla_tpu_torch.ops.block_extract import block_extract, patch_index
 launches = 0          # warp_fwd.cu
 bwd_pos_launches = 0  # warp_bwd.cu, per-position kernel (+ dW2/db2 reduce)
 bwd_w1_launches = 0   # warp_bwd.cu, dW1s kernel (+ its reduce)
+bf16_launches = 0          # warp_fwd_bf16.cu
+bf16_bwd_pos_launches = 0  # warp_bwd_bf16.cu, per-position kernel
+bf16_bwd_w1_launches = 0   # warp_bwd_bf16.cu, dW1s kernel
 
 MAX_D = 256      # one thread per hidden unit
 MAX_C = 1024     # keeps the shared-memory tile within the 227 KB per block
 KERNEL_SIZES = (1, 3, 5, 7)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _f32(x):
+    """bf16 values widened to f32, exactly; f32 and f64 as they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _round(x, dtype):
+    """x rounded to bf16 (held in f32) when the warp computes in bf16, at a
+    point where gfla_tpu's bf16 kernel body rounds; x itself otherwise."""
+    return x.to(dtype).float() if dtype == torch.bfloat16 else x
+
+
+def _blocks(source, flow, k):
+    """The blended blocks (B,H*W,k*k,C): blended in f32 from the widened
+    source (gfla_tpu's `_prep` pads it in f32), rounded to the source's type
+    (pallas_warp.py:183)."""
+    B, H, W, C = source.shape
+    return _round(block_extract(_f32(source), _f32(flow), k),
+                  source.dtype).reshape(B, H * W, k * k, C)
 
 
 def warp_fwd_plain(source, flow, hidden_bt, w1s, w2, b2, kernel_size: int,
                    negative_slope: float = 0.1, with_hpre: bool = False):
     """The kernel's function in plain torch: gather, blend, matmul, softmax,
     weighted sum. With `with_hpre`, (out, hpre): hpre (B*H*W, D) is the
-    pre-activation hidden layer, which the backward starts from."""
+    pre-activation hidden layer, which the backward starts from. A bf16
+    source rounds the blocks, the hidden layer before W2 and the attention
+    weights to bf16 (pallas_warp.py:183-200); products of those bf16 values
+    are summed in f32, and the output is bf16."""
     k = kernel_size
     B, H, W, C = source.shape
-    blocks = block_extract(source, flow, k).reshape(B, H * W, k * k, C)
-    hpre = blocks.reshape(B, H * W, k * k * C) @ w1s + hidden_bt
+    cdt = source.dtype
+    blocks = _blocks(source, flow, k)
+    hpre = blocks.reshape(B, H * W, k * k * C) @ _f32(w1s) + hidden_bt
     hidden = F.leaky_relu(hpre, negative_slope)
-    attn = torch.softmax(hidden @ w2 + b2, dim=-1)            # (B,HW,k²)
-    out = torch.einsum("bnk,bnkc->bnc", attn, blocks) / float(k * k)
-    out = out.reshape(B, H, W, C)
+    attn = torch.softmax(_round(hidden, cdt) @ _f32(w2) + _f32(b2),
+                         dim=-1)                              # (B,HW,k²)
+    out = torch.einsum("bnk,bnkc->bnc", _round(attn, cdt),
+                       blocks) / float(k * k)
+    out = out.reshape(B, H, W, C).to(cdt)
     return (out, hpre.reshape(B * H * W, -1)) if with_hpre else out
 
 
@@ -93,38 +133,45 @@ def warp_bwd_pos_plain(source, flow, hidden_bt, w1s, w2, b2, g,
     `_bwd_kernel` math (pallas_warp.py:286-347). Given the forward's `hpre`
     (B*H*W, D), as the kernel is, it starts from it (`hidden_bt` is then not
     read); without it, it recomputes hpre from the blocks, as gfla_tpu
-    does."""
+    does. A bf16 source rounds g, the hidden layer before W2, d_logits
+    before W2^T, d_hpre and d_blocks to bf16 (pallas_warp.py:286-319, 467);
+    the outputs are f32."""
     k = kernel_size
     k2 = k * k
     B, H, W, C = source.shape
     N = H * W
-    blocks = block_extract(source, flow, k).reshape(B, N, k2, C)
+    cdt = source.dtype
+    w1s, w2 = _f32(w1s), _f32(w2)
+    blocks = _blocks(source, flow, k)
     if hpre is None:
         hpre = blocks.reshape(B, N, k2 * C) @ w1s + hidden_bt
     else:
         hpre = hpre.reshape(B, N, -1)
     hidden = F.leaky_relu(hpre, negative_slope)
-    attn = torch.softmax(hidden @ w2 + b2, dim=-1)             # (B,N,k²)
-    g = g.reshape(B, N, C)
+    attn = torch.softmax(_round(hidden, cdt) @ w2 + _f32(b2),
+                         dim=-1)                               # (B,N,k²)
+    g = _round(_f32(g), cdt).reshape(B, N, C)
     d_attn = torch.einsum("bnkc,bnc->bnk", blocks, g) / float(k2)
     d_logits = attn * (d_attn - (attn * d_attn).sum(-1, keepdim=True))
     dw2 = torch.einsum("bnd,bnk->dk", hidden, d_logits)
     db2 = d_logits.sum((0, 1))
-    d_h = d_logits @ w2.t()
-    d_hpre = torch.where(hpre >= 0, d_h, d_h * negative_slope)
-    d_blocks = ((d_hpre @ w1s.t()).reshape(B, N, k2, C)
-                + (attn / float(k2))[..., None] * g[:, :, None, :])
-    d_source, d_flow = block_extract_bwd(source, flow, d_blocks, k)
+    d_h = _round(d_logits, cdt) @ w2.t()
+    d_hpre = _round(torch.where(hpre >= 0, d_h, d_h * negative_slope), cdt)
+    d_blocks = _round((d_hpre @ w1s.t()).reshape(B, N, k2, C)
+                      + (attn / float(k2))[..., None] * g[:, :, None, :],
+                      cdt)
+    d_source, d_flow = block_extract_bwd(_f32(source), _f32(flow), d_blocks,
+                                         k)
     return d_source, d_flow, d_hpre, dw2, db2, d_blocks
 
 
 def warp_bwd_w1_plain(source, flow, d_hpre, kernel_size: int):
     """What the dW1s kernel computes, in plain torch: sum over positions of
-    block^T d_hpre -> (k*k*C, D)."""
+    block^T d_hpre -> (k*k*C, D), f32 (the blocks in the source's type)."""
     k = kernel_size
     B, H, W, C = source.shape
-    blocks = block_extract(source, flow, k).reshape(B * H * W, k * k * C)
-    return blocks.t() @ d_hpre.reshape(B * H * W, -1)
+    blocks = _blocks(source, flow, k).reshape(B * H * W, k * k * C)
+    return blocks.t() @ _f32(d_hpre).reshape(B * H * W, -1)
 
 
 def warp_bwd_plain(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
@@ -141,19 +188,26 @@ def warp_bwd_plain(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
 
 def _check_kernel_inputs(source, flow, hidden, w1s, w2, b2, k, g=None):
     """`hidden` is hidden_bt (B, H*W, D) for the forward kernel and, with the
-    cotangent g, the forward's hpre (B*H*W, D) for the backward."""
+    cotangent g, the forward's hpre (B*H*W, D) for the backward. The source
+    is float32 or bfloat16; W1s, W2 and g are in its type; flow, b2 and
+    hidden_bt or hpre are float32."""
     hidden_name = "hidden_bt" if g is None else "hpre"
     tensors = {"source": source, "flow": flow, hidden_name: hidden,
                "w1s": w1s, "w2": w2, "b2": b2}
     if g is not None:
         tensors["g"] = g
+    if source.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"warp: the CUDA kernels take a float32 or bfloat16 "
+                        f"source, got {source.dtype}")
     for name, t in tensors.items():
         if t.device != source.device:
             raise ValueError(f"warp: {name} is on {t.device}, source on "
                              f"{source.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"warp: the CUDA kernels take float32, "
-                            f"{name} is {t.dtype}")
+        want = (source.dtype if name in ("source", "w1s", "w2", "g")
+                else torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"warp: with a {source.dtype} source the CUDA "
+                            f"kernels take {name} in {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"warp: {name} must be contiguous")
     if source.dim() != 4:
@@ -181,85 +235,106 @@ def _check_kernel_inputs(source, flow, hidden, w1s, w2, b2, k, g=None):
 
 def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope,
                 with_hpre=False):
-    global launches
+    global launches, bf16_launches
     _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k)
     lib = load_library()
     B, H, W, C = source.shape
     D = w1s.shape[-1]
     out = torch.empty_like(source)
-    hpre = source.new_empty(B * H * W, D) if with_hpre else None
+    hpre = hidden_bt.new_empty(B * H * W, D) if with_hpre else None
+    bf16 = source.dtype == torch.bfloat16
+    entry = lib.gfla_warp_fwd_bf16 if bf16 else lib.gfla_warp_fwd
+    w1s = _f32(w1s)  # the kernels' W1s ring is f32; the values stay bf16
     with torch.cuda.device(source.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gfla_warp_fwd(
+        err = entry(
             source.data_ptr(), flow.data_ptr(), hidden_bt.data_ptr(),
             w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             None if hpre is None else hpre.data_ptr(), B, H, W, C, D, k,
             float(slope), stream)
     check_launch(lib, err, "warp_fwd")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return (out, hpre) if with_hpre else out
 
 
 def _launch_bwd_pos(source, flow, hpre, w1s, w2, b2, g, k, slope):
-    global bwd_pos_launches
+    global bwd_pos_launches, bf16_bwd_pos_launches
     _check_kernel_inputs(source, flow, hpre, w1s, w2, b2, k, g)
     lib = load_library()
+    bf16 = source.dtype == torch.bfloat16
+    entry = lib.gfla_warp_bwd_pos_bf16 if bf16 else lib.gfla_warp_bwd_pos
+    w1s = _f32(w1s)  # the kernels' W1s ring is f32; the values stay bf16
     B, H, W, C = source.shape
     N = B * H * W
     D = w1s.shape[-1]
     k2 = k * k
-    d_source = torch.zeros_like(source)  # reduction target
+    d_source = torch.zeros_like(source, dtype=torch.float32)  # reduced into
     d_flow = torch.empty_like(flow)
-    d_hpre = source.new_empty(B, H * W, D)
-    dw2b2 = source.new_empty(D * k2 + k2)
-    part = source.new_empty(lib.gfla_warp_bwd_pos_scratch(N, C, D, k))
+    d_hpre = hpre.new_empty(B, H * W, D)
+    dw2b2 = hpre.new_empty(D * k2 + k2)
+    part = hpre.new_empty(lib.gfla_warp_bwd_pos_scratch(N, C, D, k))
     with torch.cuda.device(source.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gfla_warp_bwd_pos(
+        err = entry(
             source.data_ptr(), flow.data_ptr(), hpre.data_ptr(),
             w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(),
             d_source.data_ptr(), d_flow.data_ptr(), d_hpre.data_ptr(),
             part.data_ptr(), dw2b2.data_ptr(), B, H, W, C, D, k,
             float(slope), stream)
     check_launch(lib, err, "warp_bwd_pos")
-    bwd_pos_launches += 1
+    if bf16:
+        bf16_bwd_pos_launches += 1
+    else:
+        bwd_pos_launches += 1
     return (d_source, d_flow, d_hpre, dw2b2[:D * k2].view(D, k2),
             dw2b2[D * k2:])
 
 
 def _launch_bwd_w1(source, flow, d_hpre, k):
-    global bwd_w1_launches
+    global bwd_w1_launches, bf16_bwd_w1_launches
     B, H, W, C = source.shape
     D = d_hpre.shape[-1]
+    if source.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"warp_bwd_w1: the CUDA kernels take a float32 or "
+                        f"bfloat16 source, got {source.dtype}")
     for name, t, shape in (("source", source, source.shape),
                            ("flow", flow, (B, H, W, 2)),
                            ("d_hpre", d_hpre, (B, H * W, D))):
-        if (t.device != source.device or t.dtype != torch.float32
+        want = source.dtype if name == "source" else torch.float32
+        if (t.device != source.device or t.dtype != want
                 or not t.is_contiguous() or tuple(t.shape) != tuple(shape)):
             raise ValueError(f"warp_bwd_w1: {name} must be a contiguous "
-                             f"float32 {tuple(shape)} on {source.device}, got "
+                             f"{want} {tuple(shape)} on {source.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if k not in KERNEL_SIZES or not 1 <= D <= MAX_D or not 1 <= C <= MAX_C:
         raise ValueError(f"warp_bwd_w1: kernel_size {k}, C={C}, D={D} out of "
                          f"range")
     lib = load_library()
-    dw1s = source.new_empty(k * k * C, D)
-    part = source.new_empty(lib.gfla_warp_bwd_w1_scratch(B * H * W, C, D, k))
+    bf16 = source.dtype == torch.bfloat16
+    entry = lib.gfla_warp_bwd_w1_bf16 if bf16 else lib.gfla_warp_bwd_w1
+    dw1s = d_hpre.new_empty(k * k * C, D)
+    part = d_hpre.new_empty(lib.gfla_warp_bwd_w1_scratch(B * H * W, C, D, k))
     with torch.cuda.device(source.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gfla_warp_bwd_w1(
+        err = entry(
             source.data_ptr(), flow.data_ptr(), d_hpre.data_ptr(),
             part.data_ptr(), dw1s.data_ptr(), B, H, W, C, D, k, stream)
     check_launch(lib, err, "warp_bwd_w1")
-    bwd_w1_launches += 1
+    if bf16:
+        bf16_bwd_w1_launches += 1
+    else:
+        bwd_w1_launches += 1
     return dw1s
 
 
 def warp_bwd_pos(source, flow, hpre, w1s, w2, b2, g, kernel_size: int,
                  negative_slope: float = 0.1):
     """Per-position backward kernel on CUDA tensors, plain version on CPU
-    tensors: (d_source, d_flow, d_hidden_bt, dW2, db2) from the forward's
-    hpre (B*H*W, D); g is (B,H,W,C)."""
+    tensors: (d_source, d_flow, d_hidden_bt, dW2, db2), f32, from the
+    forward's hpre (B*H*W, D); g is (B,H,W,C) in the source's type."""
     if on_kernel_device(source, "warp_bwd_pos"):
         return _launch_bwd_pos(source, flow, hpre, w1s, w2, b2, g,
                                kernel_size, negative_slope)
@@ -300,15 +375,16 @@ def warp_fwd_with_hpre(source, flow, hidden_bt, w1s, w2, b2,
 class WarpFunction(torch.autograd.Function):
     """The warp with its hand-written backward: forward `warp_fwd_with_hpre`
     (kernel, or plain twin on the CPU), which saves hpre in place of
-    hidden_bt; backward `warp_bwd` from that hpre. Counterpart of the custom
-    VJP `attn_warp_core` (pallas_warp.py:420-487), whose backward recomputes
-    hpre."""
+    hidden_bt; backward `warp_bwd` from that hpre, each gradient cast to its
+    input's type. Counterpart of the custom VJP `attn_warp_core`
+    (pallas_warp.py:420-487), whose backward recomputes hpre."""
 
     @staticmethod
     def forward(ctx, source, flow, hidden_bt, w1s, w2, b2, kernel_size,
                 negative_slope):
-        inputs = [t.contiguous() for t in (source, flow, hidden_bt, w1s, w2,
-                                           b2)]
+        ctx.dtypes = [t.dtype for t in (source, flow, hidden_bt, w1s, w2, b2)]
+        inputs = [t.contiguous() for t in (source, _f32(flow), hidden_bt,
+                                           w1s, w2, _f32(b2))]
         out, hpre = warp_fwd_with_hpre(*inputs, kernel_size, negative_slope)
         source, flow, _, w1s, w2, b2 = inputs
         ctx.save_for_backward(source, flow, hpre, w1s, w2, b2)
@@ -319,9 +395,10 @@ class WarpFunction(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        grads = warp_bwd(*ctx.saved_tensors, g.contiguous(), ctx.kernel_size,
-                         ctx.negative_slope)
-        return (*grads, None, None)
+        saved = ctx.saved_tensors  # once: --remat's recompute allows one
+        grads = warp_bwd(*saved, g.to(saved[0].dtype).contiguous(),
+                         ctx.kernel_size, ctx.negative_slope)
+        return (*(d.to(t) for d, t in zip(grads, ctx.dtypes)), None, None)
 
 
 def warp_fwd(source, flow, hidden_bt, w1s, w2, b2, kernel_size: int,
@@ -332,6 +409,7 @@ def warp_fwd(source, flow, hidden_bt, w1s, w2, b2, kernel_size: int,
     tensors = (source, flow, hidden_bt, w1s, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return WarpFunction.apply(*tensors, kernel_size, negative_slope)
+    tensors = (source, _f32(flow), hidden_bt, w1s, w2, _f32(b2))
     if on_kernel_device(source, "warp_fwd"):
         return _launch_fwd(*tensors, kernel_size, negative_slope)
     return warp_fwd_plain(*tensors, kernel_size, negative_slope)

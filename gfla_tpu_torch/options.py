@@ -132,7 +132,9 @@ class BaseOptions:
 
         add("--compute_dtype", type=str, default="float32",
             choices=["float32", "bfloat16"],
-            help="the port serves in float32; bfloat16 is not ported yet")
+            help="the pose head's compute dtype: f32 master parameters, "
+                 "G, D and VGG19 (and the warp kernels) in this type, as "
+                 "gfla_tpu's; poseflownet trains in float32")
         # parallelism flags of gfla_tpu: the defaults parse, any other value
         # is refused by both CLIs (refuse_parallel_flags); the port runs on
         # one device

@@ -14,6 +14,13 @@ D(fake), each storing its spectral-norm u; the G losses against the updated
 D, which iterates u without storing it; the G backward and Adam step. Serving runs G in eval mode under `torch.inference_mode()`.
 Checkpoints are the original GFLA's per-network files, `{iter}_net_G.pth`
 and `{iter}_net_D.pth`.
+
+`--compute_dtype=bfloat16` follows gfla_tpu's mixed precision
+(tasks/pose.py:97-99, 145-181): G and D run in bf16 through
+`train.precision.cast_call` from the f32 parameters, which keep their f32
+gradients, Adam state and checkpoints; their outputs come back in f32, and
+the spectral-norm u they store is kept in f32. The frozen VGG19 is cast to
+bf16 once, here, as gfla_tpu casts its parameters.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from gfla_tpu_torch.options import (
 )
 from gfla_tpu_torch.runtime import select_device
 from gfla_tpu_torch.train import checkpoint
+from gfla_tpu_torch.train.precision import cast_call, compute_dtype
 from gfla_tpu_torch.train.state import make_optimizer
 
 
@@ -109,13 +117,10 @@ class PoseTask:
         return parser
 
     def __init__(self, opt, device: torch.device | None = None):
-        if getattr(opt, "compute_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                f"--compute_dtype={opt.compute_dtype}: the port runs in "
-                "float32; the warp kernels have no bfloat16 variant yet")
         self.opt = opt
         self.device = device if device is not None \
             else select_device(opt.gpu_ids)
+        self.dtype = compute_dtype(getattr(opt, "compute_dtype", "float32"))
         kz = {str(k): int(v) for k, v in opt.kernel_size.items()}
         self.net_g = define_g(
             "pose", image_nc=opt.image_nc, structure_nc=opt.structure_nc,
@@ -141,7 +146,7 @@ class PoseTask:
             use_spect=resolve_use_spect_d(opt))
         init_weights(self.net_d, gen)
         self.net_d.to(self.device)
-        self.vgg = load_vgg19().to(self.device)
+        self.vgg = load_vgg19().to(self.device, self.dtype)
         self.correctness = PerceptualCorrectness(self.vgg)
         self.regularization = MultiAffineRegularizationLoss(
             {int(k): int(v) for k, v in opt.kernel_size.items()})
@@ -182,7 +187,8 @@ class PoseTask:
         self.net_g.eval()
         try:
             with torch.inference_mode():
-                return self.net_g(batch["P1"], batch["BP1"], batch["BP2"])
+                return cast_call(self.net_g, self.dtype, batch["P1"],
+                                 batch["BP1"], batch["BP2"])
         finally:
             self.net_g.train(training)
 
@@ -194,7 +200,7 @@ class PoseTask:
         the forward stored, so the step's values and gradients are those of
         the step without it."""
         if not getattr(self.opt, "remat", False):
-            return self.net_g(p1, bp1, bp2)
+            return cast_call(self.net_g, self.dtype, p1, bp1, bp2)
         spectral = [m for m in self.net_g.modules() if hasattr(m, "weight_u")]
         before = [(m.weight_u, m.weight_v) for m in spectral]
         runs = []
@@ -203,7 +209,7 @@ class PoseTask:
             after = [(m.weight_u, m.weight_v) for m in spectral]
             for m, (u, v) in zip(spectral, before):
                 m.weight_u, m.weight_v = u, v
-            out = self.net_g(p1, bp1, bp2)
+            out = cast_call(self.net_g, self.dtype, p1, bp1, bp2)
             if runs:  # the recomputation in the backward
                 for m, (u, v) in zip(spectral, after):
                     m.weight_u, m.weight_v = u, v
@@ -211,6 +217,10 @@ class PoseTask:
             return out
 
         return recompute(run, p1, bp1, bp2, use_reentrant=False)
+
+    def d_forward(self, x, update_stats):
+        """D's logits in f32, computed in the compute dtype."""
+        return cast_call(self.net_d, self.dtype, x, update_stats=update_stats)
 
     # ------------------------------------------------------------------
     def train_step(self, batch):
@@ -223,8 +233,8 @@ class PoseTask:
         # D step on the detached fake; each pass stores its power iteration
         self.net_d.requires_grad_(True)
         self.opt_d.zero_grad(set_to_none=True)
-        d_real = self.net_d(p2, update_stats=True)
-        d_fake = self.net_d(img_gen.detach(), update_stats=True)
+        d_real = self.d_forward(p2, update_stats=True)
+        d_fake = self.d_forward(img_gen.detach(), update_stats=True)
         loss_d = 0.5 * (adversarial_loss(d_real, True, True, opt.gan_mode)
                         + adversarial_loss(d_fake, False, True, opt.gan_mode))
         loss_d.backward()
@@ -241,7 +251,7 @@ class PoseTask:
                 p2, p1, flows, self.attn_layer, target_feats=p2_feats)
             * opt.lambda_correct,
             "ad_gen": adversarial_loss(
-                self.net_d(img_gen, update_stats=False), True, False,
+                self.d_forward(img_gen, update_stats=False), True, False,
                 opt.gan_mode) * opt.lambda_g,
             "regularization": self.regularization(flows)
             * opt.lambda_regularization,

@@ -25,7 +25,7 @@ def main(args=None) -> int:
     refuse_parallel_flags(opt)
     device = select_device(opt.gpu_ids)
     if device.type == "cuda":
-        set_tf32(False)  # float32 serving, as gfla_tpu's float32 path
+        set_tf32(False)  # f32 work stays f32 (TF32 off), in either dtype
         print(card_line())
     dataset = get_dataset_class(opt.dataset_mode)(opt)
     task = create_task(opt, device)

@@ -1,13 +1,16 @@
 """Where the time of the tensor-core kernels goes, by timing variants.
 
     python3 -m gfla_tpu_torch.tools.kernel_split [--iters N] [--only SRC,..]
+        [--compute_dtype bfloat16]
 
 The card's counters cannot be read from every machine, so this splits a
 kernel's time by building it several times with `-DGFLA_SPLIT=<n>`: each
 value leaves one part of the kernel out (each source under csrc/ says
 which), and the time that goes missing is that part's share. `--only`
 takes some of the sources: warp_fwd, warp_bwd, max_corr, attn_math_fwd,
-attn_math_bwd. The attention-math kernels are two or three launches
+attn_math_bwd. With `--compute_dtype bfloat16`, warp_fwd and warp_bwd are
+their bf16 instances (warp_fwd_bf16.cu, warp_bwd_bf16.cu), fed bf16 values;
+the other sources have none. The attention-math kernels are two or three launches
 behind one entry point; the whole of each is also traced once with
 torch.profiler, which gives each kernel's own time. Every variant is compiled from the source in the package by its own
 nvcc process into its own library under build/, launched at the shapes of
@@ -57,29 +60,39 @@ CORR_SITES = [("relu3_1 B=8 4096x4096 C=256", 8, 4096, 4096, 256),
               ("relu4_1 B=8 1024x1024 C=512", 8, 1024, 1024, 512)]
 
 
-def build_variants(stems):
-    """One library per (source, GFLA_SPLIT value), all compiled at once."""
+BF16_SOURCES = ("warp_fwd", "warp_bwd")  # sources with bf16 instances
+
+
+def build_variants(stems, suffix=""):
+    """One library per (source, GFLA_SPLIT value), all compiled at once;
+    with suffix "_bf16", warp_fwd and warp_bwd are their bf16 instances."""
     out_dir = BUILD_DIR / "kernel_split"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = [(stem, n) for stem in stems for n in SOURCES[stem]]
-    paths = {job: out_dir / f"{job[0]}_{job[1]}.so" for job in jobs}
+    files = {stem: stem + (suffix if stem in BF16_SOURCES else "")
+             for stem in stems}
+    paths = {job: out_dir / f"{files[job[0]]}_{job[1]}.so" for job in jobs}
     _run_all([[nvcc, *NVCC_FLAGS, f"-DGFLA_SPLIT={n}", "-shared", "-o",
-               str(paths[stem, n]), str(CSRC / f"{stem}.cu")]
+               str(paths[stem, n]), str(CSRC / f"{files[stem]}.cu")]
               for stem, n in jobs])
     p, i = ctypes.c_void_p, ctypes.c_int
     libs = {}
     for (stem, n), path in paths.items():
         lib = ctypes.CDLL(str(path))
         if stem == "warp_fwd":
-            lib.gfla_warp_fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float,
-                                                              p]
+            lib.warp_fwd = getattr(lib, f"gfla_warp_fwd{suffix}")
+            lib.warp_fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
         elif stem == "warp_bwd":
-            lib.gfla_warp_bwd_pos.argtypes = [p] * 12 + [i] * 6 + [
+            lib.warp_bwd_pos = getattr(lib, f"gfla_warp_bwd_pos{suffix}")
+            lib.warp_bwd_pos.argtypes = [p] * 12 + [i] * 6 + [
                 ctypes.c_float, p]
-            lib.gfla_warp_bwd_w1.argtypes = [p] * 5 + [i] * 6 + [p]
-            for fn in (lib.gfla_warp_bwd_pos_scratch,
-                       lib.gfla_warp_bwd_w1_scratch):
+            lib.warp_bwd_w1 = getattr(lib, f"gfla_warp_bwd_w1{suffix}")
+            lib.warp_bwd_w1.argtypes = [p] * 5 + [i] * 6 + [p]
+            lib.pos_scratch = getattr(lib,
+                                      f"gfla_warp_bwd_pos_scratch{suffix}")
+            lib.w1_scratch = getattr(lib, f"gfla_warp_bwd_w1_scratch{suffix}")
+            for fn in (lib.pos_scratch, lib.w1_scratch):
                 fn.argtypes = [i] * 4
                 fn.restype = ctypes.c_longlong
         elif stem == "max_corr":
@@ -119,25 +132,34 @@ def must(err, what):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def time_warp(libs, iters):
+def _values(bf16):
+    """For the bf16 instances: (the source, W2 and g in bf16, W1s and d_hpre
+    as bf16 values held in f32), as the wrappers hand them over."""
+    if not bf16:
+        return (lambda t: t), (lambda t: t)
+    return (lambda t: t.bfloat16()), (lambda t: t.bfloat16().float())
+
+
+def time_warp(libs, iters, bf16=False):
     rows = []
     dev = torch.device("cuda", 0)
+    cast, wide = _values(bf16)
     for name, B, H, W, C, D, k in WARP_SITES:
         g = torch.Generator(device=dev).manual_seed(0)
 
         def rand(*shape, scale=1.0):
             return torch.randn(*shape, device=dev, generator=g) * scale
 
-        src, flow = rand(B, H, W, C), rand(B, H, W, 2, scale=1.5)
-        hbt, w1s = rand(B * H * W, D), rand(k * k * C, D, scale=0.05)
-        w2, b2 = rand(D, k * k, scale=0.1), rand(k * k, scale=0.1)
+        src, flow = cast(rand(B, H, W, C)), rand(B, H, W, 2, scale=1.5)
+        hbt, w1s = rand(B * H * W, D), wide(rand(k * k * C, D, scale=0.05))
+        w2, b2 = cast(rand(D, k * k, scale=0.1)), rand(k * k, scale=0.1)
         out = torch.empty_like(src)
         stream = torch.cuda.current_stream().cuda_stream
         for n, label in WARP_VARIANTS.items():
             lib = libs["warp_fwd", n]
 
             def launch():
-                must(lib.gfla_warp_fwd(
+                must(lib.warp_fwd(
                     src.data_ptr(), flow.data_ptr(), hbt.data_ptr(),
                     w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                     out.data_ptr(), None, B, H, W, C, D, k, 0.1, stream),
@@ -148,11 +170,12 @@ def time_warp(libs, iters):
     return rows
 
 
-def time_bwd(libs, iters):
+def time_bwd(libs, iters, bf16=False):
     """Both backward kernels of csrc/warp_bwd.cu, from a random hpre and
     d_hpre, at the two warp sites."""
     rows = []
     dev = torch.device("cuda", 0)
+    cast, wide = _values(bf16)
     for name, B, H, W, C, D, k in WARP_SITES:
         g = torch.Generator(device=dev).manual_seed(2)
 
@@ -160,11 +183,12 @@ def time_bwd(libs, iters):
             return torch.randn(*shape, device=dev, generator=g) * scale
 
         N = B * H * W
-        src, flow = rand(B, H, W, C), rand(B, H, W, 2, scale=1.5)
-        hpre, w1s = rand(N, D), rand(k * k * C, D, scale=0.05)
-        w2, b2 = rand(D, k * k, scale=0.1), rand(k * k, scale=0.1)
-        cot, d_hpre = rand(B, H, W, C), rand(N, D)
-        d_src, d_flow = torch.zeros_like(src), torch.empty_like(flow)
+        src, flow = cast(rand(B, H, W, C)), rand(B, H, W, 2, scale=1.5)
+        hpre, w1s = rand(N, D), wide(rand(k * k * C, D, scale=0.05))
+        w2, b2 = cast(rand(D, k * k, scale=0.1)), rand(k * k, scale=0.1)
+        cot, d_hpre = cast(rand(B, H, W, C)), wide(rand(N, D))
+        d_src = torch.zeros_like(src, dtype=torch.float32)
+        d_flow = torch.empty_like(flow)
         d_hbt, dw2b2 = torch.empty_like(hpre), torch.empty(D * k * k + k * k,
                                                           device=dev)
         dw1s = torch.empty_like(w1s)
@@ -172,13 +196,13 @@ def time_bwd(libs, iters):
         launches = {"warp_bwd_pos": {}, "warp_bwd_w1": {}}
         for n in BWD_VARIANTS:
             lib = libs["warp_bwd", n]
-            pos_part = torch.empty(lib.gfla_warp_bwd_pos_scratch(N, C, D, k),
+            pos_part = torch.empty(lib.pos_scratch(N, C, D, k),
                                    device=dev)
-            w1_part = torch.empty(lib.gfla_warp_bwd_w1_scratch(N, C, D, k),
+            w1_part = torch.empty(lib.w1_scratch(N, C, D, k),
                                   device=dev)
 
             def pos(lib=lib, part=pos_part, n=n):
-                must(lib.gfla_warp_bwd_pos(
+                must(lib.warp_bwd_pos(
                     src.data_ptr(), flow.data_ptr(), hpre.data_ptr(),
                     w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                     cot.data_ptr(), d_src.data_ptr(), d_flow.data_ptr(),
@@ -187,7 +211,7 @@ def time_bwd(libs, iters):
                     f"warp_bwd_pos variant {n}")
 
             def w1(lib=lib, part=w1_part, n=n):
-                must(lib.gfla_warp_bwd_w1(
+                must(lib.warp_bwd_w1(
                     src.data_ptr(), flow.data_ptr(), d_hpre.data_ptr(),
                     part.data_ptr(), dw1s.data_ptr(), B, H, W, C, D, k,
                     stream), f"warp_bwd_w1 variant {n}")
@@ -316,23 +340,31 @@ def profile_parts(fn, stem, site, iters):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=20)
-    parser.add_argument("--only", default=",".join(SOURCES),
+    parser.add_argument("--only", default=None,
                         help="comma-separated sources to split")
+    parser.add_argument("--compute_dtype", default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="bfloat16: the warp kernels' bf16 instances")
     args = parser.parse_args(argv)
-    stems = [s for s in args.only.split(",") if s]
+    bf16 = args.compute_dtype == "bfloat16"
+    only = args.only or ",".join(BF16_SOURCES if bf16 else SOURCES)
+    stems = [s for s in only.split(",") if s]
     unknown = set(stems) - set(SOURCES)
     if unknown:
         parser.error(f"unknown sources {sorted(unknown)}")
+    if bf16 and set(stems) - set(BF16_SOURCES):
+        parser.error(f"no bf16 instances of "
+                     f"{sorted(set(stems) - set(BF16_SOURCES))}")
     if not torch.cuda.is_available():
         print("kernel_split: CUDA is not available", file=sys.stderr)
         return 1
     print(card_line())
-    libs = build_variants(stems)
+    libs = build_variants(stems, "_bf16" if bf16 else "")
     rows = []
     if "warp_fwd" in stems:
-        rows += time_warp(libs, args.iters)
+        rows += time_warp(libs, args.iters, bf16)
     if "warp_bwd" in stems:
-        rows += time_bwd(libs, args.iters)
+        rows += time_bwd(libs, args.iters, bf16)
     if "max_corr" in stems:
         rows += time_corr(libs, args.iters)
     attn = [s for s in stems if s.startswith("attn_math")]
@@ -350,7 +382,8 @@ def main(argv=None):
             continue
         print(f"  {row['what']:<48} {row['ms']:8.4f} ms  "
               f"({whole[key] - row['ms']:+.4f} ms missing)")
-    print(json.dumps({"kernel_split": rows}))
+    print(json.dumps({"kernel_split": rows,
+                      "compute_dtype": args.compute_dtype}))
     return 0
 
 

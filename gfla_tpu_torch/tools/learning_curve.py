@@ -13,6 +13,8 @@ which evaluates the same batch every `--eval_iters_freq` iterations. With
 pose configuration at batch 8 (`--model=pose --dataset_mode=fashion
 --batchSize=8 --load_size=256`), 2000 iterations, an evaluation every 250.
 The tree can be the stick figures of scripts/make_stickfigure_dataset.py.
+`--compute_dtype=bfloat16` takes the curve of the bf16 pose head: both the
+untrained evaluation and the trainer read it.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 kernel family.
 
     python3 -m gfla_tpu_torch.tools.serve_profile [--iters N] [--train]
-        [test or train options]
+        [test or train options, e.g. --compute_dtype=bfloat16]
 
 Builds the pose task as `python -m gfla_tpu_torch.test` (or, with
 `--train`, `python -m gfla_tpu_torch.train`) does (full width, seeded
@@ -130,7 +130,8 @@ def main(argv=None) -> int:
         per_family[family(name)] += ms
     busy_ms = sum(per_family.values())
     what = "training step" if args.train else "forward"
-    print(f"batch {opt.batchSize} {what} at {opt.load_size}: wall "
+    print(f"batch {opt.batchSize} {what} at {opt.load_size} in "
+          f"{opt.compute_dtype}: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} (means of {args.iters} {what}s)")
     for label, ms in per_family.most_common():
@@ -139,7 +140,9 @@ def main(argv=None) -> int:
     for name, ms in top:
         print(f"    {ms:8.3f} ms  {family(name):<24} {name[:90]}")
     print(json.dumps({"serve_profile": {
-        "step": "train" if args.train else "serve", "wall_ms": wall_ms, "busy_ms": busy_ms, "iters": args.iters,
+        "step": "train" if args.train else "serve",
+        "compute_dtype": opt.compute_dtype, "wall_ms": wall_ms,
+        "busy_ms": busy_ms, "iters": args.iters,
         "families": dict(per_family),
         "top_kernels": [{"name": n, "ms": ms} for n, ms in top]}}))
     return 0

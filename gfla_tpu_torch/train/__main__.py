@@ -73,7 +73,7 @@ def main(args=None) -> int:
     refuse_parallel_flags(opt)
     device = select_device(opt.gpu_ids)
     if device.type == "cuda":
-        set_tf32(False)  # float32 training, as gfla_tpu's float32 path
+        set_tf32(False)  # f32 work stays f32 (TF32 off), in either dtype
         print(card_line())
     np.random.seed(opt.seed)
     torch.manual_seed(opt.seed)

@@ -61,10 +61,14 @@ def test_cli_writes_vis_files_without_jax(tmp_path):
     assert (tmp_path / "ckpt" / "smoke" / "test_opt.txt").exists()
 
 
-def test_cli_refuses_bfloat16(tmp_path):
-    proc = _run(tmp_path, "--max_dataset_size=1", "--compute_dtype=bfloat16")
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
+def test_cli_serves_bfloat16(tmp_path):
+    """--compute_dtype=bfloat16 serves through the bf16 generator and
+    writes the same files."""
+    proc = _run(tmp_path, "--max_dataset_size=2", "--compute_dtype=bfloat16")
+    assert proc.returncode == 0, proc.stderr
+    assert not _imported(proc.stderr) & set(FORBIDDEN)
+    names = sorted(p.name for p in (tmp_path / "results" / "smoke").iterdir())
+    assert names == [f"syn_{i}_a_2_syn_{i}_b_vis.jpg" for i in range(2)]
 
 
 def test_gpu_ids_select_cpu_or_raise(monkeypatch):
@@ -125,6 +129,32 @@ def _loss_lines(stdout):
             out[step] = {k.rstrip(":"): float(v)
                          for k, v in zip(fields[::2], fields[1::2])}
     return out
+
+
+def test_train_cli_takes_bfloat16_steps_on_a_tree(tmp_path):
+    """Two --compute_dtype=bfloat16 steps from a DeepFashion-layout tree:
+    finite losses, a finite held-out evaluation, and f32 checkpoints."""
+    from torch_port_trees import write_tree
+
+    from gfla_tpu_torch.tasks.pose import PoseTask
+
+    tree = write_tree(tmp_path / "fashion", "fasion", pairs=8)
+    proc = _train(tmp_path, "--dataset_mode=fashion", f"--dataroot={tree}",
+                  "--max_iters=2", "--compute_dtype=bfloat16",
+                  "--eval_iters_freq=2")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    logs = _loss_lines("\n".join(x for x in lines if "ssim:" not in x))
+    assert sorted(logs) == [1, 2]
+    for step in logs.values():
+        assert sorted(step) == sorted(PoseTask.loss_names + ["total_G"])
+        assert all(np.isfinite(v) for v in step.values())
+    evals = _loss_lines("\n".join(x for x in lines if "ssim:" in x))
+    assert sorted(evals) == [2] and sorted(evals[2]) == ["l1", "psnr", "ssim"]
+    assert all(np.isfinite(v) for v in evals[2].values())
+    sd = torch.load(tmp_path / "ckpt" / "smoke" / "2_net_G.pth",
+                    weights_only=True)
+    assert {v.dtype for v in sd.values()} == {torch.float32}
 
 
 def test_train_cli_takes_steps_writes_checkpoints_and_resumes(tmp_path):
