@@ -10,6 +10,10 @@ the original GFLA's checkpoints, which loads into the port's module with
   (`latest_net_G.pth`, PoseGenerator), spectral-normed or not;
 * `poseflownet_state_dict`: the stage-1 flow generator
   (PoseFlowNetGenerator), whose keys are the pose generator's `flow_net.*`;
+* `shapenet_generator_state_dict` and `shapenetflow_state_dict`: the ShapeNet
+  novel-view generator and its stage-1 flow head, likewise (gfla_tpu's
+  `cat` ResBlocks -> `flow_net.cat.model.0`; the target's 8x8-seed
+  ResBlockDecoders -> `target.block0`, `target.block1`);
 * `res_discriminator_state_dict`: the spectral-norm ResDiscriminator
   (`latest_net_D.pth`), its power-iteration u carried across;
 * `vgg19_state_dict`: the VGG19 of the perceptual losses (the port's VGG19
@@ -125,11 +129,15 @@ def _attn(tree, prefix, sd):
 
 
 def _flow_net(fn, s_fn, sd, flow_layers, attn_layer):
-    """PoseFlowNet params (and spectral stats) -> `flow_net.*` keys."""
+    """PoseFlowNet or ShapeNetFlowNet params (and spectral stats) ->
+    `flow_net.*` keys."""
     _pre_act(fn["block0"], "flow_net.block0", sd, _sub(s_fn, "block0"))
     for i in range(flow_layers - 1):
         _pre_act(fn[f"encoder{i}"], f"flow_net.encoder{i}", sd,
                  _sub(s_fn, f"encoder{i}"))
+    if "cat" in fn:  # ShapeNetFlowNet's bottleneck fusion
+        _resblock(fn["cat"]["block0"], "flow_net.cat.model.0", sd,
+                  _sub(_sub(s_fn, "cat"), "block0"))
     for i in range(flow_layers - min(attn_layer)):
         _resblock_decoder(fn[f"decoder{i}"], f"flow_net.decoder{i}", sd,
                           _sub(s_fn, f"decoder{i}"))
@@ -139,30 +147,8 @@ def _flow_net(fn, s_fn, sd, flow_layers, attn_layer):
             _conv(fn[f"mask{i}"], f"flow_net.mask{i}.0", sd)
 
 
-def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
-                              attn_layer=(2, 3), num_blocks: int = 2,
-                              flow_layers: int = 5,
-                              batch_stats: Dict[str, Any] | None = None
-                              ) -> Dict[str, torch.Tensor]:
-    """gfla_tpu PoseGenerator params -> original-keyed torch state dict.
-    With the `batch_stats` of a spectral-norm generator (`use_spect`), its
-    block convs get the spectral keys and their stored u."""
-    sd: Dict[str, torch.Tensor] = {}
-    stats = batch_stats or {}
-    src, s_src = params["source"], stats.get("source")
-    _pre_act(src["block0"], "source.block0", sd, _sub(s_src, "block0"))
-    for i in range(layers - 1):
-        _pre_act(src[f"encoder{i}"], f"source.encoder{i}", sd,
-                 _sub(s_src, f"encoder{i}"))
-
-    _flow_net(params["flow_net"], stats.get("flow_net"), sd, flow_layers,
-              attn_layer)
-
-    tg, s_tg = params["target"], stats.get("target")
-    _pre_act(tg["block0"], "target.block0", sd, _sub(s_tg, "block0"))
-    for i in range(layers - 1):
-        _pre_act(tg[f"encoder{i}"], f"target.encoder{i}", sd,
-                 _sub(s_tg, f"encoder{i}"))
+def _target_decoder(tg, s_tg, sd, layers, attn_layer, num_blocks):
+    """The target net's decoder levels and output head -> `target.*`."""
     for i in range(layers):
         if layers - i in attn_layer:
             _attn(tg[f"attn{i}"], f"target.attn{i}", sd)
@@ -179,7 +165,62 @@ def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
             _resblock_decoder(tg[f"decoder{i}"], f"target.decoder{i}.0", sd,
                               dec)
     _jump(tg["outconv"], "target.outconv", sd, _sub(s_tg, "outconv"))
+
+
+def _generator(params, stats, layers, attn_layer, num_blocks, flow_layers,
+               target_input):
+    """Source net, flow net and target net -> the generator's keys;
+    `target_input(tg, s_tg, sd)` writes the target net's input stage."""
+    sd: Dict[str, torch.Tensor] = {}
+    stats = stats or {}
+    src, s_src = params["source"], stats.get("source")
+    _pre_act(src["block0"], "source.block0", sd, _sub(s_src, "block0"))
+    for i in range(layers - 1):
+        _pre_act(src[f"encoder{i}"], f"source.encoder{i}", sd,
+                 _sub(s_src, f"encoder{i}"))
+    _flow_net(params["flow_net"], stats.get("flow_net"), sd, flow_layers,
+              attn_layer)
+    tg, s_tg = params["target"], stats.get("target")
+    target_input(tg, s_tg, sd)
+    _target_decoder(tg, s_tg, sd, layers, attn_layer, num_blocks)
     return sd
+
+
+def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
+                              attn_layer=(2, 3), num_blocks: int = 2,
+                              flow_layers: int = 5,
+                              batch_stats: Dict[str, Any] | None = None
+                              ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu PoseGenerator params -> original-keyed torch state dict.
+    With the `batch_stats` of a spectral-norm generator (`use_spect`), its
+    block convs get the spectral keys and their stored u."""
+
+    def pose_encoder(tg, s_tg, sd):
+        _pre_act(tg["block0"], "target.block0", sd, _sub(s_tg, "block0"))
+        for i in range(layers - 1):
+            _pre_act(tg[f"encoder{i}"], f"target.encoder{i}", sd,
+                     _sub(s_tg, f"encoder{i}"))
+
+    return _generator(params, batch_stats, layers, attn_layer, num_blocks,
+                      flow_layers, pose_encoder)
+
+
+def shapenet_generator_state_dict(params: Dict[str, Any], layers: int = 3,
+                                  attn_layer=(2,), num_blocks: int = 2,
+                                  flow_layers: int = 5,
+                                  batch_stats: Dict[str, Any] | None = None
+                                  ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu ShapeNetGenerator params (and spectral stats) ->
+    original-keyed torch state dict (gfla_tpu/convert/torch_mapping.py:
+    406-420 inverted)."""
+
+    def code_seed(tg, s_tg, sd):
+        for name in ("block0", "block1"):
+            _resblock_decoder(tg[name], f"target.{name}", sd,
+                              _sub(s_tg, name))
+
+    return _generator(params, batch_stats, layers, attn_layer, num_blocks,
+                      flow_layers, code_seed)
 
 
 def poseflownet_state_dict(params: Dict[str, Any], attn_layer=(2, 3),
@@ -187,11 +228,22 @@ def poseflownet_state_dict(params: Dict[str, Any], attn_layer=(2, 3),
                            batch_stats: Dict[str, Any] | None = None
                            ) -> Dict[str, torch.Tensor]:
     """gfla_tpu PoseFlowNetGenerator params -> the stage-1 state dict, keyed
-    `flow_net.*` as PoseGenerator.flow_net's keys are."""
+    `flow_net.*` as PoseGenerator.flow_net's keys are. The same function
+    takes ShapeNetFlowNetGenerator's params (shapenetflow_state_dict)."""
     sd: Dict[str, torch.Tensor] = {}
     _flow_net(params["flow_net"], (batch_stats or {}).get("flow_net"), sd,
               flow_layers, attn_layer)
     return sd
+
+
+def shapenetflow_state_dict(params: Dict[str, Any], attn_layer=(2,),
+                            flow_layers: int = 5,
+                            batch_stats: Dict[str, Any] | None = None
+                            ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu ShapeNetFlowNetGenerator params -> the stage-1 state dict,
+    keyed `flow_net.*` as ShapeNetGenerator.flow_net's keys are."""
+    return poseflownet_state_dict(params, attn_layer, flow_layers,
+                                  batch_stats)
 
 
 def res_discriminator_state_dict(params: Dict[str, Any],

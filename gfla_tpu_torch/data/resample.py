@@ -1,5 +1,7 @@
-"""The pose datasets' image pass on tensors: inverse affine warp, bilinear
-resize and [-1, 1] normalization in one batched function (torch twin of
+"""The datasets' image passes on tensors. `resize_like_pil` is the ShapeNet
+dataset's PIL resize. `affine_resize_normalize`, for the pose datasets, is
+an inverse affine warp, bilinear resize and [-1, 1] normalization in one
+batched function (torch twin of
 gfla_tpu's native pass, native/gfla_host.cc:27-68 through
 gfla_tpu/data/native.py:59-89, which gfla_tpu takes wherever its native
 library builds). It is data preparation, not a TPU kernel: on the card it
@@ -18,8 +20,10 @@ the coordinate, which the blend turns into more than 1e-5 of the output.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 FILL = (128.0, 128.0, 128.0)
@@ -88,3 +92,69 @@ def resample_images(images, out_hw: Tuple[int, int],
         out[idx] = affine_resize_normalize(
             torch.stack([images[i] for i in idx]), out_hw, inverse[idx])
     return out
+
+
+PIL_BITS = 22  # Pillow's fixed-point precision for 8-bit images
+
+
+@lru_cache(maxsize=16)
+def _pil_bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """Pillow's bilinear resampling weights along one axis
+    (libImaging/Resample.c, precompute_coeffs and normalize_coeffs_8bpc):
+    output pixel i reads the inputs in [xmin, xmax) around the centre
+    (i + 0.5) * scale with a triangle widened by the scale when it shrinks,
+    normalised, and rounded to integers of PIL_BITS fraction bits. Returned
+    as a dense (out_size, in_size) float64 matrix of those integers; the
+    arithmetic below keeps Pillow's order."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the triangle's support is 1
+    ss = 1.0 / filterscale
+    out = np.zeros((out_size, in_size))
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        k = [max(0.0, 1.0 - abs((x - center + 0.5) * ss))
+             for x in range(xmin, xmax)]
+        ww = 0.0
+        for w in k:
+            ww += w
+        for x, w in zip(range(xmin, xmax), k):
+            out[i, x] = int(0.5 + (w / ww if ww else w) * (1 << PIL_BITS))
+    return out
+
+
+def _pil_pass(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """One of Pillow's two passes over the uint8 values in float64 `x`
+    (N, H, W, 3), along `dim` (2: the rows' pixels, 1: the columns'): each
+    output is (sum of weight * value + 2^(PIL_BITS-1)) >> PIL_BITS, clipped
+    to [0, 255]. The sums are integers below 2^53, so float64 holds them
+    exactly."""
+    w = torch.from_numpy(_pil_bilinear_weights(x.shape[dim], size)).to(
+        x.device)
+    eq = "nhwc,ow->nhoc" if dim == 2 else "nhwc,oh->nowc"
+    acc = torch.einsum(eq, x, w)
+    return torch.floor((acc + 2.0 ** (PIL_BITS - 1)) / 2.0 ** PIL_BITS
+                       ).clamp_(0, 255)
+
+
+def resize_like_pil(images: torch.Tensor, size: int) -> torch.Tensor:
+    """uint8 (..., H, W, 3) -> float32 (..., size, size, 3) in [-1, 1] on
+    the images' device: PIL's `resize((size, size), BILINEAR)` of each
+    image (gfla_tpu/data/shapenet_data.py:76-81), then / 127.5 - 1. As
+    Pillow does, the rows are resampled first and rounded to uint8, then the
+    columns, in Pillow's fixed-point arithmetic, so the pixels are PIL's. At
+    the stored size PIL copies, and so does this."""
+    if images.dtype != torch.uint8 or images.shape[-1] != 3:
+        raise ValueError(f"resize_like_pil: want uint8 (..., H, W, 3), got "
+                         f"{images.dtype} {tuple(images.shape)}")
+    lead, (h, w) = images.shape[:-3], images.shape[-3:-1]
+    x = images.reshape(-1, h, w, 3)
+    if (h, w) != (size, size):
+        x = x.double()
+        if w != size:
+            x = _pil_pass(x, 2, size)
+        if h != size:
+            x = _pil_pass(x, 1, size)
+    return (x.float() / 127.5 - 1.0).reshape(*lead, size, size, 3)

@@ -1,5 +1,6 @@
 """Network registry (counterpart of gfla_tpu/models/__init__.py): the pose
-generator, its stage-1 flow head and the residual discriminator so far."""
+and ShapeNet generators, their stage-1 flow heads and the residual
+discriminator so far."""
 
 from __future__ import annotations
 
@@ -9,10 +10,14 @@ from gfla_tpu_torch.models.discriminators import ResDiscriminator
 from gfla_tpu_torch.models.generators import (
     PoseFlowNetGenerator,
     PoseGenerator,
+    ShapeNetFlowNetGenerator,
+    ShapeNetGenerator,
 )
 
 GENERATORS: Dict[str, Any] = {"pose": PoseGenerator,
-                               "poseflownet": PoseFlowNetGenerator}
+                               "poseflownet": PoseFlowNetGenerator,
+                               "shapenet": ShapeNetGenerator,
+                               "shapenetflow": ShapeNetFlowNetGenerator}
 DISCRIMINATORS: Dict[str, Any] = {"res": ResDiscriminator}
 
 

@@ -15,6 +15,19 @@ with strict key matching:
   alone, under the name `flow_net`, so its checkpoint keys are those of
   PoseGenerator.flow_net (the two-stage protocol).
 
+The ShapeNet novel-view heads (gfla_tpu/models/generators.py:676-878, the
+original's generator.py:590-773) take a viewpoint code, a (B, 21, 1, 1)
+one-hot of azimuth and elevation, in place of the pose heatmaps:
+
+* ShapeNetFlowNet encodes the source image alone and fuses the code
+  difference, source - target, tiled over the bottleneck, through one
+  ResBlock (`cat`, input bottleneck + 21 channels, a 1x1 shortcut);
+* ShapeNetTargetNet grows the target from the target code tiled to 8x8
+  through two ResBlockDecoders (8 -> 16 -> 32) instead of an encoder, then
+  decodes as PoseTargetNet does;
+* ShapeNetGenerator and ShapeNetFlowNetGenerator are PoseGenerator and
+  PoseFlowNetGenerator over those two nets.
+
 With `use_spect` (`--use_spect_g`) every block conv is spectral-normed, as in
 gfla_tpu: not the flow and mask heads, not the attention. Each spectral conv
 stores its power iteration in train mode and not in eval mode.
@@ -69,14 +82,16 @@ class PoseFlowNet(nn.Module):
     def __init__(self, image_nc: int = 3, structure_nc: int = 18,
                  ngf: int = 32, img_f: int = 256, encoder_layer: int = 5,
                  attn_layer: Sequence[int] = (1, 2), norm_type: str = "batch",
-                 activation: str = "ReLU", use_spect: bool = False):
+                 activation: str = "ReLU", use_spect: bool = False,
+                 input_nc: int | None = None):
         super().__init__()
         self.encoder_layer = encoder_layer
         self.decoder_layer = encoder_layer - min(attn_layer)
         self.attn_layer = tuple(attn_layer)
         kw = dict(norm_type=norm_type, activation=activation,
                   use_spect=use_spect)
-        self.block0 = EncoderBlock(2 * structure_nc + image_nc, ngf, **kw)
+        self.block0 = EncoderBlock(input_nc or 2 * structure_nc + image_nc,
+                                   ngf, **kw)
         for i in range(encoder_layer - 1):
             setattr(self, f"encoder{i}",
                     EncoderBlock(ngf * _mult(i, ngf, img_f),
@@ -96,11 +111,20 @@ class PoseFlowNet(nn.Module):
             nc_prev = nc
 
     def forward(self, source, source_b, target_b):
-        out = self.block0(torch.cat([source, source_b, target_b], dim=1))
+        return self.decode(*self.encode(
+            torch.cat([source, source_b, target_b], dim=1)))
+
+    def encode(self, x):
+        """(the bottleneck, every level's output, finest first)."""
+        out = self.block0(x)
         result = [out]
         for i in range(self.encoder_layer - 1):
             out = getattr(self, f"encoder{i}")(out)
             result.append(out)
+        return out, result
+
+    def decode(self, out, result):
+        """(flows, masks) at the attention levels, coarse to fine."""
         flows, masks = [], []
         for i in range(self.decoder_layer):
             out = getattr(self, f"decoder{i}")(out)
@@ -112,31 +136,28 @@ class PoseFlowNet(nn.Module):
         return flows, masks
 
 
-class PoseTargetNet(nn.Module):
-    def __init__(self, structure_nc: int = 18, output_nc: int = 3,
-                 ngf: int = 64, img_f: int = 1024, layers: int = 6,
-                 num_blocks: int = 2, norm_type: str = "batch",
-                 activation: str = "ReLU", attn_layer: Sequence[int] = (1, 2),
-                 extractor_kz: Dict[str, int] = None,
-                 use_spect: bool = False):
-        super().__init__()
+class _TargetDecoder(nn.Module):
+    """The target decoder both target nets share: `layers` upsampling levels
+    from the coarsest feature, each first blending at an attention level
+    (out * (1 - mask) + attn(source_feat, out, flow) * mask), then the
+    output head. A subclass builds its input stage, then calls
+    `_add_decoder`, and says in `encode` how the target code reaches the
+    coarsest level."""
+
+    def _add_decoder(self, output_nc, ngf, img_f, layers, num_blocks,
+                     activation, attn_layer, extractor_kz, **kw):
         self.layers = layers
         self.attn_layer = tuple(attn_layer)
-        kw = dict(norm_type=norm_type, activation=activation,
-                  use_spect=use_spect)
-        self.block0 = EncoderBlock(structure_nc, ngf, **kw)
-        for i in range(layers - 1):
-            setattr(self, f"encoder{i}",
-                    EncoderBlock(ngf * _mult(i, ngf, img_f),
-                                 ngf * _mult(i + 1, ngf, img_f), **kw))
         nc_prev = ngf * _mult(layers - 1, ngf, img_f)
         for i in range(layers):
             nc = ngf * _mult(layers - i - 2, ngf, img_f) \
                 if i != layers - 1 else ngf
-            up = ResBlockDecoder(nc_prev, nc, None, **kw)
+            up = ResBlockDecoder(nc_prev, nc, None, activation=activation,
+                                 **kw)
             if num_blocks > 1:
                 up = nn.Sequential(
-                    ResBlocks(num_blocks - 1, nc_prev, **kw), up)
+                    ResBlocks(num_blocks - 1, nc_prev,
+                              activation=activation, **kw), up)
             else:
                 up = nn.Sequential(up)
             setattr(self, f"decoder{i}", up)
@@ -147,13 +168,12 @@ class PoseTargetNet(nn.Module):
                                       activation))
             nc_prev = nc
         self.outconv = Output(ngf, output_nc, 3, norm_type="none",
-                              activation=activation, use_spect=use_spect)
+                              activation=activation,
+                              use_spect=kw["use_spect"])
 
     def forward(self, target_b, source_feature, flow_fields, masks,
                 return_hooks: bool = False):
-        out = self.block0(target_b)
-        for i in range(self.layers - 1):
-            out = getattr(self, f"encoder{i}")(out)
+        out = self.encode(target_b)
         hooks = {"target": [], "source": [], "attn": [], "mask": []}
         counter = 0
         for i in range(self.layers):
@@ -179,10 +199,92 @@ class PoseTargetNet(nn.Module):
         return (img, hooks) if return_hooks else img
 
 
+class PoseTargetNet(_TargetDecoder):
+    """Encodes the target pose heatmaps with `layers` EncoderBlocks."""
+
+    def __init__(self, structure_nc: int = 18, output_nc: int = 3,
+                 ngf: int = 64, img_f: int = 1024, layers: int = 6,
+                 num_blocks: int = 2, norm_type: str = "batch",
+                 activation: str = "ReLU", attn_layer: Sequence[int] = (1, 2),
+                 extractor_kz: Dict[str, int] = None,
+                 use_spect: bool = False):
+        super().__init__()
+        kw = dict(norm_type=norm_type, use_spect=use_spect)
+        self.block0 = EncoderBlock(structure_nc, ngf, activation=activation,
+                                   **kw)
+        for i in range(layers - 1):
+            setattr(self, f"encoder{i}",
+                    EncoderBlock(ngf * _mult(i, ngf, img_f),
+                                 ngf * _mult(i + 1, ngf, img_f),
+                                 activation=activation, **kw))
+        self._add_decoder(output_nc, ngf, img_f, layers, num_blocks,
+                          activation, attn_layer, extractor_kz, **kw)
+
+    def encode(self, target_b):
+        out = self.block0(target_b)
+        for i in range(self.layers - 1):
+            out = getattr(self, f"encoder{i}")(out)
+        return out
+
+
+class ShapeNetTargetNet(_TargetDecoder):
+    """Grows the target from its viewpoint code (B, structure_nc, 1, 1)
+    tiled to 8x8, through two ResBlockDecoders (8 -> 16 -> 32), whose
+    hidden width is their input's (gfla_tpu/models/generators.py:745-805)."""
+
+    def __init__(self, structure_nc: int = 18, output_nc: int = 3,
+                 ngf: int = 64, img_f: int = 1024, layers: int = 6,
+                 num_blocks: int = 2, norm_type: str = "batch",
+                 activation: str = "ReLU", attn_layer: Sequence[int] = (1, 2),
+                 extractor_kz: Dict[str, int] = None,
+                 use_spect: bool = False):
+        super().__init__()
+        kw = dict(norm_type=norm_type, use_spect=use_spect)
+        self.block0 = ResBlockDecoder(structure_nc, ngf, None,
+                                      activation=activation, **kw)
+        self.block1 = ResBlockDecoder(ngf, ngf * _mult(layers - 1, ngf, img_f),
+                                      None, activation=activation, **kw)
+        self._add_decoder(output_nc, ngf, img_f, layers, num_blocks,
+                          activation, attn_layer, extractor_kz, **kw)
+
+    def encode(self, target_b):
+        seed = target_b.expand(-1, -1, 8, 8).contiguous(
+            memory_format=torch.channels_last)
+        return self.block1(self.block0(seed))
+
+
+class ShapeNetFlowNet(PoseFlowNet):
+    """PoseFlowNet over the source image alone; the viewpoint code
+    difference (source_b - target_b), tiled over the bottleneck and
+    concatenated to it, is fused by one ResBlock before the decoder
+    (gfla_tpu/models/generators.py:676-742)."""
+
+    def __init__(self, image_nc: int = 3, structure_nc: int = 18,
+                 ngf: int = 32, img_f: int = 256, encoder_layer: int = 5,
+                 attn_layer: Sequence[int] = (1, 2), norm_type: str = "batch",
+                 activation: str = "ReLU", use_spect: bool = False):
+        super().__init__(image_nc, structure_nc, ngf, img_f, encoder_layer,
+                         attn_layer, norm_type, activation, use_spect,
+                         input_nc=image_nc)
+        nc = ngf * _mult(encoder_layer - 1, ngf, img_f)
+        self.cat = ResBlocks(1, nc + structure_nc, nc, None,
+                             norm_type=norm_type, activation=activation,
+                             use_spect=use_spect)
+
+    def forward(self, source, source_b, target_b):
+        out, result = self.encode(source)
+        code = (source_b - target_b).expand(-1, -1, *out.shape[2:])
+        out = self.cat(torch.cat([out, code], dim=1).contiguous(
+            memory_format=torch.channels_last))
+        return self.decode(out, result)
+
+
 class PoseGenerator(nn.Module):
     """Source encoder + flow U-Net + target decoder. Inputs and outputs are
     NCHW; inputs are moved to channels_last so every activation, and the
     NHWC view the warp kernel reads, stays channels_last."""
+
+    TargetNet, FlowNet = PoseTargetNet, PoseFlowNet
 
     def __init__(self, image_nc: int = 3, structure_nc: int = 18,
                  output_nc: int = 3, ngf: int = 64, img_f: int = 1024,
@@ -195,12 +297,13 @@ class PoseGenerator(nn.Module):
         kw = dict(norm_type=norm_type, activation=activation,
                   use_spect=use_spect)
         self.source = PoseSourceNet(image_nc, ngf, img_f, layers, **kw)
-        self.target = PoseTargetNet(structure_nc, output_nc, ngf, img_f,
-                                    layers, num_blocks, attn_layer=attn_layer,
-                                    extractor_kz=extractor_kz, **kw)
-        self.flow_net = PoseFlowNet(image_nc, structure_nc, ngf=32, img_f=256,
-                                    encoder_layer=5, attn_layer=attn_layer,
-                                    **kw)
+        self.target = self.TargetNet(structure_nc, output_nc, ngf, img_f,
+                                     layers, num_blocks,
+                                     attn_layer=attn_layer,
+                                     extractor_kz=extractor_kz, **kw)
+        self.flow_net = self.FlowNet(image_nc, structure_nc, ngf=32,
+                                     img_f=256, encoder_layer=5,
+                                     attn_layer=attn_layer, **kw)
 
     def forward(self, source, source_b, target_b, return_hooks: bool = False):
         source, source_b, target_b = (
@@ -221,18 +324,36 @@ class PoseFlowNetGenerator(nn.Module):
     the original's generator.py:244-259): returns (flows, masks), coarse to
     fine."""
 
+    FlowNet = PoseFlowNet
+
     def __init__(self, image_nc: int = 3, structure_nc: int = 18,
                  ngf: int = 32, img_f: int = 256, encoder_layer: int = 5,
                  attn_layer: Sequence[int] = (1, 2), norm_type: str = "batch",
                  activation: str = "ReLU", use_spect: bool = False):
         super().__init__()
-        self.flow_net = PoseFlowNet(image_nc, structure_nc, ngf, img_f,
-                                    encoder_layer, attn_layer,
-                                    norm_type=norm_type, activation=activation,
-                                    use_spect=use_spect)
+        self.flow_net = self.FlowNet(image_nc, structure_nc, ngf, img_f,
+                                     encoder_layer, attn_layer,
+                                     norm_type=norm_type,
+                                     activation=activation,
+                                     use_spect=use_spect)
 
     def forward(self, source, source_b, target_b):
         source, source_b, target_b = (
             t.contiguous(memory_format=torch.channels_last)
             for t in (source, source_b, target_b))
         return self.flow_net(source, source_b, target_b)
+
+
+class ShapeNetGenerator(PoseGenerator):
+    """Novel-view synthesis generator (gfla_tpu/models/generators.py:
+    808-853): PoseSourceNet, ShapeNetFlowNet, ShapeNetTargetNet; source_b
+    and target_b are (B, structure_nc, 1, 1) viewpoint codes."""
+
+    TargetNet, FlowNet = ShapeNetTargetNet, ShapeNetFlowNet
+
+
+class ShapeNetFlowNetGenerator(PoseFlowNetGenerator):
+    """Stage-1 flow pretraining head for ShapeNet (gfla_tpu/models/
+    generators.py:856-878): its keys are ShapeNetGenerator.flow_net's."""
+
+    FlowNet = ShapeNetFlowNet

@@ -4,8 +4,8 @@ the same command lines parse to the same namespace.
 
 The composition is the same three phases: base flags, then the task's
 `modify_options` (from the port's own task registry), then the dataset's
-defaults. `--gpu_ids` selects the device here: -1 is the CPU, anything else
-`cuda:<id>` (gfla_tpu_torch.runtime.select_device).
+flags and defaults. `--gpu_ids` selects the device here: -1 is the CPU,
+anything else `cuda:<id>` (gfla_tpu_torch.runtime.select_device).
 """
 
 from __future__ import annotations
@@ -156,8 +156,10 @@ class BaseOptions:
         opt, _ = parser.parse_known_args(args)
         parser = tasks.get_task_class(opt.model).modify_options(
             parser, self.isTrain)
-        opt = parser.parse_args(args)
         ds_cls = data.get_dataset_class(opt.dataset_mode)
+        if hasattr(ds_cls, "modify_options"):  # the dataset's own flags
+            parser = ds_cls.modify_options(parser, self.isTrain)
+        opt = parser.parse_args(args)
         return ds_cls.apply_defaults(opt, self.isTrain)
 
     def parse(self, args=None, save: bool = True):

@@ -1,13 +1,15 @@
 """Task registry of the port (counterpart of gfla_tpu/tasks/__init__.py):
-the pose head, for serving and training, and its stage-1 flow pretraining
-head, poseflownet."""
+the pose head and the ShapeNet novel-view head, for serving and training,
+and their stage-1 flow pretraining heads, poseflownet and shapenetflow."""
 
 from __future__ import annotations
 
 from gfla_tpu_torch.tasks.pose import PoseTask
 from gfla_tpu_torch.tasks.poseflownet import PoseFlowNetTask
+from gfla_tpu_torch.tasks.shapenet import ShapeNetFlowTask, ShapeNetTask
 
-TASKS = {"pose": PoseTask, "poseflownet": PoseFlowNetTask}
+TASKS = {"pose": PoseTask, "poseflownet": PoseFlowNetTask,
+         "shapenet": ShapeNetTask, "shapenetflow": ShapeNetFlowTask}
 
 
 def get_task_class(name: str):

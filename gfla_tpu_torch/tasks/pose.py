@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint as recompute
 
 from gfla_tpu_torch.data.image_io import decode_jpeg_batch
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
-from gfla_tpu_torch.data.resample import resample_images
+from gfla_tpu_torch.data.resample import resample_images, resize_like_pil
 from gfla_tpu_torch.losses import (
     MultiAffineRegularizationLoss,
     PerceptualCorrectness,
@@ -51,6 +51,7 @@ from gfla_tpu_torch.options import (
     resolve_use_spect_d,
 )
 from gfla_tpu_torch.runtime import select_device
+from gfla_tpu_torch.tasks.testing import run_test_pose
 from gfla_tpu_torch.train import checkpoint
 from gfla_tpu_torch.train.precision import cast_call, compute_dtype
 from gfla_tpu_torch.train.state import make_optimizer
@@ -58,10 +59,13 @@ from gfla_tpu_torch.train.state import make_optimizer
 
 def prepare_batch(batch, device, load_size):
     """Host batch -> device NCHW tensors in channels_last memory. A
-    file-backed batch (JPEG bytes, 2x3 inverse matrices) is decoded on the
-    device and warped and resized to `load_size` in one batched pass; a
-    synthetic one's NHWC float images move as they are. Heatmaps are encoded
-    on the device from the (B, K, 2) keypoints."""
+    file-backed pose batch (JPEG bytes, 2x3 inverse matrices) is decoded on
+    the device and warped and resized to `load_size` in one batched pass; a
+    ShapeNet batch's stored uint8 pixels, (B, H, W, 3) or a test sweep's
+    (B, V, H, W, 3), are resized there as PIL resizes them; a synthetic
+    batch's NHWC float images move as they are. Heatmaps are encoded on the
+    device from the (B, K, 2) keypoints; ShapeNet's viewpoint labels, (B, 2)
+    or (B, V, 2) ints, move as they are, for the task to one-hot."""
     dev = {}
     if "P1_inv" in batch:
         n = len(batch["P1"])
@@ -76,7 +80,13 @@ def prepare_batch(batch, device, load_size):
     else:
         for key in ("P1", "P2"):
             img = torch.from_numpy(batch[key]).to(device)
-            dev[key] = img.permute(0, 3, 1, 2)
+            if img.dtype == torch.uint8:
+                img = resize_like_pil(img, load_size)
+            dev[key] = img.movedim(-1, -3)
+    if "KP1" not in batch:
+        for key in ("BP1", "BP2"):
+            dev[key] = torch.from_numpy(batch[key]).to(device)
+        return dev
     H, W = dev["P1"].shape[2:]
     for kp, bp in (("KP1", "BP1"), ("KP2", "BP2")):
         cords = torch.from_numpy(batch[kp]).to(device)
@@ -90,6 +100,7 @@ class PoseTask:
         "regularization", "ad_gen", "dis_img_gen",
     ]
     model_names = ["G", "D"]
+    generator = "pose"
 
     @staticmethod
     def modify_options(parser, is_train=True):
@@ -123,9 +134,10 @@ class PoseTask:
         self.dtype = compute_dtype(getattr(opt, "compute_dtype", "float32"))
         kz = {str(k): int(v) for k, v in opt.kernel_size.items()}
         self.net_g = define_g(
-            "pose", image_nc=opt.image_nc, structure_nc=opt.structure_nc,
-            output_nc=opt.image_nc, ngf=getattr(opt, "ngf", 64),
-            img_f=getattr(opt, "img_f", 512), layers=opt.layers,
+            self.generator, image_nc=opt.image_nc,
+            structure_nc=self.structure_nc(opt), output_nc=opt.image_nc,
+            ngf=getattr(opt, "ngf", 64), img_f=getattr(opt, "img_f", 512),
+            layers=opt.layers,
             num_blocks=2, norm_type="instance", activation="LeakyReLU",
             attn_layer=tuple(int(a) for a in opt.attn_layer),
             extractor_kz=kz, use_spect=getattr(opt, "use_spect_g", False),
@@ -162,6 +174,11 @@ class PoseTask:
         self.net_g.train()
         self.net_d.train()
 
+    @staticmethod
+    def structure_nc(opt) -> int:
+        """Channels of the pose code G takes: the heatmaps."""
+        return opt.structure_nc
+
     def load_checkpoint(self) -> bool:
         """Load `{checkpoints_dir}/{name}/{which_iter}_net_G.pth`, a state
         dict in the original GFLA's layout, with strict key matching."""
@@ -191,6 +208,10 @@ class PoseTask:
                                  batch["BP1"], batch["BP2"])
         finally:
             self.net_g.train(training)
+
+    def run_test(self, opt, loader) -> int:
+        """The serving CLI's pass over the test set (tasks/testing.py)."""
+        return run_test_pose(self, opt, loader)
 
     def g_forward(self, p1, bp1, bp2):
         """G's training forward. With `--remat` it is recomputed in the

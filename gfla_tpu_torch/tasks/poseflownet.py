@@ -29,7 +29,7 @@ from gfla_tpu_torch.models.vgg import load_vgg19
 from gfla_tpu_torch.nn.norms import init_weights
 from gfla_tpu_torch.options import StoreDictKeyPair, StoreList
 from gfla_tpu_torch.runtime import select_device
-from gfla_tpu_torch.tasks.pose import prepare_batch
+from gfla_tpu_torch.tasks.pose import PoseTask, prepare_batch
 from gfla_tpu_torch.train import checkpoint
 from gfla_tpu_torch.train.state import make_optimizer
 
@@ -41,6 +41,8 @@ FLOW_NET = dict(ngf=32, img_f=256, encoder_layer=5, norm_type="instance",
 class PoseFlowNetTask:
     loss_names = ["correctness", "regularization"]
     model_names = ["G"]
+    generator = "poseflownet"
+    structure_nc = staticmethod(PoseTask.structure_nc)
 
     @staticmethod
     def modify_options(parser, is_train=True):
@@ -66,8 +68,9 @@ class PoseFlowNetTask:
             else select_device(opt.gpu_ids)
         self.attn_layer = [int(a) for a in opt.attn_layer]
         self.net_g = define_g(
-            "poseflownet", image_nc=opt.image_nc,
-            structure_nc=opt.structure_nc, attn_layer=tuple(self.attn_layer),
+            self.generator, image_nc=opt.image_nc,
+            structure_nc=self.structure_nc(opt),
+            attn_layer=tuple(self.attn_layer),
             use_spect=getattr(opt, "use_spect_g", False), **FLOW_NET)
         init_weights(self.net_g,
                      torch.Generator().manual_seed(getattr(opt, "seed", 0)))

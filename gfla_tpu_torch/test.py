@@ -7,7 +7,8 @@
 loads `{checkpoints_dir}/{name}/{which_iter}_net_G.pth` (random init if
 absent), serves the `--phase` pairs of the dataset in order and writes
 `{src}_2_{tgt}_vis.jpg` under `{results_dir}/{name}` (on the card through
-nvJPEG).
+nvJPEG); `--model=shapenet` serves each test source at all 18 azimuths of
+its sweep, one `_vis.jpg` each (the task's `run_test`).
 `--gpu_ids=-1` runs on the CPU. gfla_tpu's multi-device flags are refused.
 """
 
@@ -17,7 +18,6 @@ from gfla_tpu_torch.data import get_dataset_class, make_loader
 from gfla_tpu_torch.options import TestOptions, refuse_parallel_flags
 from gfla_tpu_torch.runtime import card_line, select_device, set_tf32
 from gfla_tpu_torch.tasks import create_task
-from gfla_tpu_torch.tasks.testing import run_test_pose
 
 
 def main(args=None) -> int:
@@ -30,7 +30,7 @@ def main(args=None) -> int:
     dataset = get_dataset_class(opt.dataset_mode)(opt)
     task = create_task(opt, device)
     task.load_checkpoint()
-    return run_test_pose(task, opt, make_loader(dataset, opt, train=False))
+    return task.run_test(opt, make_loader(dataset, opt, train=False))
 
 
 if __name__ == "__main__":

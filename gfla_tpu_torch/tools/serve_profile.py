@@ -2,14 +2,17 @@
 kernel family.
 
     python3 -m gfla_tpu_torch.tools.serve_profile [--iters N] [--train]
-        [test or train options, e.g. --compute_dtype=bfloat16]
+        [--model pose|shapenet] [test or train options, e.g.
+        --compute_dtype=bfloat16]
 
-Builds the pose task as `python -m gfla_tpu_torch.test` (or, with
-`--train`, `python -m gfla_tpu_torch.train`) does (full width, seeded
-random weights unless a checkpoint is named), takes one batch of the
-synthetic dataset at `--load_size=256 --batchSize=8`, and runs `--iters`
-forwards of `PoseTask.test_step` (or steps of `PoseTask.train_step`: D,
-then G with its losses, backward and Adam) under torch.profiler. Device
+Builds the pose task (or the ShapeNet task) as `python -m
+gfla_tpu_torch.test` (or, with `--train`, `python -m gfla_tpu_torch.train`)
+does (full width, seeded random weights unless a checkpoint is named),
+takes one batch at `--load_size=256 --batchSize=8` (of the synthetic pose
+dataset, or for ShapeNet random uint8 images and viewpoint labels in the
+HDF5 dataset's layout), and runs `--iters` forwards of the task's
+`test_step` (or steps of its `train_step`: D, then G with its losses,
+backward and Adam) under torch.profiler. Device
 time is summed per kernel over the card's own events and grouped into
 families by kernel name; the wall time per forward or step comes from CUDA
 events around the same work without the profiler. In a training step the
@@ -26,6 +29,7 @@ import json
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 from gfla_tpu_torch.data import collate, get_dataset_class
@@ -64,17 +68,32 @@ def family(name: str) -> str:
     return "other"
 
 
+def shapenet_batch(B: int, size: int, seed: int = 0):
+    """Random uint8 images and viewpoint labels (azimuth / 10, elevation) in
+    the ShapeNet dataset's training layout."""
+    rng = np.random.RandomState(seed)
+    images = [rng.randint(0, 256, (B, size, size, 3)).astype(np.uint8)
+              for _ in "12"]
+    labels = [np.stack([rng.randint(0, 18, B) * 2, rng.randint(0, 3, B) * 10],
+                       axis=1).astype(np.int32) for _ in "12"]
+    return {"P1": images[0], "P2": images[1], "BP1": labels[0],
+            "BP2": labels[1]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--train", action="store_true",
                         help="profile training steps, not serving forwards")
+    parser.add_argument("--model", default="pose",
+                        choices=["pose", "shapenet"])
     args, rest = parser.parse_known_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: CUDA is not available", file=sys.stderr)
         return 1
-    common = ["--model=pose", "--dataset_mode=synthetic", "--load_size=256",
-              "--batchSize=8", "--gpu_ids=0"]
+    dataset_mode = "synthetic" if args.model == "pose" else "shapenet"
+    common = [f"--model={args.model}", f"--dataset_mode={dataset_mode}",
+              "--load_size=256", "--batchSize=8", "--gpu_ids=0"]
     ckpt = tempfile.TemporaryDirectory()
     if args.train:
         opt = TrainOptions().parse(
@@ -88,9 +107,12 @@ def main(argv=None) -> int:
     if not args.train:
         task.load_checkpoint()
     step = task.train_step if args.train else task.test_step
-    dataset = get_dataset_class(opt.dataset_mode)(opt)
-    batch = task.prepare_batch(collate([dataset[i]
-                                        for i in range(opt.batchSize)]))
+    if args.model == "pose":
+        dataset = get_dataset_class(opt.dataset_mode)(opt)
+        host = collate([dataset[i] for i in range(opt.batchSize)])
+    else:
+        host = shapenet_batch(opt.batchSize, opt.load_size)
+    batch = task.prepare_batch(host)
 
     for _ in range(3):  # builds the kernels, lets cuDNN choose
         step(batch)
@@ -140,7 +162,7 @@ def main(argv=None) -> int:
     for name, ms in top:
         print(f"    {ms:8.3f} ms  {family(name):<24} {name[:90]}")
     print(json.dumps({"serve_profile": {
-        "step": "train" if args.train else "serve",
+        "step": "train" if args.train else "serve", "model": args.model,
         "compute_dtype": opt.compute_dtype, "wall_ms": wall_ms,
         "busy_ms": busy_ms, "iters": args.iters,
         "families": dict(per_family),

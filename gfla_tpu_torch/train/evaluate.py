@@ -49,11 +49,12 @@ def evaluate_held_out(task, batch) -> Dict[str, float]:
 
 def current_visuals(task, batch) -> Dict[str, torch.Tensor]:
     """The first sample's uint8 (H, W, 3) visuals: P1, BP2 (its heatmaps'
-    maximum), the generated image, P2, and per attention level the flow's
-    colours and the occlusion mask."""
-    visuals = {"input_P1": tensor2im(batch["P1"]),
-               "input_BP2": tensor2im(
-                   batch["BP2"][:1].amax(1, keepdim=True) * 2.0 - 1.0)}
+    maximum; not for ShapeNet's viewpoint labels), the generated image, P2,
+    and per attention level the flow's colours and the occlusion mask."""
+    visuals = {"input_P1": tensor2im(batch["P1"])}
+    if batch["BP2"].dim() == 4:
+        visuals["input_BP2"] = tensor2im(
+            batch["BP2"][:1].amax(1, keepdim=True) * 2.0 - 1.0)
     out = task.test_step(batch)
     if len(out) == 3:
         visuals["img_gen"] = tensor2im(out[0])

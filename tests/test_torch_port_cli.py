@@ -5,7 +5,9 @@ must write the `{src}_2_{tgt}_vis.jpg` files that the metrics CLI reads,
 without importing JAX or gfla_tpu's host-data stack (pandas, cv2): the card's
 machine has none of them. `python -m gfla_tpu_torch.train` takes two steps,
 writes the original's checkpoint files and resumes from them, importing no
-image library either; its options parse as gfla_tpu's do.
+image library either; its options parse as gfla_tpu's do, the ShapeNet
+heads' too. With the ShapeNet heads neither CLI imports JAX, h5py or PIL at
+start, and the serving CLI serves ShapeNet's sweep in bf16.
 """
 
 import os
@@ -194,8 +196,11 @@ POSE_TRAIN_FLAGS = [
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model=pose", "--dataset_mode=synthetic"], POSE_TRAIN_FLAGS],
-    ids=["defaults", "pose-flags"])
+    ["--model=pose", "--dataset_mode=synthetic"], POSE_TRAIN_FLAGS,
+    ["--model=shapenet", "--dataset_mode=shapenet", "--ang_skip=40",
+     "--label_nc_v=4"],
+    ["--model=shapenetflow"]],
+    ids=["defaults", "pose-flags", "shapenet", "shapenetflow"])
 def test_train_options_parse_like_gfla_tpu(monkeypatch, tmp_path, flags):
     from gfla_tpu.options.options import TrainOptions as JaxTrainOptions
     from gfla_tpu_torch.options import TrainOptions
@@ -205,6 +210,45 @@ def test_train_options_parse_like_gfla_tpu(monkeypatch, tmp_path, flags):
     want = vars(JaxTrainOptions().parse(save=False))
     got = vars(TrainOptions().parse(flags, save=False))
     assert got == want
+
+
+@pytest.mark.parametrize("model", ["shapenet", "shapenetflow"])
+@pytest.mark.parametrize("cli", ["gfla_tpu_torch.train",
+                                 "gfla_tpu_torch.test"])
+def test_clis_start_without_jax_h5py_or_pil(tmp_path, cli, model):
+    """Everything either CLI imports at start, the ShapeNet heads and
+    dataset among it (`--help` exits while the options parse, after every
+    import at module level): no JAX, no h5py (the store's reader imports it
+    in the loader), no PIL (the card decodes and encodes no image through
+    it)."""
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", cli, f"--model={model}",
+         "--dataset_mode=shapenet", "--help"],
+        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    imported = _imported(proc.stderr)
+    assert "gfla_tpu_torch" in imported
+    assert not imported & {*TRAIN_FORBIDDEN, "h5py"}
+
+
+def test_cli_serves_shapenet_in_bfloat16(tmp_path):
+    """--model=shapenet --compute_dtype=bfloat16 on a small HDF5 store: the
+    18-view sweep of each test source, one _vis.jpg a view."""
+    from torch_port_store import write_shapenet_store
+
+    store = write_shapenet_store(tmp_path / "car")
+    proc = subprocess.run(
+        [sys.executable, "-m", "gfla_tpu_torch.test", "--gpu_ids=-1",
+         "--model=shapenet", "--dataset_mode=shapenet", f"--dataroot={store}",
+         "--load_size=64", "--layers=1", "--attn_layer=1",
+         "--kernel_size=1=3", "--batchSize=2", "--nThreads=0",
+         "--compute_dtype=bfloat16", f"--results_dir={tmp_path / 'res'}",
+         f"--checkpoints_dir={tmp_path / 'ckpt'}", "--name=views"],
+        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    names = sorted(p.name for p in (tmp_path / "res" / "views").iterdir())
+    assert len(names) == 36 and all(n.endswith("_vis.jpg") for n in names)
+    assert sum(n.startswith("obj1_2_0_2_") for n in names) == 18
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
