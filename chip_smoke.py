@@ -105,6 +105,26 @@ Phases, each failing the run (non-zero exit) on the first error:
      --compute_dtype=bfloat16 (1 bf16 warp launch a request; the image by
      the bf16 rule), one step (1 launch of each bf16 warp kernel) against
      the plain bf16 path by BF16_STEP_HOLD; ms beside f32.
+ 17. dance serve, face serve: the full-width animation generator (ngf 64,
+     img_f 512, layers 3; per frame 4 ExtractorAttn sites: the previous and
+     the reference stream at k=5 on 64x64x128 and k=3 on 32x32x256) through
+     the serving CLI's run_test: two consecutive 6-frame chunks of a batch-1
+     clip of the synthetic video dataset, the last frame and skeleton
+     carried: 24 warp-forward launches a chunk and nothing else, 12 _vis
+     and 12 _gt PNGs under gfla_tpu's names; the 12 frames on the kernels
+     against the plain path; the same generator on a 64x64 clip on the card
+     against the CPU; ms per batch-2 chunk forward of both paths.
+ 18. dance train, face train: four full-width chunk steps (batch 2 x 6
+     frames at 256x256: G over the chunk, D and D_V, the folded losses) as
+     in 6, with 24 launches of each warp kernel a step; every parameter of
+     G, D and D_V moved; save/resume; one step on the kernel path against
+     the plain path from one state (losses within TRAIN_LOSS_REL, each
+     network's gradient within ANIM_GRAD_REL in relative L2); ms per step,
+     peak memory.
+ 19. dance switches: one dance step under GFLA_ATTN_PALLAS=1 (24 launches
+     of each attention-math kernel) and one under GFLA_PALLAS_CORR=1 (4
+     max-correlation launches beside the warp's 24 + 24 + 24), each against
+     the default path.
 The HDF5 store itself is not read on the card, whose Python has no h5py:
 the ShapeNet phases feed batches in the dataset's layout to the task's own
 prepare_batch and run_test, and the reader is held against gfla_tpu's on
@@ -219,6 +239,8 @@ KERNEL_CASES = [  # name, B, H, W, C, D, k, flow scale (None: far-off)
     ("market k=5 site 32x16 C128", 8, 32, 16, 128, 128, 5, 1.5),
     ("market k=3 site 16x8 C256", 8, 16, 8, 256, 128, 3, 1.5),
     ("shapenet k=3 site 64x64 C128", 8, 64, 64, 128, 128, 3, 1.5),
+    ("animation k=5 site 64x64 C128 B2", 2, 64, 64, 128, 128, 5, 1.5),
+    ("animation k=3 site 32x32 C256 B2", 2, 32, 32, 256, 128, 3, 1.5),
 ]
 
 
@@ -605,6 +627,8 @@ CORR_CASES = [  # name, B, Ns, Nt, C, exact ties
      True),
     ("market relu3_1 B=8 512x512 C256", 8, 512, 512, 256, False),
     ("market relu4_1 B=8 128x128 C512", 8, 128, 128, 512, False),
+    ("animation relu3_1 B=12 4096x4096 C256", 12, 4096, 4096, 256, False),
+    ("animation relu4_1 B=12 1024x1024 C512", 12, 1024, 1024, 512, False),
 ]
 
 
@@ -710,6 +734,8 @@ ATTN_CASES = [  # name, N, k, C, D, negative slope
     ("ragged N=1000 k=3 C21 D42", 1000, 3, 21, 42, 0.1),
     ("ragged N=1000 k=3 C21 D42 ReLU", 1000, 3, 21, 42, 0.0),
     ("shapenet k=3 site N=32768 C128", 8 * 64 * 64, 3, 128, 128, 0.1),
+    ("animation k=5 site N=8192 C128", 2 * 64 * 64, 5, 128, 128, 0.1),
+    ("animation k=3 site N=2048 C256", 2 * 32 * 32, 3, 256, 128, 0.1),
 ]
 ATTN_OUTPUTS = ("d_bs", "d_bt", "d_hpre", "dW2", "db1", "db2")
 
@@ -1046,10 +1072,13 @@ def plain_warp():
 
 
 def nets(task):
-    """The task's trained networks: G, and D where the task has one."""
+    """The task's trained networks: G, and D and D_V where the task has
+    them."""
     out = {"G": task.net_g}
     if hasattr(task, "net_d"):
         out["D"] = task.net_d
+    if hasattr(task, "net_d_v"):
+        out["D_V"] = task.net_d_v
     return out
 
 
@@ -1194,7 +1223,8 @@ def timed_steps(task, batches):
 
 
 def off_the_kinks(task):
-    """A copy of `task` whose flow heads' biases are seeded fractions in
+    """A copy of `task` whose flow heads' biases (of each flow net) are
+    seeded fractions in
     [0.3, 0.7]. At the seeded init the flows are nearly 0, so every sample
     of the warp and of the correctness loss's resampler sits on an integer
     coordinate, where floor() makes the gradient jump; the last bits of a
@@ -1203,8 +1233,9 @@ def off_the_kinks(task):
     task = copy.deepcopy(task)
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
-        for name, head in task.net_g.flow_net.named_children():
-            if name.startswith("output"):
+        for name, head in task.net_g.named_modules():
+            if name.startswith("flow_net") \
+                    and name.rsplit(".", 1)[-1].startswith("output"):
                 head.bias.copy_(0.3 + 0.4 * torch.rand(
                     head.bias.shape, generator=gen))
     return task
@@ -2469,6 +2500,250 @@ def phase_shapenet_bf16(serve, train):
     return dict(serve=serve_counts["warp_fwd_bf16"], train=train_counts)
 
 
+ANIM_T = 6         # frames a chunk (--max_frames_per_gpu)
+ANIM_SITES = 4     # ExtractorAttn sites a frame: 2 levels x (previous,
+                   # reference)
+ANIM_LAUNCHES = ANIM_SITES * ANIM_T  # each warp kernel's launches a chunk
+ANIM_SIZE, ANIM_SMALL = 256, 64
+ANIM_GRAD_REL = 1e-2  # kernel vs plain path, one step from one state: each
+                      # network's gradient, relative L2 difference (a check
+                      # for gross faults; the losses are held at
+                      # TRAIN_LOSS_REL)
+
+
+def anim_args(kind, *extra):
+    """The CLIs' options for an animation head at full width, 256x256."""
+    return [f"--model={kind}", "--dataset_mode=synthetic_video",
+            f"--load_size={ANIM_SIZE}", "--gpu_ids=0",
+            f"--n_frames_pre_load_test={ANIM_T}",
+            f"--n_frames_total={ANIM_T}", *extra]
+
+
+def anim_clips(opt, B, first=0):
+    """Host batches of B clips each of the synthetic video dataset."""
+    from gfla_tpu_torch.data import collate, get_dataset_class
+
+    dataset = get_dataset_class(opt.dataset_mode)(opt)
+    return [collate([dataset[(first + b * B + i) % len(dataset)]
+                     for i in range(B)]) for b in range(4)]
+
+
+def anim_full_width(g, kind):
+    """The task's defaults: ngf 64, attention at levels 2 and 3 (k=5 over
+    128 channels at 64x64, k=3 over 256 at 32x32), two streams a level."""
+    t = g.target
+    flow = g.flow_net if kind == "face" else g.flow_net_reference
+    return (g.source_previous.block0.model[2].out_channels == 64
+            and all(getattr(t, f"attn{s}{i}").kernel_size == k
+                    and getattr(t, f"attn{s}{i}").fully_connect_layer[0]
+                    .in_channels == 2 * c
+                    for s in ("_p", "_r")
+                    for i, k, c in ((0, 3, 256), (1, 5, 128)))
+            and flow.output1.out_channels == (4 if kind == "face" else 2))
+
+
+def check_clip(what, frames, B, T, size):
+    check(tuple(frames.shape) == (B, T, 3, size, size)
+          and frames.dtype == torch.float32, f"{what}: frames {frames.shape}")
+    check(bool(torch.isfinite(frames).all()), f"{what}: non-finite frames")
+    check(frames.min().item() >= -1 and frames.max().item() <= 1,
+          f"{what}: frames outside [-1, 1]")
+
+
+def stream(task, batches, path=contextlib.nullcontext):
+    """test_step over prepared chunks, the carry passed along."""
+    carry, frames = None, []
+    with path():
+        for batch in batches:
+            gen, carry = task.test_step(batch, *(carry or (None, None)))
+            frames.append(gen)
+    return torch.cat(frames, dim=1)
+
+
+def phase_anim_serve(kind):
+    """The serving CLI's path of an animation head at full width: run_test
+    over two consecutive 6-frame chunks of one batch-1 clip, the last frame
+    and skeleton carried into the second; 24 warp-forward launches a chunk
+    and nothing else; 12 _vis and 12 _gt PNGs under gfla_tpu's names; the
+    frames on the kernels against the plain path; a 64x64 clip on the card
+    against the CPU; ms per batch-2 chunk forward of both paths."""
+    from gfla_tpu_torch.options import TestOptions
+    from gfla_tpu_torch.tasks import create_task
+
+    torch.cuda.empty_cache()
+    work = tempfile.TemporaryDirectory()
+    opt = TestOptions().parse(anim_args(
+        kind, f"--results_dir={work.name}", f"--name={kind}_serve"),
+        save=False)
+    task = create_task(opt)
+    check(anim_full_width(task.net_g, kind), f"not the full-width {kind}")
+    print(f"{kind} generator: {sum(p.numel() for p in task.net_g.parameters())}"
+          f" parameters on {task.device}")
+    loader = anim_clips(opt, 1)[:2]
+    reset_launch_counts()
+    n = task.run_test(opt, loader)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    out = os.path.join(work.name, f"{kind}_serve", "seq")
+    names = sorted(os.listdir(out))
+    want = sorted(f"{os.path.splitext(p)[0]}_{s}.png" for b in loader
+                  for p in b["gen_paths"][0] for s in ("vis", "gt"))
+    print(f"{kind} served 2 chunks of {ANIM_T} frames (batch 1): {n} frames, "
+          f"launches {counts}, {len(names)} files")
+    check(only(counts, warp_fwd=2 * ANIM_LAUNCHES),
+          f"{kind} serving launched {counts}, expected "
+          f"{ANIM_LAUNCHES} warp_fwd a chunk and nothing else")
+    check(n == 2 * ANIM_T and names == want, f"{kind} wrote {names[:4]}")
+    work.cleanup()
+
+    chunks = [task.prepare_batch(b) for b in loader]
+    frames = stream(task, chunks)
+    check_clip(f"{kind} serving", frames, 1, 2 * ANIM_T, ANIM_SIZE)
+    plain = stream(task, chunks, plain_warp)
+    diff = (frames - plain).abs().max().item()
+    print(f"{kind} 12 streamed frames, kernel path vs plain path: "
+          f"max_abs_diff={diff:.3e} (bound {SLICE_ATOL:g})")
+    check(diff <= SLICE_ATOL, f"{kind} kernel path vs plain path {diff:.3e}")
+
+    small_opt = TestOptions().parse(anim_args(
+        kind, f"--load_size={ANIM_SMALL}", "--n_frames_pre_load_test=3"),
+        save=False)
+    small = [task.prepare_batch(b) for b in anim_clips(small_opt, 2)[:2]]
+    card = stream(task, small).cpu()
+    cpu = copy.copy(task)
+    cpu.net_g = copy.deepcopy(task.net_g).cpu()
+    cpu_frames = stream(cpu, [{k: v.cpu() for k, v in b.items()}
+                              for b in small])
+    diff_cpu = (card - cpu_frames).abs().max().item()
+    print(f"{kind} card vs CPU, 2 chunks of 3 frames at 2x{ANIM_SMALL}x"
+          f"{ANIM_SMALL}: "
+          f"max_abs_diff={diff_cpu:.3e} (bound {CPU_ATOL:g})")
+    check(diff_cpu <= CPU_ATOL, f"{kind} card vs CPU {diff_cpu:.3e}")
+    del cpu
+
+    request = task.prepare_batch(anim_clips(opt, 2)[0])
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: task.test_step(request), iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    with plain_warp():
+        plain_ms = cuda_ms(lambda: task.test_step(request), iters=5,
+                           warmup=2)
+    ms_again = cuda_ms(lambda: task.test_step(request), iters=5, warmup=1)
+    print(f"{kind} chunk forward batch 2 x {ANIM_T} frames at 256x256: "
+          f"kernel path {ms:.3f} ms (again {ms_again:.3f}), plain path "
+          f"{plain_ms:.3f} ms, peak {peak:.0f} MiB")
+    return dict(task=task, launches=counts["warp_fwd"], ms=ms)
+
+
+def phase_anim_train(kind):
+    """Four full-width chunk steps (batch 2 x 6 frames at 256x256) through
+    train_main_path (24 launches of each warp kernel a step; finite losses;
+    every parameter of G, D and D_V moved; D's u; save/resume; the plain
+    path's time), then one step on the kernel path against the plain path
+    from one state: losses within TRAIN_LOSS_REL, each network's gradient
+    within ANIM_GRAD_REL in relative L2."""
+    from gfla_tpu_torch.tasks import create_task
+
+    opt, ckpt = train_opt(f"--name={kind}_train", "--batchSize=2",
+                          f"--n_frames_total={ANIM_T}", model=kind,
+                          dataset="synthetic_video")
+    task = create_task(opt)
+    check(anim_full_width(task.net_g, kind) and task.net_d.layers == 4,
+          f"not the full-width {kind} config")
+    batches = [task.prepare_batch(b) for b in anim_clips(opt, 2)]
+    batches.append(batches[0])
+    state0 = copy.deepcopy(task)
+    counts, times, plain_times, peak = train_main_path(
+        task, opt, batches, f"{kind} ", warp_fwd=ANIM_LAUNCHES * TRAIN_STEPS,
+        warp_bwd_pos=ANIM_LAUNCHES * TRAIN_STEPS,
+        warp_bwd_w1=ANIM_LAUNCHES * TRAIN_STEPS)
+    del task
+    ckpt.cleanup()
+
+    state = off_the_kinks(state0)
+    del state0
+    sides = []
+    for path in (contextlib.nullcontext, plain_warp):
+        side = copy.deepcopy(state)
+        with path():
+            logs = side.train_step(batches[0])
+        sides.append((logs, snapshot(side)))
+        del side
+    loss_rel = rel_diff(*(logs for logs, _ in sides))
+    grad_rel = {}
+    for tag in sides[0][1]:
+        a, b = (torch.cat([g.flatten() for g in snap[tag]["grads"].values()])
+                for _, snap in sides)
+        grad_rel[tag] = ((a - b).norm() / b.norm()).item()
+    print(f"{kind} kernel vs plain path, one step b2 x {ANIM_T} frames at "
+          f"256x256: losses within {loss_rel:.3e} rel (bound "
+          f"{TRAIN_LOSS_REL:g}); gradients within "
+          + ", ".join(f"{t} {r:.3e}" for t, r in grad_rel.items())
+          + f" in relative L2 (bound {ANIM_GRAD_REL:g})")
+    check(loss_rel <= TRAIN_LOSS_REL, f"{kind} step losses {sides[0][0]} vs "
+          f"{sides[1][0]}")
+    check(max(grad_rel.values()) <= ANIM_GRAD_REL,
+          f"{kind} step gradients {grad_rel}")
+    ms = statistics.median(times[1:])
+    print(f"{kind} train step b2 x {ANIM_T} frames at 256x256: kernel path "
+          f"{ms:.3f} ms (steps {', '.join(f'{t:.1f}' for t in times)}), "
+          f"plain path {statistics.median(plain_times):.3f} ms (steps "
+          f"{', '.join(f'{t:.1f}' for t in plain_times)}), peak "
+          f"{peak:.2f} GiB")
+    return dict(counts=counts, state=state, batch=batches[0], ms=ms,
+                peak=peak)
+
+
+def phase_anim_switches(train):
+    """One dance step under GFLA_ATTN_PALLAS=1 (24 launches of each
+    attention-math kernel, no warp) and one under GFLA_PALLAS_CORR=1 (the
+    warp's 24 + 24 + 24, and 4 max-correlation launches: the previous and
+    the reference stream's correctness at two layers), each against the
+    default path's step from the same state."""
+    state, batch = train["state"], train["batch"]
+    want = copy.deepcopy(state).train_step(batch)
+    opt = state.opt
+    # the correctness losses are, per level, mean(exp(-cs / cmax)) - 1/e,
+    # near 0 at the init: each is held relative to the size of the terms
+    # that the - 1/e cancels, lambda_correct / e per level (the kernel's
+    # cmax moves them by ~1e-6 of that); every other loss to its own value
+    scale = {name: opt.lambda_correct * len(opt.attn_layer) / np.e
+             for name in ("correctness_p", "correctness_r")}
+    counts = {}
+    for name, env in (("attn", dict(GFLA_ATTN_PALLAS="1")),
+                      ("corr", dict(GFLA_PALLAS_CORR="1"))):
+        task = copy.deepcopy(state)
+        with switches(**env):
+            reset_launch_counts()
+            got = task.train_step(batch)
+            torch.cuda.synchronize()
+            counts[name] = launch_counts()
+            times, _ = timed_steps(task, [batch] * 2)
+        rel = {n: abs(float(got[n]) - float(w))
+               / max(abs(float(w)), scale.get(n, 0.0), 1e-30)
+               for n, w in want.items()}
+        worst = max(rel, key=rel.get)
+        del task
+        print(f"{env} dance step: launches {counts[name]}; losses within "
+              f"{rel[worst]:.3e} rel of the default path ({worst}; bound "
+              f"{TRAIN_LOSS_REL:g}; correctness_p {rel['correctness_p']:.3e},"
+              f" correctness_r {rel['correctness_r']:.3e} of "
+              f"{scale['correctness_p']:.3f}); "
+              f"{statistics.median(times):.3f} ms per step (steps "
+              f"{', '.join(f'{t:.1f}' for t in times)})")
+        check(rel[worst] <= TRAIN_LOSS_REL,
+              f"{env}: losses {got} vs {want}")
+    check(only(counts["attn"], attn_math_fwd=ANIM_LAUNCHES,
+               attn_math_bwd=ANIM_LAUNCHES),
+          f"GFLA_ATTN_PALLAS=1 dance launches {counts['attn']}")
+    check(only(counts["corr"], warp_fwd=ANIM_LAUNCHES,
+               warp_bwd_pos=ANIM_LAUNCHES, warp_bwd_w1=ANIM_LAUNCHES,
+               max_corr=4),
+          f"GFLA_PALLAS_CORR=1 dance launches {counts['corr']}")
+    return dict(dance_train_attn=counts["attn"],
+                dance_train_corr=counts["corr"])
+
+
 def task_pairs(root, prefix):
     """The (from, to) names of a tree's training pairs, in file order."""
     import csv
@@ -2491,9 +2766,9 @@ def site_cases(head, cases, results, unpack, work_of, peak=TF32X3_PEAK):
 
 
 def both_cases(cases, results, unpack, work_of, peak=TF32X3_PEAK):
-    """site_cases of market's and of ShapeNet's sites."""
+    """site_cases of market's, ShapeNet's and the animation heads' sites."""
     return {head: site_cases(head, cases, results, unpack, work_of, peak)
-            for head in ("market", "shapenet")}
+            for head in ("market", "shapenet", "animation")}
 
 
 UNITS = {TF32X3_PEAK: "tensor cores, 3 TF32 products per f32 product: "
@@ -2507,7 +2782,8 @@ def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
     """One entry of the `kernels` line. The f32 kernels multiply by
     split-f32 products, so their bound is taken at TF32X3_PEAK, the bf16
     instances' at BF16_PEAK; the bound on the FP32 cores stands beside it.
-    `cases`: both_cases' times at market's and ShapeNet's shapes."""
+    `cases`: both_cases' times at market's, ShapeNet's and the animation
+    heads' shapes."""
     cases = cases or {}
     bound_ms, bound_by = bound(*work, peak)
     return {"name": name, "route": "cuda", "source": source,
@@ -2519,7 +2795,8 @@ def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
             "bound_ms_fp32_cores": bound(*work)[0],
             "library_ms": library_ms, "ms_shape": shape,
             "market_cases": cases.get("market", {}),
-            "shapenet_cases": cases.get("shapenet", {})}
+            "shapenet_cases": cases.get("shapenet", {}),
+            "animation_cases": cases.get("animation", {})}
 
 
 def main(argv):
@@ -2551,6 +2828,14 @@ def main(argv):
         sn_train = phase_shapenet_train()
         sn_flow = phase_shapenetflow()
         sn_bf16 = phase_shapenet_bf16(sn_serve, sn_train)
+        anim = {}
+        for kind in ("dance", "face"):
+            anim[f"{kind}_serve"] = phase_anim_serve(kind)["launches"]
+            anim_train = phase_anim_train(kind)
+            anim[f"{kind}_train"] = anim_train["counts"]
+            if kind == "dance":
+                anim_switched = phase_anim_switches(anim_train)
+            del anim_train
     train = train["counts"]
     shapenet = {"shapenet_serve": sn_serve["launches"],
                 "shapenet_sweep": sn_sweep}
@@ -2565,7 +2850,12 @@ def main(argv):
         {"serve": serve["launches"], "train": train["warp_fwd"],
          "train_corr": switched["train_corr"]["warp_fwd"],
          **{path: c["warp_fwd"] for path, c in disk.items()},
-         **shapenet, "shapenet_train": sn_train["counts"]["warp_fwd"]},
+         **shapenet, "shapenet_train": sn_train["counts"]["warp_fwd"],
+         "dance_serve": anim["dance_serve"],
+         "face_serve": anim["face_serve"],
+         **{path: anim[path]["warp_fwd"]
+            for path in ("dance_train", "face_train")},
+         "dance_train_corr": anim_switched["dance_train_corr"]["warp_fwd"]},
         max(e for e, _, _ in kernel.values()), f"{KERNEL_ATOL:g} abs", ms,
         plain_ms, work["warp_fwd"], none, shape,
         both_cases(KERNEL_CASES, kernel, lambda r: r,
@@ -2578,7 +2868,10 @@ def main(argv):
              "train_corr": switched["train_corr"][name],
              **{path: c[name] for path, c in disk.items()
                 if path.endswith("_train")},
-             "shapenet_train": sn_train["counts"][name]},
+             "shapenet_train": sn_train["counts"][name],
+             **{path: anim[path][name]
+                for path in ("dance_train", "face_train")},
+             "dance_train_corr": anim_switched["dance_train_corr"][name]},
             max(r[part][0] for r in bwd.values()),
             f"{BWD_REL:g} x max|value| of each output",
             bwd[site[0]][part][1], bwd[site[0]][part][2], work[name], none,
@@ -2616,7 +2909,8 @@ def main(argv):
         "gfla_tpu/ops/pallas_corr.py:36",
         {"poseflownet": flow["max_corr"],
          "train_corr": switched["train_corr"]["max_corr"],
-         "shapenetflow": sn_flow["max_corr"]},
+         "shapenetflow": sn_flow["max_corr"],
+         "dance_train_corr": anim_switched["dance_train_corr"]["max_corr"]},
         max(r["err"] for r in corr.values()), f"{CORR_ATOL:g} abs (cmax)",
         c["ms"], c["plain_ms"], c["work"], c["library_ms"],
         "B=8 Ns=Nt=4096 C=256",
@@ -2628,7 +2922,13 @@ def main(argv):
          # of the first case
          "shapenet": {CORR_CASES[0][0]: dict(
              max_abs_err=c["err"], ms=c["ms"], plain_ms=c["plain_ms"],
-             bound_ms=bound(*c["work"], TF32X3_PEAK)[0])}}))
+             bound_ms=bound(*c["work"], TF32X3_PEAK)[0])},
+         # the animation heads' loss reads both layers over B * T = 12
+         # frames
+         "animation": site_cases(
+             "animation", CORR_CASES, corr,
+             lambda r: (r["err"], r["ms"], r["plain_ms"]),
+             lambda c: corr_work(*c[1:5]))}))
     a = attn[ATTN_CASES[0][0]]
     for name, part, paths in (
             ("attn_math_fwd", "fwd", ("serve_attn", "train_attn")),
@@ -2637,17 +2937,19 @@ def main(argv):
             name, f"gfla_tpu_torch/csrc/{name}.cu",
             "gfla_tpu/ops/pallas_attn.py:"
             + ("64" if part == "fwd" else "155"),
-            {path: switched[path][name] for path in paths},
+            {**{path: switched[path][name] for path in paths},
+             "dance_train_attn": anim_switched["dance_train_attn"][name]},
             max(r[part]["err"] for r in attn.values()),
             f"{BWD_REL:g} x max|value| of each output", a[part]["ms"],
             a[part]["plain_ms"], a[part]["work"], none,
             "N=32768 k=5 C=128 D=128",
-            {"shapenet": site_cases(
-                "shapenet", ATTN_CASES, attn,
+            {head: site_cases(
+                head, ATTN_CASES, attn,
                 lambda r, part=part: (r[part]["err"], r[part]["ms"],
                                       r[part]["plain_ms"]),
                 lambda c, part=part: attn_work(*c[1:5])[
-                    0 if part == "fwd" else 1])}))
+                    0 if part == "fwd" else 1])
+             for head in ("shapenet", "animation")}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,12 +14,21 @@ the original GFLA's checkpoints, which loads into the port's module with
   novel-view generator and its stage-1 flow head, likewise (gfla_tpu's
   `cat` ResBlocks -> `flow_net.cat.model.0`; the target's 8x8-seed
   ResBlockDecoders -> `target.block0`, `target.block1`);
+* `face_generator_state_dict` and `dance_generator_state_dict`: the
+  recurrent animation generators (`source_previous`, `source_reference`,
+  `target` with `attn_p{i}` and `attn_r{i}`, and `flow_net`, or
+  `flow_net_previous` and `flow_net_reference`), spectral-normed or not;
 * `res_discriminator_state_dict`: the spectral-norm ResDiscriminator
   (`latest_net_D.pth`), its power-iteration u carried across;
+* `temporal_discriminator_state_dict`: the spectral-norm
+  TemporalDiscriminator (`latest_net_D_V.pth` of the dance head), its 3-D
+  kernels (kd, kh, kw, I, O) -> (O, I, kd, kh, kw), u carried across, and
+  `encoder0`'s input channels left in gfla_tpu's t * C + c order, which the
+  port's fold keeps;
 * `vgg19_state_dict`: the VGG19 of the perceptual losses (the port's VGG19
   module keys, `conv1_1.weight` ...).
 
-* conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
+* conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw), and likewise in 3-D
 * transposed-conv kernel (kh, kw, I, O), spatially flipped -> weight
   (I, O, kh, kw), flipped back
 * InstanceNorm_0 {scale, bias} -> {weight, bias}
@@ -65,7 +74,9 @@ def _sub(stats, name):
 
 def _conv(tree, key, sd, stats=None):
     conv = tree["Conv_0"]
-    w = np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
+    kernel = np.asarray(conv["kernel"])
+    n = kernel.ndim
+    w = kernel.transpose(n - 1, n - 2, *range(n - 2))
     if stats:
         _spectral(key, w, w.reshape(w.shape[0], -1), _u(stats, "Conv_0"), sd)
     else:
@@ -128,30 +139,33 @@ def _attn(tree, prefix, sd):
     sd[f"{key}.2.bias"] = _t(tree["b2"])
 
 
-def _flow_net(fn, s_fn, sd, flow_layers, attn_layer):
-    """PoseFlowNet or ShapeNetFlowNet params (and spectral stats) ->
-    `flow_net.*` keys."""
-    _pre_act(fn["block0"], "flow_net.block0", sd, _sub(s_fn, "block0"))
+def _flow_net(fn, s_fn, sd, flow_layers, attn_layer, prefix="flow_net"):
+    """PoseFlowNet, FaceFlowNet or ShapeNetFlowNet params (and spectral
+    stats) -> `{prefix}.*` keys."""
+    _pre_act(fn["block0"], f"{prefix}.block0", sd, _sub(s_fn, "block0"))
     for i in range(flow_layers - 1):
-        _pre_act(fn[f"encoder{i}"], f"flow_net.encoder{i}", sd,
+        _pre_act(fn[f"encoder{i}"], f"{prefix}.encoder{i}", sd,
                  _sub(s_fn, f"encoder{i}"))
     if "cat" in fn:  # ShapeNetFlowNet's bottleneck fusion
-        _resblock(fn["cat"]["block0"], "flow_net.cat.model.0", sd,
+        _resblock(fn["cat"]["block0"], f"{prefix}.cat.model.0", sd,
                   _sub(_sub(s_fn, "cat"), "block0"))
     for i in range(flow_layers - min(attn_layer)):
-        _resblock_decoder(fn[f"decoder{i}"], f"flow_net.decoder{i}", sd,
+        _resblock_decoder(fn[f"decoder{i}"], f"{prefix}.decoder{i}", sd,
                           _sub(s_fn, f"decoder{i}"))
-        _jump(fn[f"jump{i}"], f"flow_net.jump{i}", sd, _sub(s_fn, f"jump{i}"))
+        _jump(fn[f"jump{i}"], f"{prefix}.jump{i}", sd, _sub(s_fn, f"jump{i}"))
         if flow_layers - i - 1 in attn_layer:
-            _conv(fn[f"output{i}"], f"flow_net.output{i}", sd)
-            _conv(fn[f"mask{i}"], f"flow_net.mask{i}.0", sd)
+            _conv(fn[f"output{i}"], f"{prefix}.output{i}", sd)
+            _conv(fn[f"mask{i}"], f"{prefix}.mask{i}.0", sd)
 
 
 def _target_decoder(tg, s_tg, sd, layers, attn_layer, num_blocks):
     """The target net's decoder levels and output head -> `target.*`."""
     for i in range(layers):
         if layers - i in attn_layer:
-            _attn(tg[f"attn{i}"], f"target.attn{i}", sd)
+            for stream in ("", "_p", "_r"):  # FaceTargetNet: _p and _r
+                if f"attn{stream}{i}" in tg:
+                    _attn(tg[f"attn{stream}{i}"], f"target.attn{stream}{i}",
+                          sd)
         dec = _sub(s_tg, f"decoder{i}")
         if num_blocks > 1:
             res = _sub(s_tg, f"decoder{i}_res")
@@ -167,23 +181,36 @@ def _target_decoder(tg, s_tg, sd, layers, attn_layer, num_blocks):
     _jump(tg["outconv"], "target.outconv", sd, _sub(s_tg, "outconv"))
 
 
+def _encoder(tree, stats, prefix, layers, sd):
+    """`block0` and `encoder{i}` EncoderBlocks -> `{prefix}.*`."""
+    _pre_act(tree["block0"], f"{prefix}.block0", sd, _sub(stats, "block0"))
+    for i in range(layers - 1):
+        _pre_act(tree[f"encoder{i}"], f"{prefix}.encoder{i}", sd,
+                 _sub(stats, f"encoder{i}"))
+
+
 def _generator(params, stats, layers, attn_layer, num_blocks, flow_layers,
-               target_input):
-    """Source net, flow net and target net -> the generator's keys;
+               target_input, sources=("source",), flow_nets=("flow_net",)):
+    """Source nets, flow nets and target net -> the generator's keys;
     `target_input(tg, s_tg, sd)` writes the target net's input stage."""
     sd: Dict[str, torch.Tensor] = {}
     stats = stats or {}
-    src, s_src = params["source"], stats.get("source")
-    _pre_act(src["block0"], "source.block0", sd, _sub(s_src, "block0"))
-    for i in range(layers - 1):
-        _pre_act(src[f"encoder{i}"], f"source.encoder{i}", sd,
-                 _sub(s_src, f"encoder{i}"))
-    _flow_net(params["flow_net"], stats.get("flow_net"), sd, flow_layers,
-              attn_layer)
+    for name in sources:
+        _encoder(params[name], stats.get(name), name, layers, sd)
+    for name in flow_nets:
+        _flow_net(params[name], stats.get(name), sd, flow_layers, attn_layer,
+                  name)
     tg, s_tg = params["target"], stats.get("target")
     target_input(tg, s_tg, sd)
     _target_decoder(tg, s_tg, sd, layers, attn_layer, num_blocks)
     return sd
+
+
+def _pose_encoder(layers):
+    def target_input(tg, s_tg, sd):
+        _encoder(tg, s_tg, "target", layers, sd)
+
+    return target_input
 
 
 def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
@@ -194,15 +221,34 @@ def pose_generator_state_dict(params: Dict[str, Any], layers: int = 3,
     """gfla_tpu PoseGenerator params -> original-keyed torch state dict.
     With the `batch_stats` of a spectral-norm generator (`use_spect`), its
     block convs get the spectral keys and their stored u."""
-
-    def pose_encoder(tg, s_tg, sd):
-        _pre_act(tg["block0"], "target.block0", sd, _sub(s_tg, "block0"))
-        for i in range(layers - 1):
-            _pre_act(tg[f"encoder{i}"], f"target.encoder{i}", sd,
-                     _sub(s_tg, f"encoder{i}"))
-
     return _generator(params, batch_stats, layers, attn_layer, num_blocks,
-                      flow_layers, pose_encoder)
+                      flow_layers, _pose_encoder(layers))
+
+
+def face_generator_state_dict(params: Dict[str, Any], layers: int = 3,
+                              attn_layer=(2, 3), num_blocks: int = 2,
+                              flow_layers: int = 5,
+                              batch_stats: Dict[str, Any] | None = None
+                              ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu FaceGenerator params (and spectral stats) -> the port's
+    FaceGenerator state dict (gfla_tpu/convert/torch_mapping.py:332-345
+    inverted)."""
+    return _generator(params, batch_stats, layers, attn_layer, num_blocks,
+                      flow_layers, _pose_encoder(layers),
+                      ("source_previous", "source_reference"))
+
+
+def dance_generator_state_dict(params: Dict[str, Any], layers: int = 3,
+                               attn_layer=(2, 3), num_blocks: int = 2,
+                               flow_layers: int = 5,
+                               batch_stats: Dict[str, Any] | None = None
+                               ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu DanceGenerator params (and spectral stats) -> the port's
+    DanceGenerator state dict (torch_mapping.py:348-363 inverted)."""
+    return _generator(params, batch_stats, layers, attn_layer, num_blocks,
+                      flow_layers, _pose_encoder(layers),
+                      ("source_previous", "source_reference"),
+                      ("flow_net_previous", "flow_net_reference"))
 
 
 def shapenet_generator_state_dict(params: Dict[str, Any], layers: int = 3,
@@ -259,6 +305,23 @@ def res_discriminator_state_dict(params: Dict[str, Any],
             _conv(params[block][ours], f"{block}.{theirs}", sd,
                   batch_stats[block][ours])
     _conv(params["conv"], "conv", sd, batch_stats["conv"])
+    return sd
+
+
+def temporal_discriminator_state_dict(params: Dict[str, Any],
+                                      batch_stats: Dict[str, Any],
+                                      layers: int = 4
+                                      ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu TemporalDiscriminator (spectral norm) params and batch_stats
+    -> the port's state dict: `block0`, `block1` (ResBlock3DEncoders),
+    then `encoder{i}` and `conv` as res_discriminator_state_dict's."""
+    sd = res_discriminator_state_dict(
+        {k: v for k, v in params.items() if k != "block1"},
+        batch_stats, layers - 1)
+    for ours, theirs in (("conv1", "model.1"), ("conv2", "model.3"),
+                         ("shortcut", "shortcut.1")):
+        _conv(params["block1"][ours], f"block1.{theirs}", sd,
+              batch_stats["block1"][ours])
     return sd
 
 

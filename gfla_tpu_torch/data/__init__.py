@@ -1,12 +1,14 @@
 """Data for the port (counterpart of gfla_tpu/data/__init__.py:25-53): the
 file-backed DeepFashion and Market-1501 pose datasets, the synthetic paired
-dataset, the ShapeNet HDF5 store, gfla_tpu's batch order on torch's
+dataset, the ShapeNet HDF5 store, the synthetic video clips of the animation
+heads, gfla_tpu's batch order on torch's
 DataLoader, and the registry that `--dataset_mode` reads. JPEG decoding, the
 warp-resize and the heatmaps run on the task's device (tasks/pose.py
 `prepare_batch`), as do ShapeNet's resize and one-hot labels."""
 
 from __future__ import annotations
 
+from gfla_tpu_torch.data.animation_data import SyntheticVideoDataset
 from gfla_tpu_torch.data.loader import collate, infinite, make_loader
 from gfla_tpu_torch.data.paired_dataset import FashionDataset, MarketDataset
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
@@ -14,7 +16,8 @@ from gfla_tpu_torch.data.shapenet_data import ShapeNetDataset
 from gfla_tpu_torch.data.synthetic import SyntheticPoseDataset
 
 DATASETS = {"fashion": FashionDataset, "market": MarketDataset,
-            "synthetic": SyntheticPoseDataset, "shapenet": ShapeNetDataset}
+            "synthetic": SyntheticPoseDataset, "shapenet": ShapeNetDataset,
+            "synthetic_video": SyntheticVideoDataset}
 
 
 def get_dataset_class(name: str):
@@ -25,5 +28,6 @@ def get_dataset_class(name: str):
 
 
 __all__ = ["DATASETS", "FashionDataset", "MarketDataset",
-           "ShapeNetDataset", "SyntheticPoseDataset", "collate",
+           "ShapeNetDataset", "SyntheticPoseDataset", "SyntheticVideoDataset",
+           "collate",
            "encode_heatmaps", "get_dataset_class", "infinite", "make_loader"]

@@ -1,10 +1,12 @@
 """VGG-based perceptual losses: content/style and sampling correctness.
 
 Counterpart of gfla_tpu/losses/perceptual.py:35-308 (the original's
-external_function.py:121-319), on the port's NCHW feature maps. Left out
-until the face and dance heads need them: `_bilinear_warp`
-(`use_bilinear_sampling`) and the `mask` and `frames` branches of the
-correctness loss.
+external_function.py:121-319), on the port's NCHW feature maps, with the
+correctness loss's branches for the animation heads: `frames` (a batch of
+B * T frames in (b, t) order, reduced per frame and summed over frames),
+`mask` (a per-position weight) and `use_bilinear_sampling` (a plain
+zero-padded bilinear warp, `_bilinear_warp`, in place of the Gaussian
+resampler).
 
 Under a bf16 compute dtype the VGG features are bf16, and the losses sum as
 gfla_tpu's `_acc` does (perceptual.py:29-47, 263-266): the L1 differences
@@ -114,6 +116,35 @@ def _nearest_resize(x, H: int, W: int):
     return x[:, :, iy][:, :, :, ix]
 
 
+def _bilinear_warp(source, flow):
+    """source (B, H, W, C) sampled at each position plus flow (B, H, W, 2)
+    (x, y), bilinearly, zero outside the image (gfla_tpu's
+    `_bilinear_warp`, perceptual.py:181-214: the original's grid_sample
+    with align_corners=True on a grid normalised by size - 1 and a flow
+    scaled by 2 / size, which moves flow * (size - 1) / size pixels)."""
+    B, H, W, C = source.shape
+    ys = torch.arange(H, dtype=flow.dtype, device=flow.device)
+    xs = torch.arange(W, dtype=flow.dtype, device=flow.device)
+    dy = flow[..., 1] * ((H - 1) / H) + ys[None, :, None]
+    dx = flow[..., 0] * ((W - 1) / W) + xs[None, None, :]
+    fy, fx = torch.floor(dy), torch.floor(dx)
+    wy, wx = (dy - fy)[..., None], (dx - fx)[..., None]
+    iy0, ix0 = fy.long(), fx.long()
+    src = source.reshape(B, H * W, C)
+
+    def tap(iy, ix):
+        inb = ((iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)).to(source.dtype)
+        flat = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
+        vals = torch.gather(src, 1, flat.reshape(B, H * W, 1).expand(
+            -1, -1, C)).reshape(B, H, W, C)
+        return vals * inb[..., None]
+
+    return ((1 - wy) * (1 - wx) * tap(iy0, ix0)
+            + (1 - wy) * wx * tap(iy0, ix0 + 1)
+            + wy * (1 - wx) * tap(iy0 + 1, ix0)
+            + wy * wx * tap(iy0 + 1, ix0 + 1))
+
+
 class PerceptualCorrectness:
     """Sampling-correctness loss: for each flow field (coarse to fine) and
     its VGG layer, warp the source features with the Gaussian resampler
@@ -125,8 +156,13 @@ class PerceptualCorrectness:
         self.vgg = vgg
         self.layers = list(layers)
 
-    def __call__(self, target, source, flow_list, used_layers,
-                 target_feats=None, source_feats=None):
+    def __call__(self, target, source, flow_list, used_layers, mask=None,
+                 use_bilinear_sampling: bool = False, target_feats=None,
+                 source_feats=None, frames: int | None = None):
+        """`mask` (B, 1, H, W) weights the positions; with `frames=T` the
+        batch is B * T frames in (b, t) order, and the loss is the sum over
+        frames of each frame's loss (gfla_tpu's per-frame loop on a folded
+        batch)."""
         used = sorted(used_layers, reverse=True)
         t_feats = target_feats if target_feats is not None else \
             self.vgg(target)
@@ -135,11 +171,14 @@ class PerceptualCorrectness:
         loss = 0.0
         for i, flow in enumerate(flow_list):
             name = self.layers[used[i]]
-            loss = loss + self.layer_loss(t_feats[name], s_feats[name], flow)
+            loss = loss + self.layer_loss(t_feats[name], s_feats[name], flow,
+                                          mask, use_bilinear_sampling, frames)
         return loss
 
     @staticmethod
-    def layer_loss(target_vgg, source_vgg, flow):
+    def layer_loss(target_vgg, source_vgg, flow, mask=None,
+                   use_bilinear_sampling: bool = False,
+                   frames: int | None = None):
         """Features (B,C,H,W), flow (B,2,h,w) in feature pixels; the
         features are promoted to `acc_dtype` first."""
         target_vgg = target_vgg.to(acc_dtype(target_vgg.dtype))
@@ -153,9 +192,24 @@ class PerceptualCorrectness:
         s_norm = s / (_safe_norm(s, 2)[..., None] + _EPS)
         t_norm = t / (_safe_norm(t, 2)[..., None] + _EPS)
         cmax = MaxCorrelation.apply(s_norm, t_norm)              # (B, N)
-        sampled = gaussian_resample(s_nhwc, flow.permute(0, 2, 3, 1), 4, 1,
-                                    2.0).reshape(B, H * W, C)
+        warp = _bilinear_warp if use_bilinear_sampling else \
+            lambda s, f: gaussian_resample(s, f, 4, 1, 2.0)
+        sampled = warp(s_nhwc, flow.permute(0, 2, 3, 1)).reshape(B, H * W, C)
         num = (sampled * t).sum(2)
         den = torch.clamp(_safe_norm(sampled, 2) * _safe_norm(t, 2), min=1e-8)
-        loss_map = torch.exp(-(num / den) / (cmax + _EPS))
-        return loss_map.mean() - math.exp(-1.0)
+        loss_map = torch.exp(-(num / den) / (cmax + _EPS))      # (B, N)
+        e1 = math.exp(-1.0)
+        if mask is None:
+            if frames is None:
+                return loss_map.mean() - e1
+            lm = loss_map.reshape(-1, frames, H * W)
+            return (lm.mean(dim=(0, 2)) - e1).sum()
+        m = mask if mask.shape[2:] == (H, W) else _nearest_resize(mask, H, W)
+        m = m.reshape(B, H * W)
+        loss_map = loss_map - e1
+        if frames is None:
+            return (m * loss_map).sum() / (m.sum() + _EPS)
+        lm = loss_map.reshape(-1, frames, H * W)
+        mm = m.reshape(-1, frames, H * W)
+        return ((mm * lm).sum(dim=(0, 2))
+                / (mm.sum(dim=(0, 2)) + _EPS)).sum()

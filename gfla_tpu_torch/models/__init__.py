@@ -1,13 +1,18 @@
 """Network registry (counterpart of gfla_tpu/models/__init__.py): the pose
-and ShapeNet generators, their stage-1 flow heads and the residual
-discriminator so far."""
+and ShapeNet generators and their stage-1 flow heads, the recurrent face and
+dance generators, and the residual and temporal discriminators."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from gfla_tpu_torch.models.discriminators import ResDiscriminator
+from gfla_tpu_torch.models.discriminators import (
+    ResDiscriminator,
+    TemporalDiscriminator,
+)
 from gfla_tpu_torch.models.generators import (
+    DanceGenerator,
+    FaceGenerator,
     PoseFlowNetGenerator,
     PoseGenerator,
     ShapeNetFlowNetGenerator,
@@ -17,8 +22,11 @@ from gfla_tpu_torch.models.generators import (
 GENERATORS: Dict[str, Any] = {"pose": PoseGenerator,
                                "poseflownet": PoseFlowNetGenerator,
                                "shapenet": ShapeNetGenerator,
-                               "shapenetflow": ShapeNetFlowNetGenerator}
-DISCRIMINATORS: Dict[str, Any] = {"res": ResDiscriminator}
+                               "shapenetflow": ShapeNetFlowNetGenerator,
+                               "face": FaceGenerator,
+                               "dance": DanceGenerator}
+DISCRIMINATORS: Dict[str, Any] = {"res": ResDiscriminator,
+                                  "temporal": TemporalDiscriminator}
 
 
 def define_g(name: str, **kwargs):

@@ -28,9 +28,34 @@ one-hot of azimuth and elevation, in place of the pose heatmaps:
 * ShapeNetGenerator and ShapeNetFlowNetGenerator are PoseGenerator and
   PoseFlowNetGenerator over those two nets.
 
+The recurrent animation heads (gfla_tpu/models/generators.py:317-675, the
+original's generator.py:264-585) generate a chunk of frames (B, T, C, H, W)
+one frame at a time, each frame's output the next frame's previous image:
+
+* FaceTargetNet is PoseTargetNet with two attention streams a level: the
+  previous frame's features (`attn_p{i}`) and the reference image's
+  (`attn_r{i}`), each blended under its own mask, the two blends summed;
+* FaceFlowNet is PoseFlowNet over [skeleton, previous image, previous
+  skeleton, reference image, reference skeleton] with two streams: 4-channel
+  flow and 2-channel mask heads split into (previous, reference);
+* FaceGenerator: per frame, the previous image encoded (`source_previous`),
+  FaceFlowNet, FaceTargetNet; the reference image is encoded once a chunk
+  (`source_reference`);
+* DanceGenerator: the same with two PoseFlowNets (instance norm and
+  LeakyReLU whatever G uses): `flow_net_previous` per frame, and
+  `flow_net_reference`, which reads only the reference pair and the frame's
+  skeleton, once a chunk over all its frames folded into the batch (B * T,
+  in (b, t) order), as gfla_tpu hoists it out of the recurrence.
+The frame loop is gfla_tpu's unrolled recurrence (`_scan_frames` with
+use_scan=False), the same function as its scan. With `remat` each frame runs
+under torch.utils.checkpoint (gfla_tpu's `nn.remat` of the frame step), u
+advancing once a frame all the same.
+
 With `use_spect` (`--use_spect_g`) every block conv is spectral-normed, as in
 gfla_tpu: not the flow and mask heads, not the attention. Each spectral conv
-stores its power iteration in train mode and not in eval mode.
+stores its power iteration in train mode and not in eval mode: in a chunk,
+the per-frame nets' u advances once a frame, the reference nets' once a
+chunk, as gfla_tpu carries u through its scan.
 """
 
 from __future__ import annotations
@@ -48,6 +73,7 @@ from gfla_tpu_torch.nn.blocks import (
     ResBlockDecoder,
     ResBlocks,
 )
+from gfla_tpu_torch.nn.norms import recompute_keeping_u, spectral_modules
 
 
 def _mult(i: int, ngf: int, img_f: int) -> int:
@@ -79,6 +105,12 @@ class PoseSourceNet(nn.Module):
 
 
 class PoseFlowNet(nn.Module):
+    """`streams` flow fields and masks at each attention level: 1 here, 2
+    (previous, reference) in FaceFlowNet, whose heads emit 2 * streams and
+    streams channels, split in that order."""
+
+    streams = 1
+
     def __init__(self, image_nc: int = 3, structure_nc: int = 18,
                  ngf: int = 32, img_f: int = 256, encoder_layer: int = 5,
                  attn_layer: Sequence[int] = (1, 2), norm_type: str = "batch",
@@ -105,9 +137,10 @@ class PoseFlowNet(nn.Module):
                     Jump(nc, nc, 3, norm_type="none", activation=activation,
                          use_spect=use_spect))
             if encoder_layer - i - 1 in self.attn_layer:
-                setattr(self, f"output{i}", nn.Conv2d(nc, 2, 3, 1, 1))
+                setattr(self, f"output{i}",
+                        nn.Conv2d(nc, 2 * self.streams, 3, 1, 1))
                 setattr(self, f"mask{i}", nn.Sequential(
-                    nn.Conv2d(nc, 1, 3, 1, 1), nn.Sigmoid()))
+                    nn.Conv2d(nc, self.streams, 3, 1, 1), nn.Sigmoid()))
             nc_prev = nc
 
     def forward(self, source, source_b, target_b):
@@ -124,25 +157,29 @@ class PoseFlowNet(nn.Module):
         return out, result
 
     def decode(self, out, result):
-        """(flows, masks) at the attention levels, coarse to fine."""
+        """(flows, masks) at the attention levels, coarse to fine, each
+        level's streams in turn."""
         flows, masks = [], []
         for i in range(self.decoder_layer):
             out = getattr(self, f"decoder{i}")(out)
             out = out + getattr(self, f"jump{i}")(
                 result[self.encoder_layer - i - 2])
             if self.encoder_layer - i - 1 in self.attn_layer:
-                flows.append(getattr(self, f"output{i}")(out))
-                masks.append(getattr(self, f"mask{i}")(out))
+                flows.extend(getattr(self, f"output{i}")(out).split(2, 1))
+                masks.extend(getattr(self, f"mask{i}")(out).split(1, 1))
         return flows, masks
 
 
 class _TargetDecoder(nn.Module):
-    """The target decoder both target nets share: `layers` upsampling levels
+    """The target decoder the target nets share: `layers` upsampling levels
     from the coarsest feature, each first blending at an attention level
     (out * (1 - mask) + attn(source_feat, out, flow) * mask), then the
     output head. A subclass builds its input stage, then calls
     `_add_decoder`, and says in `encode` how the target code reaches the
-    coarsest level."""
+    coarsest level. `streams` names the attention modules of a level:
+    `attn{i}` here, `attn_p{i}` and `attn_r{i}` in FaceTargetNet."""
+
+    streams = ("",)
 
     def _add_decoder(self, output_nc, ngf, img_f, layers, num_blocks,
                      activation, attn_layer, extractor_kz, **kw):
@@ -162,40 +199,51 @@ class _TargetDecoder(nn.Module):
                 up = nn.Sequential(up)
             setattr(self, f"decoder{i}", up)
             if layers - i in self.attn_layer:
-                setattr(self, f"attn{i}",
-                        ExtractorAttn(nc_prev,
-                                      extractor_kz[str(layers - i)],
-                                      activation))
+                for stream in self.streams:
+                    setattr(self, f"attn{stream}{i}",
+                            ExtractorAttn(nc_prev,
+                                          extractor_kz[str(layers - i)],
+                                          activation))
             nc_prev = nc
         self.outconv = Output(ngf, output_nc, 3, norm_type="none",
                               activation=activation,
                               use_spect=kw["use_spect"])
 
-    def forward(self, target_b, source_feature, flow_fields, masks,
-                return_hooks: bool = False):
-        out = self.encode(target_b)
-        hooks = {"target": [], "source": [], "attn": [], "mask": []}
-        counter = 0
+    def decode(self, out, blend):
+        """The decoder from the coarsest feature `out`; `blend(i, level,
+        out)` fuses attention level `level` (0 the coarsest) at decoder
+        level i."""
+        level = 0
         for i in range(self.layers):
             if self.layers - i in self.attn_layer:
-                attn_mod = getattr(self, f"attn{i}")
-                if return_hooks:
-                    attn_w, out_attn = attn_mod(
-                        source_feature[i], out, flow_fields[counter],
-                        return_attn=True)
-                else:
-                    out_attn = attn_mod(source_feature[i], out,
-                                        flow_fields[counter])
-                mask = masks[counter]
-                out = out * (1 - mask) + out_attn * mask
-                if return_hooks:
-                    hooks["target"].append(out)
-                    hooks["source"].append(source_feature[i])
-                    hooks["attn"].append(attn_w)
-                    hooks["mask"].append(mask)
-                counter += 1
+                out = blend(i, level, out)
+                level += 1
             out = getattr(self, f"decoder{i}")(out)
-        img = self.outconv(out)
+        return self.outconv(out)
+
+    def forward(self, target_b, source_feature, flow_fields, masks,
+                return_hooks: bool = False):
+        hooks = {"target": [], "source": [], "attn": [], "mask": []}
+
+        def blend(i, level, out):
+            attn_mod = getattr(self, f"attn{i}")
+            if return_hooks:
+                attn_w, out_attn = attn_mod(
+                    source_feature[i], out, flow_fields[level],
+                    return_attn=True)
+            else:
+                out_attn = attn_mod(source_feature[i], out,
+                                    flow_fields[level])
+            mask = masks[level]
+            out = out * (1 - mask) + out_attn * mask
+            if return_hooks:
+                hooks["target"].append(out)
+                hooks["source"].append(source_feature[i])
+                hooks["attn"].append(attn_w)
+                hooks["mask"].append(mask)
+            return out
+
+        img = self.decode(self.encode(target_b), blend)
         return (img, hooks) if return_hooks else img
 
 
@@ -357,3 +405,198 @@ class ShapeNetFlowNetGenerator(PoseFlowNetGenerator):
     generators.py:856-878): its keys are ShapeNetGenerator.flow_net's."""
 
     FlowNet = ShapeNetFlowNet
+
+
+# ---------------------------------------------------------------------------
+# the recurrent animation heads
+# ---------------------------------------------------------------------------
+
+def _channels_last(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+class FaceTargetNet(PoseTargetNet):
+    """PoseTargetNet with a previous and a reference attention stream at
+    each level (gfla_tpu/models/generators.py:378-443)."""
+
+    streams = ("_p", "_r")
+
+    def forward(self, bp, prev_features, ref_features, flow_fields, masks):
+        """flow_fields/masks: [previous, reference] per level, coarse to
+        fine."""
+
+        def blend(i, level, out):
+            fused = []
+            for s, (stream, feats) in enumerate(
+                    (("_p", prev_features), ("_r", ref_features))):
+                flow, mask = flow_fields[2 * level + s], masks[2 * level + s]
+                attn = getattr(self, f"attn{stream}{i}")(feats[i], out, flow)
+                fused.append(out * (1 - mask) + attn * mask)
+            return fused[0] + fused[1]
+
+        return self.decode(self.encode(bp), blend)
+
+
+class FaceFlowNet(PoseFlowNet):
+    """One flow U-Net over cat(bp, p_prev, bp_prev, p_ref, bp_ref) for both
+    streams (gfla_tpu/models/generators.py:446-503)."""
+
+    streams = 2
+
+    def __init__(self, image_nc: int = 3, structure_nc: int = 16,
+                 ngf: int = 32, img_f: int = 256, encoder_layer: int = 5,
+                 attn_layer: Sequence[int] = (1, 2), norm_type: str = "batch",
+                 activation: str = "ReLU", use_spect: bool = False):
+        super().__init__(image_nc, structure_nc, ngf, img_f, encoder_layer,
+                         attn_layer, norm_type, activation, use_spect,
+                         input_nc=3 * structure_nc + 2 * image_nc)
+
+    def forward(self, bp, p_prev, bp_prev, p_ref, bp_ref):
+        return self.decode(*self.encode(
+            torch.cat([bp, p_prev, bp_prev, p_ref, bp_ref], dim=1)))
+
+
+class _AnimationGenerator(nn.Module):
+    """The source nets, the target net and the frame recurrence that
+    FaceGenerator and DanceGenerator share; a subclass adds its flow nets
+    and its `frame_step`. Inputs: bp_frames (B, T, structure_nc, H, W), the
+    reference image and skeleton (B, C, H, W), and the previous image and
+    skeleton the chunk starts from (the reference pair if None). Returns
+    (frames (B, T, 3, H, W), flows and masks [previous, reference per level
+    x (B, T, c, h, w)], the previous image of each frame (B, T, 3, H, W))."""
+
+    def __init__(self, image_nc: int = 3, structure_nc: int = 16,
+                 output_nc: int = 3, ngf: int = 64, img_f: int = 1024,
+                 layers: int = 6, num_blocks: int = 2,
+                 norm_type: str = "batch", activation: str = "ReLU",
+                 attn_layer: Sequence[int] = (1, 2),
+                 extractor_kz: Dict[str, int] = None,
+                 use_spect: bool = False):
+        super().__init__()
+        kw = dict(norm_type=norm_type, activation=activation,
+                  use_spect=use_spect)
+        self.source_previous = PoseSourceNet(image_nc, ngf, img_f, layers,
+                                             **kw)
+        self.source_reference = PoseSourceNet(image_nc, ngf, img_f, layers,
+                                              **kw)
+        self.target = FaceTargetNet(structure_nc, output_nc, ngf, img_f,
+                                    layers, num_blocks,
+                                    attn_layer=attn_layer,
+                                    extractor_kz=extractor_kz, **kw)
+
+    def forward(self, bp_frames, p_reference, bp_reference, p_previous=None,
+                bp_previous=None, remat: bool = False):
+        p_ref, bp_ref = _channels_last(p_reference), \
+            _channels_last(bp_reference)
+        p_prev = p_ref if p_previous is None else _channels_last(p_previous)
+        bp_prev = bp_ref if bp_previous is None \
+            else _channels_last(bp_previous)
+        ref_features = self.source_reference(p_ref)
+        frame_step, per_frame = self.chunk_setup(bp_frames, p_ref, bp_ref,
+                                                 ref_features)
+        spectral = spectral_modules(self) if remat else None
+        gen, flows, masks, prev = [], [], [], []
+        for t in range(bp_frames.shape[1]):
+            bp = _channels_last(bp_frames[:, t])
+            args = (p_prev, bp_prev, bp, *(x[:, t] for x in per_frame))
+            if remat:
+                img, f, m = recompute_keeping_u(spectral, frame_step, *args)
+            else:
+                img, f, m = frame_step(*args)
+            gen.append(img)
+            flows.append(f)
+            masks.append(m)
+            prev.append(p_prev)
+            p_prev, bp_prev = img, bp
+
+        def stack(per_t):
+            return [torch.stack([fr[j] for fr in per_t], dim=1)
+                    for j in range(len(per_t[0]))]
+
+        return (torch.stack(gen, dim=1), stack(flows), stack(masks),
+                torch.stack(prev, dim=1))
+
+    def chunk_setup(self, bp_frames, p_ref, bp_ref, ref_features):
+        """(frame_step(p_prev, bp_prev, bp, *x_t) -> (img, flows, masks),
+        the (B, T, ...) tensors whose frame t is x_t)."""
+        raise NotImplementedError
+
+
+class FaceGenerator(_AnimationGenerator):
+    """gfla_tpu/models/generators.py:506-573 (the original's
+    generator.py:388-426)."""
+
+    def __init__(self, image_nc: int = 3, structure_nc: int = 16,
+                 output_nc: int = 3, ngf: int = 64, img_f: int = 1024,
+                 layers: int = 6, num_blocks: int = 2,
+                 norm_type: str = "batch", activation: str = "ReLU",
+                 attn_layer: Sequence[int] = (1, 2),
+                 extractor_kz: Dict[str, int] = None,
+                 use_spect: bool = False):
+        super().__init__(image_nc, structure_nc, output_nc, ngf, img_f,
+                         layers, num_blocks, norm_type, activation,
+                         attn_layer, extractor_kz, use_spect)
+        self.flow_net = FaceFlowNet(image_nc, structure_nc, ngf=32,
+                                    img_f=256, encoder_layer=5,
+                                    attn_layer=attn_layer,
+                                    norm_type=norm_type,
+                                    activation=activation,
+                                    use_spect=use_spect)
+
+    def chunk_setup(self, bp_frames, p_ref, bp_ref, ref_features):
+        def frame_step(p_prev, bp_prev, bp):
+            prev_features = self.source_previous(p_prev)
+            flows, masks = self.flow_net(bp, p_prev, bp_prev, p_ref, bp_ref)
+            img = self.target(bp, prev_features, ref_features, flows, masks)
+            return img, flows, masks
+
+        return frame_step, ()
+
+
+class DanceGenerator(_AnimationGenerator):
+    """gfla_tpu/models/generators.py:576-675 (the original's
+    generator.py:264-316): two PoseFlowNets, their flows and masks
+    interleaved [previous, reference] per level into FaceTargetNet."""
+
+    def __init__(self, image_nc: int = 3, structure_nc: int = 18,
+                 output_nc: int = 3, ngf: int = 64, img_f: int = 1024,
+                 layers: int = 6, num_blocks: int = 2,
+                 norm_type: str = "batch", activation: str = "ReLU",
+                 attn_layer: Sequence[int] = (1, 2),
+                 extractor_kz: Dict[str, int] = None,
+                 use_spect: bool = False):
+        super().__init__(image_nc, structure_nc, output_nc, ngf, img_f,
+                         layers, num_blocks, norm_type, activation,
+                         attn_layer, extractor_kz, use_spect)
+        flow_kw = dict(ngf=32, img_f=256, encoder_layer=5,
+                       attn_layer=attn_layer, norm_type="instance",
+                       activation="LeakyReLU", use_spect=use_spect)
+        self.flow_net_previous = PoseFlowNet(image_nc, structure_nc,
+                                             **flow_kw)
+        self.flow_net_reference = PoseFlowNet(image_nc, structure_nc,
+                                              **flow_kw)
+
+    def chunk_setup(self, bp_frames, p_ref, bp_ref, ref_features):
+        B, T = bp_frames.shape[:2]
+
+        def rep(a):  # (B, ...) -> (B * T, ...), each sample T times
+            return _channels_last(a.repeat_interleave(T, dim=0))
+
+        flows_r, masks_r = self.flow_net_reference(
+            rep(p_ref), rep(bp_ref),
+            _channels_last(bp_frames.reshape(B * T, *bp_frames.shape[2:])))
+        per_frame = [a.reshape(B, T, *a.shape[1:])
+                     for a in (*flows_r, *masks_r)]
+        levels = len(flows_r)
+
+        def frame_step(p_prev, bp_prev, bp, *refs):
+            prev_features = self.source_previous(p_prev)
+            flows_p, masks_p = self.flow_net_previous(p_prev, bp_prev, bp)
+            flows, masks = [], []
+            for j in range(levels):
+                flows += [flows_p[j], refs[j]]
+                masks += [masks_p[j], refs[levels + j]]
+            img = self.target(bp, prev_features, ref_features, flows, masks)
+            return img, flows, masks
+
+        return frame_step, per_frame

@@ -1,6 +1,6 @@
 """Pre-activation building blocks (NCHW), in the original GFLA's module layout.
 
-Counterpart of gfla_tpu/nn/blocks.py:27-209,241-286. Each block keeps the
+Counterpart of gfla_tpu/nn/blocks.py:27-286. Each block keeps the
 original's `nn.Sequential` indices (base_function.py:334-391,508-556,650-691)
 so its checkpoints load with strict key matching: with a norm layer,
 `model.0` norm, `model.2` conv, `model.3` norm, `model.5` conv; without,
@@ -20,6 +20,7 @@ from gfla_tpu_torch.nn.norms import (
     ConvTranspose2x,
     SpectralNormed,
     conv2d,
+    conv3d,
     get_activation,
     norm_layer,
 )
@@ -91,6 +92,33 @@ class ResBlockEncoder(nn.Module):
             conv2d(hidden_nc, output_nc, 4, 2, 1, use_spect))
         self.shortcut = nn.Sequential(
             nn.AvgPool2d(2, 2), conv2d(input_nc, output_nc, 1, 1, 0, use_spect))
+
+    def forward(self, x, update_stats=None):
+        return (_run(self.model, x, update_stats)
+                + _run(self.shortcut, x, update_stats))
+
+
+class ResBlock3DEncoder(nn.Module):
+    """The temporal discriminator's 3-D residual block on NCDHW input
+    (gfla_tpu/nn/blocks.py:212-238, the original's base_function.py:43-67,
+    which gfla_tpu runs without a norm whatever `norm_type` says): main
+    act, conv 3^3 p1 -> act, conv (3,4,4) s(1,2,2) p(0,1,1); shortcut
+    avg-pool (3,2,2) s(1,2,2), unpadded -> conv 1^3. Time shrinks by 2 and
+    space halves. Keys `model.1`, `model.3`, `shortcut.1`."""
+
+    def __init__(self, input_nc: int, output_nc: int,
+                 hidden_nc: Optional[int] = None,
+                 activation: str = "LeakyReLU", use_spect: bool = True):
+        super().__init__()
+        hidden_nc = hidden_nc or input_nc
+        self.model = _pre_act(
+            "none", activation, input_nc,
+            conv3d(input_nc, hidden_nc, 3, 1, 1, use_spect), hidden_nc,
+            conv3d(hidden_nc, output_nc, (3, 4, 4), (1, 2, 2), (0, 1, 1),
+                   use_spect))
+        self.shortcut = nn.Sequential(
+            nn.AvgPool3d((3, 2, 2), (1, 2, 2)),
+            conv3d(input_nc, output_nc, 1, 1, 0, use_spect))
 
     def forward(self, x, update_stats=None):
         return (_run(self.model, x, update_stats)

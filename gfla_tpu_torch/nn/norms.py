@@ -5,8 +5,9 @@ layout (base_function.py:175-208) so that its checkpoints load by key.
 gfla_tpu's zero-padded `Conv2d` is plain `nn.Conv2d`, or `SpectralConv2d`
 with `use_spect` (and `ConvTranspose2x` likewise); its reflect padding is a
 separate `nn.ReflectionPad2d` in the blocks that use it, as in the original,
-which keeps the key indices.
-Conv3d and CoordConv are not ported yet.
+which keeps the key indices. gfla_tpu's `Conv3d` (the temporal
+discriminator's, NDHWC there, NCDHW here) is `nn.Conv3d` or `SpectralConv3d`
+(`conv3d`); `add_coords` is its CoordConv input.
 
 Under a bf16 compute dtype (`train.precision.cast_call`) these modules run
 on bf16 copies of their parameters and buffers: InstanceNorm's reductions
@@ -156,6 +157,52 @@ class SpectralConvTranspose2x(SpectralNormed):
                                   output_padding=1)
 
 
+class SpectralConv3d(SpectralNormed):
+    """Spectral-norm Conv3d; weight (cout, cin, kd, kh, kw), NCDHW input,
+    torch-style (symmetric) padding."""
+
+    def __init__(self, in_nc: int, out_nc: int, kernel_size, stride=1,
+                 padding=0, bias: bool = True, eps: float = 1e-12):
+        ks = _triple(kernel_size)
+        super().__init__((out_nc, in_nc, *ks), out_nc, bias, eps)
+        self.stride, self.padding = _triple(stride), _triple(padding)
+
+    def matrix(self, w):
+        return w.reshape(w.shape[0], -1)
+
+    def conv(self, x, w):
+        return F.conv3d(x, w, self.bias, self.stride, self.padding)
+
+
+def _triple(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
+
+
+def conv3d(in_nc: int, out_nc: int, kernel_size, stride=1, padding=0,
+           use_spect: bool = False) -> nn.Module:
+    """nn.Conv3d, or SpectralConv3d with `use_spect` (gfla_tpu's Conv3d)."""
+    if use_spect:
+        return SpectralConv3d(in_nc, out_nc, kernel_size, stride, padding)
+    return nn.Conv3d(in_nc, out_nc, kernel_size, stride, padding)
+
+
+def add_coords(x: torch.Tensor, with_r: bool = False) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C + 2 [+ 1], H, W): the coordinates in [-1, 1]
+    appended, first the one that runs along H, then along W, then with
+    `with_r` their radius (gfla_tpu/nn/norms.py:192-206, which keeps the
+    original AddCoords' orientation: its 'xx' channel is normalised over
+    H)."""
+    B, _, H, W = x.shape
+    hh, ww = (torch.linspace(-1.0, 1.0, n, dtype=x.dtype, device=x.device)
+              for n in (H, W))
+    hh_ch = hh[None, None, :, None].expand(B, 1, H, W)
+    ww_ch = ww[None, None, None, :].expand(B, 1, H, W)
+    chans = [x, hh_ch, ww_ch]
+    if with_r:
+        chans.append(torch.sqrt(hh_ch**2 + ww_ch**2))
+    return torch.cat(chans, dim=1)
+
+
 def conv2d(in_nc: int, out_nc: int, kernel_size: int, stride: int = 1,
            padding: int = 0, use_spect: bool = False) -> nn.Module:
     """nn.Conv2d, or SpectralConv2d with `use_spect` (gfla_tpu's Conv2d)."""
@@ -182,7 +229,7 @@ def init_weights(module: nn.Module, generator: torch.Generator,
     gfla_tpu."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d)):
                 nn.init.orthogonal_(m.weight, gain=gain, generator=generator)
             elif isinstance(m, SpectralNormed):
                 nn.init.orthogonal_(m.weight_orig, gain=gain,
@@ -194,3 +241,35 @@ def init_weights(module: nn.Module, generator: torch.Generator,
             if m.bias is not None:
                 m.bias.zero_()
     return module
+
+
+def spectral_modules(module: nn.Module):
+    """The spectral-norm convolutions under `module`."""
+    return [m for m in module.modules() if isinstance(m, SpectralNormed)]
+
+
+def recompute_keeping_u(modules, fn, *args):
+    """`fn(*args)` under torch.utils.checkpoint (its activations recomputed
+    in the backward), with the spectral-norm convs in `modules` seeing the
+    u they saw in the forward: the recomputation starts from the u the
+    forward started from and leaves the u stored since, so u advances once
+    per forward, as in gfla_tpu's jax.checkpoint (and the values and
+    gradients are those of the call without it)."""
+    from torch.utils.checkpoint import checkpoint
+
+    before = [(m.weight_u, m.weight_v) for m in modules]
+    runs = []
+
+    def run(*args):
+        after = [(m.weight_u, m.weight_v) for m in modules]
+        for m, (u, v) in zip(modules, before):
+            m.weight_u, m.weight_v = u, v
+        try:
+            return fn(*args)
+        finally:  # also when the recomputation stops early, by raising
+            if runs:  # the recomputation in the backward
+                for m, (u, v) in zip(modules, after):
+                    m.weight_u, m.weight_v = u, v
+            runs.append(1)
+
+    return checkpoint(run, *args, use_reentrant=False)

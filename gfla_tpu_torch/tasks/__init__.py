@@ -1,15 +1,18 @@
 """Task registry of the port (counterpart of gfla_tpu/tasks/__init__.py):
 the pose head and the ShapeNet novel-view head, for serving and training,
-and their stage-1 flow pretraining heads, poseflownet and shapenetflow."""
+their stage-1 flow pretraining heads, poseflownet and shapenetflow, and the
+recurrent animation heads, dance and face."""
 
 from __future__ import annotations
 
+from gfla_tpu_torch.tasks.animation import DanceTask, FaceTask
 from gfla_tpu_torch.tasks.pose import PoseTask
 from gfla_tpu_torch.tasks.poseflownet import PoseFlowNetTask
 from gfla_tpu_torch.tasks.shapenet import ShapeNetFlowTask, ShapeNetTask
 
 TASKS = {"pose": PoseTask, "poseflownet": PoseFlowNetTask,
-         "shapenet": ShapeNetTask, "shapenetflow": ShapeNetFlowTask}
+         "shapenet": ShapeNetTask, "shapenetflow": ShapeNetFlowTask,
+         "dance": DanceTask, "face": FaceTask}
 
 
 def get_task_class(name: str):

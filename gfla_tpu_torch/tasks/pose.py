@@ -29,7 +29,6 @@ import os
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint as recompute
 
 from gfla_tpu_torch.data.image_io import decode_jpeg_batch
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
@@ -43,7 +42,11 @@ from gfla_tpu_torch.losses import (
 )
 from gfla_tpu_torch.models import define_d, define_g
 from gfla_tpu_torch.models.vgg import load_vgg19
-from gfla_tpu_torch.nn.norms import init_weights
+from gfla_tpu_torch.nn.norms import (
+    init_weights,
+    recompute_keeping_u,
+    spectral_modules,
+)
 from gfla_tpu_torch.options import (
     StoreDictKeyPair,
     StoreList,
@@ -222,22 +225,9 @@ class PoseTask:
         the step without it."""
         if not getattr(self.opt, "remat", False):
             return cast_call(self.net_g, self.dtype, p1, bp1, bp2)
-        spectral = [m for m in self.net_g.modules() if hasattr(m, "weight_u")]
-        before = [(m.weight_u, m.weight_v) for m in spectral]
-        runs = []
-
-        def run(p1, bp1, bp2):
-            after = [(m.weight_u, m.weight_v) for m in spectral]
-            for m, (u, v) in zip(spectral, before):
-                m.weight_u, m.weight_v = u, v
-            out = cast_call(self.net_g, self.dtype, p1, bp1, bp2)
-            if runs:  # the recomputation in the backward
-                for m, (u, v) in zip(spectral, after):
-                    m.weight_u, m.weight_v = u, v
-            runs.append(1)
-            return out
-
-        return recompute(run, p1, bp1, bp2, use_reentrant=False)
+        return recompute_keeping_u(
+            spectral_modules(self.net_g),
+            lambda *a: cast_call(self.net_g, self.dtype, *a), p1, bp1, bp2)
 
     def d_forward(self, x, update_stats):
         """D's logits in f32, computed in the compute dtype."""

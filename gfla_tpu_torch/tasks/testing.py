@@ -1,10 +1,13 @@
-"""Test-time runners (counterpart of gfla_tpu/tasks/testing.py:34-65 and
+"""Test-time runners (counterpart of gfla_tpu/tasks/testing.py:34-103 and
 gfla_tpu/tasks/shapenet.py:142-177): the pose head writes
 `{src}_2_{tgt}_vis.jpg` per sample, plus the ref, gt and all panels with
 --save_input or in the val phase; the ShapeNet head serves each test source
 at every view of its azimuth sweep and writes `{src}_2_{target}_vis.jpg`
-for each. Both encode through data/image_io: nvJPEG from the card's memory
-on CUDA, PIL on the CPU."""
+for each; the animation heads stream chunks, the last frame carried into the
+next, and write `{frame}_vis` and `{frame}_gt` per frame and `ref_ref` per
+sequence. JPEGs go through data/image_io: nvJPEG from the card's memory on
+CUDA, PIL on the CPU; PNGs (`--write_ext=png`, the animation heads' default)
+through its own writer on the host."""
 
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import os
 
 import torch
 
-from gfla_tpu_torch.data.image_io import write_jpeg
+from gfla_tpu_torch.data.image_io import write_jpeg, write_png
 from gfla_tpu_torch.utils.images import tensor2im
 
 
@@ -66,4 +69,54 @@ def run_test_shapenet(task, opt, loader) -> int:
         if n >= opt.max_dataset_size:
             break
     print(f"wrote {n} results to {out_dir}")
+    return n
+
+
+def _write(path: str, image: torch.Tensor) -> None:
+    """uint8 (H, W, 3) as a JPEG or a PNG, by the path's extension."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        write_jpeg(path, image)
+    elif path.lower().endswith(".png"):
+        write_png(path, image)
+    else:
+        raise ValueError(f"--write_ext: the port writes jpg or png, not "
+                         f"{os.path.splitext(path)[1]!r}")
+
+
+def run_test_animation(task, opt, loader) -> int:
+    """Chunk after chunk of each test sequence, the last frame and skeleton
+    carried into the next chunk and reset at a sequence's first chunk, as
+    gfla_tpu's run_test_animation; files under
+    `results_dir/name/{sequence}/`. gfla_tpu then stitches each sequence's
+    frames into an mp4 (`change_seq`); the port does not yet (ROADMAP.md,
+    queue 1)."""
+    ext = getattr(opt, "write_ext", "png")
+    base_dir = os.path.join(opt.results_dir, opt.name)
+    carry = None
+    n = 0
+    for batch in loader:
+        dev = task.prepare_batch(batch)
+        frame_idx = batch.get("frame_idx", [0])[0]
+        start = getattr(opt, "start_frame", 0)
+        preload = getattr(opt, "n_frames_pre_load_test",
+                          dev["BP_all"].shape[1])
+        first_chunk = frame_idx == start + preload
+        if first_chunk:
+            carry = None
+        gen, carry = task.test_step(dev, *(carry or (None, None)))
+        paths = batch["gen_paths"][0]  # batchSize 1 at test time
+        seq = os.path.basename(os.path.dirname(paths[0])) or "seq"
+        results_dir = os.path.join(base_dir, seq)
+        if first_chunk:
+            _write(os.path.join(results_dir, f"ref_ref.{ext}"),
+                   tensor2im(dev["ref_image"]))
+        for t in range(gen.shape[1]):
+            name = os.path.splitext(os.path.basename(paths[t]))[0]
+            _write(os.path.join(results_dir, f"{name}_vis.{ext}"),
+                   tensor2im(gen[:, t]))
+            if "P_all" in dev:
+                _write(os.path.join(results_dir, f"{name}_gt.{ext}"),
+                       tensor2im(dev["P_all"][:, t]))
+            n += 1
+    print(f"wrote {n} frames under {base_dir}")
     return n

@@ -8,7 +8,10 @@ loads `{checkpoints_dir}/{name}/{which_iter}_net_G.pth` (random init if
 absent), serves the `--phase` pairs of the dataset in order and writes
 `{src}_2_{tgt}_vis.jpg` under `{results_dir}/{name}` (on the card through
 nvJPEG); `--model=shapenet` serves each test source at all 18 azimuths of
-its sweep, one `_vis.jpg` each (the task's `run_test`).
+its sweep, one `_vis.jpg` each, and `--model=dance|face` streams each clip
+chunk by chunk, the last frame carried, writing `{frame}_vis` and
+`{frame}_gt` (`--write_ext`, png by default) per frame (the task's
+`run_test`).
 `--gpu_ids=-1` runs on the CPU. gfla_tpu's multi-device flags are refused.
 """
 

@@ -2,17 +2,18 @@
 kernel family.
 
     python3 -m gfla_tpu_torch.tools.serve_profile [--iters N] [--train]
-        [--model pose|shapenet] [test or train options, e.g.
+        [--model pose|shapenet|dance|face] [test or train options, e.g.
         --compute_dtype=bfloat16]
 
-Builds the pose task (or the ShapeNet task) as `python -m
-gfla_tpu_torch.test` (or, with `--train`, `python -m gfla_tpu_torch.train`)
-does (full width, seeded random weights unless a checkpoint is named),
-takes one batch at `--load_size=256 --batchSize=8` (of the synthetic pose
-dataset, or for ShapeNet random uint8 images and viewpoint labels in the
-HDF5 dataset's layout), and runs `--iters` forwards of the task's
-`test_step` (or steps of its `train_step`: D, then G with its losses,
-backward and Adam) under torch.profiler. Device
+Builds the task as `python -m gfla_tpu_torch.test` (or, with `--train`,
+`python -m gfla_tpu_torch.train`) does (full width, seeded random weights
+unless a checkpoint is named), takes one batch at `--load_size=256
+--batchSize=8` (of the synthetic pose dataset, or for ShapeNet random uint8
+images and viewpoint labels in the HDF5 dataset's layout), or for dance and
+face one batch-2 clip of the synthetic video dataset (6 frames: one chunk of
+`--max_frames_per_gpu`, as gfla_tpu's bench.py times them), and runs
+`--iters` forwards of the task's `test_step` (or steps of its `train_step`:
+D, then G with its losses, backward and Adam) under torch.profiler. Device
 time is summed per kernel over the card's own events and grouped into
 families by kernel name; the wall time per forward or step comes from CUDA
 events around the same work without the profiler. In a training step the
@@ -53,6 +54,12 @@ FAMILIES = [  # first match wins; lower-case substrings of the kernel name
 ]
 
 
+DATASET = {"pose": "synthetic", "shapenet": "shapenet"}
+# a batch-2 clip of one 6-frame chunk, served and trained whole
+ANIMATION = {kind: ["--batchSize=2", "--n_frames_total=6",
+                    "--n_frames_pre_load_test=6"] for kind in ("dance", "face")}
+
+
 def is_annotation(evt) -> bool:
     """A range the profiler draws on the device's timeline around kernels it
     also records (an optimizer step, an op), which would count them twice."""
@@ -86,14 +93,14 @@ def main(argv=None) -> int:
     parser.add_argument("--train", action="store_true",
                         help="profile training steps, not serving forwards")
     parser.add_argument("--model", default="pose",
-                        choices=["pose", "shapenet"])
+                        choices=["pose", "shapenet", "dance", "face"])
     args, rest = parser.parse_known_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: CUDA is not available", file=sys.stderr)
         return 1
-    dataset_mode = "synthetic" if args.model == "pose" else "shapenet"
-    common = [f"--model={args.model}", f"--dataset_mode={dataset_mode}",
-              "--load_size=256", "--batchSize=8", "--gpu_ids=0"]
+    common = [f"--model={args.model}", "--load_size=256", "--gpu_ids=0",
+              *ANIMATION.get(args.model, ["--batchSize=8"]),
+              f"--dataset_mode={DATASET.get(args.model, 'synthetic_video')}"]
     ckpt = tempfile.TemporaryDirectory()
     if args.train:
         opt = TrainOptions().parse(
@@ -107,11 +114,11 @@ def main(argv=None) -> int:
     if not args.train:
         task.load_checkpoint()
     step = task.train_step if args.train else task.test_step
-    if args.model == "pose":
+    if args.model == "shapenet":
+        host = shapenet_batch(opt.batchSize, opt.load_size)
+    else:
         dataset = get_dataset_class(opt.dataset_mode)(opt)
         host = collate([dataset[i] for i in range(opt.batchSize)])
-    else:
-        host = shapenet_batch(opt.batchSize, opt.load_size)
     batch = task.prepare_batch(host)
 
     for _ in range(3):  # builds the kernels, lets cuDNN choose

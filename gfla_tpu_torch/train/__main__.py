@@ -6,7 +6,9 @@ with the original train.py:
 
 takes `--niter` epochs of iterations (or `--max_iters`) from the dataset
 (`fashion` and `market` read a DeepFashion or Market-1501 tree, `synthetic`
-makes its samples), and, as gfla_tpu's train.py does:
+makes its samples, `synthetic_video` its clips for `--model=dance|face`,
+which take one optimizer step per chunk of an iteration's clip), and, as
+gfla_tpu's train.py does:
 - holds out one batch of samples when `--eval_iters_freq` is set and the
   dataset has two batches, and prints and logs its SSIM, PSNR and L1 every
   `--eval_iters_freq` iterations (`eval_log.txt`);
@@ -17,11 +19,13 @@ makes its samples), and, as gfla_tpu's train.py does:
 - saves `latest_net_{G,D}.pth` every `--save_latest_freq` and
   `{iter}_net_{G,D}.pth` every `--save_iters_freq` and at the end, and
   resumes from `--which_iter` with `--continue_train`.
-All of it goes under `{checkpoints_dir}/{name}`. `--model=poseflownet` trains
+All of it goes under `{checkpoints_dir}/{name}`; the animation heads save
+`net_D_V` beside G and D. `--model=poseflownet` trains
 the stage-1 flow head, which has no D; a later `--model=pose
 --continue_train` with the same `--name` starts the pose generator's flow
 net from it (the two-stage protocol). `--gpu_ids=-1` runs on the CPU;
-`--remat` recomputes the pose generator's forward in the backward.
+`--remat` recomputes the generator's forward (each frame's, for the
+animation heads) in the backward.
 gfla_tpu's multi-device flags are refused.
 """
 

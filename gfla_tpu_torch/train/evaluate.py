@@ -36,12 +36,17 @@ def _unit(images: torch.Tensor) -> np.ndarray:
 
 def evaluate_held_out(task, batch) -> Dict[str, float]:
     """Mean SSIM, PSNR and L1 of the generator's eval-mode output against
-    P2 over a prepared batch; {} for a task that generates no image
-    (poseflownet)."""
+    P2 over a prepared batch, or for an animation clip over its B * T frames
+    against P_all's; {} for a task that generates no image (poseflownet)."""
     out = task.test_step(batch)
-    if len(out) != 3:
+    if "P_all" in batch:  # (B, T, 3, H, W) frames
+        T = out[0].shape[1]
+        gen, gt = (_unit(x.flatten(0, 1))
+                   for x in (out[0], batch["P_all"][:, :T]))
+    elif len(out) != 3:
         return {}
-    gen, gt = _unit(out[0]), _unit(batch["P2"])
+    else:
+        gen, gt = _unit(out[0]), _unit(batch["P2"])
     return {name: float(np.mean([fn(gen[i], gt[i]) for i in range(len(gen))]))
             for name, fn in (("ssim", compare_ssim), ("psnr", compare_psnr),
                              ("l1", compare_l1))}
@@ -50,7 +55,10 @@ def evaluate_held_out(task, batch) -> Dict[str, float]:
 def current_visuals(task, batch) -> Dict[str, torch.Tensor]:
     """The first sample's uint8 (H, W, 3) visuals: P1, BP2 (its heatmaps'
     maximum; not for ShapeNet's viewpoint labels), the generated image, P2,
-    and per attention level the flow's colours and the occlusion mask."""
+    and per attention level the flow's colours and the occlusion mask; for
+    an animation clip, its last generated frame, as gfla_tpu shows."""
+    if "P_all" in batch:
+        return {"img_gen": tensor2im(task.test_step(batch)[0][:, -1])}
     visuals = {"input_P1": tensor2im(batch["P1"])}
     if batch["BP2"].dim() == 4:
         visuals["input_BP2"] = tensor2im(

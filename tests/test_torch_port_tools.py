@@ -17,10 +17,12 @@ needs_no_card = pytest.mark.skipif(torch.cuda.is_available(),
 
 
 @needs_no_card
-@pytest.mark.parametrize("tool", [kernel_split, serve_profile],
-                         ids=["kernel_split", "serve_profile"])
-def test_tool_refuses_without_cuda(tool, capsys):
-    assert tool.main([]) == 1
+@pytest.mark.parametrize("tool,argv", [
+    (kernel_split, []), (serve_profile, []),
+    (serve_profile, ["--model=dance", "--train"])],
+    ids=["kernel_split", "serve_profile", "serve_profile-dance"])
+def test_tool_refuses_without_cuda(tool, argv, capsys):
+    assert tool.main(argv) == 1
     out, err = capsys.readouterr()
     assert out == "" and "CUDA is not available" in err
 
