@@ -10,7 +10,9 @@ Phases, each failing the run (non-zero exit) on the first error:
   3. kernel: the warp kernel against its plain torch version at both live
      attention sites of the DeepFashion generator, with far-off flows, at
      the sites of a 64x64 input, at a ragged shape (non-square, C and D
-     no multiples of 8) and at k=7; max errors and median times of both,
+     no multiples of 8), at k=7 and at k = 2, 4, 6, 8 and 9 at the k=5 site
+     (every k but 3 and 5 runs the kernels' run-time-k instance); k = 10 is
+     refused before any launch; max errors and median times of both,
      and of the kernel storing hpre (the pre-activation hidden layer) for
      the backward, held against the plain hpre.
   4. bwd kernel: both backward kernels (per position, from the forward
@@ -24,7 +26,8 @@ Phases, each failing the run (non-zero exit) on the first error:
      shape, each output by the bf16 rule (BF16_SLACK) against the f32
      result of the same values; d_flow, d_hidden_bt, dW1s, dW2 and db2
      bitwise equal over two launches; median times, bounds at the bf16
-     rate. the full-width pose generator (ngf 64, img_f 512, attention at
+     rate.
+  5. serve: the full-width pose generator (ngf 64, img_f 512, attention at
      levels 2/3 with kernels 5/3) serves four batch-8 requests of 256x176
      content in 256x256 tensors through PoseTask.test_step; checks shape,
      range, the kernel launch count, the plain-warp path and a CPU run on a
@@ -33,7 +36,11 @@ Phases, each failing the run (non-zero exit) on the first error:
      --compute_dtype=bfloat16: 2 bf16 warp launches a request and no other
      kernel, shape and range, the image against the plain bf16 path and
      both against the f32 image by the bf16 rule; ms per forward beside the
-     f32 path's in turns; GFLA_ATTN_PALLAS=1 refused (NotImplementedError). the full-width pose training step (G as in 5, the 4-layer
+     f32 path's in turns; then under GFLA_ATTN_PALLAS=1: 2 bf16
+     attention-math forward launches a request and no other kernel, the
+     image against that route's plain bf16 path and the f32 image by the
+     bf16 rule.
+  6. train: the full-width pose training step (G as in 5, the 4-layer
      spectral-norm ResDiscriminator, VGG19, six G losses, two Adams) takes
      four batch-8 steps through the kernels: finite losses, every parameter
      moved, u stored by the two D passes and not by the G-loss pass, 2
@@ -60,6 +67,12 @@ Phases, each failing the run (non-zero exit) on the first error:
      attention sites, a ragged shape and a ReLU; the backward's outputs
      bitwise equal over two launches; median ms of each, the plain
      backward timed given hpre and recomputing it.
+  8b. bf16 attn-math kernels: their bf16 instances (attn_math_fwd_bf16.cu,
+     attn_math_bwd_bf16.cu) against the bf16 plain twins at both pose
+     sites, ShapeNet's and a ragged shape: each output by the bf16 rule, the
+     f32 hpre within 1e-4 x max of the twin's, all six backward outputs
+     bitwise equal over two launches; median ms and the bound at the bf16
+     rate.
   9. poseflownet: stage-1 flow pretraining at full width, batch 8, with
      GFLA_PALLAS_CORR=1: four steps, 2 max-correlation launches each;
      finite losses; every parameter the losses reach moved; one step
@@ -68,7 +81,12 @@ Phases, each failing the run (non-zero exit) on the first error:
      it (the two-stage protocol); median ms per step of both paths.
  10. switches: the pose head under GFLA_ATTN_PALLAS=1 (serving, one training
      step) and GFLA_PALLAS_CORR=1 (one training step): the kernels each
-     setting selects, and agreement with the default path.
+     setting selects, and agreement with the default path; one bf16 step
+     under GFLA_ATTN_PALLAS=1 (2 + 2 bf16 attention-math launches) from
+     6b's state against that route's plain bf16 path (losses within 1e-2,
+     BF16_STEP_HOLD; 6b's f32 step for the bf16 rule), its peak memory; one
+     f32 step at --kernel_size 2=4,3=9 (k=4 and k=9 on the warp kernels'
+     run-time instance) against the plain path by phase 6's rule.
  11. disk data: a DeepFashion-layout tree (16 images of 256x176 a phase, 24
      train and 8 test pairs) and a Market-layout one (128x64) written
      through nvJPEG (image_io.encode_jpeg) and decoded back (PSNR >= 35 dB
@@ -131,11 +149,14 @@ prepare_batch and run_test, and the reader is held against gfla_tpu's on
 the CPU (tests/test_torch_port_shapenet.py).
 The switches are set per phase with mock.patch.dict, so none leaks into the
 next; every other phase runs with GFLA_ATTN_PALLAS=auto, GFLA_PALLAS_CORR=0.
+Each phase's wall time follows it on a line of its own. A timing takes 20
+launches after 3 warm-up ones, or fewer (at least 5) once they add up to
+300 ms.
 All six f32 kernels multiply on the tensor cores as split-f32 products
 (three TF32 products per f32 product): their bound is taken at 495 / 3
-TFLOP/s, with the FP32 cores' 67 TFLOP/s bound beside it. The warp kernels'
-three bf16 instances multiply bf16 operands: their bound is taken at the
-dense bf16 rate, 989 TFLOP/s.
+TFLOP/s, with the FP32 cores' 67 TFLOP/s bound beside it. The five bf16
+instances (the warp's three, the attention math's two) multiply bf16
+operands: their bound is taken at the dense bf16 rate, 989 TFLOP/s.
 Extra arguments go to the test options, e.g. `--checkpoints_dir DIR --name N
 --which_iter latest` to serve an original-GFLA `latest_net_G.pth` instead of
 the seeded random init. The last line is the JSON device record.
@@ -191,6 +212,7 @@ TF32X3_PEAK = TF32_PEAK / 3  # f32 work as split-f32 products: three TF32
                     # products per f32 product (csrc/mma_tf32x3.cuh)
 HBM_RATE = 3.35e12  # H100 SXM: device memory bytes/s
 BF16_PEAK = 989e12  # H100 SXM: dense bf16 FLOP/s of the tensor cores
+TIMING_MS = 300.0   # a timing's launches stop here once there are 5
 # bf16: each bf16 kernel against its bf16 plain twin on the same inputs, and
 # both against the f32 result of the same values (the plain twin in f32):
 # the kernel's error there at most 2x the twin's + BF16_SLACK x max|f32|,
@@ -241,6 +263,12 @@ KERNEL_CASES = [  # name, B, H, W, C, D, k, flow scale (None: far-off)
     ("shapenet k=3 site 64x64 C128", 8, 64, 64, 128, 128, 3, 1.5),
     ("animation k=5 site 64x64 C128 B2", 2, 64, 64, 128, 128, 5, 1.5),
     ("animation k=3 site 32x32 C256 B2", 2, 32, 32, 256, 128, 3, 1.5),
+    # --kernel_size at the pose k=5 site: the kernels' run-time instance
+    ("kernel size k=2 at the k=5 site", 8, 64, 64, 128, 128, 2, 1.5),
+    ("kernel size k=4 at the k=5 site", 8, 64, 64, 128, 128, 4, 1.5),
+    ("kernel size k=6 at the k=5 site", 8, 64, 64, 128, 128, 6, 1.5),
+    ("kernel size k=8 at the k=5 site", 8, 64, 64, 128, 128, 8, 1.5),
+    ("kernel size k=9 at the k=5 site", 8, 64, 64, 128, 128, 9, 1.5),
 ]
 
 
@@ -250,7 +278,8 @@ def check(ok: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of `fn()` by CUDA events, after warm-up."""
+    """Median milliseconds of `fn()` by CUDA events, after warm-up: `iters`
+    launches, or fewer (never under 5) once they add up to TIMING_MS."""
     for _ in range(warmup):
         fn()
     times = []
@@ -262,7 +291,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
+        if len(times) >= 5 and sum(times) >= TIMING_MS:
+            break
     return statistics.median(times)
+
+
+def timed(phase, *args):
+    """`phase(*args)`, and a line with its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase_card():
@@ -355,8 +394,8 @@ def phase_kernel(device):
     # what the wrapper refuses on a CUDA tensor, before any launch
     args = warp_inputs(1, 8, 8, 16, 32, 3, 1.0, 9, device)
     refusals = {
-        "even k": (ValueError, lambda: warp.warp_fwd(
-            *warp_inputs(1, 8, 8, 16, 32, 4, 1.0, 9, device), 4)),
+        "k = 10": (ValueError, lambda: warp.warp_fwd(
+            *warp_inputs(1, 8, 8, 16, 32, 10, 1.0, 9, device), 10)),
         "D > 256": (ValueError, lambda: warp.warp_fwd(
             *warp_inputs(1, 8, 8, 16, 320, 3, 1.0, 9, device), 3)),
         "non-contiguous": (ValueError, lambda: warp.warp_fwd(
@@ -793,12 +832,15 @@ def phase_attn_kernel(device):
     backward outputs within BWD_REL x its max |value|; the forward's output
     unchanged when it stores hpre; all six backward outputs bitwise equal
     over two launches (the sums over positions are added in a fixed order,
-    the rest written once with no atomics)."""
+    the rest written once with no atomics). Returns the results, and the
+    inputs of the cases ATTN_BF16_CASES names, for phase 8b."""
     from gfla_tpu_torch.ops import attn_math
 
-    results = {}
+    results, kept = {}, {}
     for i, (name, N, k, C, D, slope) in enumerate(ATTN_CASES):
         args, g = attn_inputs(N, k, C, D, 50 + i, device)
+        if any(name == c[0] for c in ATTN_BF16_CASES):
+            kept[name] = (args, g)
         bs, bt, w1, b1, w2, b2 = args
         out = attn_math.attn_math_fwd(*args, slope)
         out_h, hpre = attn_math.attn_math_fwd_with_hpre(*args, slope)
@@ -863,8 +905,9 @@ def phase_attn_kernel(device):
     refusals = {
         "C > 512": (ValueError, lambda: attn_math.attn_math_fwd(
             *attn_inputs(4, 3, 520, 16, 59, device)[0])),
-        "bfloat16": (TypeError, lambda: attn_math.attn_math_fwd(
-            bs.bfloat16(), *args[1:])),
+        "bfloat16 blocks with float32 weights": (
+            TypeError, lambda: attn_math.attn_math_fwd(bs.bfloat16(),
+                                                       *args[1:])),
         "non-contiguous": (ValueError, lambda: attn_math.attn_math_fwd(
             bs.transpose(0, 1).contiguous().transpose(0, 1), *args[1:])),
         "g of the wrong shape": (ValueError, lambda: attn_math.attn_math_bwd(
@@ -875,6 +918,112 @@ def phase_attn_kernel(device):
             bs, bt, g, w1, b1, w2, b2, 0.1, hpre[:, :8].contiguous())),
     }
     expect_refusals("attn_math", refusals)
+    return results, kept
+
+
+ATTN_BF16_CASES = [  # name, N, k, C, D (LeakyReLU 0.1), cases of ATTN_CASES
+    ("k=5 site N=32768 C128", 8 * 64 * 64, 5, 128, 128),
+    ("k=3 site N=8192 C256", 8 * 32 * 32, 3, 256, 128),
+    ("shapenet k=3 site N=32768 C128", 8 * 64 * 64, 3, 128, 128),
+    ("ragged N=1000 k=3 C21 D42", 1000, 3, 21, 42),
+]
+
+
+def attn_work_bf16(N, k, C, D):
+    """(FLOPs, bytes) of the bf16 forward (storing hpre) and backward
+    kernels: attn_work's operations, and bytes with the blocks, g, the
+    weights and d_bs, d_bt, d_hpre in bf16, hpre and the sums in f32."""
+    k2 = k * k
+    fwd_ops, bwd_ops, _ = (w[0] for w in attn_work(N, k, C, D))
+    weights = 2 * (2 * k2 * C * D + D + D * k2 + k2)
+    fwd = 2 * (2 * N * k2 * C + N * C) + weights + 4 * N * D
+    bwd = (2 * (N * k2 * C + N * C) + 4 * N * D + weights
+           + 2 * (2 * N * k2 * C + N * D) + 4 * (D * k2 + D + k2))
+    return (fwd_ops, fwd), (bwd_ops, bwd)
+
+
+def phase_attn_bf16_kernels(inputs):
+    """The attention-math kernels' bf16 instances (attn_math_fwd_bf16.cu,
+    attn_math_bwd_bf16.cu) against their bf16 plain twins at the pose
+    sites, ShapeNet's and a ragged shape, from bf16 blocks, weights and g
+    (phase 8's `inputs` of the same cases, rounded): the output by the bf16
+    rule, the f32 hpre within BWD_REL x max of the twin's (f32 sums of the
+    same bf16 products), the output unchanged when hpre is stored; the
+    backward from the kernel's hpre, each of its six outputs by the bf16
+    rule and bitwise equal over two launches; median ms of each kernel and
+    twin, the bound at the bf16 rate."""
+    from gfla_tpu_torch.ops import attn_math
+
+    bf = torch.bfloat16
+    results = {}
+    for name, N, k, C, D in ATTN_BF16_CASES:
+        args32, g32 = inputs.pop(name)
+        args = tuple(t.to(bf) for t in args32)
+        g = g32.to(bf)
+        wide = tuple(t.float() for t in args)  # the same values in f32
+        out, hpre = attn_math.attn_math_fwd_with_hpre(*args)
+        out_only = attn_math.attn_math_fwd(*args)
+        plain, plain_h = attn_math.attn_math_plain(*args, with_hpre=True)
+        f32, f32_h = attn_math.attn_math_plain(*wide, with_hpre=True)
+        check(out.dtype == bf and hpre.dtype == torch.float32,
+              f"bf16 attn-math {name}: forward gave {out.dtype}, hpre "
+              f"{hpre.dtype}")
+        bs, bt, w1, b1, w2, b2 = args
+        got = attn_math.attn_math_bwd(bs, bt, g, w1, b1, w2, b2, 0.1, hpre)
+        again = attn_math.attn_math_bwd(bs, bt, g, w1, b1, w2, b2, 0.1, hpre)
+        want = attn_math.attn_math_bwd_plain(bs, bt, g, w1, b1, w2, b2, 0.1,
+                                             hpre)
+        f32_b = attn_math.attn_math_bwd_plain(*wide[:2], g.float(), *wide[2:],
+                                              0.1, f32_h)
+        torch.cuda.synchronize()
+        check(torch.equal(out_only, out), f"bf16 attn-math {name}: the "
+              f"output moved when hpre is stored")
+        err_h = (hpre - plain_h).abs().max().item()
+        tol_h = BWD_REL * plain_h.abs().max().item()
+        check(err_h <= tol_h, f"bf16 attn-math {name}: hpre vs plain "
+              f"{err_h:.3e} > {tol_h:.3e}")
+        errs = {"out": bf16_rule(f"bf16 attn-math {name} out", out, plain,
+                                 f32, BF16_OUT_REL)}
+        for o, a, b, f in zip(ATTN_OUTPUTS, got, want, f32_b):
+            check(a.dtype == b.dtype, f"bf16 attn-math {name}: {o} in "
+                  f"{a.dtype}, the twin's {b.dtype}")
+            errs[o] = bf16_rule(f"bf16 attn-math {name} {o}", a, b, f,
+                                BF16_OUT_REL if o == "d_bs"
+                                else BF16_GRAD_REL)
+        moved = [o for o, a, b in zip(ATTN_OUTPUTS, got, again)
+                 if not torch.equal(a, b)]
+        check(not moved, f"bf16 attn-math {name}: {moved} differ between two "
+              f"launches")
+        ms = {
+            "fwd": (cuda_ms(lambda: attn_math.attn_math_fwd_with_hpre(*args),
+                            iters=10),
+                    cuda_ms(lambda: attn_math.attn_math_plain(
+                        *args, with_hpre=True), iters=10)),
+            "bwd": (cuda_ms(lambda: attn_math.attn_math_bwd(
+                bs, bt, g, w1, b1, w2, b2, 0.1, hpre), iters=10),
+                    cuda_ms(lambda: attn_math.attn_math_bwd_plain(
+                        bs, bt, g, w1, b1, w2, b2, 0.1, hpre), iters=10)),
+        }
+        work = dict(zip(("fwd", "bwd"), attn_work_bf16(N, k, C, D)))
+        bounds = {part: bound(*work[part], BF16_PEAK) for part in work}
+        print(f"bf16 attn-math {name}: kernel vs bf16 plain twin, x "
+              f"max|f32|: " + " ".join(
+                  f"{o}={rel:.3e}" for o, (_, rel) in errs.items())
+              + f" (tol out, d_bs {BF16_OUT_REL:g}, others "
+              f"{BF16_GRAD_REL:g}; each within 2x the twin's error against "
+              f"f32 + {BF16_SLACK:g}); hpre max_abs_err={err_h:.3e} (tol "
+              f"{tol_h:.3e}); backward outputs bitwise equal over two "
+              f"launches; "
+              + "; ".join(f"{part} kernel {ms[part][0]:.4f} ms plain "
+                          f"{ms[part][1]:.4f} ms bound {bounds[part][0]:.4f} "
+                          f"ms ({bounds[part][1]}, bf16 989 TFLOP/s)"
+                          for part in ms))
+        results[name] = {
+            "fwd": dict(err=errs["out"][0], ms=ms["fwd"][0],
+                        plain_ms=ms["fwd"][1], work=work["fwd"]),
+            "bwd": dict(err=max(errs[o][0] for o in ATTN_OUTPUTS),
+                        ms=ms["bwd"][0], plain_ms=ms["bwd"][1],
+                        work=work["bwd"])}
     return results
 
 
@@ -974,7 +1123,10 @@ def phase_serve_bf16(serve, extra_args):
     as phase_slice through PoseTask.test_step, the bf16 warp kernel launched
     twice a request and nothing else; the image against the plain bf16 path
     and both against the f32 output by the bf16 rule; ms per forward beside
-    the f32 path's, in turns; GFLA_ATTN_PALLAS=1 refused."""
+    the f32 path's, in turns. Then the same under GFLA_ATTN_PALLAS=1: the
+    bf16 attention-math forward launched twice a request and nothing else,
+    the image against that route's plain bf16 path and the f32 image, and
+    the share of each ExtractorAttn output's values that differ there."""
     from gfla_tpu_torch.options import TestOptions
     from gfla_tpu_torch.tasks import create_task
 
@@ -1023,11 +1175,51 @@ def phase_serve_bf16(serve, extra_args):
           f"path {plain_ms:.3f} ms; f32 kernel path "
           f"{', '.join(f'{t:.3f}' for t in times['f32'])} ms (in turns)")
     with switches(GFLA_ATTN_PALLAS="1"):
-        expect_refusals("bf16 serving under GFLA_ATTN_PALLAS=1", {
-            "the attention-math kernels in bf16": (
-                NotImplementedError, lambda: task.test_step(requests[0]))})
+        reset_launch_counts()
+        attn_outs = [task.test_step(batch)[0] for batch in requests]
+        torch.cuda.synchronize()
+        attn_counts = launch_counts()
+        reset_launch_counts()
+        with plain_attn_math():
+            attn_plain, sites_plain = attention_outputs(task, requests[0])
+        torch.cuda.synchronize()
+        plain_counts = launch_counts()
+        _, sites = attention_outputs(task, requests[0])
+        attn_ms = cuda_ms(lambda: task.test_step(requests[1]), iters=10)
+    differ = [(a != b).float().mean().item() for a, b in zip(sites,
+                                                              sites_plain)]
+    site_rel = [((a.float() - b.float()).abs().max()
+                 / b.float().abs().max()).item()
+                for a, b in zip(sites, sites_plain)]
+    print(f"bf16 served {len(requests)} requests under GFLA_ATTN_PALLAS=1: "
+          f"launches {attn_counts}")
+    check(only(attn_counts, attn_math_fwd_bf16=2 * len(requests)),
+          f"bf16 GFLA_ATTN_PALLAS=1 serving launched {attn_counts}, expected "
+          f"2 attn_math_fwd_bf16 a request and nothing else")
+    check(only(plain_counts), f"the plain bf16 GFLA_ATTN_PALLAS=1 path "
+          f"launched {plain_counts}")
+    for img in attn_outs:
+        check(tuple(img.shape) == (8, 3, 256, 256)
+              and bool(torch.isfinite(img).all())
+              and img.min().item() >= -1 and img.max().item() <= 1,
+              "bf16 GFLA_ATTN_PALLAS=1: image shape, finiteness or range")
+    attn_err, attn_rel = bf16_rule("bf16 GFLA_ATTN_PALLAS=1 serving",
+                                   attn_outs[0], attn_plain, f32_img,
+                                   SERVE_BF16_REL)
+    print(f"bf16 GFLA_ATTN_PALLAS=1 serving: kernel vs plain bf16 path "
+          f"max_abs_diff={attn_err:.3e} = {attn_rel:.3e} x max|f32 image| "
+          f"(bound {SERVE_BF16_REL:g}); off the f32 image by "
+          f"{(attn_outs[0] - f32_img).abs().max().item() / top:.3e} (kernel) "
+          f"and {(attn_plain - f32_img).abs().max().item() / top:.3e} "
+          f"(plain); {attn_ms:.3f} ms per batch-8 forward; the "
+          f"ExtractorAttn outputs, kernel vs plain: "
+          + ", ".join(f"{100 * d:.3f}% of values differ, max "
+                      f"{r:.3e} x max" for d, r in zip(differ, site_rel)))
+    check(len(sites) == len(sites_plain) == 2,
+          f"bf16 GFLA_ATTN_PALLAS=1: {len(sites)} ExtractorAttn outputs")
     return dict(launches=counts["warp_fwd_bf16"], err=err,
-                ms=statistics.median(times["bf16"]))
+                ms=statistics.median(times["bf16"]),
+                attn_launches=attn_counts["attn_math_fwd_bf16"])
 
 
 def launch_counts():
@@ -1040,7 +1232,9 @@ def launch_counts():
             "warp_bwd_w1_bf16": warp.bf16_bwd_w1_launches,
             "max_corr": max_corr.launches,
             "attn_math_fwd": attn_math.fwd_launches,
-            "attn_math_bwd": attn_math.bwd_launches}
+            "attn_math_bwd": attn_math.bwd_launches,
+            "attn_math_fwd_bf16": attn_math.bf16_fwd_launches,
+            "attn_math_bwd_bf16": attn_math.bf16_bwd_launches}
 
 
 def reset_launch_counts():
@@ -1051,6 +1245,7 @@ def reset_launch_counts():
     warp.bf16_bwd_w1_launches = 0
     max_corr.launches = 0
     attn_math.fwd_launches = attn_math.bwd_launches = 0
+    attn_math.bf16_fwd_launches = attn_math.bf16_bwd_launches = 0
 
 
 def only(counts, **expected):
@@ -1069,6 +1264,14 @@ def plain_warp():
     from gfla_tpu_torch.ops import warp
 
     return mock.patch.object(warp, "warp_fwd", warp.warp_fwd_plain)
+
+
+def plain_attn_math():
+    """The GFLA_ATTN_PALLAS=1 route's plain path: the attention math as
+    `attn_math_plain`, differentiated by autograd."""
+    from gfla_tpu_torch.ops import attn_math
+
+    return mock.patch.object(attn_math, "attn_math", attn_math.attn_math_plain)
 
 
 def nets(task):
@@ -1506,7 +1709,8 @@ def phase_train_bf16(train):
     through the bf16 warp kernels (train_main_path's checks, 2 launches of
     each bf16 kernel a step); one step on the kernel path against the plain
     bf16 path from one state, both against the f32 step; ms per step and
-    peak memory beside the f32 step's of phase_train."""
+    peak memory beside the f32 step's of phase_train. Returns the counts,
+    and the state, batch and f32 step's snapshot for attn_bf16_step."""
     from gfla_tpu_torch.tasks import create_task
 
     opt, ckpt = train_opt("--compute_dtype=bfloat16", "--name=train_bf16")
@@ -1544,6 +1748,7 @@ def phase_train_bf16(train):
     check(loss_rel <= BF16_LOSS_REL, f"bf16 step losses {sides}")
     grads_by_rule("bf16 kernel vs plain path", sides[0][1], sides[1][1],
                   snap32)
+    del sides
 
     ms = statistics.median(times[1:])
     print(f"bf16 train step batch 8 at 256x256: kernel path {ms:.3f} ms "
@@ -1551,7 +1756,8 @@ def phase_train_bf16(train):
           f"{statistics.median(plain_times):.3f} ms, peak {peak:.2f} GiB; "
           f"f32 step {train['ms']:.3f} ms, peak {train['peak']:.2f} GiB "
           f"(phase_train)")
-    return counts
+    return dict(counts=counts, state=state, batch=batches[0], snap32=snap32,
+                peak=peak)
 
 
 def phase_poseflownet():
@@ -1678,7 +1884,7 @@ def attention_outputs(task, request):
     return img, outs
 
 
-def phase_switches(serve, train):
+def phase_switches(serve, train, train_bf16):
     """The pose head under GFLA_ATTN_PALLAS=1 and under GFLA_PALLAS_CORR=1:
     the kernels each selects, launched on its path, against the default
     (warp, scan) path."""
@@ -1728,7 +1934,93 @@ def phase_switches(serve, train):
     check(only(counts["corr"], warp_fwd=2, warp_bwd_pos=2, warp_bwd_w1=2,
                max_corr=2), f"GFLA_PALLAS_CORR=1 launches {counts['corr']}")
     return dict(serve_attn=serve_counts, train_attn=counts["attn"],
-                train_corr=counts["corr"])
+                train_corr=counts["corr"],
+                train_attn_bf16=attn_bf16_step(train_bf16),
+                train_kernel_size=kernel_size_step())
+
+
+def attn_bf16_step(train_bf16):
+    """One full-width batch-8 pose step under --compute_dtype=bfloat16 and
+    GFLA_ATTN_PALLAS=1 through the bf16 attention-math kernels (2 launches
+    of each, nothing else), against that route's plain bf16 path from
+    phase_train_bf16's state and batch: losses within BF16_LOSS_REL,
+    gradients by BF16_STEP_HOLD and both paths against phase_train_bf16's
+    f32 step by the bf16 rule (grads_by_rule; the f32 step ran the f32 warp
+    kernels, the same function in f32); the kernel path's peak memory."""
+    state = train_bf16.pop("state")
+    batch = train_bf16.pop("batch")
+    snap32 = train_bf16.pop("snap32")
+    sides = []
+    with switches(GFLA_ATTN_PALLAS="1"):
+        for path in (contextlib.nullcontext, plain_attn_math):
+            side = copy.deepcopy(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            with path():
+                t0 = time.perf_counter()
+                side_logs = side.train_step(batch)
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t0
+            sides.append((side_logs, snapshot(side), launch_counts(), step_s,
+                          torch.cuda.max_memory_allocated() / 2**30))
+            del side
+    del state
+    counts = sides[0][2]
+    loss_rel = rel_diff(sides[0][0], sides[1][0])
+    print(f"bf16 GFLA_ATTN_PALLAS=1 pose step, batch 8 at 256x256: launches "
+          f"{counts}; losses within {loss_rel:.3e} rel of the plain bf16 "
+          f"path (bound {BF16_LOSS_REL:g}); first step {sides[0][3]:.3f} s "
+          f"(plain path {sides[1][3]:.3f} s); peak {sides[0][4]:.2f} GiB "
+          f"(plain path {sides[1][4]:.2f} GiB; the warp route's bf16 step "
+          f"{train_bf16['peak']:.2f} GiB, phase_train_bf16)")
+    check(only(counts, attn_math_fwd_bf16=2, attn_math_bwd_bf16=2),
+          f"bf16 GFLA_ATTN_PALLAS=1 step launches {counts}")
+    check(only(sides[1][2]), f"the plain bf16 GFLA_ATTN_PALLAS=1 step "
+          f"launched {sides[1][2]}")
+    check(loss_rel <= BF16_LOSS_REL, f"bf16 GFLA_ATTN_PALLAS=1 step losses "
+          f"{sides[0][0]} vs {sides[1][0]}")
+    grads_by_rule("bf16 GFLA_ATTN_PALLAS=1 kernel vs plain path",
+                  sides[0][1], sides[1][1], snap32)
+    return counts
+
+
+def kernel_size_step():
+    """One full-width batch-8 f32 pose step at --kernel_size 2=4,3=9 (k=4
+    on 64x64x128, k=9 on 32x32x256: the warp kernels' run-time instance)
+    through the warp kernels (2 launches of each), against the plain path
+    from one state by phase 6's rule (compare_steps)."""
+    from gfla_tpu_torch.tasks import create_task
+
+    opt, ckpt = train_opt("--kernel_size=2=4,3=9", "--name=kernel_size")
+    state = create_task(opt)
+    g = state.net_g
+    check(g.target.attn1.kernel_size == 4 and g.target.attn0.kernel_size == 9,
+          f"--kernel_size 2=4,3=9 gave {g.target.attn1.kernel_size}, "
+          f"{g.target.attn0.kernel_size}")
+    lrs = {"G": opt.lr, "D": opt.lr * opt.ratio_g2d}
+    state = off_the_kinks(state)
+    batch = state.prepare_batch(deepfashion_batch(400))
+    task = copy.deepcopy(state)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logs = task.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = launch_counts()
+    del task
+    print(f"--kernel_size 2=4,3=9 pose step, batch 8 at 256x256: launches "
+          f"{counts}; losses " + " ".join(f"{n} {float(v):.5f}"
+                                          for n, v in logs.items())
+          + f"; first step {step_s:.3f} s")
+    check(only(counts, warp_fwd=2, warp_bwd_pos=2, warp_bwd_w1=2),
+          f"--kernel_size 2=4,3=9 launches {counts}")
+    check(all(bool(torch.isfinite(v)) for v in logs.values()),
+          f"--kernel_size 2=4,3=9: losses {logs}")
+    compare_steps("--kernel_size 2=4,3=9 kernel vs plain path, batch 8 at "
+                  "256x256", state, batch, lrs)
+    ckpt.cleanup()
+    return counts
 
 
 DISK_PSNR_MIN = 35.0   # dB: nvJPEG encode + decode at quality 75, each image
@@ -2766,9 +3058,10 @@ def site_cases(head, cases, results, unpack, work_of, peak=TF32X3_PEAK):
 
 
 def both_cases(cases, results, unpack, work_of, peak=TF32X3_PEAK):
-    """site_cases of market's, ShapeNet's and the animation heads' sites."""
+    """site_cases of market's, ShapeNet's and the animation heads' sites,
+    and of the other kernel sizes at the pose k=5 site."""
     return {head: site_cases(head, cases, results, unpack, work_of, peak)
-            for head in ("market", "shapenet", "animation")}
+            for head in ("market", "shapenet", "animation", "kernel size")}
 
 
 UNITS = {TF32X3_PEAK: "tensor cores, 3 TF32 products per f32 product: "
@@ -2796,7 +3089,10 @@ def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
             "library_ms": library_ms, "ms_shape": shape,
             "market_cases": cases.get("market", {}),
             "shapenet_cases": cases.get("shapenet", {}),
-            "animation_cases": cases.get("animation", {})}
+            "animation_cases": cases.get("animation", {}),
+            "kernel_size_cases": cases.get("kernel size", {}),
+            **({"pose_k3_cases": cases["pose_k3"]}
+               if "pose_k3" in cases else {})}
 
 
 def main(argv):
@@ -2809,32 +3105,34 @@ def main(argv):
 
     set_tf32(False)
     with switches(GFLA_ATTN_PALLAS="auto", GFLA_PALLAS_CORR="0"):
-        phase_card()
-        phase_build()
-        kernel = phase_kernel(device)
-        bwd = phase_bwd_kernel(device)
-        bf16 = phase_bf16_kernels(device)
-        corr = phase_corr_kernel(device)
-        attn = phase_attn_kernel(device)
-        serve = phase_slice(argv)
-        serve_bf16 = phase_serve_bf16(serve, argv)
-        train = phase_train()
-        train_bf16 = phase_train_bf16(train)
-        flow = phase_poseflownet()
-        switched = phase_switches(serve, train)
-        disk = phase_disk_data(device)
-        sn_serve = phase_shapenet_serve()
-        sn_sweep = phase_shapenet_sweep(sn_serve)
-        sn_train = phase_shapenet_train()
-        sn_flow = phase_shapenetflow()
-        sn_bf16 = phase_shapenet_bf16(sn_serve, sn_train)
+        timed(phase_card)
+        timed(phase_build)
+        kernel = timed(phase_kernel, device)
+        bwd = timed(phase_bwd_kernel, device)
+        bf16 = timed(phase_bf16_kernels, device)
+        corr = timed(phase_corr_kernel, device)
+        attn, attn_inputs_kept = timed(phase_attn_kernel, device)
+        attn_bf16 = timed(phase_attn_bf16_kernels, attn_inputs_kept)
+        del attn_inputs_kept
+        serve = timed(phase_slice, argv)
+        serve_bf16 = timed(phase_serve_bf16, serve, argv)
+        train = timed(phase_train)
+        train_bf16 = timed(phase_train_bf16, train)
+        flow = timed(phase_poseflownet)
+        switched = timed(phase_switches, serve, train, train_bf16)
+        disk = timed(phase_disk_data, device)
+        sn_serve = timed(phase_shapenet_serve)
+        sn_sweep = timed(phase_shapenet_sweep, sn_serve)
+        sn_train = timed(phase_shapenet_train)
+        sn_flow = timed(phase_shapenetflow)
+        sn_bf16 = timed(phase_shapenet_bf16, sn_serve, sn_train)
         anim = {}
         for kind in ("dance", "face"):
-            anim[f"{kind}_serve"] = phase_anim_serve(kind)["launches"]
-            anim_train = phase_anim_train(kind)
+            anim[f"{kind}_serve"] = timed(phase_anim_serve, kind)["launches"]
+            anim_train = timed(phase_anim_train, kind)
             anim[f"{kind}_train"] = anim_train["counts"]
             if kind == "dance":
-                anim_switched = phase_anim_switches(anim_train)
+                anim_switched = timed(phase_anim_switches, anim_train)
             del anim_train
     train = train["counts"]
     shapenet = {"shapenet_serve": sn_serve["launches"],
@@ -2855,7 +3153,8 @@ def main(argv):
          "face_serve": anim["face_serve"],
          **{path: anim[path]["warp_fwd"]
             for path in ("dance_train", "face_train")},
-         "dance_train_corr": anim_switched["dance_train_corr"]["warp_fwd"]},
+         "dance_train_corr": anim_switched["dance_train_corr"]["warp_fwd"],
+         "train_kernel_size": switched["train_kernel_size"]["warp_fwd"]},
         max(e for e, _, _ in kernel.values()), f"{KERNEL_ATOL:g} abs", ms,
         plain_ms, work["warp_fwd"], none, shape,
         both_cases(KERNEL_CASES, kernel, lambda r: r,
@@ -2871,7 +3170,8 @@ def main(argv):
              "shapenet_train": sn_train["counts"][name],
              **{path: anim[path][name]
                 for path in ("dance_train", "face_train")},
-             "dance_train_corr": anim_switched["dance_train_corr"][name]},
+             "dance_train_corr": anim_switched["dance_train_corr"][name],
+             "train_kernel_size": switched["train_kernel_size"][name]},
             max(r[part][0] for r in bwd.values()),
             f"{BWD_REL:g} x max|value| of each output",
             bwd[site[0]][part][1], bwd[site[0]][part][2], work[name], none,
@@ -2882,14 +3182,14 @@ def main(argv):
     for name, part, source, replaces, paths in (
             ("warp_fwd_bf16", "fwd", "warp_fwd_bf16.cu", "166",
              {"serve_bf16": serve_bf16["launches"],
-              "train_bf16": train_bf16["warp_fwd_bf16"],
+              "train_bf16": train_bf16["counts"]["warp_fwd_bf16"],
               "shapenet_serve_bf16": sn_bf16["serve"],
               "shapenet_train_bf16": sn_bf16["train"]["warp_fwd_bf16"]}),
             ("warp_bwd_pos_bf16", "pos", "warp_bwd_bf16.cu", "243",
-             {"train_bf16": train_bf16["warp_bwd_pos_bf16"],
+             {"train_bf16": train_bf16["counts"]["warp_bwd_pos_bf16"],
               "shapenet_train_bf16": sn_bf16["train"]["warp_bwd_pos_bf16"]}),
             ("warp_bwd_w1_bf16", "w1", "warp_bwd_bf16.cu", "243",
-             {"train_bf16": train_bf16["warp_bwd_w1_bf16"],
+             {"train_bf16": train_bf16["counts"]["warp_bwd_w1_bf16"],
               "shapenet_train_bf16": sn_bf16["train"]["warp_bwd_w1_bf16"]})):
         kern = name.removesuffix("_bf16")
         entries.append(kernel_entry(
@@ -2950,6 +3250,37 @@ def main(argv):
                 lambda c, part=part: attn_work(*c[1:5])[
                     0 if part == "fwd" else 1])
              for head in ("shapenet", "animation")}))
+    a = attn_bf16[ATTN_BF16_CASES[0][0]]
+    for name, part, paths in (
+            ("attn_math_fwd_bf16", "fwd",
+             {"serve_bf16_attn": serve_bf16["attn_launches"],
+              "train_bf16_attn":
+                  switched["train_attn_bf16"]["attn_math_fwd_bf16"]}),
+            ("attn_math_bwd_bf16", "bwd",
+             {"train_bf16_attn":
+                  switched["train_attn_bf16"]["attn_math_bwd_bf16"]})):
+        entries.append(kernel_entry(
+            name, f"gfla_tpu_torch/csrc/{name}.cu",
+            "gfla_tpu/ops/pallas_attn.py:"
+            + ("64" if part == "fwd" else "155"), paths,
+            max(r[part]["err"] for r in attn_bf16.values()),
+            f"{BF16_OUT_REL:g} (out, d_bs), {BF16_GRAD_REL:g} (other "
+            f"gradients) x max|f32 value| against the bf16 plain twin",
+            a[part]["ms"], a[part]["plain_ms"], a[part]["work"], none,
+            "N=32768 k=5 C=128 D=128",
+            {"pose_k3": site_cases(
+                "k=3", ATTN_BF16_CASES, attn_bf16,
+                lambda r, part=part: (r[part]["err"], r[part]["ms"],
+                                      r[part]["plain_ms"]),
+                lambda c, part=part: attn_work_bf16(*c[1:5])[
+                    0 if part == "fwd" else 1], BF16_PEAK),
+             "shapenet": site_cases(
+                "shapenet", ATTN_BF16_CASES, attn_bf16,
+                lambda r, part=part: (r[part]["err"], r[part]["ms"],
+                                      r[part]["plain_ms"]),
+                lambda c, part=part: attn_work_bf16(*c[1:5])[
+                    0 if part == "fwd" else 1], BF16_PEAK)},
+            peak=BF16_PEAK))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

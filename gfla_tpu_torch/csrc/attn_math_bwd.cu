@@ -45,10 +45,23 @@
 //    site. When the position tiles leave SMs idle (the k=3 site) the items
 //    are split over CTAs. mma.sync from fragments split at load took 1.6x
 //    as long for this product on an H100 (PERF.md, section 6).
+//
+// bf16 (attn_math_bwd_bf16.cu builds this file with GFLA_ATTN_BF16 = 1,
+// entry gfla_attn_math_bwd_bf16): gfla_tpu's _bwd_kernel with bf16 blocks
+// and parameters. It reads bs, g, W1, W2 and b2 in bf16 and the f32 hpre,
+// and writes d_bs, d_bt and d_hpre in bf16; dW2, db1 and db2 stay f32 sums
+// in reduce_parts' fixed order. As gfla_tpu's body (pallas_attn.py:
+// 155-228), it rounds the hidden layer to bf16 before W2 and for dW2 and
+// d_hpre before the product and the store; the softmax, d_attn, d_logits,
+// d_h and d_hpre are f32, and db1 is summed from the unrounded d_hpre. The
+// product d_hpre . W1^T is bf16 mma.sync m16n8k16 (attn_math_bf16.cuh) over
+// W1 as it lies, and (1/k^2) attn g is added in f32 before d_bs is rounded.
+// Its bound is the bytes: the blocks read and their gradients written.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 // tools/kernel_split.py builds timing variants, each leaving one part out:
 // 1 the product, 2 the tile copies and splits (W1 and d_hpre stages), 3 the
@@ -58,6 +71,11 @@
 #define GFLA_SPLIT 0
 #endif
 
+#ifndef GFLA_ATTN_BF16
+#define GFLA_ATTN_BF16 0  // 1: the bf16 instance (attn_math_bwd_bf16.cu)
+#endif
+
+#include "attn_math_bf16.cuh"
 #include "attn_math_steps.cuh"
 #include "attn_math_tiles.cuh"
 #include "reduce_parts.cuh"
@@ -67,6 +85,10 @@ namespace {
 using gfla::kAttnRowPos;
 using gfla::kAttnTile;
 using gfla::kGemmThreads;
+
+constexpr bool kBf16 = GFLA_ATTN_BF16;
+// bs, g, the parameters and d_bs, d_bt, d_hpre: f32, or bf16 as bits
+using ElemT = std::conditional_t<kBf16, uint16_t, float>;
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
@@ -86,12 +108,12 @@ size_t rows_smem_bytes(int k2, int D) {
 // partial sums part[x] = dW2 (D x k2), db1 (D), db2 (k2).
 template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads)
-    attn_bwd_rows_kernel(const float* __restrict__ bs,
+    attn_bwd_rows_kernel(const ElemT* __restrict__ bs,
                          const float* __restrict__ hpre,
-                         const float* __restrict__ g,
-                         const float* __restrict__ w2,
-                         const float* __restrict__ b2,
-                         float* __restrict__ d_hpre,
+                         const ElemT* __restrict__ g,
+                         const ElemT* __restrict__ w2,
+                         const ElemT* __restrict__ b2,
+                         ElemT* __restrict__ d_hpre,
                          float* __restrict__ att_out,
                          float* __restrict__ part, int N, int K2, int C,
                          int D, float slope) {
@@ -184,7 +206,11 @@ __global__ void __launch_bounds__(kGemmThreads)
       for (int mm = 0; mm < K2; ++mm) s = fmaf(dat[t * K2 + mm], w2row[mm], s);
       const size_t at = static_cast<size_t>(p0 + t) * D + d;
       const float dh = hpre[at] >= 0.0f ? s : s * slope;
-      d_hpre[at] = dh;
+      if constexpr (kBf16) {
+        d_hpre[at] = gfla::bf16_bits(dh);
+      } else {
+        d_hpre[at] = dh;
+      }
       sum += dh;
     }
     my_part[D * K2 + d] = sum;
@@ -198,15 +224,14 @@ __global__ void __launch_bounds__(kGemmThreads)
 // (y + 1) * per_cta)), the depth D in stages of 32.
 template <bool kVec, bool kResidentA>
 __global__ void __launch_bounds__(kGemmThreads, 1)
-    attn_bwd_product_kernel(const float* __restrict__ d_hpre,
-                            const float* __restrict__ w1,
+    attn_bwd_product_kernel(const ElemT* __restrict__ d_hpre,
+                            const ElemT* __restrict__ w1,
                             const float* __restrict__ att,
-                            const float* __restrict__ g,
-                            float* __restrict__ d_bs, float* __restrict__ d_bt,
+                            const ElemT* __restrict__ g,
+                            ElemT* __restrict__ d_bs, ElemT* __restrict__ d_bt,
                             int N, int K2, int C, int D, int n_items,
                             int per_cta) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = gfla::gemm_ring(smem_raw);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr gfla::WarpGrid kGrid = gfla::attn_grid();
   const float inv_k2 = 1.0f / static_cast<float>(K2);
   const int warp = threadIdx.x >> 5;
@@ -220,7 +245,9 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     const gfla::OffsetRun it = gfla::bwd_item(item0 + step / per_item, C);
     const int d0 = (step % per_item) * gfla::kAttnDepth;
     const size_t w_row = static_cast<size_t>(2 * it.m + it.h) * C + it.c0;
-    return gfla::GemmStage{
+    using Stage =
+        std::conditional_t<kBf16, gfla::Bf16Stage, gfla::GemmStage>;
+    return Stage{
         {d_hpre + static_cast<size_t>(p0) * D + d0, static_cast<size_t>(D),
          N - p0, D - d0},
         {w1 + w_row * D + d0, static_cast<size_t>(D), C - it.c0, D - d0}};
@@ -230,7 +257,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   // as far as the compiler knows.
   auto epilogue = [&](int item, const float(&sum)[64]) {
     const gfla::OffsetRun it = gfla::bwd_item(item0 + item, C);
-    float* out = it.h ? d_bs : d_bt;
+    ElemT* out = it.h ? d_bs : d_bt;
     const bool pairs = C % 2 == 0;  // 8-byte aligned pairs
 #pragma unroll
     for (int half = 0; half < 2; ++half) {  // rows r and r + 8
@@ -241,12 +268,22 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       float2 ag[16];  // (1/k^2) attn g at channels c, c + 1
       if (it.h) {
         const float w = inv_k2 * att[static_cast<size_t>(p) * K2 + it.m];
-        const float* gp = g + static_cast<size_t>(p) * C;
+        const ElemT* gp = g + static_cast<size_t>(p) * C;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int c = c_first + 8 * j;
           float2 v = make_float2(0.0f, 0.0f);
-          if (pairs && c < C) {
+          if constexpr (kBf16) {
+            if (pairs && c < C) {
+              const uint32_t u = __ldg(reinterpret_cast<const uint32_t*>(
+                  gp + c));
+              v = make_float2(gfla::bf16_float(u & 0xffffu),
+                              gfla::bf16_float(u >> 16));
+            } else {
+              if (c < C) v.x = gfla::to_float(__ldg(gp + c));
+              if (c + 1 < C) v.y = gfla::to_float(__ldg(gp + c + 1));
+            }
+          } else if (pairs && c < C) {
             v = __ldg(reinterpret_cast<const float2*>(gp + c));
           } else {
             if (c < C) v.x = __ldg(gp + c);
@@ -266,8 +303,17 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
           v0 += ag[j].x;
           v1 += ag[j].y;
         }
-        float* to = out + row + c;
-        if (GFLA_SPLIT == 3) {
+        ElemT* to = out + row + c;
+        if constexpr (kBf16) {  // rounded to bf16; 4-byte pairs
+          const uint16_t b0 = gfla::bf16_bits(v0);
+          const uint16_t b1 = gfla::bf16_bits(v1);
+          if (pairs) {
+            *reinterpret_cast<uint32_t*>(to) = b0 | (uint32_t{b1} << 16);
+          } else {
+            to[0] = b0;
+            if (two) to[1] = b1;
+          }
+        } else if (GFLA_SPLIT == 3) {
           if (v0 == -1.2345e-38f) *to = v1;  // keeps the product live
         } else if (pairs) {
           *reinterpret_cast<float2*>(to) = make_float2(v0, v1);
@@ -278,19 +324,27 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       }
     }
   };
-  gfla::gemm_walk<kVec, kResidentA>(ring, my_items * per_item, per_item, tiles,
+#if GFLA_ATTN_BF16
+  gfla::bf16_gemm_walk<kVec, false>(reinterpret_cast<uint16_t*>(smem_raw),
+                                    my_items * per_item, per_item, tiles,
                                     epilogue);
+#else
+  gfla::gemm_walk<kVec, kResidentA>(gfla::gemm_ring(smem_raw),
+                                    my_items * per_item, per_item, tiles,
+                                    epilogue);
+#endif
 }
 
 // kResidentA: d_hpre's D <= 128 hidden units stay in shared memory for the
 // whole CTA, so only W1 is copied and split a stage (attn_math_steps.cuh);
-// a wider D does not fit and streams with W1.
+// a wider D does not fit and streams with W1. The bf16 walk has one form.
 template <bool kVec, bool kResidentA>
-int launch_product(const gfla::AttnBwdPlan& plan, const float* d_hpre,
-                   const float* w1, const float* att, const float* g,
-                   float* d_bs, float* d_bt, int N, int k2, int C, int D,
+int launch_product(const gfla::AttnBwdPlan& plan, const ElemT* d_hpre,
+                   const ElemT* w1, const float* att, const ElemT* g,
+                   ElemT* d_bs, ElemT* d_bt, int N, int k2, int C, int D,
                    cudaStream_t stream) {
-  const size_t smem = gfla::gemm_smem_bytes(kResidentA);
+  const size_t smem = kBf16 ? gfla::bf16_gemm_smem_bytes()
+                            : gfla::gemm_smem_bytes(kResidentA);
   const cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_product_kernel<kVec, kResidentA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -304,9 +358,9 @@ int launch_product(const gfla::AttnBwdPlan& plan, const float* d_hpre,
 }
 
 template <bool kVec>
-int launch(const float* bs, const float* hpre, const float* g,
-           const float* w1, const float* w2, const float* b2, float* d_bs,
-           float* d_bt, float* d_hpre, float* scratch, float* sums, int N,
+int launch(const ElemT* bs, const float* hpre, const ElemT* g,
+           const ElemT* w1, const ElemT* w2, const ElemT* b2, ElemT* d_bs,
+           ElemT* d_bt, ElemT* d_hpre, float* scratch, float* sums, int N,
            int k2, int C, int D, float slope, cudaStream_t stream) {
   const int row_ctas = (N + kAttnRowPos - 1) / kAttnRowPos;
   float* part = scratch;
@@ -322,11 +376,16 @@ int launch(const float* bs, const float* hpre, const float* g,
   if (e != 0) return e;
 
   const gfla::AttnBwdPlan plan = gfla::attn_bwd_plan(N, C, k2);
-  e = D <= gfla::kGemmResidentStages * gfla::kAttnDepth
-          ? launch_product<kVec, true>(plan, d_hpre, w1, att, g, d_bs, d_bt,
-                                       N, k2, C, D, stream)
-          : launch_product<kVec, false>(plan, d_hpre, w1, att, g, d_bs, d_bt,
-                                        N, k2, C, D, stream);
+  if constexpr (kBf16) {
+    e = launch_product<kVec, false>(plan, d_hpre, w1, att, g, d_bs, d_bt, N,
+                                    k2, C, D, stream);
+  } else {
+    e = D <= gfla::kGemmResidentStages * gfla::kAttnDepth
+            ? launch_product<kVec, true>(plan, d_hpre, w1, att, g, d_bs,
+                                         d_bt, N, k2, C, D, stream)
+            : launch_product<kVec, false>(plan, d_hpre, w1, att, g, d_bs,
+                                          d_bt, N, k2, C, D, stream);
+  }
   if (e != 0) return e;
   return gfla::launch_reduce(part, row_ctas,
                              static_cast<size_t>(D) * k2 + D + k2, sums,
@@ -339,34 +398,44 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+#if GFLA_ATTN_BF16
+#define GFLA_ATTN_BWD gfla_attn_math_bwd_bf16
+#else
+#define GFLA_ATTN_BWD gfla_attn_math_bwd
+
 // Scratch size, in floats, that the wrapper allocates: the per-position
-// kernel's partial sums and the softmax it hands to the product kernel.
+// kernel's partial sums and the softmax it hands to the product kernel (the
+// bf16 instance's too).
 extern "C" long long gfla_attn_math_bwd_scratch(int N, int k2, int D) {
   return static_cast<long long>((N + kAttnRowPos - 1) / kAttnRowPos) *
              (static_cast<long long>(D) * k2 + D + k2) +
          static_cast<long long>(N) * k2;
 }
+#endif
 
 // bs (N, k2, C); hpre (N, D): the forward's pre-activation hidden layer; g
 // (N, C); w1 (k2, 2C, D); w2 (D, k2); b2 (k2). Outputs: d_bs, d_bt
 // (N, k2, C); d_hpre (N, D); sums (D*k2 + D + k2): dW2 (D, k2), then db1
 // (D), then db2 (k2). scratch: gfla_attn_math_bwd_scratch floats. float32,
-// contiguous, on one device; D at most 256. Returns a cudaError_t; 0 means
-// every launch was accepted.
-extern "C" int gfla_attn_math_bwd(const float* bs, const float* hpre,
-                                  const float* g, const float* w1,
-                                  const float* w2, const float* b2,
-                                  float* d_bs, float* d_bt, float* d_hpre,
-                                  float* scratch, float* sums, int N, int k2,
-                                  int C, int D, float slope, void* stream) {
+// contiguous, on one device; D at most 256. gfla_attn_math_bwd_bf16: bs, g,
+// w1, w2, b2, d_bs, d_bt and d_hpre in bf16 (bits); hpre, scratch and sums
+// f32. Returns a cudaError_t; 0 means every launch was accepted.
+extern "C" int GFLA_ATTN_BWD(const ElemT* bs, const float* hpre,
+                             const ElemT* g, const ElemT* w1,
+                             const ElemT* w2, const ElemT* b2, ElemT* d_bs,
+                             ElemT* d_bt, ElemT* d_hpre, float* scratch,
+                             float* sums, int N, int k2, int C, int D,
+                             float slope, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || k2 < 1 || C < 1 || D < 1 || D > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // kVec: 16-byte copies of the product's operands (rows of D floats) and
-  // of the per-position kernel's bs and g rows (C floats)
-  const bool vec = C % 4 == 0 && D % 4 == 0 && aligned16(bs) &&
-                   aligned16(g) && aligned16(w1) && aligned16(d_hpre);
+  // kVec: 16-byte copies of the product's operands (rows of D values) and
+  // vector loads of the per-position kernel's bs and g rows (C values)
+  const bool vec = (kBf16 ? C % 8 == 0 && D % 8 == 0
+                          : C % 4 == 0 && D % 4 == 0) &&
+                   aligned16(bs) && aligned16(g) && aligned16(w1) &&
+                   aligned16(d_hpre);
   if (vec) {
     return launch<true>(bs, hpre, g, w1, w2, b2, d_bs, d_bt, d_hpre, scratch,
                         sums, N, k2, C, D, slope, s);

@@ -36,10 +36,25 @@
 //    softmax over k^2 and the weighted sum on the FP32 cores, reading each
 //    bs row 16 bytes a lane. It is memory-bound and small enough to keep
 //    many CTAs an SM, where a fused epilogue would idle the tensor cores.
+//
+// bf16 (attn_math_fwd_bf16.cu builds this file with GFLA_ATTN_BF16 = 1,
+// entry gfla_attn_math_fwd_bf16): gfla_tpu's _kernel with bf16 blocks and
+// parameters (the `--compute_dtype=bfloat16` of GFLA_ATTN_PALLAS=1). It
+// reads bs, bt, W1, b1, W2 and b2 in bf16 and writes out in bf16; hpre and
+// the product's partial sums stay f32. The product is bf16 mma.sync
+// m16n8k16 (attn_math_bf16.cuh) over W1 as it lies, (k^2 2C) x D, so no
+// transposed copy is made; its bound is the tensor cores' 989 TFLOP/s bf16
+// rate, well below the blocks' bytes (0.13 ms at the k=5 site). Where
+// gfla_tpu's body rounds to bf16, this one does (pallas_attn.py:75-81): the
+// hidden layer before W2, the attention weights before the weighted sum,
+// and the f32 sum of the products attn_m bs_m (exact in f32) before it is
+// divided by k^2 in bf16, as XLA runs the body, which keeps the products in
+// f32; the logits and the softmax stay f32.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 // tools/kernel_split.py builds timing variants, each leaving one part out:
 // 1 the product, 2 the tile copies and splits, 3 the weighted sum; 0 (the
@@ -48,6 +63,11 @@
 #define GFLA_SPLIT 0
 #endif
 
+#ifndef GFLA_ATTN_BF16
+#define GFLA_ATTN_BF16 0  // 1: the bf16 instance (attn_math_fwd_bf16.cu)
+#endif
+
+#include "attn_math_bf16.cuh"
 #include "attn_math_steps.cuh"
 #include "attn_math_tiles.cuh"
 
@@ -58,18 +78,22 @@ using gfla::kAttnRowPos;
 using gfla::kAttnTile;
 using gfla::kGemmThreads;
 
+constexpr bool kBf16 = GFLA_ATTN_BF16;
+// the blocks, the parameters and the output: f32, or bf16 as bits
+using ElemT = std::conditional_t<kBf16, uint16_t, float>;
+
 // Grid (position tiles x column tiles, splits). CTA (x, y) writes
 // part[y][p][d] = sum over its depth stages of [bt || bs][p] . W1[:, d] for
-// the positions p and hidden units d of its tile.
+// the positions p and hidden units d of its tile. w1k: W1^T (D x k^2 2C) in
+// f32, W1 itself ((k^2 2C) x D) in bf16.
 template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 1)
-    attn_fwd_product_kernel(const float* __restrict__ bs,
-                            const float* __restrict__ bt,
-                            const float* __restrict__ w1t,
+    attn_fwd_product_kernel(const ElemT* __restrict__ bs,
+                            const ElemT* __restrict__ bt,
+                            const ElemT* __restrict__ w1k,
                             float* __restrict__ part, int N, int K2, int C,
                             int D, int col_tiles, int per_split) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = gfla::gemm_ring(smem_raw);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr gfla::WarpGrid kGrid = gfla::attn_grid();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -83,13 +107,20 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 
   auto tiles = [&](int step) {
     const gfla::OffsetRun ch = gfla::attn_run(q0 + step, C, kAttnDepth);
-    const float* x = ch.h ? bs : bt;
+    const ElemT* x = ch.h ? bs : bt;
     const int cols = C - ch.c0;
+    const size_t w_row = static_cast<size_t>(2 * ch.m + ch.h) * C + ch.c0;
+#if GFLA_ATTN_BF16  // B: W1 rows w_row .. as depth, D innermost
+    return gfla::Bf16Stage{
+        {x + p0 * ldx + static_cast<size_t>(ch.m) * C + ch.c0, ldx, N - p0,
+         cols},
+        {w1k + w_row * D + n0, static_cast<size_t>(D), cols, D - n0}};
+#else
     return gfla::GemmStage{
         {x + p0 * ldx + static_cast<size_t>(ch.m) * C + ch.c0, ldx, N - p0,
          cols},
-        {w1t + n0 * ldw + static_cast<size_t>(2 * ch.m + ch.h) * C + ch.c0,
-         ldw, D - n0, cols}};
+        {w1k + n0 * ldw + w_row, ldw, D - n0, cols}};
+#endif
   };
   float* out = part + static_cast<size_t>(blockIdx.y) * N * D;
   auto epilogue = [&](int, const float(&sum)[64]) {
@@ -103,7 +134,13 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       }
     }
   };
-  gfla::gemm_walk<kVec, false>(ring, steps, steps, tiles, epilogue);
+#if GFLA_ATTN_BF16
+  gfla::bf16_gemm_walk<kVec, true>(reinterpret_cast<uint16_t*>(smem_raw),
+                                   steps, steps, tiles, epilogue);
+#else
+  gfla::gemm_walk<kVec, false>(gfla::gemm_ring(smem_raw), steps, steps,
+                               tiles, epilogue);
+#endif
 }
 
 __host__ __device__ constexpr int rows_ld(int D) { return D + 1; }
@@ -116,11 +153,11 @@ size_t rows_smem_bytes(int k2, int D) {
 // CTA x: positions 32 x .., of which the first n_valid exist.
 template <bool kVec>
 __global__ void __launch_bounds__(kGemmThreads)
-    attn_fwd_rows_kernel(const float* __restrict__ bs,
+    attn_fwd_rows_kernel(const ElemT* __restrict__ bs,
                          const float* __restrict__ part, int splits,
-                         const float* __restrict__ b1,
-                         const float* __restrict__ w2,
-                         const float* __restrict__ b2, float* __restrict__ out,
+                         const ElemT* __restrict__ b1,
+                         const ElemT* __restrict__ w2,
+                         const ElemT* __restrict__ b2, ElemT* __restrict__ out,
                          float* __restrict__ hpre, int N, int K2, int C,
                          int D, float slope) {
   extern __shared__ __align__(16) float smem[];
@@ -139,7 +176,7 @@ __global__ void __launch_bounds__(kGemmThreads)
     const size_t at = static_cast<size_t>(p0 + t) * D + d;
     float h = 0.0f;
     for (int z = 0; z < splits; ++z) h += part[z * ND + at];
-    h += b1[d];
+    h += gfla::to_float(b1[d]);
     if (hpre != nullptr) hpre[at] = h;
     return h;
   };
@@ -161,31 +198,50 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll 5
       for (int mm = 0; mm < K2; ++mm) {
         const float4 v = gfla::load4<kVec>(bs, p * K2 + mm, c, C);
-        const float w = a[mm];
+        // in bf16 the weight is rounded; its products with bf16 values are
+        // exact in f32
+        const float w = kBf16 ? gfla::bf16_round(a[mm]) : a[mm];
         o = make_float4(fmaf(w, v.x, o.x), fmaf(w, v.y, o.y),
                         fmaf(w, v.z, o.z), fmaf(w, v.w, o.w));
       }
     }
-    o = make_float4(o.x * scale, o.y * scale, o.z * scale, o.w * scale);
-    float* to = out + p * C + c;
-    if (kVec) {
-      *reinterpret_cast<float4*>(to) = o;
+    ElemT* to = out + p * C + c;
+    if constexpr (kBf16) {  // the sum in bf16, then / k^2 in bf16
+      const float k2f = static_cast<float>(K2);
+      const uint16_t v[4] = {
+          gfla::bf16_bits(gfla::bf16_round(o.x) / k2f),
+          gfla::bf16_bits(gfla::bf16_round(o.y) / k2f),
+          gfla::bf16_bits(gfla::bf16_round(o.z) / k2f),
+          gfla::bf16_bits(gfla::bf16_round(o.w) / k2f)};
+      if (kVec) {  // 8 bytes: C % 4 == 0, out 16-byte aligned
+        *reinterpret_cast<uint2*>(to) =
+            make_uint2(v[0] | (uint32_t{v[1]} << 16),
+                       v[2] | (uint32_t{v[3]} << 16));
+      } else {
+        for (int u = 0; u < 4 && c + u < C; ++u) to[u] = v[u];
+      }
     } else {
-      to[0] = o.x;
-      if (c + 1 < C) to[1] = o.y;
-      if (c + 2 < C) to[2] = o.z;
-      if (c + 3 < C) to[3] = o.w;
+      o = make_float4(o.x * scale, o.y * scale, o.z * scale, o.w * scale);
+      if (kVec) {
+        *reinterpret_cast<float4*>(to) = o;
+      } else {
+        to[0] = o.x;
+        if (c + 1 < C) to[1] = o.y;
+        if (c + 2 < C) to[2] = o.z;
+        if (c + 3 < C) to[3] = o.w;
+      }
     }
   }
 }
 
 template <bool kVec>
-int launch(const float* bs, const float* bt, const float* w1t,
-           const float* b1, const float* w2, const float* b2, float* out,
+int launch(const ElemT* bs, const ElemT* bt, const ElemT* w1k,
+           const ElemT* b1, const ElemT* w2, const ElemT* b2, ElemT* out,
            float* hpre, float* part, int N, int k2, int C, int D, float slope,
            cudaStream_t stream) {
   const gfla::AttnFwdPlan plan = gfla::attn_fwd_plan(N, C, D, k2);
-  const size_t gemm_smem = gfla::gemm_smem_bytes(false);
+  const size_t gemm_smem = kBf16 ? gfla::bf16_gemm_smem_bytes()
+                                 : gfla::gemm_smem_bytes(false);
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_product_kernel<kVec>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -194,7 +250,7 @@ int launch(const float* bs, const float* bt, const float* w1t,
   const dim3 grid(plan.tiles * plan.col_tiles, plan.splits);
   attn_fwd_product_kernel<kVec>
       <<<grid, kGemmThreads, gemm_smem, stream>>>(
-          bs, bt, w1t, part, N, k2, C, D, plan.col_tiles, plan.per_split);
+          bs, bt, w1k, part, N, k2, C, D, plan.col_tiles, plan.per_split);
   int e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
 
@@ -215,34 +271,44 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+#if GFLA_ATTN_BF16
+#define GFLA_ATTN_FWD gfla_attn_math_fwd_bf16
+#else
+#define GFLA_ATTN_FWD gfla_attn_math_fwd
+
 // Scratch size, in floats, that the wrapper allocates: the product's
-// partial sums, one (N, D) array per depth split.
+// partial sums, one (N, D) array per depth split (the bf16 instance's too).
 extern "C" long long gfla_attn_math_fwd_scratch(int N, int k2, int C, int D) {
   return static_cast<long long>(gfla::attn_fwd_plan(N, C, D, k2).splits) *
          N * D;
 }
+#endif
 
-// bs, bt (N, k2, C); w1t (D, k2*2C): W1 (k2, 2C, D), channels [target ||
-// source], transposed; b1 (D); w2 (D, k2); b2 (k2); out (N, C): float32,
-// contiguous, on one device; D at most 256. hpre: null, or (N, D), which
-// then gets the pre-activation hidden layer [bt || bs] . W1 + b1 for the
-// backward. scratch: gfla_attn_math_fwd_scratch floats. Returns a
-// cudaError_t; 0 means every launch was accepted.
-extern "C" int gfla_attn_math_fwd(const float* bs, const float* bt,
-                                  const float* w1t, const float* b1,
-                                  const float* w2, const float* b2, float* out,
-                                  float* hpre, float* scratch, int N, int k2,
-                                  int C, int D, float slope, void* stream) {
+// bs, bt (N, k2, C); w1k: W1 (k2, 2C, D), channels [target || source],
+// transposed to (D, k2*2C) for gfla_attn_math_fwd and as it lies for
+// gfla_attn_math_fwd_bf16; b1 (D); w2 (D, k2); b2 (k2); out (N, C):
+// float32 (gfla_attn_math_fwd_bf16: bf16 as bits), contiguous, on one
+// device; D at most 256. hpre: null, or (N, D) float32, which then gets the
+// pre-activation hidden layer [bt || bs] . W1 + b1 for the backward.
+// scratch: gfla_attn_math_fwd_scratch floats. Returns a cudaError_t; 0
+// means every launch was accepted.
+extern "C" int GFLA_ATTN_FWD(const ElemT* bs, const ElemT* bt,
+                             const ElemT* w1k, const ElemT* b1,
+                             const ElemT* w2, const ElemT* b2, ElemT* out,
+                             float* hpre, float* scratch, int N, int k2,
+                             int C, int D, float slope, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || k2 < 1 || C < 1 || D < 1 || D > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = C % 4 == 0 && aligned16(bs) && aligned16(bt) &&
-                   aligned16(w1t) && aligned16(out);
+  // 16-byte copies: f32 rows of C floats; bf16 rows of C and of D values
+  const bool vec = (kBf16 ? C % 8 == 0 && D % 8 == 0 : C % 4 == 0) &&
+                   aligned16(bs) && aligned16(bt) && aligned16(w1k) &&
+                   aligned16(out);
   if (vec) {
-    return launch<true>(bs, bt, w1t, b1, w2, b2, out, hpre, scratch, N, k2,
+    return launch<true>(bs, bt, w1k, b1, w2, b2, out, hpre, scratch, N, k2,
                         C, D, slope, s);
   }
-  return launch<false>(bs, bt, w1t, b1, w2, b2, out, hpre, scratch, N, k2, C,
+  return launch<false>(bs, bt, w1k, b1, w2, b2, out, hpre, scratch, N, k2, C,
                        D, slope, s);
 }

@@ -25,6 +25,7 @@
 #include <cstdint>
 
 #include "attn_math_tiles.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 // tools/kernel_split.py builds timing variants (each kernel file says which
@@ -257,20 +258,24 @@ __device__ __forceinline__ void gemm_walk(unsigned char* ring, int steps,
 // the first n_valid exist. hid (kAttnRowPos x ld, ld >= D) gets the hidden
 // layer LeakyReLU(hpre), zero past n_valid; att (kAttnRowPos x K2) the
 // softmax over the K2 offsets of hid . W2 + b2, with W2 (D x K2) staged in
-// w2s (K2 is odd at every k, so a warp reading a column of it meets no bank
-// conflict). hpre_row(t, d) gives hpre of position p0 + t. Ends with a
-// barrier.
-template <class HpreRow>
+// w2s (K2 is odd at every odd k, so a warp reading a column of it meets no
+// bank conflict; an even k only costs conflicts). hpre_row(t, d) gives hpre
+// of position p0 + t. W2 and b2 are float, or bf16 as bits (T = uint16_t,
+// the bf16 instances), when the hidden layer is rounded to bf16 before W2,
+// where gfla_tpu's bf16 kernel body rounds it (pallas_attn.py:75, 178); the
+// products and the softmax are f32 in both. Ends with a barrier.
+template <class HpreRow, typename T>
 __device__ __forceinline__ void rows_softmax(HpreRow hpre_row, int n_valid,
-                                             const float* __restrict__ w2,
-                                             const float* __restrict__ b2,
+                                             const T* __restrict__ w2,
+                                             const T* __restrict__ b2,
                                              float* hid, int ld, float* w2s,
                                              float* att, int K2, int D,
                                              float slope) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  for (int e = tid; e < D * K2; e += kGemmThreads) w2s[e] = w2[e];
+  for (int e = tid; e < D * K2; e += kGemmThreads) w2s[e] = to_float(w2[e]);
   for (int e = tid; e < kAttnRowPos * D; e += kGemmThreads) {
     const int t = e / D;
     const int d = e - t * D;
@@ -279,7 +284,7 @@ __device__ __forceinline__ void rows_softmax(HpreRow hpre_row, int n_valid,
       h = hpre_row(t, d);
       h = h >= 0.0f ? h : h * slope;
     }
-    hid[t * ld + d] = h;
+    hid[t * ld + d] = kBf16 ? bf16_round(h) : h;
   }
   __syncthreads();
   for (int e = tid; e < kAttnRowPos * K2; e += kGemmThreads) {
@@ -287,7 +292,7 @@ __device__ __forceinline__ void rows_softmax(HpreRow hpre_row, int n_valid,
     const int mm = e - t * K2;
     float s = 0.0f;
     for (int dd = 0; dd < D; ++dd) s = fmaf(hid[t * ld + dd], w2s[dd * K2 + mm], s);
-    att[e] = s + b2[mm];
+    att[e] = s + to_float(b2[mm]);
   }
   __syncthreads();
   constexpr int kPerWarp = kAttnRowPos / (kGemmThreads / 32);
@@ -326,6 +331,20 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ base,
                      c + 1 < C ? __ldg(at + 1) : 0.0f,
                      c + 2 < C ? __ldg(at + 2) : 0.0f,
                      c + 3 < C ? __ldg(at + 3) : 0.0f);
+}
+
+// The same from a bf16 tensor (bits), widened; kVec: an 8-byte load.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const uint16_t* __restrict__ base,
+                                        size_t row, int c, int C) {
+  const uint16_t* at = base + row * C + c;
+  if (kVec) {
+    return c < C ? ldg4(at) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return make_float4(c < C ? to_float(__ldg(at)) : 0.0f,
+                     c + 1 < C ? to_float(__ldg(at + 1)) : 0.0f,
+                     c + 2 < C ? to_float(__ldg(at + 2)) : 0.0f,
+                     c + 3 < C ? to_float(__ldg(at + 3)) : 0.0f);
 }
 
 }  // namespace gfla

@@ -31,9 +31,10 @@
 // What the design does about it:
 //  * per-position: a CTA of 4 warps owns 64 positions, 16 a warp, two CTAs
 //    an SM. The product's columns are ordered so that one tile holds all
-//    k^2 offsets of 8 channels (one m16n8k8 fragment per offset; at k=7 a
-//    band of 3 offset rows), so each lane ends with every offset's d_block
-//    for its rows and channels in registers. W1s comes through a 3-stage
+//    k^2 offsets of 8 channels (one m16n8k8 fragment per offset; in the
+//    run-time instance below, a band of one offset row), so each lane ends
+//    with every offset's d_block of the band for its rows and channels in
+//    registers. W1s comes through a 3-stage
 //    cp.async ring, 16 hidden units a stage. The
 //    epilogue trades halves with the neighbouring lane (one row x 4
 //    channels a lane), adds (1/k^2) attn g, and for each footprint cell
@@ -63,6 +64,16 @@
 // is (:400, :470). d_block and dW1s are one bf16 mma.sync m16n8k16 per 16
 // deep (mma_bf16.cuh), so the bound is the tensor cores' 989 TFLOP/s bf16
 // rate. The cell dots take d_attn from the unrounded blend.
+//
+// Block sizes: each kernel is compiled for the live sites' k (3, 5) and once
+// with k taken at run time (KT = 0) for every other k in 1..9, odd or even
+// (gfla_tpu's block_extract offsets i - k/2, so an even block reaches one row
+// and column further up and left than down and right; the footprint in
+// warp_common.cuh follows it). The run-time instance keeps its register
+// arrays at their widest (k = 9) and indexes them only with loop counters
+// that are unrolled to that width: the per-position product takes one offset
+// row a band, the cell dots one footprint row a pass over the channels, and
+// the dW1s tile its widest column count (warp_bwd_tiles.cuh).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -182,13 +193,14 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_hi)[4],
 
 // The product tile of a band holds R x K offsets of 8 channels (R K
 // fragments of 8 columns, 4 accumulators each, a lane): warp_bwd_tiles.cuh.
-template <int K>
+// KT: the instance's k, or 0 for the run-time instance, whose tile is one
+// offset row of up to kWarpMaxK offsets.
+template <int KT>
 struct PosShape {
-  static constexpr int K1 = K + 1;
-  static constexpr int K2 = K * K;
-  static constexpr int KC = K1 * K1;
-  static constexpr int R = gfla::pos_band_rows(K);
-  static constexpr int NT = R * K;
+  static constexpr int KM = KT ? KT : gfla::kWarpMaxK;  // its widest k
+  static constexpr int K1M = KM + 1;
+  static constexpr int R = KT ? gfla::pos_band_rows(KT) : 1;
+  static constexpr int NT = R * KM;
   static constexpr int RowsB = NT * 8;  // W1s rows of a stage
   static constexpr int Ring = kStages * RowsB * kLdw;
 };
@@ -197,28 +209,33 @@ __host__ __device__ constexpr int pos_lda(int D) {
   return (D + kDepth - 1) / kDepth * kDepth + 4;  // = 4 mod 8
 }
 
+// Row stride of W2 (D x k^2) in shared memory: odd, so that a warp reading
+// one of its columns meets no bank conflict; an even k^2 is padded by one.
+__host__ __device__ constexpr int pos_ldw2(int k) { return k * k | 1; }
+
 // Floats of the region that holds the W1s ring during the product and,
 // before it, the cell dots, d_attn and W2.
-template <int K>
-__host__ __device__ int pos_ring_floats(int D) {
-  using S = PosShape<K>;
-  const int before = kRows * (S::KC + S::K2) + D * S::K2;
-  return (S::Ring > before ? S::Ring : before + 3) / 4 * 4;
+template <int KT>
+__host__ __device__ int pos_ring_floats(int k, int D) {
+  const int before =
+      kRows * ((k + 1) * (k + 1) + k * k) + D * pos_ldw2(k);
+  constexpr int kRing = PosShape<KT>::Ring;
+  return (kRing > before ? kRing : before + 3) / 4 * 4;
 }
 
-template <int K>
-size_t pos_smem_bytes(int D) {
-  using S = PosShape<K>;
+template <int KT>
+size_t pos_smem_bytes(int k, int D) {
   return sizeof(float) * (static_cast<size_t>(kRows) * pos_lda(D) +
-                          kRows * S::K2 + pos_ring_floats<K>(D)) +
-         kRows * (sizeof(float2) + 2 * S::K1 * sizeof(int));
+                          kRows * k * k + pos_ring_floats<KT>(k, D)) +
+         kRows * (sizeof(float2) + 2 * (k + 1) * sizeof(int));
 }
 
 // Grid (position tiles, channel splits). Split y takes items
 // [y * per_cta, (y + 1) * per_cta) of the n_items = Bands x ceil(C / 8)
 // (band, channel group) pairs and writes d_flow partial y; split 0 also
-// writes d_hpre and the dW2/db2 partial of its position tile.
-template <int K, bool kVec>
+// writes d_hpre and the dW2/db2 partial of its position tile. k_run: the
+// block size, read by the run-time instance (KT = 0) only.
+template <int KT, bool kVec>
 __global__ void __launch_bounds__(kPosThreads, 2)
     warp_bwd_pos_kernel(const SrcT* __restrict__ src,
                         const float* __restrict__ flow,
@@ -230,9 +247,12 @@ __global__ void __launch_bounds__(kPosThreads, 2)
                         float* __restrict__ dflow_part,
                         float* __restrict__ dhbt, float* __restrict__ w2_part,
                         int N, int H, int W, int C, int D, float slope,
-                        int n_items, int per_cta) {
-  using S = PosShape<K>;
-  constexpr int K1 = S::K1, K2 = S::K2, KC = S::KC, NT = S::NT;
+                        int n_items, int per_cta, int k_run) {
+  using S = PosShape<KT>;
+  constexpr int NT = S::NT, K1M = S::K1M;
+  const int K = KT ? KT : k_run;
+  const int K1 = K + 1, K2 = K * K, KC = K1 * K1;
+  const int ldw2 = pos_ldw2(K);
   const float inv_k2 = 1.0f / static_cast<float>(K2);
   const int lda = pos_lda(D);
   extern __shared__ __align__(16) float smem[];
@@ -241,8 +261,8 @@ __global__ void __launch_bounds__(kPosThreads, 2)
   float* ring = att + kRows * K2;          // W1s ring; before it:
   float* cdot = ring;                      //   kRows x KC cell dots
   float* dat = ring + kRows * KC;          //   kRows x K2 d_attn, d_logits
-  float* w2s = dat + kRows * K2;           //   D x K2 W2
-  float2* wyx = reinterpret_cast<float2*>(ring + pos_ring_floats<K>(D));
+  float* w2s = dat + kRows * K2;           //   D x ldw2 W2
+  float2* wyx = reinterpret_cast<float2*>(ring + pos_ring_floats<KT>(K, D));
   int* rowoff = reinterpret_cast<int*>(wyx + kRows);  // kRows x K1: pixel of
   int* col = rowoff + kRows * K1;          // (row, 0) in the batch; column
 
@@ -275,10 +295,10 @@ __global__ void __launch_bounds__(kPosThreads, 2)
       }
     }
   }
-  // W2 (D x K2; K2 is odd, so a warp reading one column of it meets no
-  // bank conflict)
+  // W2 (D x K2, rows ldw2 apart: pos_ldw2)
   for (int e = tid; e < D * K2; e += kPosThreads) {
-    w2s[e] = gfla::to_float(w2[e]);
+    const int d = e / K2;
+    w2s[d * ldw2 + e - d * K2] = gfla::to_float(w2[e]);
   }
   // hidden = LeakyReLU(hpre), zero past D and past N
   for (int e = tid; e < kRows * lda; e += kPosThreads) {
@@ -300,53 +320,76 @@ __global__ void __launch_bounds__(kPosThreads, 2)
     const int mm = e - t * K2;
     float s = 0.0f;
     for (int dd = 0; dd < D; ++dd) {
-      s = fmaf(at_bf16(at[t * lda + dd]), w2s[dd * K2 + mm], s);
+      s = fmaf(at_bf16(at[t * lda + dd]), w2s[dd * ldw2 + mm], s);
     }
     att[e] = s + b2[mm];
   }
   __syncthreads();
   for (int t = 16 * warp; t < 16 * warp + 16; ++t) {
-    float* a = att + t * K2;  // K2 <= 49: two values a lane
-    const float v0 = lane < K2 ? a[lane] : -INFINITY;
-    const float v1 = lane + 32 < K2 ? a[lane + 32] : -INFINITY;
-    const float mx = warp_max(fmaxf(v0, v1));
-    const float e0 = lane < K2 ? expf(v0 - mx) : 0.0f;
-    const float e1 = lane + 32 < K2 ? expf(v1 - mx) : 0.0f;
-    const float sum = warp_sum(e0 + e1);
-    if (lane < K2) a[lane] = e0 / sum;
-    if (lane + 32 < K2) a[lane + 32] = e1 / sum;
+    float* a = att + t * K2;
+    constexpr int kVals = (S::KM * S::KM + 31) / 32;  // values a lane
+    float v[kVals];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kVals; ++u) {
+      v[u] = lane + 32 * u < K2 ? a[lane + 32 * u] : -INFINITY;
+      mx = fmaxf(mx, v[u]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kVals; ++u) {
+      v[u] = lane + 32 * u < K2 ? expf(v[u] - mx) : 0.0f;
+      sum += v[u];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int u = 0; u < kVals; ++u) {
+      if (lane + 32 * u < K2) a[lane + 32 * u] = v[u] / sum;
+    }
   }
 
   // ---- cell dots <src[cell], g>: 8 lanes a position, 4 channels a lane ----
+  // A compiled instance takes all K1 footprint rows in one pass over the
+  // channels, the run-time instance one row a pass.
   {
+    constexpr int kPassRows = KT ? KT + 1 : 1;
+    constexpr int kPassCells = kPassRows * K1M;
     const int sub = lane & 7;
     for (int t = tid >> 3; t < kRows; t += kPosThreads / 8) {
       const int p = p0 + t;
-      float acc[KC];
+      for (int r0 = 0; r0 < K1; r0 += kPassRows) {
+        float acc[kPassCells];
 #pragma unroll
-      for (int q = 0; q < KC; ++q) acc[q] = 0.0f;
-      if (p < N && GFLA_SPLIT != 2) {
-        for (int c = 4 * sub; c < C; c += 32) {
-          const float4 gv = load4<kVec>(g, p, c, C);
+        for (int q = 0; q < kPassCells; ++q) acc[q] = 0.0f;
+        if (p < N && GFLA_SPLIT != 2) {
+          for (int c = 4 * sub; c < C; c += 32) {
+            const float4 gv = load4<kVec>(g, p, c, C);
 #pragma unroll
-          for (int r = 0; r < K1; ++r) {
-            const int ro = rowoff[t * K1 + r];
+            for (int r = 0; r < kPassRows; ++r) {
+              const int ro = rowoff[t * K1 + r0 + r];
 #pragma unroll
-            for (int s = 0; s < K1; ++s) {
-              acc[r * K1 + s] = dot4(
-                  load4<kVec>(src, ro + col[t * K1 + s], c, C), gv,
-                  acc[r * K1 + s]);
+              for (int s = 0; s < K1M; ++s) {
+                if (s < K1) {
+                  acc[r * K1M + s] = dot4(
+                      load4<kVec>(src, ro + col[t * K1 + s], c, C), gv,
+                      acc[r * K1M + s]);
+                }
+              }
             }
           }
         }
-      }
 #pragma unroll
-      for (int q = 0; q < KC; ++q) {
-        float v = acc[q];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        if (sub == (q & 7)) cdot[t * KC + q] = v;
+        for (int q = 0; q < kPassCells; ++q) {
+          float v = acc[q];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          const int s = q % K1M;
+          if (s < K1 && sub == (q & 7)) {
+            cdot[t * KC + (r0 + q / K1M) * K1 + s] = v;
+          }
+        }
       }
     }
   }
@@ -403,7 +446,7 @@ __global__ void __launch_bounds__(kPosThreads, 2)
     if (p < N && d < D) {
       float s = 0.0f;
       for (int mm = 0; mm < K2; ++mm) {
-        s = fmaf(at_bf16(dat[t * K2 + mm]), w2s[d * K2 + mm], s);
+        s = fmaf(at_bf16(dat[t * K2 + mm]), w2s[d * ldw2 + mm], s);
       }
       dh = at_bf16(hpre[static_cast<size_t>(p) * D + d] >= 0.0f ? s
                                                                  : s * slope);
@@ -475,6 +518,9 @@ __global__ void __launch_bounds__(kPosThreads, 2)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
   }
+  // fragments of a band that hold an offset (all of them in a compiled
+  // instance; K of the run-time instance's kWarpMaxK)
+  const int nt_live = KT ? NT : K;
   int stage = 0;
   for (int q = 0; q < n_chunks; ++q) {
     {
@@ -501,6 +547,7 @@ __global__ void __launch_bounds__(kPosThreads, 2)
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= nt_live) break;
         uint32_t b[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -522,6 +569,7 @@ __global__ void __launch_bounds__(kPosThreads, 2)
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= nt_live) break;
           uint32_t b_hi[2], b_lo[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -575,13 +623,16 @@ __global__ void __launch_bounds__(kPosThreads, 2)
         coef[role] = gfla::tap_coef(role, wv.x, wv.y);
       }
       // the d_block vector of the offset that holds cell (r, s) as `role`,
-      // 0 where no offset of the band does
+      // 0 where no offset of the band does. r, s and role are unrolled
+      // counters, so the fragment index is known when compiling (clamped
+      // into the array where the tap is not valid and never read).
       auto tap_of = [&](int role, int r, int s) {
         if (!gfla::role_valid(role, r, s, rows, K)) {
           return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
-        const float* v = acc[gfla::role_row(role, r) * K +
-                             gfla::role_col(role, s)];
+        const int nt =
+            gfla::role_row(role, r) * S::KM + gfla::role_col(role, s);
+        const float* v = acc[nt < 0 ? 0 : (nt < NT ? nt : NT - 1)];
         return make_float4(v[0], v[1], v[2], v[3]);
       };
       const int* cols = col + t_mine * K1;
@@ -591,7 +642,8 @@ __global__ void __launch_bounds__(kPosThreads, 2)
           if (r > rows) continue;
           const int ro = rowoff[t_mine * K1 + i0 + r];
 #pragma unroll
-          for (int s = 0; s < K1; ++s) {
+          for (int s = 0; s < K1M; ++s) {
+            if (s >= K1) break;
             const float4 sv = load4<kVec>(src, ro + cols[s], c, C);
             float4 vy = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             float4 vx = vy;
@@ -612,7 +664,8 @@ __global__ void __launch_bounds__(kPosThreads, 2)
           if (r > rows) continue;
           const int ro = rowoff[t_mine * K1 + i0 + r];
 #pragma unroll
-          for (int s = 0; s < K1; ++s) {
+          for (int s = 0; s < K1M; ++s) {
+            if (s >= K1) break;
             float4 vd = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
             for (int role = 0; role < 4; ++role) {
@@ -647,44 +700,50 @@ __global__ void __launch_bounds__(kPosThreads, 2)
 // ---- dW1s kernel ------------------------------------------------------------
 
 // A CTA's columns: MT offsets x CW channels, offset-major, in NT fragments
-// (warp_bwd_tiles.cuh).
-template <int K>
+// (warp_bwd_tiles.cuh); the run-time instance (KT = 0) holds the widest
+// tile, kW1MaxFragments, and uses w1_fragments(k) of it.
+template <int KT>
 struct W1Shape {
-  static constexpr int K1 = K + 1;
-  static constexpr int K2 = K * K;
-  static constexpr int KC = K1 * K1;
-  static constexpr int CW = gfla::w1_channels(K);
-  static constexpr int MT = gfla::w1_offsets(K);
-  static constexpr int NT = gfla::w1_fragments(K);
+  static constexpr int NT = KT ? gfla::w1_fragments(KT) : gfla::kW1MaxFragments;
   static constexpr int Ldb = gfla::mma_col_stride(NT * 8);
-  static constexpr int Cells = kChunk * KC * CW;  // floats of a cells stage
-  static constexpr int Fp = 2 * K1 + 2;           // ints and floats of a fp
 };
 
-template <int K>
-size_t w1_smem_bytes() {
-  using S = W1Shape<K>;
-  return sizeof(float) * (2 * kChunk * 2 + 2 * S::Cells + 2 * kChunk * kLdh +
-                          2 * kChunk * S::Ldb + 3 * kChunk * S::Fp);
+// floats of a cells stage, and ints and floats of a footprint
+__host__ __device__ constexpr int w1_cells(int k) {
+  return kChunk * (k + 1) * (k + 1) * gfla::w1_channels(k);
+}
+__host__ __device__ constexpr int w1_fp(int k) { return 2 * (k + 1) + 2; }
+
+template <int KT>
+size_t w1_smem_bytes(int k) {
+  return sizeof(float) * (2 * kChunk * 2 + 2 * w1_cells(k) +
+                          2 * kChunk * kLdh + 2 * kChunk * W1Shape<KT>::Ldb +
+                          3 * kChunk * w1_fp(k));
 }
 
 // Grid (offset tiles x channel tiles, hidden-unit tiles, position ranges).
 // CTA (x, y, z) writes part[z][m * C + c][d] = sum over its positions p of
 // block_p[m][c] d_hpre_p[d], for its offsets m, channels c and units d.
-template <int K, bool kVec>
+// k_run: the block size, read by the run-time instance (KT = 0) only.
+template <int KT, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     warp_bwd_w1_kernel(const SrcT* __restrict__ src,
                        const float* __restrict__ flow,
                        const float* __restrict__ dhpre,
                        float* __restrict__ part, int N, int H, int W, int C,
-                       int D, int n_ctiles, int span) {
-  using S = W1Shape<K>;
-  constexpr int K1 = S::K1, K2 = S::K2, KC = S::KC, CW = S::CW, NT = S::NT;
+                       int D, int n_ctiles, int span, int k_run) {
+  using S = W1Shape<KT>;
+  constexpr int NT = S::NT;
+  const int K = KT ? KT : k_run;
+  const int K1 = K + 1, K2 = K * K, KC = K1 * K1;
+  const int CW = gfla::w1_channels(K), MT = gfla::w1_offsets(K);
+  const int n_cells = w1_cells(K), Fp = w1_fp(K);
+  const int nt_live = KT ? NT : gfla::w1_fragments(K);
   extern __shared__ __align__(16) float smem[];
   float* flow_st = smem;                      // 2 x kChunk x 2
   // 2 x kChunk x KC x CW source values (in the room of as many floats)
   SrcT* cells = reinterpret_cast<SrcT*>(flow_st + 2 * kChunk * 2);
-  float* dh = flow_st + 2 * kChunk * 2 + 2 * S::Cells;  // 2 x kChunk x kLdh
+  float* dh = flow_st + 2 * kChunk * 2 + 2 * n_cells;  // 2 x kChunk x kLdh
   float* bt = dh + 2 * kChunk * kLdh;         // kChunk x Ldb blocks, TF32
   //                                             hi parts, then lo parts
   int* fp = reinterpret_cast<int*>(bt + 2 * kChunk * S::Ldb);
@@ -695,8 +754,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int lane = tid & 31;
   const int HW = H * W;
   const int otile = blockIdx.x / n_ctiles;
-  const int m0 = otile * S::MT;
-  const int mt_here = min(S::MT, K2 - m0);
+  const int m0 = otile * MT;
+  const int mt_here = min(MT, K2 - m0);
   const int ctile = blockIdx.x - otile * n_ctiles;
   const int c0 = ctile * CW;
   const int u0 = blockIdx.y * kW1Units;
@@ -720,7 +779,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto make_fp = [&](int q) {
     if (tid < kChunk) {
       const int p = pbeg + q * kChunk + tid;
-      int* f = fp + ((q % 3) * kChunk + tid) * S::Fp;
+      int* f = fp + ((q % 3) * kChunk + tid) * Fp;
       const float* fl = flow_st + (q & 1) * kChunk * 2 + 2 * tid;
       if (p < pend) {
         const int b = p / HW;
@@ -741,16 +800,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
   // the footprint cells (CW channels) and d_hpre rows of chunk q
   auto copy_tiles = [&](int q) {
-    SrcT* cst = cells + (q & 1) * S::Cells;
+    SrcT* cst = cells + (q & 1) * n_cells;
     if (GFLA_SPLIT != 2) {
-      constexpr int kQuads = CW / 4;
+      const int kQuads = CW / 4;
       for (int idx = tid; idx < kChunk * KC * kQuads; idx += kThreads) {
         const int t = idx / (KC * kQuads);
         const int rest = idx - t * KC * kQuads;
         const int cell = rest / kQuads;
         const int c = c0 + 4 * (rest - cell * kQuads);
         const int r = cell / K1;
-        const int* f = fp + ((q % 3) * kChunk + t) * S::Fp;
+        const int* f = fp + ((q % 3) * kChunk + t) * Fp;
         const bool in = pbeg + q * kChunk + t < pend;
         const size_t pix = static_cast<size_t>(f[r] + f[K1 + cell - r * K1]);
         SrcT* to = cst + (t * KC + cell) * CW + (c - c0);
@@ -827,18 +886,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // blend: block[t][mo * CW + c] from the four cells of offset m0 + mo
     if (GFLA_SPLIT != 2) {
-      const SrcT* cst = cells + (q & 1) * S::Cells;
-      constexpr int kQuads = CW / 4;
-      for (int idx = tid; idx < kChunk * S::MT * kQuads; idx += kThreads) {
-        const int t = idx / (S::MT * kQuads);
-        const int rest = idx - t * S::MT * kQuads;
+      const SrcT* cst = cells + (q & 1) * n_cells;
+      const int kQuads = CW / 4;
+      for (int idx = tid; idx < kChunk * MT * kQuads; idx += kThreads) {
+        const int t = idx / (MT * kQuads);
+        const int rest = idx - t * MT * kQuads;
         const int mo = rest / kQuads;
         if (mo >= mt_here) continue;
         const int cw = 4 * (rest - mo * kQuads);
         const int m = m0 + mo;
         const int i = m / K;
         const int j = m - i * K;
-        const int* f = fp + ((q % 3) * kChunk + t) * S::Fp;
+        const int* f = fp + ((q % 3) * kChunk + t) * Fp;
         const gfla::TapWeights w = gfla::tap_weights(
             __int_as_float(f[2 * K1]), __int_as_float(f[2 * K1 + 1]));
         const SrcT* c00 = cst + (t * KC + i * K1 + j) * CW + cw;
@@ -893,6 +952,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
+            if (nt >= nt_live) break;
             uint32_t b[2];
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
@@ -916,6 +976,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
+            if (nt >= nt_live) break;
             uint32_t b_hi[2], b_lo[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
@@ -953,26 +1014,26 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int K, bool kVec>
+template <int KT, bool kVec>
 int launch_pos(const SrcT* src, const float* flow, const float* hpre,
                const float* w1s, const SrcT* w2, const float* b2,
                const SrcT* g, float* dsrc, float* dflow, float* dhbt,
                float* scratch, float* dw2b2, int N, int H, int W, int C,
-               int D, float slope, cudaStream_t stream) {
-  constexpr int K2 = K * K;
+               int D, int K, float slope, cudaStream_t stream) {
+  const int K2 = K * K;
   const gfla::PosPlan plan = gfla::pos_plan(N, C, K);
-  const size_t smem = pos_smem_bytes<K>(D);
+  const size_t smem = pos_smem_bytes<KT>(K, D);
   const cudaError_t err = cudaFuncSetAttribute(
-      warp_bwd_pos_kernel<K, kVec>,
+      warp_bwd_pos_kernel<KT, kVec>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   float* w2_part = scratch;
   float* flow_part =
       scratch + static_cast<size_t>(plan.tiles) * (D * K2 + K2);
   const dim3 grid(plan.tiles, plan.splits);
-  warp_bwd_pos_kernel<K, kVec><<<grid, kPosThreads, smem, stream>>>(
+  warp_bwd_pos_kernel<KT, kVec><<<grid, kPosThreads, smem, stream>>>(
       src, flow, hpre, w1s, w2, b2, g, dsrc, flow_part, dhbt, w2_part, N, H,
-      W, C, D, slope, plan.items, plan.per_cta);
+      W, C, D, slope, plan.items, plan.per_cta, K);
   int e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
   e = gfla::launch_reduce(w2_part, plan.tiles,
@@ -982,21 +1043,21 @@ int launch_pos(const SrcT* src, const float* flow, const float* hpre,
                              static_cast<size_t>(N) * 2, dflow, stream);
 }
 
-template <int K, bool kVec>
+template <int KT, bool kVec>
 int launch_w1(const SrcT* src, const float* flow, const float* dhpre,
               float* part, float* dw1s, int N, int H, int W, int C, int D,
-              cudaStream_t stream) {
-  constexpr int K2 = K * K;
+              int K, cudaStream_t stream) {
+  const int K2 = K * K;
   const gfla::W1Plan plan = gfla::w1_plan(N, C, D, K);
-  const size_t smem = w1_smem_bytes<K>();
+  const size_t smem = w1_smem_bytes<KT>(K);
   const cudaError_t err = cudaFuncSetAttribute(
-      warp_bwd_w1_kernel<K, kVec>,
+      warp_bwd_w1_kernel<KT, kVec>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(gfla::w1_offset_tiles(K) * plan.ctiles, plan.utiles,
                   plan.splits);
-  warp_bwd_w1_kernel<K, kVec><<<grid, kThreads, smem, stream>>>(
-      src, flow, dhpre, part, N, H, W, C, D, plan.ctiles, plan.span);
+  warp_bwd_w1_kernel<KT, kVec><<<grid, kThreads, smem, stream>>>(
+      src, flow, dhpre, part, N, H, W, C, D, plan.ctiles, plan.span, K);
   const int e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
   return gfla::launch_reduce(part, plan.splits,
@@ -1056,18 +1117,19 @@ extern "C" int GFLA_WARP_BWD_POS(const SrcT* src, const float* flow,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = C % 4 == 0 && D % 4 == 0 && aligned16(src) &&
                    aligned16(g) && aligned16(dsrc) && aligned16(w1s);
-#define GFLA_POS(K, V)                                                     \
-  return launch_pos<K, V>(src, flow, hpre, w1s, w2, b2, g, dsrc, dflow,    \
-                          dhbt, scratch, dw2b2, N, H, W, C, D, slope, s)
-#define GFLA_POS_K(K)          \
-  if (vec) GFLA_POS(K, true);  \
-  GFLA_POS(K, false)
+  if (k < 1 || k > gfla::kWarpMaxK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define GFLA_POS(KT, V)                                                    \
+  return launch_pos<KT, V>(src, flow, hpre, w1s, w2, b2, g, dsrc, dflow,   \
+                           dhbt, scratch, dw2b2, N, H, W, C, D, k, slope, s)
+#define GFLA_POS_K(KT)          \
+  if (vec) GFLA_POS(KT, true);  \
+  GFLA_POS(KT, false)
   switch (k) {
-    case 1: GFLA_POS_K(1);
     case 3: GFLA_POS_K(3);
     case 5: GFLA_POS_K(5);
-    case 7: GFLA_POS_K(7);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: GFLA_POS_K(0);  // every other k, at run time
   }
 #undef GFLA_POS_K
 #undef GFLA_POS
@@ -1086,17 +1148,18 @@ extern "C" int GFLA_WARP_BWD_W1(const SrcT* src, const float* flow,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = C % 4 == 0 && D % 4 == 0 && aligned16(src) &&
                    aligned16(dhpre);
-#define GFLA_W1(K, V) \
-  return launch_w1<K, V>(src, flow, dhpre, part, dw1s, N, H, W, C, D, s)
-#define GFLA_W1_K(K)          \
-  if (vec) GFLA_W1(K, true);  \
-  GFLA_W1(K, false)
+  if (k < 1 || k > gfla::kWarpMaxK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define GFLA_W1(KT, V) \
+  return launch_w1<KT, V>(src, flow, dhpre, part, dw1s, N, H, W, C, D, k, s)
+#define GFLA_W1_K(KT)          \
+  if (vec) GFLA_W1(KT, true);  \
+  GFLA_W1(KT, false)
   switch (k) {
-    case 1: GFLA_W1_K(1);
     case 3: GFLA_W1_K(3);
     case 5: GFLA_W1_K(5);
-    case 7: GFLA_W1_K(7);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: GFLA_W1_K(0);  // every other k, at run time
   }
 #undef GFLA_W1_K
 #undef GFLA_W1

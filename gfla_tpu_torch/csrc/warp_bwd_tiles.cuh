@@ -12,6 +12,13 @@ constexpr int kPosRows = 64;      // per-position kernel: positions per CTA
 constexpr int kW1Units = 128;     // dW1s kernel: hidden units per CTA
 constexpr int kW1Chunk = 32;      // dW1s kernel: positions per stage
 constexpr int kBwdTargetCtas = 264;  // two CTAs per SM of the H100's 132
+constexpr int kWarpMaxK = 9;      // the widest block the kernels take
+
+// Both backward kernels have an instance compiled for each k of the live
+// sites (3 and 5), and one that takes k at run time for every other k in
+// 1..kWarpMaxK, odd or even; the maps below name the tiles of the instance
+// that a k runs on.
+GFLA_HD constexpr bool warp_k_compiled(int k) { return k == 3 || k == 5; }
 
 struct OffsetChannel {
   int m, c;  // offset i * k + j, channel
@@ -22,9 +29,13 @@ struct OffsetChannel {
 // pos_band_rows(k) offset rows, a group 8 channels, and fragment f of the
 // tile (8 columns) is one offset of the band, its columns the 8 channels.
 // So a lane's accumulators of one tile hold every offset of the band for
-// its rows and channels.
+// its rows and channels. The compiled instances take all k rows in one band;
+// the run-time instance one offset row a band, so that its accumulators are
+// indexed by the column within the row alone, at most kWarpMaxK fragments.
 
-GFLA_HD constexpr int pos_band_rows(int k) { return k <= 5 ? k : 3; }
+GFLA_HD constexpr int pos_band_rows(int k) {
+  return warp_k_compiled(k) ? k : 1;
+}
 
 GFLA_HD constexpr int pos_bands(int k) {
   return (k + pos_band_rows(k) - 1) / pos_band_rows(k);
@@ -90,17 +101,21 @@ GFLA_HD PosPlan pos_plan(int N, int C, int k) {
 // ---- dW1s kernel: dW1s = blocks^T . d_hpre over positions -----------------
 // A CTA's columns are w1_offsets(k) offsets x w1_channels(k) channels,
 // offset-major, in w1_fragments(k) fragments; its rows kW1Units hidden
-// units; its depth a range of positions.
-
-GFLA_HD constexpr int w1_channels(int k) {
-  return k == 1 ? 32 : (k == 3 ? 8 : 4);
-}
+// units; its depth a range of positions. Up to 25 offsets a tile, and as
+// many 4-channel groups as keep the tile within 100 columns (13 fragments,
+// kW1MaxFragments, which the run-time instance holds for every k).
 
 GFLA_HD constexpr int w1_offsets(int k) { return k * k < 25 ? k * k : 25; }
+
+GFLA_HD constexpr int w1_channels(int k) {
+  return 4 * (25 / w1_offsets(k) > 1 ? 25 / w1_offsets(k) : 1);
+}
 
 GFLA_HD constexpr int w1_fragments(int k) {
   return (w1_offsets(k) * w1_channels(k) + 7) / 8;
 }
+
+constexpr int kW1MaxFragments = 13;
 
 GFLA_HD constexpr int w1_offset_tiles(int k) {
   return (k * k + w1_offsets(k) - 1) / w1_offsets(k);

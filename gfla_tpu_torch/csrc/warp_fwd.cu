@@ -38,6 +38,10 @@
 // offsets share the blend weights, so sum_m attn_m block_m is a sum over the
 // (k+1)^2 footprint cells, each with a coefficient of at most four
 // attn x weight terms: (k+1)^2 loads per channel instead of 4 k^2.
+// The kernel takes k at run time, any k in 1..9, odd or even (an even block
+// reaches one row and column further up and left than down and right, as
+// gfla_tpu's block_extract offsets i - k/2; warp_common.cuh's footprint
+// follows it): nothing in it is sized by k but shared memory.
 //
 // bf16 (warp_fwd_bf16.cu builds this file with GFLA_WARP_BF16 = 1, entry
 // gfla_warp_fwd_bf16): gfla_tpu's kernel with a bf16 source
@@ -75,6 +79,7 @@ constexpr int kChunk = 32;   // channels per depth chunk
 constexpr int kLda = gfla::mma_row_stride(kChunk);
 constexpr int kStagesB = 3;  // W1s ring
 constexpr int kThreads = 256;
+constexpr int kMaxK = 9;     // the widest block it takes
 constexpr bool kBf16 = GFLA_WARP_BF16;
 // the source, W2 and the output: f32, or bf16 as bits
 using SrcT = std::conditional_t<kBf16, uint16_t, float>;
@@ -434,15 +439,27 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   for (int t = warp * (kPos / 8); t < (warp + 1) * (kPos / 8); ++t) {
-    float* a = att + t * K2;  // K2 <= 49: two values a lane
-    const float v0 = lane < K2 ? a[lane] : -INFINITY;
-    const float v1 = lane + 32 < K2 ? a[lane + 32] : -INFINITY;
-    const float mx = warp_max(fmaxf(v0, v1));
-    const float e0 = lane < K2 ? expf(v0 - mx) : 0.0f;
-    const float e1 = lane + 32 < K2 ? expf(v1 - mx) : 0.0f;
-    const float sum = warp_sum(e0 + e1);
-    if (lane < K2) a[lane] = at_bf16(e0 / sum);
-    if (lane + 32 < K2) a[lane + 32] = at_bf16(e1 / sum);
+    float* a = att + t * K2;  // K2 <= 81: three values a lane
+    constexpr int kVals = (kMaxK * kMaxK + 31) / 32;
+    float v[kVals];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kVals; ++u) {
+      v[u] = lane + 32 * u < K2 ? a[lane + 32 * u] : -INFINITY;
+      mx = fmaxf(mx, v[u]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kVals; ++u) {
+      v[u] = lane + 32 * u < K2 ? expf(v[u] - mx) : 0.0f;
+      sum += v[u];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int u = 0; u < kVals; ++u) {
+      if (lane + 32 * u < K2) a[lane + 32 * u] = at_bf16(v[u] / sum);
+    }
   }
   __syncthreads();
 
@@ -561,7 +578,7 @@ int launch_aligned(const SrcT* src, const float* flow, const float* hbt,
 
 // source (B,H,W,C), flow (B,H,W,2) as (x, y), hbt (B*H*W, D), w1s (k*k*C, D),
 // w2 (D, k*k), b2 (k*k), out (B,H,W,C): float32, contiguous, on one device;
-// k odd, at most 7; D at most 256. hpre: null, or (B*H*W, D), which then
+// 1 <= k <= 9; D at most 256. hpre: null, or (B*H*W, D), which then
 // gets the pre-activation hidden layer blocks . W1s + hbt for the backward.
 // gfla_warp_fwd_bf16: the same with source, W2 and out in bf16 (bits) and
 // W1s holding bf16 values in f32. Returns a cudaError_t; 0 means the
@@ -573,7 +590,7 @@ extern "C" int GFLA_WARP_FWD(const SrcT* src, const float* flow,
                              int k, float slope, void* stream) {
   const int N = B * H * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > 7 || k % 2 == 0 || D < 1 || D > 256) {
+  if (k < 1 || k > kMaxK || D < 1 || D > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (D <= 32) {

@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and bind them with ctypes.
 
 On first CUDA use, every `gfla_tpu_torch/csrc/*.cu` is compiled for Hopper
-(`sm_90a`), one nvcc process per source, all started together (the warp
-kernels' bf16 instances, `warp_*_bf16.cu`, are sources of their own), and the
+(`sm_90a`), one nvcc process per source, all started together (the bf16
+instances, `warp_*_bf16.cu` and `attn_math_*_bf16.cu`, are sources of their
+own), and the
 objects are linked into one shared library with a plain C interface under
 `build/gfla_tpu_torch/` at the repo root. `csrc/jpeg_nvjpeg.cpp`, host code
 that calls nvJPEG, is built beside it into a library of its own, linked with
@@ -69,13 +70,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gfla_max_corr_splits.restype = i
     lib.gfla_max_corr.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.gfla_max_corr.restype = i
-    lib.gfla_attn_math_fwd.argtypes = [p] * 9 + [i] * 4 + [ctypes.c_float, p]
-    lib.gfla_attn_math_fwd.restype = i
+    for suffix in ("", "_bf16"):  # attn_math_*.cu and their bf16 instances
+        fwd = getattr(lib, f"gfla_attn_math_fwd{suffix}")
+        fwd.argtypes = [p] * 9 + [i] * 4 + [ctypes.c_float, p]
+        bwd = getattr(lib, f"gfla_attn_math_bwd{suffix}")
+        bwd.argtypes = [p] * 11 + [i] * 4 + [ctypes.c_float, p]
+        fwd.restype = bwd.restype = i
     lib.gfla_attn_math_fwd_scratch.argtypes = [i, i, i, i]
     lib.gfla_attn_math_fwd_scratch.restype = ctypes.c_longlong
-    lib.gfla_attn_math_bwd.argtypes = [p] * 11 + [i] * 4 + [ctypes.c_float,
-                                                            p]
-    lib.gfla_attn_math_bwd.restype = i
     lib.gfla_attn_math_bwd_scratch.argtypes = [i, i, i]
     lib.gfla_attn_math_bwd_scratch.restype = ctypes.c_longlong
     lib.gfla_cuda_error_string.argtypes = [i]

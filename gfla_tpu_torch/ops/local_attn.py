@@ -13,6 +13,9 @@ read when called:
   CUDA tensor and runs its plain twin on a CPU tensor. gfla_tpu's `auto`
   takes the warp kernel on its accelerator and the composition on the CPU;
   the port takes the warp route on both, since its CPU twin is plain torch.
+  The warp kernels take k in 1..9, odd or even; on a CUDA tensor a wider
+  block raises in the wrapper (GFLA_ATTN_PALLAS=0 selects the composite),
+  and on a CPU tensor the plain twin takes any k.
 - `1`: the blocks are gathered in plain torch (`block_extract`,
   `extract_patches`) and the attention math goes to
   `attn_math.attn_math`, the math-fused kernel, for any LeakyReLU or ReLU
@@ -27,9 +30,9 @@ composite on the CPU and raises on CUDA unless `0` asks for the composite:
 the kernel routes never give way silently.
 
 In bfloat16 (`--compute_dtype=bfloat16`) the warp route runs the warp
-kernels' bf16 instances; the attention-math kernels have none yet (ROADMAP
-queue 2, rows 4-5), so `1` raises on a bf16 CUDA tensor, and on the CPU its
-plain twin runs in bf16. The composite sums in f32, as gfla_tpu's does.
+kernels' bf16 instances and `1` the attention-math kernels' bf16 instances
+(csrc/attn_math_{fwd,bwd}_bf16.cu); on the CPU their plain twins round where
+they do. The composite sums in f32, as gfla_tpu's does.
 """
 
 from __future__ import annotations
@@ -108,12 +111,6 @@ def local_attn_warp(source, target, flow, kernel_size: int, w1, b1, w2, b2,
                           return_attn)
     B, H, W, C = source.shape
     if route == "1":
-        if source.is_cuda and source.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "local_attn_warp: GFLA_ATTN_PALLAS=1 has no bfloat16 CUDA "
-                "kernels yet (the attention-math kernels' bf16 variants, "
-                "ROADMAP queue 2, rows 4-5); the default route runs the "
-                "warp kernels in bfloat16")
         bs = block_extract(source, flow, k).reshape(-1, k * k, C)
         bt = extract_patches(target, k).reshape(-1, k * k, C)
         out = attn_math.attn_math(bs, bt, w1, b1, w2, b2, slope)

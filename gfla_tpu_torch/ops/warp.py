@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gfla_tpu_torch.ops import at_bf16, widen
 from gfla_tpu_torch.ops._build import (
     check_launch,
     load_library,
@@ -50,19 +51,8 @@ bf16_bwd_w1_launches = 0   # warp_bwd_bf16.cu, dW1s kernel
 
 MAX_D = 256      # one thread per hidden unit
 MAX_C = 1024     # keeps the shared-memory tile within the 227 KB per block
-KERNEL_SIZES = (1, 3, 5, 7)
+KERNEL_SIZES = tuple(range(1, 10))  # any k in 1..9, odd or even
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _f32(x):
-    """bf16 values widened to f32, exactly; f32 and f64 as they are."""
-    return x.float() if x.dtype == torch.bfloat16 else x
-
-
-def _round(x, dtype):
-    """x rounded to bf16 (held in f32) when the warp computes in bf16, at a
-    point where gfla_tpu's bf16 kernel body rounds; x itself otherwise."""
-    return x.to(dtype).float() if dtype == torch.bfloat16 else x
 
 
 def _blocks(source, flow, k):
@@ -70,8 +60,8 @@ def _blocks(source, flow, k):
     source (gfla_tpu's `_prep` pads it in f32), rounded to the source's type
     (pallas_warp.py:183)."""
     B, H, W, C = source.shape
-    return _round(block_extract(_f32(source), _f32(flow), k),
-                  source.dtype).reshape(B, H * W, k * k, C)
+    return at_bf16(block_extract(widen(source), widen(flow), k),
+                   source.dtype).reshape(B, H * W, k * k, C)
 
 
 def warp_fwd_plain(source, flow, hidden_bt, w1s, w2, b2, kernel_size: int,
@@ -86,11 +76,11 @@ def warp_fwd_plain(source, flow, hidden_bt, w1s, w2, b2, kernel_size: int,
     B, H, W, C = source.shape
     cdt = source.dtype
     blocks = _blocks(source, flow, k)
-    hpre = blocks.reshape(B, H * W, k * k * C) @ _f32(w1s) + hidden_bt
+    hpre = blocks.reshape(B, H * W, k * k * C) @ widen(w1s) + hidden_bt
     hidden = F.leaky_relu(hpre, negative_slope)
-    attn = torch.softmax(_round(hidden, cdt) @ _f32(w2) + _f32(b2),
+    attn = torch.softmax(at_bf16(hidden, cdt) @ widen(w2) + widen(b2),
                          dim=-1)                              # (B,HW,k²)
-    out = torch.einsum("bnk,bnkc->bnc", _round(attn, cdt),
+    out = torch.einsum("bnk,bnkc->bnc", at_bf16(attn, cdt),
                        blocks) / float(k * k)
     out = out.reshape(B, H, W, C).to(cdt)
     return (out, hpre.reshape(B * H * W, -1)) if with_hpre else out
@@ -141,26 +131,26 @@ def warp_bwd_pos_plain(source, flow, hidden_bt, w1s, w2, b2, g,
     B, H, W, C = source.shape
     N = H * W
     cdt = source.dtype
-    w1s, w2 = _f32(w1s), _f32(w2)
+    w1s, w2 = widen(w1s), widen(w2)
     blocks = _blocks(source, flow, k)
     if hpre is None:
         hpre = blocks.reshape(B, N, k2 * C) @ w1s + hidden_bt
     else:
         hpre = hpre.reshape(B, N, -1)
     hidden = F.leaky_relu(hpre, negative_slope)
-    attn = torch.softmax(_round(hidden, cdt) @ w2 + _f32(b2),
+    attn = torch.softmax(at_bf16(hidden, cdt) @ w2 + widen(b2),
                          dim=-1)                               # (B,N,k²)
-    g = _round(_f32(g), cdt).reshape(B, N, C)
+    g = at_bf16(widen(g), cdt).reshape(B, N, C)
     d_attn = torch.einsum("bnkc,bnc->bnk", blocks, g) / float(k2)
     d_logits = attn * (d_attn - (attn * d_attn).sum(-1, keepdim=True))
     dw2 = torch.einsum("bnd,bnk->dk", hidden, d_logits)
     db2 = d_logits.sum((0, 1))
-    d_h = _round(d_logits, cdt) @ w2.t()
-    d_hpre = _round(torch.where(hpre >= 0, d_h, d_h * negative_slope), cdt)
-    d_blocks = _round((d_hpre @ w1s.t()).reshape(B, N, k2, C)
-                      + (attn / float(k2))[..., None] * g[:, :, None, :],
-                      cdt)
-    d_source, d_flow = block_extract_bwd(_f32(source), _f32(flow), d_blocks,
+    d_h = at_bf16(d_logits, cdt) @ w2.t()
+    d_hpre = at_bf16(torch.where(hpre >= 0, d_h, d_h * negative_slope), cdt)
+    d_blocks = at_bf16((d_hpre @ w1s.t()).reshape(B, N, k2, C)
+                       + (attn / float(k2))[..., None] * g[:, :, None, :],
+                       cdt)
+    d_source, d_flow = block_extract_bwd(widen(source), widen(flow), d_blocks,
                                          k)
     return d_source, d_flow, d_hpre, dw2, db2, d_blocks
 
@@ -171,7 +161,7 @@ def warp_bwd_w1_plain(source, flow, d_hpre, kernel_size: int):
     k = kernel_size
     B, H, W, C = source.shape
     blocks = _blocks(source, flow, k).reshape(B * H * W, k * k * C)
-    return blocks.t() @ _f32(d_hpre).reshape(B * H * W, -1)
+    return blocks.t() @ widen(d_hpre).reshape(B * H * W, -1)
 
 
 def warp_bwd_plain(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
@@ -216,7 +206,8 @@ def _check_kernel_inputs(source, flow, hidden, w1s, w2, b2, k, g=None):
     B, H, W, C = source.shape
     D = w1s.shape[-1]
     if k not in KERNEL_SIZES:
-        raise ValueError(f"warp: kernel_size {k} not in {KERNEL_SIZES}")
+        raise ValueError(f"warp: kernel_size {k} not in {KERNEL_SIZES}; "
+                         f"GFLA_ATTN_PALLAS=0 selects the composite")
     if not 1 <= D <= MAX_D or not 1 <= C <= MAX_C:
         raise ValueError(f"warp: the CUDA kernels take 1 <= D <= {MAX_D} "
                          f"and 1 <= C <= {MAX_C}, got D={D}, C={C}")
@@ -244,7 +235,7 @@ def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope,
     hpre = hidden_bt.new_empty(B * H * W, D) if with_hpre else None
     bf16 = source.dtype == torch.bfloat16
     entry = lib.gfla_warp_fwd_bf16 if bf16 else lib.gfla_warp_fwd
-    w1s = _f32(w1s)  # the kernels' W1s ring is f32; the values stay bf16
+    w1s = widen(w1s)  # the kernels' W1s ring is f32; the values stay bf16
     with torch.cuda.device(source.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = entry(
@@ -266,7 +257,7 @@ def _launch_bwd_pos(source, flow, hpre, w1s, w2, b2, g, k, slope):
     lib = load_library()
     bf16 = source.dtype == torch.bfloat16
     entry = lib.gfla_warp_bwd_pos_bf16 if bf16 else lib.gfla_warp_bwd_pos
-    w1s = _f32(w1s)  # the kernels' W1s ring is f32; the values stay bf16
+    w1s = widen(w1s)  # the kernels' W1s ring is f32; the values stay bf16
     B, H, W, C = source.shape
     N = B * H * W
     D = w1s.shape[-1]
@@ -383,8 +374,8 @@ class WarpFunction(torch.autograd.Function):
     def forward(ctx, source, flow, hidden_bt, w1s, w2, b2, kernel_size,
                 negative_slope):
         ctx.dtypes = [t.dtype for t in (source, flow, hidden_bt, w1s, w2, b2)]
-        inputs = [t.contiguous() for t in (source, _f32(flow), hidden_bt,
-                                           w1s, w2, _f32(b2))]
+        inputs = [t.contiguous() for t in (source, widen(flow), hidden_bt,
+                                           w1s, w2, widen(b2))]
         out, hpre = warp_fwd_with_hpre(*inputs, kernel_size, negative_slope)
         source, flow, _, w1s, w2, b2 = inputs
         ctx.save_for_backward(source, flow, hpre, w1s, w2, b2)
@@ -409,7 +400,7 @@ def warp_fwd(source, flow, hidden_bt, w1s, w2, b2, kernel_size: int,
     tensors = (source, flow, hidden_bt, w1s, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return WarpFunction.apply(*tensors, kernel_size, negative_slope)
-    tensors = (source, _f32(flow), hidden_bt, w1s, w2, _f32(b2))
+    tensors = (source, widen(flow), hidden_bt, w1s, w2, widen(b2))
     if on_kernel_device(source, "warp_fwd"):
         return _launch_fwd(*tensors, kernel_size, negative_slope)
     return warp_fwd_plain(*tensors, kernel_size, negative_slope)

@@ -25,9 +25,10 @@ the CPU (its warp kernel needs C and D multiples of 128 there, and its
 tiles H*W a multiple of 128), which blends the blocks at bf16 flow
 coordinates; the port's default route, the warp, keeps them in f32 as
 gfla_tpu's kernel does. So ExtractorAttn's warp route is held against
-gfla_tpu's kernel, interpreted, and its composite route
-(GFLA_ATTN_PALLAS=0) against the composition; the generator and the step
-run on both routes against gfla_tpu's composition.
+gfla_tpu's kernel, interpreted, its composite route (GFLA_ATTN_PALLAS=0)
+against the composition, and its attention-math route (GFLA_ATTN_PALLAS=1)
+against gfla_tpu's `attn_math_fused` under the same switch; the generator
+and the step run on all three routes against gfla_tpu's composition.
 The generator and the step start from seeded noise weights (N(0, 1/fan_in),
 as tests/test_torch_port_pose.py's generator test). Through ~30 bf16 conv
 and norm layers (instance norms down to 1x1 at 32x32) rounding accumulates
@@ -80,7 +81,8 @@ LOSS_REL = 1e-2   # the step's losses, relative
 FLOW_TOL = 8e-2
 IMAGE_TOL = 2.5e-1
 IMAGE_NORM_TOL = 1.2e-1
-ROUTES = {"warp": "auto", "composite": "0"}  # GFLA_ATTN_PALLAS
+ROUTES = {"warp": "auto", "composite": "0",  # GFLA_ATTN_PALLAS
+          "attn_math": "1"}
 
 
 @pytest.fixture(autouse=True)
@@ -333,9 +335,11 @@ def test_warp_bf16_rounds_where_gfla_tpu_does():
 @pytest.mark.parametrize("k", [3, 5])
 def test_extractor_attn_bf16_matches_flax(k, route, monkeypatch):
     """The composite route against flax's ExtractorAttn (gfla_tpu's XLA
-    composition at this width), the warp route against gfla_tpu's Pallas
-    kernel interpreted on the same parameters (16x16: the kernel's tiles
-    need H*W a multiple of 128); both within OUT_TOL."""
+    composition at this width), the attention-math route against flax's
+    ExtractorAttn under the same GFLA_ATTN_PALLAS=1 (gfla_tpu's
+    `attn_math_fused`, interpreted), the warp route against gfla_tpu's
+    Pallas kernel interpreted on the same parameters (16x16: the kernel's
+    tiles need H*W a multiple of 128); each within OUT_TOL."""
     monkeypatch.setenv("GFLA_ATTN_PALLAS", ROUTES[route])
     rng = np.random.RandomState(k)
     src, tgt = (_bf16_values(rng.randn(2, 16, 16, 8)) for _ in "st")
@@ -347,7 +351,7 @@ def test_extractor_attn_bf16_matches_flax(k, route, monkeypatch):
         lambda p: jnp.asarray(_bf16_values(
             np.random.RandomState(3).randn(*p.shape) * 0.3)), params)
     cast = jax_precision.cast_tree(params, jnp.bfloat16)
-    if route == "composite":
+    if route in ("composite", "attn_math"):
         want = jmod.apply({"params": cast}, *args)
     else:
         want = local_attn_warp_fused(*args, k, cast["w1"], cast["b1"],

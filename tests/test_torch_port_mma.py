@@ -433,7 +433,7 @@ def test_split_product_keeps_f32_where_one_tf32_product_does_not(harness, C):
     assert out3[1] == out3[3]
 
 
-@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9])
 @pytest.mark.parametrize("C", [21, 128])
 def test_warp_bwd_product_columns_cover_w1s_once(harness, k, C):
     """csrc/warp_bwd.cu: the d_block product's offset-major tiles (every
@@ -449,10 +449,12 @@ def test_warp_bwd_trade_leaves_one_row_and_four_channels_a_lane(harness):
     assert harness.trade_mismatches() == 0
 
 
-SITES = [  # N, C, D, k: the two live sites, a 64x64 input's, ragged
+SITES = [  # N, C, D, k: the two live sites, a 64x64 input's, ragged, and
+    # the run-time instance's k at the k=5 site
     (8 * 64 * 64, 128, 128, 5), (8 * 32 * 32, 256, 128, 3),
     (2 * 16 * 16, 128, 128, 5), (2 * 12 * 10, 21, 42, 3),
-    (2 * 16 * 12, 22, 40, 7), (1000, 36, 200, 1)]
+    (2 * 16 * 12, 22, 40, 7), (1000, 36, 200, 1),
+    (8 * 64 * 64, 128, 128, 4), (8 * 64 * 64, 128, 128, 9)]
 
 
 @pytest.mark.parametrize("N,C,D,k", SITES)

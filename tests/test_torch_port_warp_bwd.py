@@ -194,9 +194,15 @@ SCATTER_CASES = [  # k, flow scale, seed, offset rows per band
     pytest.param(5, 1.5, 1, 5, id="k5"),
     pytest.param(3, 40.0, 2, 3, id="k3-far-flow"),
     pytest.param(5, 40.0, 3, 5, id="k5-far-flow"),
-    pytest.param(7, 1.5, 4, 3, id="k7-bands"),  # the kernel's bands at k=7
+    pytest.param(7, 1.5, 4, 3, id="k7-bands"),  # bands of 3 offset rows
     pytest.param(5, 40.0, 5, 2, id="k5-far-flow-bands"),
     pytest.param(7, 40.0, 6, 3, id="k7-far-flow-bands"),
+    # the run-time instance's bands of one offset row, odd and even k (up
+    # to 8: at 9 gfla_tpu's kernel leaves its function, as
+    # tests/test_torch_port_kernel_sizes.py shows)
+    pytest.param(4, 1.5, 7, 1, id="k4-rows"),
+    pytest.param(8, 40.0, 8, 1, id="k8-far-flow-rows"),
+    pytest.param(2, 40.0, 9, 1, id="k2-far-flow-rows"),
 ]
 
 

@@ -6,8 +6,10 @@ recomputing it, and works on the (k+1)^2 footprint cells of each position
 instead of its k^2 blended blocks (csrc/warp_cells.cuh). Here a g++ harness
 runs the cell form of d_attn, the blend of the cell dots <src[cell], g>,
 over every position: it must give (1/k^2) <block, g> within 1e-5 x its
-largest |value| (f32 sums in another order), also at far-off flows (scale
-40) that clamp whole footprints onto the border, where cells share a pixel.
+largest |value| (f32 sums in another order), at odd and even k up to 9 (an
+even block's footprint starts one further up and left), also at far-off
+flows (scale 40) that clamp whole footprints onto the border, where cells
+share a pixel.
 The cell pre-sum into d_source and d_flow is held against gfla_tpu's
 `_core_bwd` in tests/test_torch_port_warp_bwd.py.
 
@@ -44,7 +46,7 @@ extern "C" {
 void cell_dattn_all(const float* src, const float* flow, const float* g,
                     int B, int H, int W, int C, int k, float* dattn) {
   const int k1 = k + 1;
-  float cdot[64];
+  float cdot[100];  // (k + 1)^2 cells, k <= 9
   for (int p = 0; p < B * H * W; ++p) {
     const int b = p / (H * W), y = (p / W) % H, x = p % W;
     const Footprint f = footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, k);
@@ -115,13 +117,19 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-CASES = [  # k, flow scale
+CASES = [  # k, flow scale; even k reach one row and column further up-left
     pytest.param(3, 1.5, id="k3"),
     pytest.param(5, 1.5, id="k5"),
     pytest.param(7, 1.5, id="k7"),
     pytest.param(3, 40.0, id="k3-far-flow"),
     pytest.param(5, 40.0, id="k5-far-flow"),
     pytest.param(7, 40.0, id="k7-far-flow"),
+    pytest.param(2, 1.5, id="k2"),
+    pytest.param(4, 1.5, id="k4"),
+    pytest.param(9, 1.5, id="k9"),
+    pytest.param(2, 40.0, id="k2-far-flow"),
+    pytest.param(4, 40.0, id="k4-far-flow"),
+    pytest.param(9, 40.0, id="k9-far-flow"),
 ]
 
 
