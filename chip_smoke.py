@@ -143,6 +143,23 @@ Phases, each failing the run (non-zero exit) on the first error:
      of each attention-math kernel) and one under GFLA_PALLAS_CORR=1 (4
      max-correlation launches beside the warp's 24 + 24 + 24), each against
      the default path.
+ 20. dance disk, face disk: a dance tree (iPER layout, 3 sequences x 14
+     frames a phase, 256x256) and a face tree (FaceForensics layout, 240x320
+     frames) written through nvJPEG, the skeleton JSONs and landmark files
+     from numpy; three full-width batch-2 x 6-frame dance steps through the
+     training CLI's entry point (24 launches of each warp kernel a step,
+     every parameter of G, D and D_V moved); the serving CLI's run_test over
+     each head's test sequences (24 forward launches a chunk, gfla_tpu's
+     file names, the carry reset at each sequence's first chunk, the
+     stitch's line for each sequence: dance's mp4 where cv2 imports, face's
+     with cv2 hidden, the line that says no mp4 was written); each prepared
+     frame against its source picture; the face structure, Canny included,
+     on the card bitwise equal to the CPU's on the same nvJPEG pixels; on
+     the committed
+     fixture tests/fixtures/face_q75_240x320, the share of Canny pixels
+     nvJPEG's and PIL's decodes disagree on (at most 2% of those either
+     marks); host sample ms, device prepare_batch ms a chunk, and the dance
+     step from disk beside phase 18's.
 The HDF5 store itself is not read on the card, whose Python has no h5py:
 the ShapeNet phases feed batches in the dataset's layout to the task's own
 prepare_batch and run_test, and the reader is held against gfla_tpu's on
@@ -2138,19 +2155,27 @@ def cli_run(what):
         lines.extend(buf.getvalue().splitlines())
 
 
-def train_from_disk(what, args, steps):
+def pair_paths(batch):
+    return list(zip(batch["P1_path"], batch["P2_path"]))
+
+
+def train_from_disk(what, args, steps, task_cls=None, paths=pair_paths,
+                    initial=None):
     """`python -m gfla_tpu_torch.train` in-process on a tree: returns its
-    output lines, the launch counts, the task, the (P1, P2) paths of each
-    batch it prepared in order, and each step's synchronised ms."""
+    output lines, the launch counts, the task, the paths of each batch it
+    prepared in order (`paths` of the host batch; (P1, P2) pairs for the
+    pose task, the default `task_cls`), and each step's synchronised
+    ms. A list given as `initial` receives the new task's snapshot."""
     import gfla_tpu_torch.train.__main__ as train_cli
     from gfla_tpu_torch.tasks.pose import PoseTask
 
+    task_cls = task_cls or PoseTask
     tasks, prepared, step_ms = [], [], []
-    prepare, train_step = PoseTask.prepare_batch, PoseTask.train_step
+    prepare, train_step = task_cls.prepare_batch, task_cls.train_step
     create_task = train_cli.create_task
 
     def recording_prepare(self, batch):
-        prepared.append(list(zip(batch["P1_path"], batch["P2_path"])))
+        prepared.append(paths(batch))
         return prepare(self, batch)
 
     def timed_step(self, batch):
@@ -2163,10 +2188,12 @@ def train_from_disk(what, args, steps):
 
     def capture(opt, device=None):
         tasks.append(create_task(opt, device))
+        if initial is not None:
+            initial.append(snapshot(tasks[-1]))
         return tasks[-1]
 
-    with mock.patch.object(PoseTask, "prepare_batch", recording_prepare), \
-            mock.patch.object(PoseTask, "train_step", timed_step), \
+    with mock.patch.object(task_cls, "prepare_batch", recording_prepare), \
+            mock.patch.object(task_cls, "train_step", timed_step), \
             mock.patch.object(train_cli, "create_task", capture), \
             cli_run(what) as lines:
         reset_launch_counts()
@@ -3036,6 +3063,370 @@ def phase_anim_switches(train):
                 dance_train_corr=counts["corr"])
 
 
+VIDEO_SEQS, VIDEO_FRAMES = 3, 14   # sequences and frames a phase of a tree
+FACE_FRAME = (240, 320)            # the face tree's frames: not 256x256
+
+
+def face_landmarks(rng, H, W):
+    """68 iBUG-ordered landmarks (x, y) of a frontal cartoon face filling
+    about half of an H x W frame, jittered: the jaw, brows, nose, eyes and
+    the outer and inner lips."""
+    cx, cy = W * rng.uniform(0.45, 0.55), H * rng.uniform(0.5, 0.58)
+    s = min(H, W) / 256.0 * rng.uniform(0.9, 1.1)
+    pts = np.zeros((68, 2))
+    a = np.pi - np.pi * np.arange(17) / 16.0
+    pts[:17] = np.stack([cx + 70 * s * np.cos(a), cy + 93 * s * np.sin(a)], 1)
+    pts[[0, 16], 1] = cy - 5 * s
+    for k, sign in ((17, -1.0), (22, 1.0)):
+        t = np.linspace(0, 1, 5)
+        x0, x1 = cx + sign * 52 * s, cx + sign * 14 * s
+        xs = x0 + (x1 - x0) * t if sign < 0 else x1 + (x0 - x1) * t
+        pts[k:k + 5] = np.stack([xs, cy - (48 + 5 * np.sin(np.pi * t)) * s],
+                                1)
+    pts[27:31] = np.stack([np.full(4, cx), cy + (-25 + 13 * np.arange(4)) * s],
+                          1)
+    pts[31:36] = np.stack([cx + (-12 + 6 * np.arange(5)) * s,
+                           np.full(5, cy + 20 * s)], 1)
+    ang = np.array([np.pi, 2, 1, 0, -1, -2]) * np.pi / 3
+    ang[0] = np.pi
+    for k, ex in ((36, cx - 32 * s), (42, cx + 32 * s)):
+        pts[k:k + 6] = np.stack([ex + 14 * s * np.cos(ang),
+                                 cy - 22 * s - 6 * s * np.sin(ang)], 1)
+    a = np.pi + 2 * np.pi * np.arange(12) / 12
+    pts[48:60] = np.stack([cx + 24 * s * np.cos(a),
+                           cy + 45 * s - 10 * s * np.sin(a)], 1)
+    a = np.array([4, 3, 2, 1, 0, -1, -2, -3]) * np.pi / 4
+    pts[60:68] = np.stack([cx + 17 * s * np.cos(a),
+                           cy + 45 * s - 5 * s * np.sin(a)], 1)
+    return pts + rng.uniform(-1.5, 1.5, pts.shape)
+
+
+def face_frame(rng, pts, H, W):
+    """uint8 (H, W, 3): a background gradient, the face's skin, eyes and
+    lips as hard-edged polygons (the port's fill_poly), and noise."""
+    from gfla_tpu_torch.data.raster import fill_poly
+
+    yy = np.mgrid[:H, :W][0][..., None] / H
+    img = rng.uniform(30, 220, 3) * (1 - yy) + rng.uniform(30, 220, 3) * yy
+    img = img.astype(np.uint8)
+    for idx, colour in ((range(17), rng.uniform(140, 230, 3)),
+                        (range(36, 42), (40, 40, 60)),
+                        (range(42, 48), (40, 40, 60)),
+                        (range(48, 60), rng.uniform(120, 220, 3))):
+        mask = np.zeros((H, W), np.uint8)
+        fill_poly(mask, pts[list(idx)].astype(np.int32), 1)
+        img[mask > 0] = np.asarray(colour, np.uint8)
+    noise = rng.randint(-6, 7, img.shape)
+    return np.clip(img.astype(np.int32) + noise, 0, 255).astype(np.uint8)
+
+
+def dance_joints(rng, H, W, k):
+    """(k, 3) OpenPose rows (x, y, confidence) of a standing figure in an
+    H x W frame, jittered; one joint in six missing (all 0) and one past
+    the frame's edge."""
+    y = np.linspace(0.15, 0.9, k) * H + rng.uniform(-8, 8, k)
+    x = W / 2 + rng.uniform(-0.3, 0.3, k) * W
+    rows = np.stack([x, y, np.ones(k)], 1)
+    rows[rng.rand(k) < 1 / 6] = 0
+    rows[rng.randint(k), 0] = W + rng.uniform(2, 20)
+    return rows
+
+
+def write_video_tree(root, kind, H, W, seed, device, seqs=VIDEO_SEQS,
+                     frames=VIDEO_FRAMES):
+    """A dance (iPER layout: `{phase}_256/train_A`, `train_video2d` with
+    17-joint and `train_alphapose` with 18-joint skeleton JSONs) or face
+    (FaceForensics layout: `{phase}_data`, `{phase}_keypoints` with
+    68-point txt files) tree of H x W frames, train and test, encoded by
+    image_io.encode_jpeg on `device` (nvJPEG on the card, PIL on the CPU).
+    A dance frame now and then has no person. Returns {path: picture}."""
+    from gfla_tpu_torch.data import openpose_utils
+    from gfla_tpu_torch.data.image_io import encode_jpeg
+
+    rng = np.random.RandomState(seed)
+    sources = {}
+    for phase in ("train", "test"):
+        for s in range(seqs):
+            seq = f"seq_{s:03d}"
+            if kind == "dance":
+                base = os.path.join(root, f"{phase}_256")
+                dirs = [os.path.join(base, d, seq) for d in
+                        ("train_A", "train_video2d", "train_alphapose")]
+            else:
+                dirs = [os.path.join(root, f"{phase}_{d}", seq)
+                        for d in ("data", "keypoints")]
+            for d in dirs:
+                os.makedirs(d)
+            for t in range(frames):
+                name = f"frame_{t:05d}"
+                if kind == "dance":
+                    clean = dance_joints(rng, H, W, 17)
+                    noise = dance_joints(rng, H, W, 18)
+                    img = disk_images(1, H, W, seed * 1000 + s * 100 + t)[0]
+                    pose = clean[:, 1::-1].T.astype(int)  # (2, 17) (y, x)
+                    openpose_utils.draw_joint(
+                        img, np.clip(pose, 0, [[H - 1], [W - 1]]),
+                        openpose_utils.LIMB_SEQ_HUMAN36M_17, radius=4)
+                    empty = rng.rand() < 0.1
+                    for d, rows in ((dirs[1], clean), (dirs[2], noise)):
+                        people = [] if empty else [
+                            {"pose_keypoints_2d": rows.ravel().tolist()}]
+                        with open(os.path.join(d, name + ".json"), "w") as f:
+                            json.dump({"people": people}, f)
+                else:
+                    pts = face_landmarks(rng, H, W)
+                    img = face_frame(rng, pts, H, W)
+                    np.savetxt(os.path.join(dirs[1], name + ".txt"), pts,
+                               delimiter=",", fmt="%.3f")
+                path = os.path.join(dirs[0], name + ".jpg")
+                with open(path, "wb") as f:
+                    f.write(encode_jpeg(torch.from_numpy(img).to(device)))
+                sources[path] = img
+    return sources
+
+
+VIDEO_STEPS = 3         # dance steps from disk: one 6-frame chunk each
+FACE_FIXTURE = "tests/fixtures/face_q75_240x320"
+CANNY_SHARE_MAX = 0.02  # Canny pixels nvJPEG's and PIL's decodes disagree
+                        # on, of those either marks as edge, on the fixture
+
+
+def video_paths(batch):
+    return [list(paths) for paths in batch["gen_paths"]]
+
+
+def video_serve(kind, args):
+    """The serving CLI's `main` in-process over a tree's test sequences:
+    its output lines, the launch counts, and each chunk's (first frame,
+    whether the carry was reset) in order."""
+    from gfla_tpu_torch.tasks.animation import AnimationTaskBase
+
+    test_step = AnimationTaskBase.test_step
+    chunks = []
+
+    def recording_step(self, batch, pre_image=None, pre_skeleton=None):
+        chunks.append(pre_image is None)
+        return test_step(self, batch, pre_image, pre_skeleton)
+
+    with mock.patch.object(AnimationTaskBase, "test_step", recording_step):
+        lines, counts = serve_from_disk(f"{kind} serve from disk", args)
+    return lines, counts, chunks
+
+
+def check_streamed(kind, results, tree_root, lines, counts, resets,
+                   has_cv2):
+    """gfla_tpu's file names for every frame of every test sequence, one
+    ref_ref each, the carry reset at each sequence's first chunk only, 24
+    warp-forward launches a chunk and nothing else, and the stitch's line
+    for each sequence (an mp4 where cv2 imports, else the line saying it
+    was not written) after its frames."""
+    frames_dir = os.path.join(tree_root, "test_256", "train_A") \
+        if kind == "dance" else os.path.join(tree_root, "test_data")
+    seqs = sorted(os.listdir(frames_dir))
+    chunks = -(-VIDEO_FRAMES // ANIM_T)
+    for seq in seqs:
+        names = sorted(os.listdir(os.path.join(results, seq)))
+        want = sorted([f"frame_{t:05d}_{s}.png" for t in range(VIDEO_FRAMES)
+                       for s in ("vis", "gt")] + ["ref_ref.png"])
+        check(names == want, f"{kind} {seq}: wrote {names[:5]}...")
+    check(resets == ([True] + [False] * (chunks - 1)) * len(seqs),
+          f"{kind}: carry resets {resets}")
+    check(only(counts, warp_fwd=ANIM_LAUNCHES * chunks * len(seqs)),
+          f"{kind} serving from disk launched {counts}")
+    stitched = [line for line in lines if line.startswith(
+        "write video" if has_cv2 else "write2video: no cv2 here")]
+    check(len(stitched) == len(seqs) and all(
+        os.path.join(results, seq) in line
+        for seq, line in zip(seqs, stitched)),
+        f"{kind}: the stitch printed {stitched}")
+    done = [i for i, line in enumerate(lines) if line.startswith("wrote ")]
+    check(done and lines.index(stitched[-1]) < done[0],
+          f"{kind}: the stitch's line is not before the frame count")
+    print(f"{kind} streamed {len(seqs)} test sequences of {VIDEO_FRAMES} "
+          f"frames from disk ({chunks} chunks of {ANIM_T} each, padded): "
+          f"launches {counts}; {len(resets)} chunks, the carry reset at "
+          f"each sequence's first; {2 * VIDEO_FRAMES + 1} files a sequence; "
+          f"the stitch said: {stitched[0]}")
+
+
+def phase_video_disk(device, synthetic_ms):
+    """dance disk, face disk: the animation heads from trees on disk,
+    written here through nvJPEG (numpy skeletons and landmarks), trained
+    (dance) and served (both) through the two CLIs' entry points; the
+    prepared frames against their sources; the device face structure, Canny
+    included, bitwise against the CPU's on the same decoded pixels; nvJPEG
+    against PIL under Canny on a committed fixture; host sample, device
+    prepare and step times. `synthetic_ms`: phase 18's ms per chunk step
+    on the synthetic clips."""
+    from gfla_tpu_torch.data import collate, get_dataset_class, image_io
+    from gfla_tpu_torch.data.raster import canny_l1
+    from gfla_tpu_torch.data.resample import (
+        convert_l,
+        pil_resize,
+        resample_images,
+    )
+    from gfla_tpu_torch.options import TestOptions, TrainOptions
+    from gfla_tpu_torch.tasks.animation import (
+        CANNY_HIGH,
+        CANNY_LOW,
+        AnimationTaskBase,
+        face_structure,
+    )
+    from gfla_tpu_torch.tasks.animation import prepare_batch as prepare
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.TemporaryDirectory()
+    trees = {"dance": (os.path.join(work.name, "dance"), ANIM_SIZE,
+                       ANIM_SIZE),
+             "face": (os.path.join(work.name, "face"), *FACE_FRAME)}
+    t0 = time.perf_counter()
+    encodes = image_io.nvjpeg_encodes
+    sources = {}
+    for i, (kind, (root, H, W)) in enumerate(trees.items()):
+        sources.update(write_video_tree(root, kind, H, W, 90 + i, device))
+    check(image_io.nvjpeg_encodes - encodes == len(sources),
+          "video frames not encoded on nvJPEG")
+    print(f"video disk: wrote a dance tree ({ANIM_SIZE}x{ANIM_SIZE}) and a "
+          f"face tree ({FACE_FRAME[0]}x{FACE_FRAME[1]}), {VIDEO_SEQS} "
+          f"sequences x {VIDEO_FRAMES} frames a phase each, {len(sources)} "
+          f"JPEGs through nvJPEG, in {time.perf_counter() - t0:.2f} s")
+    ckpt = os.path.join(work.name, "ckpt")
+    common = {kind: [f"--model={kind}", f"--dataset_mode={kind}",
+                     f"--dataroot={root}", "--gpu_ids=0",
+                     f"--load_size={ANIM_SIZE}", f"--checkpoints_dir={ckpt}",
+                     f"--name={kind}_disk",
+                     f"--n_frames_pre_load_test={ANIM_T}"]
+              for kind, (root, _, _) in trees.items()}
+    counts = {}
+
+    # dance: three full-width batch-2 chunk steps through the training CLI
+    initial = []
+    lines, train_counts, task, prepared, step_ms = train_from_disk(
+        "dance train from disk",
+        [*common["dance"], "--batchSize=2", f"--n_frames_total={ANIM_T}",
+         f"--max_iters={VIDEO_STEPS}", "--print_freq=1"], VIDEO_STEPS,
+        task_cls=AnimationTaskBase, paths=video_paths, initial=initial)
+    for line in lines:
+        if line.startswith(("dataset [", "(epoch:")):
+            print(f"  {line}")
+    check(only(train_counts, warp_fwd=ANIM_LAUNCHES * VIDEO_STEPS,
+               warp_bwd_pos=ANIM_LAUNCHES * VIDEO_STEPS,
+               warp_bwd_w1=ANIM_LAUNCHES * VIDEO_STEPS),
+          f"dance train from disk launched {train_counts}, expected "
+          f"{ANIM_LAUNCHES} of each warp kernel a step")
+    check(anim_full_width(task.net_g, "dance") and task.net_d.layers == 4,
+          "dance from disk: not the full-width configuration")
+    for tag, net in nets(task).items():
+        still = [n for n, p in net.named_parameters()
+                 if torch.equal(p, initial[0][tag]["params"][n])]
+        check(not still, f"dance from disk {tag}: parameters unchanged: "
+                         f"{still}")
+    losses = [line for line in lines if line.startswith("(epoch:")]
+    check(len(losses) == VIDEO_STEPS and "nan" not in " ".join(losses),
+          f"dance from disk: loss lines {losses}")
+    check(len(prepared) == VIDEO_STEPS and all(
+        len(b) == 2 and all(len(clip) == ANIM_T for clip in b)
+        for b in prepared), f"dance from disk prepared {prepared}")
+    counts["dance_disk_train"] = train_counts
+    print(f"dance from disk: {VIDEO_STEPS} steps, launches {train_counts}; "
+          f"every parameter of G, D and D_V moved")
+
+    # both heads: the serving CLI over the test sequences
+    # (face's with cv2 hidden: the line a machine without cv2 prints)
+    import importlib.util
+
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    print(f"cv2 {'imports' if has_cv2 else 'does not import'} here")
+    results = os.path.join(work.name, "results")
+    for kind, (root, _, _) in trees.items():
+        args = [*common[kind], f"--results_dir={results}", "--nThreads=0"]
+        if kind == "dance":
+            args.append(f"--which_iter={VIDEO_STEPS}")
+        hide = mock.patch.dict(sys.modules, {"cv2": None}) \
+            if kind == "face" else contextlib.nullcontext()
+        with hide:
+            lines, serve_counts, resets = video_serve(kind, args)
+        check_streamed(kind, os.path.join(results, f"{kind}_disk"), root,
+                       lines, serve_counts, resets,
+                       has_cv2 and kind == "dance")
+        counts[f"{kind}_disk_serve"] = serve_counts
+
+    # each prepared frame against its source picture (phase 11's rule),
+    # and the face structure on the card against the CPU's
+    for kind, (root, _, _) in trees.items():
+        opt = TestOptions().parse(common[kind], save=False)
+        dataset = get_dataset_class(kind)(opt)
+        batch = collate([dataset[0]])
+        dev = prepare(batch, device, opt)
+        src = torch.stack([torch.from_numpy(sources[p])
+                           for p in batch["gen_paths"][0]]).to(device)
+        want = resample_images(list(src), (ANIM_SIZE, ANIM_SIZE),
+                               torch.from_numpy(batch["P_all_inv"][0])
+                               .to(device))
+        err = (dev["P_all"][0].permute(0, 2, 3, 1) - want).abs().mean(
+            dim=(1, 2, 3)).max().item()
+        print(f"{kind}: each prepared frame within {err:.4f} mean |diff| "
+              f"of its source picture (bound {PREPARED_MEAN_ABS:g})")
+        check(err <= PREPARED_MEAN_ABS, f"{kind}: prepared frames {err:.4f}")
+        if kind != "face":
+            continue
+        decoded = image_io.decode_jpeg_batch(batch["P_all"][0], device,
+                                             batch["gen_paths"][0])
+        args = [torch.from_numpy(batch[k][0]) for k in
+                ("edges", "labels", "dist")]
+        on_card = face_structure(*(a.to(device) for a in args), decoded,
+                                 True).cpu()
+        on_cpu = face_structure(*args, [d.cpu() for d in decoded], True)
+        background = (on_card[..., 0] > 0).sum() - (args[0] > 0).sum()
+        apart = (on_card != on_cpu).flatten(0, -2).sum(0).tolist()
+        print(f"face structure {tuple(on_card.shape)} on the card vs the "
+              f"CPU on the same nvJPEG pixels: values apart by channel "
+              f"{apart} (bitwise: all 0); {int(background)} Canny pixels "
+              f"beyond the curves")
+        check(torch.equal(on_card, on_cpu) and background > 0,
+              f"face structure: card and CPU differ in {apart}")
+    fixture = np.fromfile(os.path.join(here, FACE_FIXTURE + ".jpg"),
+                          np.uint8)
+    pil = torch.from_numpy(np.load(os.path.join(here, FACE_FIXTURE +
+                                                ".npy"))).to(device)
+    nv = image_io.decode_jpeg_batch([fixture], device, [FACE_FIXTURE])[0]
+    edges = [canny_l1(pil_resize(convert_l(img)[..., None],
+                                 (ANIM_SIZE, ANIM_SIZE), "bicubic")[..., 0],
+                      CANNY_LOW, CANNY_HIGH) for img in (nv, pil)]
+    union = (edges[0] | edges[1]).sum().item()
+    share = (edges[0] ^ edges[1]).sum().item() / max(union, 1)
+    print(f"Canny on {FACE_FIXTURE}.jpg, nvJPEG's decode vs PIL's: "
+          f"{share * 100:.3f}% of the {union} pixels either marks as edge "
+          f"differ (bound {CANNY_SHARE_MAX * 100:g}%)")
+    check(union > 0 and share <= CANNY_SHARE_MAX,
+          f"Canny nvJPEG vs PIL {share:.4f}")
+
+    # times: a worker's sample, the device prepare, the step from disk
+    for kind in trees:
+        opt = TrainOptions().parse(
+            [*common[kind], "--batchSize=2", f"--n_frames_total={ANIM_T}"],
+            save=False)
+        dataset = get_dataset_class(kind)(opt)
+        t0 = time.perf_counter()
+        samples = [dataset[i % len(dataset)] for i in range(4)]
+        sample_ms = (time.perf_counter() - t0) * 1e3 / len(samples)
+        batch = collate(samples[:2])
+        prepare_ms = host_ms(lambda: prepare(batch, device, opt))
+        print(f"{kind} from disk: host sample {sample_ms:.1f} ms (one "
+              f"{ANIM_T}-frame clip, a loader worker's __getitem__), device "
+              f"prepare_batch {prepare_ms:.3f} ms per batch-2 chunk ("
+              f"{2 * ANIM_T + (2 if kind == 'dance' else 0)} decodes, "
+              f"warp-resize, "
+              f"{'heatmaps' if kind == 'dance' else 'grey, bicubic, Canny'})")
+    step = statistics.median(step_ms[1:])
+    print(f"dance chunk step from disk {step:.3f} ms (steps "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}) beside the synthetic "
+          f"clips' {synthetic_ms:.3f} ms (phase 18)")
+    del task
+    work.cleanup()
+    return counts
+
+
 def task_pairs(root, prefix):
     """The (from, to) names of a tree's training pairs, in file order."""
     import csv
@@ -3133,7 +3524,9 @@ def main(argv):
             anim[f"{kind}_train"] = anim_train["counts"]
             if kind == "dance":
                 anim_switched = timed(phase_anim_switches, anim_train)
+                dance_ms = anim_train["ms"]
             del anim_train
+        video = timed(phase_video_disk, device, dance_ms)
     train = train["counts"]
     shapenet = {"shapenet_serve": sn_serve["launches"],
                 "shapenet_sweep": sn_sweep}
@@ -3154,7 +3547,8 @@ def main(argv):
          **{path: anim[path]["warp_fwd"]
             for path in ("dance_train", "face_train")},
          "dance_train_corr": anim_switched["dance_train_corr"]["warp_fwd"],
-         "train_kernel_size": switched["train_kernel_size"]["warp_fwd"]},
+         "train_kernel_size": switched["train_kernel_size"]["warp_fwd"],
+         **{path: c["warp_fwd"] for path, c in video.items()}},
         max(e for e, _, _ in kernel.values()), f"{KERNEL_ATOL:g} abs", ms,
         plain_ms, work["warp_fwd"], none, shape,
         both_cases(KERNEL_CASES, kernel, lambda r: r,
@@ -3171,7 +3565,8 @@ def main(argv):
              **{path: anim[path][name]
                 for path in ("dance_train", "face_train")},
              "dance_train_corr": anim_switched["dance_train_corr"][name],
-             "train_kernel_size": switched["train_kernel_size"][name]},
+             "train_kernel_size": switched["train_kernel_size"][name],
+             "dance_disk_train": video["dance_disk_train"][name]},
             max(r[part][0] for r in bwd.values()),
             f"{BWD_REL:g} x max|value| of each output",
             bwd[site[0]][part][1], bwd[site[0]][part][2], work[name], none,

@@ -310,3 +310,34 @@ def write_png(path: str, array) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(png)
+
+
+# start-of-frame markers: SOF0-SOF15 but DHT, JPG and DAC
+_SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def jpeg_size(data) -> tuple:
+    """(height, width) of a JPEG from its start-of-frame segment, read
+    without decoding (the size PIL's `Image.open(...).size` gives)."""
+    buf = _as_bytes(data)
+    if buf.size < 4 or buf[0] != 0xFF or buf[1] != 0xD8:
+        raise ValueError("jpeg_size: not a JPEG (no SOI marker)")
+    i = 2
+    while i + 3 < buf.size:
+        if buf[i] != 0xFF:
+            raise ValueError(f"jpeg_size: no marker at byte {i}")
+        marker = int(buf[i + 1])
+        if marker == 0xFF:  # fill byte
+            i += 1
+            continue
+        if marker in (0x01, *range(0xD0, 0xD8)):  # no length
+            i += 2
+            continue
+        length = (int(buf[i + 2]) << 8) | int(buf[i + 3])
+        if marker in _SOF:
+            if i + 8 >= buf.size:
+                break
+            return ((int(buf[i + 5]) << 8) | int(buf[i + 6]),
+                    (int(buf[i + 7]) << 8) | int(buf[i + 8]))
+        i += 2 + length
+    raise ValueError("jpeg_size: no start-of-frame segment")

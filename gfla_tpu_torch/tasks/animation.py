@@ -41,6 +41,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gfla_tpu_torch.data.animation_data import DIST_MAX
+from gfla_tpu_torch.data.image_io import decode_jpeg_batch
+from gfla_tpu_torch.data.pose_utils import encode_heatmaps
+from gfla_tpu_torch.data.raster import canny_l1
+from gfla_tpu_torch.data.resample import convert_l, pil_resize, resample_images
 from gfla_tpu_torch.losses import (
     MultiAffineRegularizationLoss,
     PerceptualCorrectness,
@@ -68,12 +73,111 @@ BF16_TODO = ("--compute_dtype=bfloat16 on the animation heads is not ported "
              "run in float32")
 
 
-def prepare_batch(batch, device):
-    """Host clip batch -> device tensors: (B, T, H, W, C) arrays as
-    (B, T, C, H, W), (B, H, W, C) as (B, C, H, W)."""
+BLACK, WHITE = (0.0, 0.0, 0.0), (255.0, 255.0, 255.0)
+CANNY_LOW, CANNY_HIGH = 100, 200  # face_dataset.py's cv2.Canny thresholds
+# uint8 levels and clipped distances as float32, made by numpy as gfla_tpu's
+# datasets make them; looked up on the device, where torch divides by a
+# scalar as a product with its reciprocal, a last bit off the quotient
+RGB_LEVELS = torch.from_numpy(np.arange(256, dtype=np.float32) / 255.0)
+DIST_LEVELS = torch.from_numpy(
+    np.clip(np.arange(DIST_MAX + 1, dtype=np.float32) / 3, 0, 255)
+    .astype(np.float32) / 255.0)
+
+
+def prepare_batch(batch, device, opt=None):
+    """Host clip batch -> device tensors, (B, T, C, H, W) and (B, C, H, W).
+    The synthetic clips' arrays move as they are; the file-backed datasets'
+    frames are decoded and warp-resized here (`prepare_video_batch`)."""
+    if isinstance(batch.get("P_all"), list):
+        return prepare_video_batch(batch, device, opt)
     return {key: torch.from_numpy(value).to(device).movedim(-1, -3)
             for key, value in batch.items()
             if isinstance(value, np.ndarray) and value.dtype == np.float32}
+
+
+def _grey_at(images, size):
+    """Decoded uint8 (H0, W0, 3) frames -> uint8 (N, H, W) grey at `size`:
+    PIL's convert("L") then resize(BICUBIC), one resize per input size."""
+    out = torch.empty((len(images), *size), dtype=torch.uint8,
+                      device=images[0].device)
+    for shape in sorted({tuple(img.shape) for img in images}):
+        idx = [i for i, img in enumerate(images) if tuple(img.shape) == shape]
+        grey = convert_l(torch.stack([images[i] for i in idx]))
+        out[idx] = pil_resize(grey[..., None], size, "bicubic")[..., 0]
+    return out
+
+
+def face_structure(edges, labels, dist, images, canny: bool):
+    """The face dataset's 16 structure channels (face_dataset.py:143-229 of
+    the original) on the device: the curves (uint8 (..., H, W), 0 or 255)
+    joined by the Canny edges of each frame's grey image where no part label
+    lies, the parts' distances (int16 (..., H, W, 14)) as clip(d / 3, 0,
+    255) / 255, and the labels -> float32 (..., H, W, 16), or 2 channels
+    without distances. `images` are the decoded frames, one per (..., )."""
+    edge = edges > 0
+    if canny:
+        grey = _grey_at(images, tuple(edges.shape[-2:]))
+        background = canny_l1(grey, CANNY_LOW, CANNY_HIGH).reshape(edge.shape)
+        edge = edge | (background & (labels == 0))
+    layers = [edge.to(torch.float32)[..., None]]
+    if dist is not None:
+        layers.append(DIST_LEVELS.to(dist.device)[dist.long()])
+    layers.append(labels.to(torch.float32)[..., None])
+    return torch.cat(layers, -1)
+
+
+def prepare_video_batch(batch, device, opt):
+    """A dance or face batch (data/animation_data.py's keys) -> the task's
+    device batch: every frame and reference image decoded in one
+    `decode_jpeg_batch` (nvJPEG on the card) and warp-resized and normalised
+    by `resample_images` (black fill, white for --sub_dataset=fashion);
+    dance's heatmaps encoded from the joints (missing at 0) beside the drawn
+    limbs, as gfla_tpu's train.py does, or its host maps moved; face's
+    structure built by `face_structure`, the reference being the first
+    frame. Everything after the decode is the same code on every device."""
+    frames = batch["P_all"]
+    B, T = len(frames), len(frames[0])
+    H, W = ((opt.load_size, opt.load_size) if isinstance(opt.load_size, int)
+            else tuple(opt.load_size))
+    datas = [d for clip in frames for d in clip]
+    names = [p for paths in batch["gen_paths"] for p in paths]
+    inverse = [batch["P_all_inv"].reshape(B * T, 2, 3)]
+    if "ref_image" in batch:
+        datas += batch["ref_image"]
+        names += batch["ref_path"]
+        inverse.append(batch["ref_inv"])
+    decoded = decode_jpeg_batch(datas, device, names)
+    inverse = torch.from_numpy(np.concatenate(inverse)).to(device)
+    fill = WHITE if getattr(opt, "sub_dataset", "iper") == "fashion" \
+        else BLACK
+    images = resample_images(decoded, (H, W), inverse, fill).movedim(-1, -3)
+
+    def dev(key):
+        return torch.from_numpy(batch[key]).to(device)
+
+    out = {"P_all": images[:B * T].reshape(B, T, 3, H, W)}
+    if "ref_image" in batch:  # dance
+        out["ref_image"] = images[B * T:]
+        for key, kp, rgb in (("BP_all", "KP_all", "BP_all_rgb"),
+                             ("ref_skeleton", "ref_KP", "ref_rgb")):
+            if kp in batch:
+                maps = torch.cat([
+                    encode_heatmaps(dev(kp), H, W, missing_value=0.0),
+                    RGB_LEVELS.to(device)[dev(rgb).long()]], -1)
+            else:
+                maps = dev(key)
+            out[key] = maps.movedim(-1, -3)
+    else:  # face
+        bp = face_structure(
+            dev("edges"), dev("labels"),
+            dev("dist") if "dist" in batch else None, decoded,
+            not getattr(opt, "no_canny_edge", False)).movedim(-1, -3)
+        out.update(BP_all=bp, ref_image=out["P_all"][:, 0],
+                   ref_skeleton=bp[:, 0])
+    for key in ("gen_kps_clean", "gen_kps_noise"):
+        if key in batch:
+            out[key] = dev(key)
+    return out
 
 
 def fold(a):
@@ -193,7 +297,7 @@ class AnimationTaskBase:
     load_checkpoint = PoseTask.load_checkpoint
 
     def prepare_batch(self, batch):
-        return prepare_batch(batch, self.device)
+        return prepare_batch(batch, self.device, self.opt)
 
     # ------------------------------------------------------------------
     def test_step(self, batch, pre_image=None, pre_skeleton=None):

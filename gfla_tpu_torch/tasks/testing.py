@@ -4,10 +4,10 @@ gfla_tpu/tasks/shapenet.py:142-177): the pose head writes
 --save_input or in the val phase; the ShapeNet head serves each test source
 at every view of its azimuth sweep and writes `{src}_2_{target}_vis.jpg`
 for each; the animation heads stream chunks, the last frame carried into the
-next, and write `{frame}_vis` and `{frame}_gt` per frame and `ref_ref` per
-sequence. JPEGs go through data/image_io: nvJPEG from the card's memory on
-CUDA, PIL on the CPU; PNGs (`--write_ext=png`, the animation heads' default)
-through its own writer on the host."""
+next, and write `{frame}_vis` and `{frame}_gt` per frame, `ref_ref` per
+sequence and the sequence's mp4. JPEGs go through data/image_io: nvJPEG from
+the card's memory on CUDA, PIL on the CPU; PNGs (`--write_ext=png`, the
+animation heads' default) through its own writer on the host."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 
 from gfla_tpu_torch.data.image_io import write_jpeg, write_png
 from gfla_tpu_torch.utils.images import tensor2im
+from gfla_tpu_torch.utils.video import write2video
 
 
 def run_test_pose(task, opt, loader) -> int:
@@ -87,9 +88,9 @@ def run_test_animation(task, opt, loader) -> int:
     """Chunk after chunk of each test sequence, the last frame and skeleton
     carried into the next chunk and reset at a sequence's first chunk, as
     gfla_tpu's run_test_animation; files under
-    `results_dir/name/{sequence}/`. gfla_tpu then stitches each sequence's
-    frames into an mp4 (`change_seq`); the port does not yet (ROADMAP.md,
-    queue 1)."""
+    `results_dir/name/{sequence}/`, and at a sequence's last chunk
+    (`change_seq`) its gt and vis frames stitched into an mp4
+    (utils/video.py, which says so where cv2 is missing)."""
     ext = getattr(opt, "write_ext", "png")
     base_dir = os.path.join(opt.results_dir, opt.name)
     carry = None
@@ -118,5 +119,7 @@ def run_test_animation(task, opt, loader) -> int:
                 _write(os.path.join(results_dir, f"{name}_gt.{ext}"),
                        tensor2im(dev["P_all"][:, t]))
             n += 1
+        if batch.get("change_seq", [False])[0]:
+            write2video(results_dir, ["gt", "vis"], ext)
     print(f"wrote {n} frames under {base_dir}")
     return n
