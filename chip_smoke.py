@@ -160,6 +160,24 @@ Phases, each failing the run (non-zero exit) on the first error:
      nvJPEG's and PIL's decodes disagree on (at most 2% of those either
      marks); host sample ms, device prepare_batch ms a chunk, and the dance
      step from disk beside phase 18's.
+ 21. keypoint: the Motion Extraction Net at its one width (17 joints, 256
+     channels, 4 dilated layers, receptive field 81) on a synthetic
+     Human3.6M NPZ pair (scripts/make_synth_h36m_keypoints.py): four
+     batch-8 steps through the training CLI's entry point with
+     --eval_iters_freq=2 (finite losses, every parameter moved, kp_mse and
+     kp_mse_identity in eval_log.txt); save/resume; one step on the card
+     against the CPU from one state under the same dropout masks (loss
+     within TRAIN_LOSS_REL, each gradient within 1e-4 in relative L2); the
+     eval forward on the card against the CPU (1e-4 x max |out|); the
+     serving CLI with --write_image over an AlphaPose tree of OpenPose-18
+     JSONs (a denoised JSON of 17 joints and a skeleton PNG a frame, under
+     gfla_tpu's names; a frame with no person); the denoised JSONs as a
+     dance test tree's clean skeletons, read by DanceDataset, and one
+     6-frame chunk of them served by the full-width dance generator (24
+     warp-forward launches, finite frames). The keypoint head's own path
+     launches no hand kernel: its convolutions are cuDNN's, as gfla_tpu's
+     are XLA's. ms per batch-8 step, per sequence forward, host ms per
+     sample, peak memory.
 The HDF5 store itself is not read on the card, whose Python has no h5py:
 the ShapeNet phases feed batches in the dataset's layout to the task's own
 prepare_batch and run_test, and the reader is held against gfla_tpu's on
@@ -2216,11 +2234,12 @@ def serve_from_disk(what, args):
     return lines, counts
 
 
-def eval_lines(lines):
-    """{iteration: {metric: value}} of the trainer's held-out lines."""
+def eval_lines(lines, metric="ssim"):
+    """{iteration: {metric: value}} of the trainer's held-out lines, those
+    that hold `metric`."""
     out = {}
     for line in lines:
-        if line.startswith("(epoch:") and "ssim:" in line:
+        if line.startswith("(epoch:") and f" {metric}:" in line:
             head, tail = line.split(") ", 1)
             fields = tail.split()
             out[int(head.split("iters: ")[1])] = {
@@ -3427,6 +3446,340 @@ def phase_video_disk(device, synthetic_ms):
     return counts
 
 
+KP_STEPS = 4           # keypoint steps through the training CLI
+KP_BATCH = 8           # windows a batch: 6 gt frames, 86 input frames
+KP_SEQS, KP_FRAMES = 2, 40  # the AlphaPose test tree: sequences, frames
+KP_GRAD_REL = 1e-4     # card vs CPU step: each gradient, relative L2
+KP_FWD_REL = 1e-4      # card vs CPU eval forward: x max |out|
+
+
+def kp_dropout_masks(B, T, rng, C=256, p=0.15, k=3, layers=4):
+    """0/1 float32 masks (B, C, t) of the keypoint net's 7 dropouts in the
+    order its forward calls them, at input length T: the expand layer's,
+    then each dilated layer's two (keep probability 1 - p)."""
+    lengths = [T - (k - 1)]
+    dilation = k
+    for _ in range(layers - 1):
+        lengths += [lengths[-1] - (k - 1) * dilation] * 2
+        dilation *= k
+    return [(rng.rand(B, C, t) >= p).astype(np.float32) for t in lengths]
+
+
+class MaskedDropout(torch.nn.Module):
+    """x * mask / keep: a dropout whose mask is given."""
+
+    def __init__(self, mask, keep):
+        super().__init__()
+        self.mask, self.keep = mask, keep
+
+    def forward(self, x):
+        return x * self.mask / self.keep
+
+
+@contextlib.contextmanager
+def fixed_dropout(net, masks):
+    """The net's dropouts, in call order, replaced by MaskedDropouts of the
+    given numpy masks (moved to the net's device) until the block ends: two
+    devices, or torch and flax, then drop the same entries. The net's
+    modules are listed in the order its forward calls its dropouts."""
+    device = next(net.parameters()).device
+    drops = [(name, module) for name, module in net.named_modules()
+             if isinstance(module, torch.nn.Dropout)]
+    check(len(drops) == len(masks), f"{len(drops)} dropouts, {len(masks)} "
+                                    f"masks")
+    for (name, module), mask in zip(drops, masks):
+        parent, attr = name.rsplit(".", 1)
+        setattr(net.get_submodule(parent), attr, MaskedDropout(
+            torch.from_numpy(mask).to(device), 1.0 - module.p))
+    try:
+        yield
+    finally:
+        for name, module in drops:
+            parent, attr = name.rsplit(".", 1)
+            setattr(net.get_submodule(parent), attr, module)
+
+
+def write_keypoint_trees(root, seed, device, seqs=KP_SEQS, frames=KP_FRAMES,
+                         size=ANIM_SIZE, npz_frames=300):
+    """The keypoint head's data under `root`: a synthetic Human3.6M NPZ
+    pair (scripts/make_synth_h36m_keypoints.py, 5 training and 1 held-out
+    subject x 2 actions x 2 cameras), a dance tree (write_video_tree,
+    size x size frames, `seqs` sequences of `frames` a phase), and an
+    AlphaPose tree, `{root}/alphapose/test_alphapose/<seq>/`, the dance
+    tree's test OpenPose-18 JSONs renamed `<seq>_<frame>.json` (so that
+    the server's flat output keeps every frame) with one frame of each
+    sequence emptied of its person. Returns {gt_path, input_path,
+    kp_root, dance_root}."""
+    import shutil
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    npz = os.path.join(root, "h36m")
+    subprocess.run([sys.executable, os.path.join(
+        here, "scripts", "make_synth_h36m_keypoints.py"), "--out", npz,
+        "--frames", str(npz_frames), "--seed", str(seed)], check=True,
+        capture_output=True, timeout=300)
+    dance = os.path.join(root, "dance")
+    write_video_tree(dance, "dance", size, size, seed, device, seqs=seqs,
+                     frames=frames)
+    kp_root = os.path.join(root, "alphapose")
+    src = os.path.join(dance, "test_256", "train_alphapose")
+    for s, seq in enumerate(sorted(os.listdir(src))):
+        out = os.path.join(kp_root, "test_alphapose", seq)
+        os.makedirs(out)
+        for t, name in enumerate(sorted(os.listdir(os.path.join(src, seq)))):
+            dst = os.path.join(out, f"{seq}_{name}")
+            shutil.copyfile(os.path.join(src, seq, name), dst)
+            if t == 3 + s:
+                with open(dst, "w") as f:
+                    json.dump({"people": []}, f)
+    return {"gt_path": os.path.join(npz, "data_2d_h36m_gt.npz"),
+            "input_path": os.path.join(npz, "data_2d_h36m_synth_noisy.npz"),
+            "kp_root": kp_root, "dance_root": dance}
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR",
+          f"{path}: not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def kp_step_pair(task, batch, masks):
+    """One train_step of `task` under the given dropout masks: (logs,
+    {name: grad}, {name: param after})."""
+    with fixed_dropout(task.net_g, masks):
+        logs = task.train_step(batch)
+    named = dict(task.net_g.named_parameters())
+    return ({k: float(v) for k, v in logs.items()},
+            {n: p.grad.detach().cpu() for n, p in named.items()},
+            {n: p.detach().cpu() for n, p in named.items()})
+
+
+def phase_keypoint(device):
+    """keypoint: the Motion Extraction Net at its one width (17 joints, 256
+    channels, 4 layers, receptive field 81) from a synthetic Human3.6M NPZ
+    pair: four batch-8 steps through the training CLI's entry point with
+    the held-out kp_mse evaluated, save/resume, one step on the card
+    against the CPU from one state under the same dropout masks, the eval
+    forward on the card against the CPU; the serving CLI over an AlphaPose
+    tree (a JSON a frame, --write_image's PNGs); the denoised JSONs read
+    by DanceDataset as a dance test tree's clean skeletons, and the dance
+    generator serving one 6-frame chunk of them. The hand kernels are
+    launched on none of the keypoint head's own path."""
+    from gfla_tpu_torch.data import collate, get_dataset_class
+    from gfla_tpu_torch.options import TestOptions, TrainOptions
+    from gfla_tpu_torch.runtime import card_line
+    from gfla_tpu_torch.tasks import create_task
+    from gfla_tpu_torch.tasks.keypoint import KeypointTask
+
+    work = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    trees = write_keypoint_trees(work.name, 21, device)
+    print(f"keypoint: wrote the NPZ pair, a dance tree and an AlphaPose tree "
+          f"({KP_SEQS} sequences x {KP_FRAMES} frames) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    ckpt = os.path.join(work.name, "ckpt")
+    common = ["--model=keypoint", "--gpu_ids=0", f"--checkpoints_dir={ckpt}",
+              "--name=kp", "--nThreads=0"]
+    train_args = [*common, "--dataset_mode=keypoint",
+                  f"--gt_path={trees['gt_path']}",
+                  f"--input_path={trees['input_path']}",
+                  f"--batchSize={KP_BATCH}", f"--max_iters={KP_STEPS}",
+                  "--eval_iters_freq=2", "--print_freq=1"]
+    counts = {}
+
+    # four steps through the training CLI
+    initial = []
+    lines, counts["keypoint_train"], task, prepared, step_ms = \
+        train_from_disk("keypoint train", train_args, KP_STEPS,
+                        task_cls=KeypointTask,
+                        paths=lambda b: b["input_data"].shape,
+                        initial=initial)
+    for line in lines:
+        if line.startswith(("held out", "dataset [", "(epoch:")):
+            print(f"  {line}")
+    check(only(counts["keypoint_train"]),
+          f"keypoint training launched {counts['keypoint_train']}")
+    g = task.net_g.kp_input
+    check(g.expand_conv.out_channels == 256 and len(g.layers_conv) == 6
+          and g.shrink.out_channels == 34,
+          "keypoint: not the full-width configuration")
+    check(all(s == (KP_BATCH, 86, 34) for s in prepared),
+          f"keypoint prepared {prepared}")
+    still = [n for n, p in task.net_g.named_parameters()
+             if torch.equal(p, initial[0]["G"]["params"][n])]
+    check(not still, f"keypoint: parameters unchanged: {still}")
+    losses = [line for line in lines if line.startswith("(epoch:")
+              and "mpjpe:" in line]
+    check(len(losses) == KP_STEPS and "nan" not in " ".join(losses),
+          f"keypoint: loss lines {losses}")
+    evals = eval_lines(lines, "kp_mse")
+    check(sorted(evals) == [2, 4] and all(
+        np.isfinite([e["kp_mse"], e["kp_mse_identity"]]).all()
+        for e in evals.values()), f"keypoint: eval lines {evals}")
+    with open(os.path.join(ckpt, "kp", "eval_log.txt")) as f:
+        check(f.read().count("kp_mse_identity:") == 2,
+              "keypoint: eval_log.txt")
+
+    # save/resume: the trainer's task and one resumed from its last save
+    # take the same step (the same CUDA seed draws the same dropout)
+    opt = TrainOptions().parse(train_args, save=False)
+    dataset = get_dataset_class("keypoint")(opt)
+    batch = task.prepare_batch(collate([dataset[i] for i in range(KP_BATCH)]))
+    resumed = KeypointTask(opt, device)
+    check(resumed.resume() == KP_STEPS, "keypoint: resume step")
+    logs = []
+    for t in (task, resumed):
+        torch.manual_seed(7)
+        logs.append(float(t.train_step(batch)["mpjpe"]))
+    diff = max((a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
+               for a, b in zip(task.net_g.parameters(),
+                               resumed.net_g.parameters()))
+    rel = abs(logs[0] - logs[1]) / abs(logs[0])
+    print(f"keypoint save/resume: the next step's loss {rel:.2e} apart, "
+          f"parameters {diff:.2e} x max apart (bound {CKPT_REL:g})")
+    check(rel <= CKPT_REL and diff <= CKPT_REL, "keypoint save/resume")
+    del resumed
+
+    # one step on the card against the CPU from one state, the same masks
+    cpu = KeypointTask(opt, torch.device("cpu"))
+    cpu.net_g.load_state_dict(task.net_g.state_dict())
+    cpu.opt_g.load_state_dict(task.opt_g.state_dict())
+    cpu.sched_g.load_state_dict(task.sched_g.state_dict())
+    masks = kp_dropout_masks(KP_BATCH, 86, np.random.RandomState(3))
+    card_logs, card_grads, _ = kp_step_pair(task, batch, masks)
+    cpu_logs, cpu_grads, _ = kp_step_pair(
+        cpu, {k: v.cpu() for k, v in batch.items()}, masks)
+    rel = abs(card_logs["mpjpe"] - cpu_logs["mpjpe"]) / cpu_logs["mpjpe"]
+    grad_rel = {n: ((card_grads[n] - g).norm() / g.norm()).item()
+                for n, g in cpu_grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"keypoint step card vs CPU under the same dropout masks: loss "
+          f"{rel:.2e} apart (bound {TRAIN_LOSS_REL:g}); gradients at most "
+          f"{grad_rel[worst]:.2e} apart in relative L2 ({worst}; bound "
+          f"{KP_GRAD_REL:g})")
+    check(rel <= TRAIN_LOSS_REL and grad_rel[worst] <= KP_GRAD_REL,
+          "keypoint card vs CPU step")
+
+    # the eval forward on the card against the CPU, a whole test sequence
+    test_opt = TestOptions().parse(
+        [*common, "--dataset_mode=keypointtest",
+         f"--dataroot={trees['kp_root']}", "--load_size=256"], save=False)
+    test_set = get_dataset_class("keypointtest")(test_opt)
+    seq = task.prepare_batch(collate([test_set[0]]))
+    out = task.test_step(seq).cpu()
+    cpu.net_g.load_state_dict(task.net_g.state_dict())
+    out_cpu = cpu.test_step({k: v.cpu() for k, v in seq.items()})
+    diff = (out - out_cpu).abs().max().item()
+    bound = KP_FWD_REL * out_cpu.abs().max().item()
+    print(f"keypoint eval forward card vs CPU, 1 sequence of {KP_FRAMES} "
+          f"frames: max_abs_diff={diff:.3e} (bound {bound:.3e})")
+    check(tuple(out.shape) == (1, KP_FRAMES, 34) and diff <= bound,
+          f"keypoint eval forward {tuple(out.shape)} {diff:.3e}")
+    del cpu
+
+    # the serving CLI over the AlphaPose tree
+    results = os.path.join(work.name, "results")
+    serve_args = [*common, "--dataset_mode=keypointtest",
+                  f"--dataroot={trees['kp_root']}", "--load_size=256",
+                  f"--results_dir={results}", "--write_image",
+                  f"--which_iter={KP_STEPS}"]
+    lines, counts["keypoint_serve"] = serve_from_disk("keypoint serve",
+                                                      serve_args)
+    check(only(counts["keypoint_serve"]),
+          f"keypoint serving launched {counts['keypoint_serve']}")
+    out_dir = os.path.join(results, "kp")
+    inputs = sorted(os.path.splitext(f)[0] for _, _, files in os.walk(
+        os.path.join(trees["kp_root"], "test_alphapose")) for f in files)
+    names = sorted(os.listdir(out_dir))
+    want = sorted([f"{s}_keypoints.json" for s in inputs]
+                  + [f"{s}_skeleton_out.png" for s in inputs])
+    check(names == want and f"wrote {len(inputs)} keypoint JSONs to "
+          f"{out_dir}" in lines, f"keypoint serving wrote {names[:4]}...")
+    for s in inputs:
+        with open(os.path.join(out_dir, f"{s}_keypoints.json")) as f:
+            people = json.load(f)["people"]
+        kp = np.asarray(people[0]["pose_keypoints_2d"])
+        check(len(people) == 1 and kp.shape == (51,)
+              and np.isfinite(kp).all() and (kp[2::3] == 1).all(),
+              f"keypoint JSON {s}: {kp.shape}")
+        check(png_size(os.path.join(out_dir, f"{s}_skeleton_out.png"))
+              == (256, 256), f"keypoint PNG {s}")
+    print(f"keypoint served {len(test_set)} sequences: {len(inputs)} JSONs "
+          f"of 17 joints and {len(inputs)} skeleton PNGs under gfla_tpu's "
+          f"names, launches {counts['keypoint_serve']}")
+
+    # the chain: the denoised JSONs as the dance test tree's clean
+    # skeletons, one chunk of them served by the dance generator
+    import shutil
+
+    clean = os.path.join(trees["dance_root"], "test_256", "train_video2d")
+    seq0 = sorted(os.listdir(clean))[0]
+    shutil.rmtree(os.path.join(clean, seq0))
+    os.makedirs(os.path.join(clean, seq0))
+    denoised = [s for s in inputs if s.startswith(seq0 + "_")]
+    for s in denoised:
+        shutil.copyfile(os.path.join(out_dir, f"{s}_keypoints.json"),
+                        os.path.join(clean, seq0, f"{s}_keypoints.json"))
+    dance_opt = TestOptions().parse(
+        ["--model=dance", "--dataset_mode=dance", "--gpu_ids=0",
+         f"--dataroot={trees['dance_root']}", f"--load_size={ANIM_SIZE}",
+         f"--n_frames_pre_load_test={ANIM_T}", "--nThreads=0"], save=False)
+    dance_set = get_dataset_class("dance")(dance_opt)
+    sample = dance_set[0]
+    want_kp = []
+    for s in denoised[:ANIM_T]:
+        with open(os.path.join(out_dir, f"{s}_keypoints.json")) as f:
+            xy = np.asarray(json.load(f)["people"][0]["pose_keypoints_2d"]
+                            ).reshape(17, 3)[:, :2]
+        want_kp.append((2 * xy[:, ::-1].T.reshape(34) / ANIM_SIZE - 1))
+    got_kp = sample["gen_kps_clean"].T
+    kp_diff = np.abs(got_kp - np.stack(want_kp)).max()
+    check(os.path.dirname(sample["gen_paths"][0]).endswith(seq0)
+          and kp_diff <= 1e-5,
+          f"dance read the denoised skeletons {kp_diff:.2e} apart")
+    dance = create_task(dance_opt)
+    chunk = dance.prepare_batch(collate([sample]))
+    reset_launch_counts()
+    frames, _ = dance.test_step(chunk)
+    torch.cuda.synchronize()
+    counts["keypoint_chain_dance"] = launch_counts()
+    check_clip("dance on the denoised skeletons", frames, 1, ANIM_T,
+               ANIM_SIZE)
+    check(only(counts["keypoint_chain_dance"], warp_fwd=ANIM_LAUNCHES),
+          f"dance chunk launched {counts['keypoint_chain_dance']}")
+    print(f"chain: DanceDataset read {len(denoised)} denoised H36M-17 JSONs "
+          f"as {seq0}'s clean skeletons ({kp_diff:.1e} off the JSONs), and "
+          f"the full-width dance generator served one {ANIM_T}-frame chunk: "
+          f"finite frames in [-1, 1], launches "
+          f"{counts['keypoint_chain_dance']}")
+    del dance
+
+    # times
+    torch.cuda.reset_peak_memory_stats()
+    step = cuda_ms(lambda: task.train_step(batch), iters=20, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    fwd = cuda_ms(lambda: task.test_step(seq), iters=20, warmup=3)
+    t0 = time.perf_counter()
+    for i in range(64):
+        dataset[i % len(dataset)]
+    sample_ms = (time.perf_counter() - t0) * 1e3 / 64
+    print(f"keypoint (f32, TF32 off) on {card_line()}: {step:.3f} ms per "
+          f"batch-8 training step (86 input frames), {fwd:.3f} ms per "
+          f"eval forward of a {KP_FRAMES}-frame sequence ({KP_FRAMES + 80} "
+          f"input frames), host {sample_ms:.3f} ms per training "
+          f"__getitem__, peak {peak:.0f} MiB over the steps; the CLI's "
+          f"steps {', '.join(f'{t:.1f}' for t in step_ms)} ms")
+    del task
+    work.cleanup()
+    return counts
+
+
 def task_pairs(root, prefix):
     """The (from, to) names of a tree's training pairs, in file order."""
     import csv
@@ -3527,6 +3880,7 @@ def main(argv):
                 dance_ms = anim_train["ms"]
             del anim_train
         video = timed(phase_video_disk, device, dance_ms)
+        keypoint = timed(phase_keypoint, device)
     train = train["counts"]
     shapenet = {"shapenet_serve": sn_serve["launches"],
                 "shapenet_sweep": sn_sweep}
@@ -3676,6 +4030,15 @@ def main(argv):
                 lambda c, part=part: attn_work_bf16(*c[1:5])[
                     0 if part == "fwd" else 1], BF16_PEAK)},
             peak=BF16_PEAK))
+    # the keypoint head's own path (training and serving) launches none of
+    # them, the dance chunk served on its JSONs the warp forward's 24
+    for entry in entries:
+        own = sum(keypoint[path][entry["name"]]
+                  for path in ("keypoint_train", "keypoint_serve"))
+        chain = keypoint["keypoint_chain_dance"][entry["name"]]
+        entry["launches_by_path"].update(keypoint=own,
+                                         keypoint_chain_dance=chain)
+        entry["launches"] += own + chain
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

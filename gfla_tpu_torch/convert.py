@@ -18,6 +18,10 @@ the original GFLA's checkpoints, which loads into the port's module with
   recurrent animation generators (`source_previous`, `source_reference`,
   `target` with `attn_p{i}` and `attn_r{i}`, and `flow_net`, or
   `flow_net_previous` and `flow_net_reference`), spectral-normed or not;
+* `kp_generator_state_dict`: the keypoint head's KPInput2DGenerator
+  (`kp_input.*`): a flax Conv kernel (k, I, O) -> (O, I, k), a Dense
+  kernel (I, O) -> (O, I), and the LayerNormAll scale and bias (C,) ->
+  (C, 1), the original's LayerNorm1d shape;
 * `res_discriminator_state_dict`: the spectral-norm ResDiscriminator
   (`latest_net_D.pth`), its power-iteration u carried across;
 * `temporal_discriminator_state_dict`: the spectral-norm
@@ -334,4 +338,39 @@ def vgg19_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[f"{name}.weight"] = _t(np.asarray(conv["kernel"]).transpose(
             3, 2, 0, 1))
         sd[f"{name}.bias"] = _t(conv["bias"])
+    return sd
+
+
+def kp_generator_state_dict(params: Dict[str, Any],
+                            layers: int = 4) -> Dict[str, torch.Tensor]:
+    """gfla_tpu's KPInput2DGenerator params -> the state dict of the port's
+    (and the original's) KPInput2DGenerator; the inverse of
+    torch_mapping.convert_kp_generator."""
+    kp = params["kp_input"]
+    p = "kp_input"
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(name, key):
+        sd[f"{p}.{key}.weight"] = _t(
+            np.asarray(kp[name]["kernel"]).transpose(2, 1, 0))
+        if "bias" in kp[name]:
+            sd[f"{p}.{key}.bias"] = _t(kp[name]["bias"])
+
+    def dense(tree, key):
+        sd[f"{key}.weight"] = _t(np.asarray(tree["kernel"]).T)
+        sd[f"{key}.bias"] = _t(tree["bias"])
+
+    conv("expand_conv", "expand_conv")
+    ln = kp["expand_ln"]
+    sd[f"{p}.expand_ln.weight"] = _t(np.asarray(ln["scale"]).reshape(-1, 1))
+    sd[f"{p}.expand_ln.bias"] = _t(np.asarray(ln["bias"]).reshape(-1, 1))
+    for j in range(2 * (layers - 1)):
+        conv(f"conv_{j}", f"layers_conv.{j}")
+        ln = kp[f"ln_{j}"]
+        dense(ln["mlp_shared"], f"{p}.layers_ln.{j}.mlp_shared.0")
+        dense(ln["mlp_gamma"], f"{p}.layers_ln.{j}.mlp_gamma")
+        dense(ln["mlp_beta"], f"{p}.layers_ln.{j}.mlp_beta")
+    conv("shrink", "shrink")
+    for i in (1, 2, 3):
+        conv(f"feature_conv_{i}", f"feature_conv_{i}")
     return sd

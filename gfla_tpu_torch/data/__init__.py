@@ -2,7 +2,8 @@
 file-backed DeepFashion and Market-1501 pose datasets, the synthetic paired
 dataset, the ShapeNet HDF5 store, the dance (iPER, FashionVideo) and face
 (FaceForensics) video datasets and the synthetic clips of the animation
-heads, gfla_tpu's batch order on torch's DataLoader, and the registry that
+heads, the keypoint head's Human3.6M NPZ pairs and AlphaPose JSON
+sequences, gfla_tpu's batch order on torch's DataLoader, and the registry that
 `--dataset_mode` reads. JPEG decoding, the warp-resize and the heatmaps run
 on the task's device (tasks/pose.py and tasks/animation.py
 `prepare_batch`), as do ShapeNet's resize and one-hot labels and the face
@@ -15,6 +16,10 @@ from gfla_tpu_torch.data.animation_data import (
     FaceDataset,
     SyntheticVideoDataset,
 )
+from gfla_tpu_torch.data.keypoint_data import (
+    KeypointDataset,
+    KeypointTestDataset,
+)
 from gfla_tpu_torch.data.loader import collate, infinite, make_loader
 from gfla_tpu_torch.data.paired_dataset import FashionDataset, MarketDataset
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
@@ -24,7 +29,8 @@ from gfla_tpu_torch.data.synthetic import SyntheticPoseDataset
 DATASETS = {"fashion": FashionDataset, "market": MarketDataset,
             "synthetic": SyntheticPoseDataset, "shapenet": ShapeNetDataset,
             "dance": DanceDataset, "face": FaceDataset,
-            "synthetic_video": SyntheticVideoDataset}
+            "synthetic_video": SyntheticVideoDataset,
+            "keypoint": KeypointDataset, "keypointtest": KeypointTestDataset}
 
 
 def get_dataset_class(name: str):
@@ -34,7 +40,8 @@ def get_dataset_class(name: str):
     return DATASETS[name]
 
 
-__all__ = ["DATASETS", "DanceDataset", "FaceDataset", "FashionDataset", "MarketDataset",
+__all__ = ["DATASETS", "DanceDataset", "FaceDataset", "FashionDataset",
+           "KeypointDataset", "KeypointTestDataset", "MarketDataset",
            "ShapeNetDataset", "SyntheticPoseDataset", "SyntheticVideoDataset",
            "collate",
            "encode_heatmaps", "get_dataset_class", "infinite", "make_loader"]

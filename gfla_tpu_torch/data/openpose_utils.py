@@ -10,12 +10,17 @@ whose coordinate is 0 counts as missing.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from gfla_tpu_torch.data.affine import forward_affine_matrix
-from gfla_tpu_torch.data.raster import circle_filled, line_aa
+from gfla_tpu_torch.data.raster import (
+    circle_filled,
+    circle_outline,
+    line_aa,
+    line_thick,
+)
 
 MISSING_VALUE = 0
 
@@ -189,3 +194,57 @@ def openpose25_to_coco17(pose_25: np.ndarray) -> np.ndarray:
     for i, key in enumerate(COCO_17):
         out[:, i] = pose_25[:, OPENPOSE_25[key]]
     return out
+
+
+_FORMS = {
+    "openpose_25": (25, LIMB_SEQ_25),
+    "openpose_18": (18, LIMB_SEQ_18),
+    "human36m_17": (17, LIMB_SEQ_HUMAN36M_17),
+    "COCO_17": (17, LIMB_SEQ_COCO_17),
+}
+
+
+class tensor2skeleton:
+    """Normalised keypoints (2K, T) in [-1, 1], [y..., x...] rows -> one
+    uint8 (H, W, 3) render a frame (gfla_tpu/data/openpose_utils.py:
+    197-235, the original's openpose_utils.py:282-358): draw_joint at
+    radius 3 on black by default, or the limbs 2 pixels thick and the
+    joints' outlines on white with `spatial_draw`. The pixel coordinates
+    are clipped to [0, 255] whatever the image size, as in gfla_tpu."""
+
+    def __init__(self, image_size=(256, 256), spatial_draw: bool = False):
+        self.image_size = tuple(image_size)
+        self.spatial_draw = spatial_draw
+
+    def __call__(self, tensor, kp_form: str = "openpose_18"
+                 ) -> List[np.ndarray]:
+        coors = np.asarray(tensor)
+        if coors.ndim == 3:
+            coors = coors[0]
+        h, w = self.image_size
+        coors = np.clip(((coors + 1) / 2 * w).astype(int), 0, 255)
+        n_kp, limbs = _FORMS[kp_form]
+        out = []
+        for i in range(coors.shape[1]):
+            coor = coors[:, i].reshape(-1, n_kp)[0:2]
+            if self.spatial_draw:
+                out.append(self._spatial_draw(coor, limbs, 3))
+            else:
+                colors = np.zeros(self.image_size + (3,), np.uint8)
+                out.append(draw_joint(colors, coor, limbs, 3))
+        return out
+
+    def _spatial_draw(self, pts, limbs, radius,
+                      line_color=(118, 214, 255), circle_color=(66, 115, 177)):
+        H, W = self.image_size
+        colors = np.full((H, W, 3), 255, np.uint8)
+        mask = np.zeros((H, W), np.uint8)
+        p = np.clip(pts.astype(int), 0, [[H - 1], [W - 1]])
+        for f, t in limbs:
+            line_thick(mask, (p[1, f], p[0, f]), (p[1, t], p[0, t]), 1, 2)
+        colors[mask == 1] = line_color
+        mask[:] = 0
+        for i in range(p.shape[1]):
+            circle_outline(mask, (p[1, i], p[0, i]), radius, 1)
+        colors[mask == 1] = circle_color
+        return colors

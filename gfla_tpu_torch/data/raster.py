@@ -9,7 +9,13 @@ raster.py holds them against cv2 on random and degenerate inputs).
   its slope and filter tables and its end-point corrections, clipped to
   the image as OpenCV clips;
 - `circle_filled`: `cv2.circle(img, c, r, color, -1)` (LINE_8): the
-  midpoint circle's horizontal spans;
+  midpoint circle's horizontal spans; `circle_outline`,
+  `cv2.circle(img, c, r, color, 1)`: its eight points a step;
+- `line_thick`: `cv2.line(img, p0, p1, color, thickness)` (LINE_8,
+  thickness 2 and up): the segment, clipped to the image grown by the
+  thickness, widened into a quadrilateral in 16-bit fixed point and filled
+  as a convex polygon (FillConvexPoly, its outline by the fixed-point
+  8-connected line), and a filled circle on each end;
 - `fill_poly`: `cv2.fillPoly(img, [pts], value)` (LINE_8) on integer
   points: the outline by 8-connected Bresenham lines, then the scan-line
   fill of OpenCV's active-edge list, which decides the pixels of
@@ -21,7 +27,7 @@ raster.py holds them against cv2 on random and degenerate inputs).
 - `canny_l1`: `cv2.Canny(grey, low, high)` (aperture 3, L1 magnitude) on
   torch tensors in integer arithmetic, batched, so that the host (CPU
   tensors) and the card run one function.
-The first five are numpy and run in the loader's workers.
+All but `canny_l1` are numpy and run in the loader's workers.
 """
 
 from __future__ import annotations
@@ -179,28 +185,12 @@ def line_aa(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int],
     return img
 
 
-def circle_filled(img: np.ndarray, center: Tuple[int, int], radius: int,
-                  color) -> np.ndarray:
-    """cv2.circle(img, center, radius, color, -1) with LINE_8, in place, on
-    a uint8 (H, W) or (H, W, C) image; center is (x, y)."""
-    H, W = img.shape[:2]
-    cx, cy = int(center[0]), int(center[1])
+def _circle_steps(radius: int):
+    """OpenCV's midpoint circle (drawing.cpp, Circle): (dx, dy) a step,
+    dx >= dy, from (radius, 0)."""
     err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
-
-    def span(y, xa, xb):
-        if 0 <= y < H:
-            xa, xb = max(xa, 0), min(xb, W - 1)
-            if xa <= xb:
-                img[y, xa:xb + 1] = color
-
     while dx >= dy:
-        x11, x12, x21, x22 = cx - dx, cx + dx, cx - dy, cx + dy
-        if x11 < W and x12 >= 0 and cy - dx < H and cy + dx >= 0:
-            span(cy - dy, x11, x12)
-            span(cy + dy, x11, x12)
-            if x21 < W and x22 >= 0:
-                span(cy - dx, x21, x22)
-                span(cy + dx, x21, x22)
+        yield dx, dy
         dy += 1
         err += plus
         plus += 2
@@ -208,6 +198,46 @@ def circle_filled(img: np.ndarray, center: Tuple[int, int], radius: int,
         err -= minus & mask
         dx += mask
         minus -= mask & 2
+
+
+def circle_filled(img: np.ndarray, center: Tuple[int, int], radius: int,
+                  color) -> np.ndarray:
+    """cv2.circle(img, center, radius, color, -1) with LINE_8, in place, on
+    a uint8 (H, W) or (H, W, C) image; center is (x, y)."""
+    H, W = img.shape[:2]
+    cx, cy = int(center[0]), int(center[1])
+
+    def span(y, xa, xb):
+        if 0 <= y < H:
+            xa, xb = max(xa, 0), min(xb, W - 1)
+            if xa <= xb:
+                img[y, xa:xb + 1] = color
+
+    for dx, dy in _circle_steps(radius):
+        x11, x12, x21, x22 = cx - dx, cx + dx, cx - dy, cx + dy
+        if x11 < W and x12 >= 0 and cy - dx < H and cy + dx >= 0:
+            span(cy - dy, x11, x12)
+            span(cy + dy, x11, x12)
+            if x21 < W and x22 >= 0:
+                span(cy - dx, x21, x22)
+                span(cy + dx, x21, x22)
+    return img
+
+
+def circle_outline(img: np.ndarray, center: Tuple[int, int], radius: int,
+                   color) -> np.ndarray:
+    """cv2.circle(img, center, radius, color, 1) with LINE_8, in place: the
+    eight points (cx +- dx, cy +- dy), (cx +- dy, cy +- dx) of each step,
+    those inside the image; center is (x, y)."""
+    H, W = img.shape[:2]
+    cx, cy = int(center[0]), int(center[1])
+    for dx, dy in _circle_steps(radius):
+        for x, y in ((cx - dx, cy - dy), (cx + dx, cy - dy),
+                     (cx - dx, cy + dy), (cx + dx, cy + dy),
+                     (cx - dy, cy - dx), (cx + dy, cy - dx),
+                     (cx - dy, cy + dx), (cx + dy, cy + dx)):
+            if 0 <= x < W and 0 <= y < H:
+                img[y, x] = color
     return img
 
 
@@ -245,6 +275,142 @@ def line8(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int],
                 y += sy
             else:
                 x += sx
+    return img
+
+
+def _line_fixed(img: np.ndarray, p1, p2, value) -> None:
+    """OpenCV's Line2 as FillConvexPoly calls it: the 8-connected line
+    between two points in 16-bit fixed point, clipped to the image, its
+    steps taken from the clipped ends, the end point put first."""
+    H, W = img.shape[:2]
+    inside, (x1, y1), (x2, y2) = clip_line(W << XY_SHIFT, H << XY_SHIFT,
+                                           p1, p2)
+    if not inside:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    if ax > ay:
+        if dx < 0:
+            dy = -dy
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        x_step, y_step = XY_ONE, _trunc_div(dy << XY_SHIFT, ax | 1)
+        ecount = (x2 - x1) >> XY_SHIFT
+    else:
+        if dy < 0:
+            dx = -dx
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        x_step, y_step = _trunc_div(dx << XY_SHIFT, ay | 1), XY_ONE
+        ecount = (y2 - y1) >> XY_SHIFT
+    x1 += XY_ONE >> 1
+    y1 += XY_ONE >> 1
+
+    def put(x, y):
+        if 0 <= x < W and 0 <= y < H:
+            img[y, x] = value
+
+    put((x2 + (XY_ONE >> 1)) >> XY_SHIFT, (y2 + (XY_ONE >> 1)) >> XY_SHIFT)
+    if ax > ay:
+        x1 >>= XY_SHIFT
+        while ecount >= 0:
+            put(x1, y1 >> XY_SHIFT)
+            x1 += 1
+            y1 += y_step
+            ecount -= 1
+    else:
+        y1 >>= XY_SHIFT
+        while ecount >= 0:
+            put(x1 >> XY_SHIFT, y1)
+            x1 += x_step
+            y1 += 1
+            ecount -= 1
+
+
+def _fill_convex(img: np.ndarray, v, value) -> None:
+    """OpenCV's FillConvexPoly (LINE_8) on points in 16-bit fixed point:
+    the outline by _line_fixed, then each row between a left and a right
+    edge walked down from the topmost vertex, x rounded to the pixel."""
+    H, W = img.shape[:2]
+    npts = len(v)
+    half = XY_ONE >> 1
+    for p0, p in zip(v[-1:] + v[:-1], v):
+        _line_fixed(img, p0, p, value)
+    ys = [p[1] for p in v]
+    xs = [p[0] for p in v]
+    imin = ys.index(min(ys))
+    xmin, xmax = (min(xs) + half) >> XY_SHIFT, (max(xs) + half) >> XY_SHIFT
+    ymin, ymax = (min(ys) + half) >> XY_SHIFT, (max(ys) + half) >> XY_SHIFT
+    if npts < 3 or xmax < 0 or ymax < 0 or xmin >= W or ymin >= H:
+        return
+    ymax = min(ymax, H - 1)
+    # each edge: [vertex index, step through the vertices, x, dx, end y]
+    edge = [[imin, 1, -XY_ONE, 0, ymin], [imin, npts - 1, -XY_ONE, 0, ymin]]
+    edges = npts
+    y = ymin
+    while y <= ymax:
+        for e in edge:
+            if y < e[4]:
+                continue
+            idx0 = e[0]
+            idx = (idx0 + e[1]) % npts
+            while edges > 0:
+                edges -= 1
+                ty = (v[idx][1] + half) >> XY_SHIFT
+                if ty > y:
+                    x_start, x_end = v[idx0][0], v[idx][0]
+                    e[4] = ty
+                    e[3] = _trunc_div((x_end - x_start) * 2 + (ty - y),
+                                      2 * (ty - y))
+                    e[2] = x_start
+                    e[0] = idx
+                    break
+                idx0 = idx
+                idx = (idx + e[1]) % npts
+            else:
+                edges -= 1
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (edge[1], edge[0]) if edge[0][2] > edge[1][2] \
+                else (edge[0], edge[1])
+            x1 = (left[2] + half) >> XY_SHIFT
+            x2 = (right[2] + half) >> XY_SHIFT
+            if x2 >= 0 and x1 < W:
+                img[y, max(x1, 0):min(x2, W - 1) + 1] = value
+        edge[0][2] += edge[0][3]
+        edge[1][2] += edge[1][3]
+        y += 1
+
+
+def line_thick(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int],
+               value, thickness: int) -> np.ndarray:
+    """cv2.line(img, p0, p1, value, thickness) with LINE_8 and thickness
+    >= 2, in place; p0 and p1 are (x, y) integers. OpenCV clips the segment
+    to the image grown by `thickness` on every side, then ThickLine draws
+    it: the segment's quadrilateral, its half-width rounded to 1/65536
+    pixel, filled as a convex polygon, and a filled circle of radius
+    (thickness + 1) // 2 on each end."""
+    if thickness < 2:
+        raise ValueError(f"line_thick: thickness {thickness} < 2")
+    H, W = img.shape[:2]
+    m = thickness
+    inside, (x0, y0), (x1, y1) = clip_line(
+        W + 2 * m, H + 2 * m, (int(p0[0]) + m, int(p0[1]) + m),
+        (int(p1[0]) + m, int(p1[1]) + m))
+    if not inside:
+        return img
+    ends = ((x0 - m, y0 - m), (x1 - m, y1 - m))
+    (x0, y0), (x1, y1) = ((x << XY_SHIFT, y << XY_SHIFT) for x, y in ends)
+    dx, dy = (x0 - x1) / XY_ONE, (y1 - y0) / XY_ONE
+    r = dx * dx + dy * dy
+    half_width = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half_width + (thickness & 1) * XY_ONE * 0.5) / np.sqrt(r)
+        ox, oy = int(round(dy * r)), int(round(dx * r))
+        _fill_convex(img, [(x0 + ox, y0 + oy), (x0 - ox, y0 - oy),
+                           (x1 - ox, y1 - oy), (x1 + ox, y1 + oy)], value)
+    radius = (half_width + (XY_ONE >> 1)) >> XY_SHIFT
+    for center in ends:
+        circle_filled(img, center, radius, value)
     return img
 
 

@@ -1,6 +1,7 @@
 """Network registry (counterpart of gfla_tpu/models/__init__.py): the pose
 and ShapeNet generators and their stage-1 flow heads, the recurrent face and
-dance generators, and the residual and temporal discriminators."""
+dance generators, the keypoint head's Motion Extraction Net, and the
+residual and temporal discriminators."""
 
 from __future__ import annotations
 
@@ -18,13 +19,15 @@ from gfla_tpu_torch.models.generators import (
     ShapeNetFlowNetGenerator,
     ShapeNetGenerator,
 )
+from gfla_tpu_torch.models.keypoint_net import KPInput2DGenerator
 
 GENERATORS: Dict[str, Any] = {"pose": PoseGenerator,
                                "poseflownet": PoseFlowNetGenerator,
                                "shapenet": ShapeNetGenerator,
                                "shapenetflow": ShapeNetFlowNetGenerator,
                                "face": FaceGenerator,
-                               "dance": DanceGenerator}
+                               "dance": DanceGenerator,
+                               "kpinput2d": KPInput2DGenerator}
 DISCRIMINATORS: Dict[str, Any] = {"res": ResDiscriminator,
                                   "temporal": TemporalDiscriminator}
 

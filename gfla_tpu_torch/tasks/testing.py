@@ -11,11 +11,13 @@ animation heads' default) through its own writer on the host."""
 
 from __future__ import annotations
 
+import json
 import os
 
 import torch
 
 from gfla_tpu_torch.data.image_io import write_jpeg, write_png
+from gfla_tpu_torch.data.openpose_utils import tensor2skeleton
 from gfla_tpu_torch.utils.images import tensor2im
 from gfla_tpu_torch.utils.video import write2video
 
@@ -122,4 +124,45 @@ def run_test_animation(task, opt, loader) -> int:
         if batch.get("change_seq", [False])[0]:
             write2video(results_dir, ["gt", "vis"], ext)
     print(f"wrote {n} frames under {base_dir}")
+    return n
+
+
+def run_test_keypoint(task, opt, loader) -> int:
+    """Each sequence denoised in one forward; per frame `{name}_keypoints.json`
+    holding {"people": [{"pose_keypoints_2d": [x, y, 1.0, ...]}]}, the 17
+    joints at `(out + 1) / 2 * load_size` (x from the second half of the
+    channels), named after the input frame's file (`seq{n}_f{t}` when the
+    batch has no paths), and with --write_image `{name}_skeleton_out.png`,
+    the denoised skeleton drawn (gfla_tpu/tasks/testing.py:106-147)."""
+    out_dir = os.path.join(opt.results_dir, opt.name)
+    os.makedirs(out_dir, exist_ok=True)
+    n = 0
+    for batch in loader:
+        dev = task.prepare_batch(batch)
+        out = task.test_step(dev).cpu().numpy()  # (B, T, 34)
+        size = getattr(opt, "load_size", 256)
+        size = size if isinstance(size, int) else size[0]
+        coords = (out + 1) / 2 * size
+        paths = batch.get("gen_paths")
+        # collate layout: [batch][time]
+        paths = paths[0] if paths else [
+            f"seq{n}_f{t}" for t in range(out.shape[1])]
+        names = [os.path.splitext(os.path.basename(
+            paths[min(t, len(paths) - 1)]))[0] for t in range(out.shape[1])]
+        for t, name in enumerate(names):
+            yx = coords[0, t].reshape(2, -1)  # [y..., x...]
+            kp = []
+            for j in range(yx.shape[1]):
+                kp += [float(yx[1, j]), float(yx[0, j]), 1.0]
+            with open(os.path.join(out_dir, f"{name}_keypoints.json"),
+                      "w") as f:
+                json.dump({"people": [{"pose_keypoints_2d": kp}]}, f)
+            n += 1
+        if getattr(opt, "write_image", False):
+            renders = tensor2skeleton(image_size=(size, size))(
+                out[0].T, "human36m_17")
+            for name, frame in zip(names, renders):
+                write_png(os.path.join(out_dir, f"{name}_skeleton_out.png"),
+                          frame)
+    print(f"wrote {n} keypoint JSONs to {out_dir}")
     return n

@@ -1,9 +1,13 @@
-"""The port's learning check: a head's held-out SSIM, PSNR and L1 over a
-training run from a tree on disk, the untrained generator's first.
+"""The port's learning check: a head's held-out SSIM, PSNR and L1 (the
+keypoint head's kp_mse and kp_mse_identity) over a training run from a
+tree on disk, the untrained generator's first.
 
     python3 -m gfla_tpu_torch.tools.learning_curve --dataroot=DIR \
         [--model=pose|dance|face] [--max_iters=N] [--eval_iters_freq=N] \
         [train options]
+    python3 -m gfla_tpu_torch.tools.learning_curve --model=keypoint \
+        --gt_path=DIR/data_2d_h36m_gt.npz \
+        --input_path=DIR/data_2d_h36m_synth_noisy.npz [train options]
 
 Evaluates the seeded, untrained generator on the trainer's held-out batch
 and writes it as iteration 0 to `eval_log.txt`, as the trainer writes its
@@ -22,7 +26,12 @@ which evaluates the same batch every `--eval_iters_freq` iterations. With
   held-out batch is whole sequences, its frames generated from the
   reference and the skeletons or landmarks. The trees can be those of
   scripts/make_stickfigure_video_dataset.py and
-  scripts/make_synthface_video_dataset.py.
+  scripts/make_synthface_video_dataset.py;
+- keypoint: `--dataset_mode=keypoint`, batch 8 windows of 6 frames (86
+  input frames), 10000 iterations, an evaluation every 500, `--seed=1`
+  for the same reason; the held-out batch is 8 sequences, and the NPZ
+  pair can be that of scripts/make_synth_h36m_keypoints.py. It has learnt
+  when kp_mse falls below kp_mse_identity, the raw input's error.
 """
 
 from __future__ import annotations
@@ -45,7 +54,10 @@ DEFAULTS = {"pose": ["--dataset_mode=fashion", "--batchSize=8",
                      "--load_size=256", "--max_iters=2000",
                      "--eval_iters_freq=250"],
             "dance": ["--dataset_mode=dance", *ANIMATION],
-            "face": ["--dataset_mode=face", *ANIMATION]}
+            "face": ["--dataset_mode=face", *ANIMATION],
+            "keypoint": ["--dataset_mode=keypoint", "--batchSize=8",
+                         "--max_iters=10000", "--eval_iters_freq=500",
+                         "--seed=1"]}
 
 
 def main(argv=None) -> int:

@@ -2,7 +2,7 @@
 kernel family.
 
     python3 -m gfla_tpu_torch.tools.serve_profile [--iters N] [--train]
-        [--model pose|shapenet|dance|face] [test or train options, e.g.
+        [--model pose|shapenet|dance|face|keypoint] [test or train options, e.g.
         --compute_dtype=bfloat16]
 
 Builds the task as `python -m gfla_tpu_torch.test` (or, with `--train`,
@@ -11,7 +11,9 @@ unless a checkpoint is named), takes one batch at `--load_size=256
 --batchSize=8` (of the synthetic pose dataset, or for ShapeNet random uint8
 images and viewpoint labels in the HDF5 dataset's layout), or for dance and
 face one batch-2 clip of the synthetic video dataset (6 frames: one chunk of
-`--max_frames_per_gpu`, as gfla_tpu's bench.py times them), and runs
+`--max_frames_per_gpu`, as gfla_tpu's bench.py times them), or for the
+keypoint head random normalised joints: 8 training windows of 86 frames,
+or one 40-frame sequence padded to 120 to serve, and runs
 `--iters` forwards of the task's `test_step` (or steps of its `train_step`:
 D, then G with its losses, backward and Adam) under torch.profiler. Device
 time is summed per kernel over the card's own events and grouped into
@@ -54,7 +56,8 @@ FAMILIES = [  # first match wins; lower-case substrings of the kernel name
 ]
 
 
-DATASET = {"pose": "synthetic", "shapenet": "shapenet"}
+DATASET = {"pose": "synthetic", "shapenet": "shapenet",
+           "keypoint": "keypoint"}
 # a batch-2 clip of one 6-frame chunk, served and trained whole
 ANIMATION = {kind: ["--batchSize=2", "--n_frames_total=6",
                     "--n_frames_pre_load_test=6"] for kind in ("dance", "face")}
@@ -87,13 +90,23 @@ def shapenet_batch(B: int, size: int, seed: int = 0):
             "BP2": labels[1]}
 
 
+def keypoint_batch(B: int, T: int, seed: int = 0):
+    """Random joints in [-1, 1], (B, T, 34), and gt for the T - 80 frames
+    the net returns, in the keypoint datasets' layout."""
+    rng = np.random.RandomState(seed)
+    return {"input_data": rng.uniform(-1, 1, (B, T, 34)).astype(np.float32),
+            "gt_data": rng.uniform(-1, 1, (B, T - 80, 34)).astype(
+                np.float32)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--train", action="store_true",
                         help="profile training steps, not serving forwards")
     parser.add_argument("--model", default="pose",
-                        choices=["pose", "shapenet", "dance", "face"])
+                        choices=["pose", "shapenet", "dance", "face",
+                                 "keypoint"])
     args, rest = parser.parse_known_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: CUDA is not available", file=sys.stderr)
@@ -116,6 +129,9 @@ def main(argv=None) -> int:
     step = task.train_step if args.train else task.test_step
     if args.model == "shapenet":
         host = shapenet_batch(opt.batchSize, opt.load_size)
+    elif args.model == "keypoint":
+        host = keypoint_batch(*((opt.batchSize, 86) if args.train
+                                else (1, 120)))
     else:
         dataset = get_dataset_class(opt.dataset_mode)(opt)
         host = collate([dataset[i] for i in range(opt.batchSize)])
@@ -159,7 +175,8 @@ def main(argv=None) -> int:
         per_family[family(name)] += ms
     busy_ms = sum(per_family.values())
     what = "training step" if args.train else "forward"
-    print(f"batch {opt.batchSize} {what} at {opt.load_size} in "
+    n = next(len(v) for v in host.values() if isinstance(v, np.ndarray))
+    print(f"batch {n} {what} at {opt.load_size} in "
           f"{opt.compute_dtype}: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} (means of {args.iters} {what}s)")

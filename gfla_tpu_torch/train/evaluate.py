@@ -34,11 +34,27 @@ def _unit(images: torch.Tensor) -> np.ndarray:
     return np.clip((arr + 1.0) / 2.0, 0.0, 1.0)
 
 
+def _centre(x: np.ndarray, T: int) -> np.ndarray:
+    """The T frames at the middle of (B, T', C)."""
+    return x[:, (x.shape[1] - T) // 2:][:, :T]
+
+
 def evaluate_held_out(task, batch) -> Dict[str, float]:
     """Mean SSIM, PSNR and L1 of the generator's eval-mode output against
     P2 over a prepared batch, or for an animation clip over its B * T frames
-    against P_all's; {} for a task that generates no image (poseflownet)."""
+    against P_all's; {} for a task that generates no image (poseflownet).
+    For the keypoint head: kp_mse, the mean squared error of the denoised
+    window (its centre T frames) against gt_data, and kp_mse_identity, the
+    raw input's centre T frames against it, the floor a denoiser must
+    beat."""
     out = task.test_step(batch)
+    if "gt_data" in batch and "input_data" in batch:
+        gt = batch["gt_data"].cpu().numpy()
+        T = gt.shape[1]
+        out_c = _centre(out.cpu().numpy(), T)
+        inp_c = _centre(batch["input_data"].cpu().numpy(), T)
+        return {"kp_mse": float(np.mean((out_c - gt) ** 2)),
+                "kp_mse_identity": float(np.mean((inp_c - gt) ** 2))}
     if "P_all" in batch:  # (B, T, 3, H, W) frames
         T = out[0].shape[1]
         gen, gt = (_unit(x.flatten(0, 1))
@@ -56,7 +72,10 @@ def current_visuals(task, batch) -> Dict[str, torch.Tensor]:
     """The first sample's uint8 (H, W, 3) visuals: P1, BP2 (its heatmaps'
     maximum; not for ShapeNet's viewpoint labels), the generated image, P2,
     and per attention level the flow's colours and the occlusion mask; for
-    an animation clip, its last generated frame, as gfla_tpu shows."""
+    an animation clip, its last generated frame, as gfla_tpu shows; none
+    for the keypoint head."""
+    if "input_data" in batch:
+        return {}
     if "P_all" in batch:
         return {"img_gen": tensor2im(task.test_step(batch)[0][:, -1])}
     visuals = {"input_P1": tensor2im(batch["P1"])}

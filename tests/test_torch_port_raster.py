@@ -6,7 +6,13 @@ Each case draws its inputs from a numpy RandomState of its own:
 - line_aa (cv2.line, LINE_AA): random segments inside and far outside the
   image, points, and horizontal, vertical and diagonal ones;
 - circle_filled (cv2.circle, -1): radii 0-6, centres inside, on the edge
-  and off the image, grey and colour;
+  and off the image, grey and colour; circle_outline (cv2.circle, 1) the
+  same with radii 0-8;
+- line_thick (cv2.line, thickness 2-9, LINE_8): segments inside and far
+  outside the image, short ones, points, horizontal and vertical ones;
+- tensor2skeleton (gfla_tpu's, on cv2), spatial_draw and the default route, on random
+  normalised Human3.6M-17 and OpenPose-18 sequences, at 256x256 and at
+  64x64, where the coordinates are clipped to 255 as gfla_tpu clips them;
 - fill_poly (cv2.fillPoly): random, self-intersecting, collinear,
   repeated-point and off-image polygons, two points to thirteen;
 - distance_l1 (cv2.distanceTransform, DIST_L1, 3): sparse and dense edge
@@ -87,6 +93,59 @@ def test_circle_filled_is_cv2s(channels):
         cv2.circle(want, c, r, color if channels else color[0], -1)
         raster.circle_filled(got, c, r, color if channels else color[0])
         _equal(got, want, f"{i}: centre {c} radius {r} in {H}x{W}")
+
+
+@pytest.mark.parametrize("channels", [0, 3], ids=["grey", "colour"])
+def test_circle_outline_is_cv2s(channels):
+    rng = np.random.RandomState(10 + channels)
+    for i in range(N):
+        H, W = rng.randint(1, 40, 2)
+        c = (int(rng.randint(-10, W + 10)), int(rng.randint(-10, H + 10)))
+        r = int(rng.randint(0, 9))
+        shape = (H, W, channels) if channels else (H, W)
+        color = tuple(int(v) for v in rng.randint(1, 256, max(channels, 1)))
+        want = rng.randint(0, 3, shape).astype(np.uint8)
+        got = want.copy()
+        cv2.circle(want, c, r, color if channels else color[0], 1)
+        raster.circle_outline(got, c, r, color if channels else color[0])
+        _equal(got, want, f"{i}: centre {c} radius {r} in {H}x{W}")
+
+
+@pytest.mark.parametrize("kind", ["inside", "outside", "point", "horizontal",
+                                  "vertical", "diagonal"])
+def test_line_thick_is_cv2s(kind):
+    rng = np.random.RandomState(20 + len(kind))
+    for i in range(N):
+        H, W = rng.randint(1, 70, 2)
+        p0, p1 = _segment(rng, kind, H, W)
+        if kind == "point" and i % 2:  # a step of a pixel or two
+            p1 = (p1[0] + int(rng.randint(-2, 3)),
+                  p1[1] + int(rng.randint(-2, 3)))
+        thickness = 2 if i % 3 else int(rng.randint(3, 10))
+        want = rng.randint(0, 2, (H, W)).astype(np.uint8) * 7
+        got = want.copy()
+        cv2.line(want, p0, p1, 1, thickness)
+        raster.line_thick(got, p0, p1, 1, thickness)
+        _equal(got, want, f"{kind} {i}: {p0} -> {p1} x{thickness} in "
+                          f"{H}x{W}")
+
+
+@pytest.mark.parametrize("form,size", [("human36m_17", 256),
+                                       ("human36m_17", 64),
+                                       ("openpose_18", 256)])
+def test_tensor2skeleton_spatial_draw_is_gfla_tpus(form, size):
+    from gfla_tpu.data.openpose_utils import tensor2skeleton as jax_t2s
+    from gfla_tpu_torch.data.openpose_utils import tensor2skeleton
+
+    rng = np.random.RandomState(size)
+    k = 17 if form == "human36m_17" else 18
+    kp = rng.uniform(-1.1, 1.1, (2 * k, 6)).astype(np.float32)
+    for spatial in (True, False):
+        got = tensor2skeleton((size, size), spatial_draw=spatial)(kp, form)
+        want = jax_t2s((size, size), spatial_draw=spatial)(kp[None], form)
+        assert len(got) == len(want) == 6
+        for t, (g, w) in enumerate(zip(got, want)):
+            _equal(g, w, f"{form} {size} spatial={spatial} frame {t}")
 
 
 def _polygon(rng, kind, H, W):
