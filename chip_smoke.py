@@ -178,6 +178,26 @@ Phases, each failing the run (non-zero exit) on the first error:
      launches no hand kernel: its convolutions are cuDNN's, as gfla_tpu's
      are XLA's. ms per batch-8 step, per sequence forward, host ms per
      sample, peak memory.
+ 22. metrics: with jax, flax, pandas, imageio and PIL unimportable, the
+     metrics CLI's main on 64 generated/GT JPEG pairs at DeepFashion's
+     256x176 written through nvJPEG (gfla_tpu's columns, finite values,
+     metrics.npz and statistics.npz written; a second run reads the
+     statistics back and gives the same FID); the card against the CPU
+     with the same fallback weights on the same nvJPEG pixels: Inception
+     pool3 features within FEATURE_REL x max, FID within FID_REL, LPIPS
+     plain and masked (Market-style body masks of seeded skeletons) within
+     LPIPS_REL of each pair, the CLI's reconstruction columns equal to
+     numpy's on those pixels; 12 animation-size 256x256 PNG pairs: the
+     features, LPIPS and the reconstruction columns card against CPU; ms
+     per Inception batch of 64 at 299x299 and per LPIPS batch of 32 pairs,
+     the CLI's seconds and their parts (decode, resize, sqrtm,
+     reconstruction). No hand kernel is on the metrics' path: the networks
+     are cuDNN's, as gfla_tpu's are XLA's.
+ 23. walkthrough: `python -m gfla_tpu_torch.demo --walkthrough` in a
+     process of its own (the card line, the build, the assets, a 20-step
+     64x64 pose training and its val panels in processes of their own,
+     the metrics CLI on them); its CSV holds finite values; each cell's
+     seconds.
 The HDF5 store itself is not read on the card, whose Python has no h5py:
 the ShapeNet phases feed batches in the dataset's layout to the task's own
 prepare_batch and run_test, and the reader is held against gfla_tpu's on
@@ -3780,6 +3800,355 @@ def phase_keypoint(device):
     return counts
 
 
+METRIC_PAIRS = 64    # DeepFashion-size generated/GT JPEG pairs
+METRIC_SIZE = (256, 176)
+METRIC_ANIM = 12     # the animation heads' 256x256 _vis/_gt PNG pairs
+FEATURE_REL = 1e-3   # Inception pool3, card vs CPU: x max |feature|
+LPIPS_REL = 1e-4     # LPIPS, plain and masked, card vs CPU, each pair
+FID_REL = 1e-3       # FID from the card's features vs the CPU's
+PIL_GAP_REL = 5e-2   # the card's CSV vs the same columns from PIL's decode
+METRIC_NEVER = ("jax", "flax", "pandas", "imageio")  # not on the card
+METRIC_BLOCKED = METRIC_NEVER + ("PIL",)  # ... and no JPEG or PNG through it
+
+
+def metric_pairs(n, H, W, seed):
+    """`n` (real, generated) uint8 pictures: disk_images' and a shifted
+    distribution of each (contrast 0.55, +40, noise of 15 levels), so that
+    FID is far from zero and stable."""
+    rng = np.random.RandomState(seed + 1)
+    real = disk_images(n, H, W, seed)
+    gen = [np.clip(a * 0.55 + 40.0 + rng.randn(H, W, 3) * 15, 0,
+                   255).astype(np.uint8) for a in real]
+    return real, gen
+
+
+def write_metric_trees(root, device):
+    """gt/p{i}.jpg and gen/s{i}_2_p{i}_vis.jpg (METRIC_PAIRS at
+    METRIC_SIZE, through nvJPEG), and anim/gt/{i}_gt.png,
+    anim/vis/{i}_vis.png (METRIC_ANIM at ANIM_SIZE, the port's PNG
+    writer); body masks of seeded skeletons at METRIC_SIZE."""
+    from gfla_tpu_torch.data.image_io import write_jpeg, write_png
+    from gfla_tpu_torch.data.pose_utils import produce_ma_mask
+
+    H, W = METRIC_SIZE
+    real, gen = metric_pairs(METRIC_PAIRS, H, W, 22)
+    for i, (a, b) in enumerate(zip(real, gen)):
+        write_jpeg(os.path.join(root, "gt", f"p{i:02d}.jpg"),
+                   torch.from_numpy(a).to(device))
+        write_jpeg(os.path.join(root, "gen", f"s{i:02d}_2_p{i:02d}_vis.jpg"),
+                   torch.from_numpy(b).to(device))
+    real, gen = metric_pairs(METRIC_ANIM, ANIM_SIZE, ANIM_SIZE, 23)
+    for i, (a, b) in enumerate(zip(real, gen)):
+        write_png(os.path.join(root, "anim", "gt", f"{i:03d}_gt.png"), a)
+        write_png(os.path.join(root, "anim", "vis", f"{i:03d}_vis.png"), b)
+    rng = np.random.RandomState(22)
+    masks = []
+    for _ in range(METRIC_PAIRS):
+        kp = np.stack([rng.uniform(8, H - 8, 18), rng.uniform(8, W - 8, 18)],
+                      1)
+        kp[rng.rand(18) < 1 / 6] = -1
+        masks.append(produce_ma_mask(kp, (H, W)))
+    return masks
+
+
+def read_csv_row(path):
+    import csv
+
+    with open(path) as f:
+        header, row = list(csv.reader(f))
+    return dict(zip(header, row))
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_metrics(device):
+    """metrics: the evaluation path on the card with jax, flax, pandas,
+    imageio and PIL unimportable. The metrics CLI's main on 64 DeepFashion-
+    size JPEG pairs (statistics.npz written, then read back by a second run
+    that gives the same FID); the card against the CPU with the same
+    fallback weights on the same decoded pixels: Inception pool3 features,
+    FID, LPIPS plain and masked (Market's body masks), the CLI's
+    reconstruction columns against numpy on those pixels; the animation
+    heads' 256x256 PNGs on both devices (Inception features, LPIPS, and
+    the reconstruction columns equal, the PNG reader being the host's).
+    The card's CSV against the same columns from PIL's decode of the same
+    files (the reference's reader). ms per Inception batch of 64 at
+    299x299, per LPIPS batch of 32 at 256x176, with their FLOPs and f32
+    bounds, and where the CLI's seconds go."""
+    from gfla_tpu_torch.data.image_io import read_images
+    from gfla_tpu_torch.data.resample import pil_resize
+    from gfla_tpu_torch.metrics import (FID, LPIPS, ReconstructionMetrics,
+                                        calculate_frechet_distance,
+                                        compare_l1, compare_mae, compare_psnr,
+                                        compare_ssim,
+                                        preprocess_path_for_deform_task)
+    from gfla_tpu_torch.metrics import __main__ as metrics_cli
+    from gfla_tpu_torch.metrics.lpips import lpips_distance
+    from gfla_tpu_torch.runtime import card_line, set_tf32
+
+    work = tempfile.TemporaryDirectory()
+    root = work.name
+    t0 = time.perf_counter()
+    masks = write_metric_trees(root, device)
+    print(f"metrics: wrote {METRIC_PAIRS} JPEG pairs at {METRIC_SIZE} and "
+          f"{METRIC_ANIM} PNG pairs at {ANIM_SIZE}x{ANIM_SIZE} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gt, gen = os.path.join(root, "gt"), os.path.join(root, "gen")
+    out = os.path.join(root, "eval")
+    args = [f"--gt_path={gt}", f"--distorated_path={gen}",
+            f"--fid_real_path={gt}", "--name=smoke", f"--out_dir={out}",
+            "--allow_fallback_weights", "--gpu_ids=0"]
+    hide = mock.patch.dict(sys.modules, {m: None for m in METRIC_BLOCKED})
+    with hide, warnings_off():
+        t0 = time.perf_counter()
+        with cli_run("metrics CLI"):
+            metrics_cli.main(args)
+        cli_s = time.perf_counter() - t0
+        csvs = os.listdir(out)
+        check(len(csvs) == 1, f"the CLI wrote {csvs}")
+        row = read_csv_row(os.path.join(out, csvs[0]))
+        stats = os.path.join(gt, "statistics.npz")
+        check(os.path.exists(stats)
+              and os.path.exists(os.path.join(gen, "metrics.npz")),
+              "statistics.npz or metrics.npz not written")
+        mtime = os.stat(stats).st_mtime_ns
+        columns = ["", "name", "psnr", "psnr_variance", "ssim",
+                   "ssim_variance", "ssim_256", "ssim_256_variance", "mae",
+                   "mae_variance", "l1", "l1_variance", "fid", "lpips"]
+        fallback = csvs[0] == "smoke_FALLBACK-WEIGHTS.csv"
+        check(list(row) == columns + ["FALLBACK_WEIGHTS"] * fallback,
+              f"CSV columns {list(row)}")
+        values = {k: float(v) for k, v in row.items() if k in columns[2:]}
+        check(all(np.isfinite(v) for v in values.values())
+              and values["fid"] > 0, f"CSV values {values}")
+        t0 = time.perf_counter()
+        with cli_run("metrics CLI, second run"):
+            metrics_cli.main(args)
+        cli2_s = time.perf_counter() - t0
+        again = float(read_csv_row(os.path.join(out, csvs[0]))["fid"])
+        check(os.stat(stats).st_mtime_ns == mtime,
+              "the second run rewrote statistics.npz")
+        check(rel(again, values["fid"]) <= 1e-9,
+              f"FID {again!r} from the cache vs {values['fid']!r}")
+        print(f"metrics CLI: {csvs[0]}: {values}; a second run read "
+              f"statistics.npz back, FID {again!r}")
+
+        # the card against the CPU on the same pixels, with the caller's
+        # TF32 on: the classes turn it off around their networks
+        set_tf32(True)
+        fid_card = FID(allow_fallback=True, device=device)
+        fid_cpu = FID(allow_fallback=True, device="cpu")
+        lp_card = LPIPS(allow_fallback=True, device=device)
+        lp_cpu = LPIPS(allow_fallback=True, device="cpu")
+        gt_list, gen_list = preprocess_path_for_deform_task(gt, gen)
+        check(len(gen_list) == METRIC_PAIRS, f"{len(gen_list)} pairs")
+        imgs = {"gt": read_images(gt_list, device),
+                "gen": read_images(gen_list, device)}
+        feats, errs = {}, []
+        for key, batch in imgs.items():
+            card = fid_card.features(batch).cpu().numpy()
+            cpu = fid_cpu.features([i.cpu() for i in batch]).numpy()
+            errs.append(np.abs(card - cpu).max() / np.abs(cpu).max())
+            feats[key] = (card, cpu)
+        check(max(errs) <= FEATURE_REL,
+              f"Inception features card vs CPU {max(errs):.2e} x max")
+        t0 = time.perf_counter()
+        fid_cpu_value = calculate_frechet_distance(
+            feats["gt"][1].mean(0), np.cov(feats["gt"][1], rowvar=False),
+            feats["gen"][1].mean(0), np.cov(feats["gen"][1], rowvar=False))
+        sqrtm_s = time.perf_counter() - t0
+        fids = (values["fid"], fid_cpu_value)
+        check(rel(fids[1], fids[0]) <= FID_REL,
+              f"FID card {fids[0]!r} vs CPU {fids[1]!r}")
+        m = torch.from_numpy(np.stack(masks).astype(np.float32))
+        lp = {}
+        for name, mask in (("plain", None), ("masked", m)):
+            a = torch.cat([lp_card.distance(imgs["gen"][s:s + 32],
+                                            imgs["gt"][s:s + 32],
+                                            None if mask is None
+                                            else mask[s:s + 32])
+                           for s in range(0, METRIC_PAIRS, 32)]).cpu()
+            b = torch.cat([lp_cpu.distance(
+                [i.cpu() for i in imgs["gen"][s:s + 32]],
+                [i.cpu() for i in imgs["gt"][s:s + 32]],
+                None if mask is None else mask[s:s + 32])
+                for s in range(0, METRIC_PAIRS, 32)])
+            err = ((a - b).abs() / b.abs()).max().item()
+            check(err <= LPIPS_REL, f"LPIPS {name} card vs CPU {err:.2e}")
+            lp[name] = (a.mean().item(), err)
+        check(torch.backends.cudnn.allow_tf32, "the classes left TF32 off")
+        set_tf32(False)
+        check(rel(lp["plain"][0], values["lpips"]) <= 1e-6,
+              f"LPIPS {lp['plain'][0]!r} vs the CLI's {values['lpips']!r}")
+        # the CLI's reconstruction columns, by numpy on the same pixels
+        pix = [(p.cpu().numpy().astype(np.float32) / 255.0,
+                g.cpu().numpy().astype(np.float32) / 255.0)
+               for p, g in zip(imgs["gen"], imgs["gt"])]
+        by_hand = {
+            "psnr": np.mean([compare_psnr(g, p) for p, g in pix]),
+            "ssim": np.mean([compare_ssim(g, p) for p, g in pix]),
+            "mae": np.mean([compare_mae(g, p) for p, g in pix]),
+            "l1": np.mean([compare_l1(g, p) for p, g in pix])}
+        for key, value in by_hand.items():
+            check(values[key] == round(float(value), 6),
+                  f"{key}: CLI {values[key]!r} vs numpy {value!r}")
+        print(f"card vs CPU, fallback weights, TF32 off, the card's nvJPEG "
+              f"pixels: Inception features {max(errs):.2e} x max, FID "
+              f"{fids[0]!r} vs {fids[1]!r} ({rel(fids[1], fids[0]):.2e}), "
+              f"LPIPS plain {lp['plain'][0]:.6f} ({lp['plain'][1]:.2e}), "
+              f"masked {lp['masked'][0]:.6f} ({lp['masked'][1]:.2e}); the "
+              f"CLI's psnr, ssim, mae, l1 = numpy's on those pixels")
+
+        # the animation heads' PNGs: features, LPIPS and the reconstruction
+        # columns through the API on both devices (FID's sqrtm is the
+        # JPEG set's, on the host either way)
+        vis = sorted(os.path.join(root, "anim", "vis", f)
+                     for f in os.listdir(os.path.join(root, "anim", "vis")))
+        agt = sorted(os.path.join(root, "anim", "gt", f)
+                     for f in os.listdir(os.path.join(root, "anim", "gt")))
+        pngs = read_images(vis, device)
+        card = fid_card.features(pngs).cpu().numpy()
+        cpu = fid_cpu.features([i.cpu() for i in pngs]).numpy()
+        png_err = np.abs(card - cpu).max() / np.abs(cpu).max()
+        runs = [(net.calculate_from_disk(vis, agt, verbose=False),
+                 ReconstructionMetrics(device=net.device).calculate_from_disk(
+                     vis, agt))
+                for net in (lp_card, lp_cpu)]
+        (l1_, r1), (l2, r2) = runs
+        check(png_err <= FEATURE_REL and rel(l2, l1_) <= LPIPS_REL
+              and r1 == r2, f"PNG set card {runs[0]} vs CPU {runs[1]}, "
+              f"features {png_err:.2e} x max")
+        print(f"animation PNGs ({METRIC_ANIM} at {ANIM_SIZE}x{ANIM_SIZE}): "
+              f"Inception features {png_err:.2e} x max, LPIPS {l1_!r} vs "
+              f"CPU {l2!r}, the reconstruction columns equal: {r1}")
+
+        # where the CLI's time goes; the networks' FLOPs (2 a multiply-add)
+        # as FlopCounterMode counts their convolutions
+        from torch.utils.flop_counter import FlopCounterMode
+
+        x = torch.stack([pil_resize(i, (299, 299)) for i in imgs["gen"]])
+        x = (x.float() / 255.0).permute(0, 3, 1, 2)
+        a = torch.stack(imgs["gen"][:32]).float() / 127.5 - 1
+        b = torch.stack(imgs["gt"][:32]).float() / 127.5 - 1
+        a, b = a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            inc_ms = cuda_ms(lambda: fid_card.net(x), iters=10)
+            lp_ms = cuda_ms(lambda: lpips_distance(lp_card.net, a, b),
+                            iters=10)
+            flops = []
+            for run in (lambda: fid_card.net(x),
+                        lambda: lpips_distance(lp_card.net, a, b)):
+                with FlopCounterMode(display=False) as counter:
+                    run()
+                flops.append(counter.get_total_flops())
+        decode_ms = host_ms(lambda: read_images(gen_list, device), iters=5)
+        resize_ms = cuda_ms(lambda: [pil_resize(i, (299, 299))
+                                     for i in imgs["gen"]], iters=5)
+        t0 = time.perf_counter()
+        ReconstructionMetrics(device=device).calculate_from_disk(
+            gen_list, gt_list, sort=False)
+        rec_s = time.perf_counter() - t0
+    # PIL was unimportable inside, so no JPEG or PNG went through it
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in METRIC_NEVER)
+    check(not loaded, f"{loaded} imported by the end of the metrics phase")
+
+    # the card's CSV against the reference's decode: the same files through
+    # PIL (read_images on the CPU), the same networks on the card
+    pil = {k: read_images(v, "cpu") for k, v in (("gt", gt_list),
+                                                  ("gen", gen_list))}
+    diffs = torch.cat([(a.cpu().int() - b.int()).abs().flatten()
+                       for k in imgs for a, b in zip(imgs[k], pil[k])])
+    pil = {k: [i.to(device) for i in v] for k, v in pil.items()}
+    f_gt, f_gen = (fid_card.features(pil[k]).cpu().numpy()
+                   for k in ("gt", "gen"))
+    ref = ReconstructionMetrics(device="cpu").calculate_from_disk(
+        gen_list, gt_list, sort=False)
+    ref = {k: v[0] for k, v in ref.items()}
+    ref["fid"] = calculate_frechet_distance(
+        f_gt.mean(0), np.cov(f_gt, rowvar=False), f_gen.mean(0),
+        np.cov(f_gen, rowvar=False))
+    ref["lpips"] = torch.cat([
+        lp_card.distance(pil["gen"][s:s + 32], pil["gt"][s:s + 32])
+        for s in range(0, METRIC_PAIRS, 32)]).mean().item()
+    gaps = {k: rel(values[k], ref[k]) for k in values}
+    means = ("psnr", "ssim", "ssim_256", "mae", "l1", "fid", "lpips")
+    worst = max(means, key=gaps.get)
+    check(gaps[worst] <= PIL_GAP_REL,
+          f"{worst}: the card's CSV {values[worst]!r} vs PIL's decode "
+          f"{ref[worst]!r} ({gaps[worst]:.2e})")
+    print(f"the card's CSV vs PIL's decode of the same files (nvJPEG "
+          f"{diffs.max().item()} levels off at most, "
+          f"{(diffs > 0).float().mean().item():.4f} of the values differ): "
+          + ", ".join(f"{k} {values[k]!r} vs {ref[k]!r} ({gaps[k]:.2e})"
+                      for k in values))
+
+    n = METRIC_PAIRS
+    print(f"metrics (f32, TF32 off) on {card_line()}: Inception "
+          f"{inc_ms:.3f} ms per batch of {n} at 299x299 ({flops[0] / 1e9:.1f}"
+          f" GFLOP, bound {flops[0] / F32_PEAK * 1e3:.2f} ms at f32 peak, "
+          f"{flops[0] / inc_ms / 1e9:.2f} TFLOP/s), AlexNet LPIPS "
+          f"{lp_ms:.3f} ms per batch of 32 pairs at {METRIC_SIZE[0]}x"
+          f"{METRIC_SIZE[1]} ({flops[1] / 1e9:.1f} GFLOP, bound "
+          f"{flops[1] / F32_PEAK * 1e3:.2f} ms, "
+          f"{flops[1] / lp_ms / 1e9:.2f} TFLOP/s); the CLI {cli_s:.2f} s "
+          f"for {n} pairs (first "
+          f"run, the networks' set-up included; {cli2_s:.2f} s reading "
+          f"statistics.npz back): nvJPEG decode "
+          f"{decode_ms:.2f} ms per {n} images, PIL-bilinear resize to 299 "
+          f"{resize_ms:.2f} ms per {n}, host sqrtm of 2048x2048 "
+          f"{sqrtm_s:.2f} s a FID, reconstruction metrics on the host "
+          f"{rec_s:.2f} s per {n} pairs")
+    work.cleanup()
+
+
+@contextlib.contextmanager
+def warnings_off():
+    """The fallback weights' warnings, said once by the CLI's banner."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        yield
+
+
+def phase_walkthrough():
+    """walkthrough: `python -m gfla_tpu_torch.demo --walkthrough` on the
+    card, a process of its own: the card, the build, the assets, a tiny
+    pose training, its val panels and the metrics CLI on them; its CSV
+    holds finite values."""
+    import subprocess
+
+    work = tempfile.TemporaryDirectory()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gfla_tpu_torch.demo", "--walkthrough",
+         "--gpu_ids=0", f"--work={work.name}"], cwd=here,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "walkthrough OK" not in proc.stdout:
+        print(proc.stdout[-6000:], proc.stderr[-6000:])
+    check(proc.returncode == 0 and "walkthrough OK" in proc.stdout,
+          f"walkthrough exited {proc.returncode}")
+    out = os.path.join(work.name, "eval")
+    csvs = os.listdir(out)
+    check(len(csvs) == 1, f"walkthrough wrote {csvs}")
+    row = read_csv_row(os.path.join(out, csvs[0]))
+    values = {k: float(row[k]) for k in ("psnr", "ssim", "ssim_256", "mae",
+                                         "l1", "fid", "lpips")}
+    check(all(np.isfinite(v) for v in values.values()),
+          f"walkthrough CSV {values}")
+    cells = [ln.strip() for ln in proc.stdout.splitlines()
+             if ln.startswith("[") and ln[1:2].isdigit()
+             or ln.startswith("    (cell")]
+    print(f"walkthrough: {wall:.1f} s, {csvs[0]}: {values}; "
+          f"{' '.join(cells)}")
+    work.cleanup()
+
+
 def task_pairs(root, prefix):
     """The (from, to) names of a tree's training pairs, in file order."""
     import csv
@@ -3881,6 +4250,8 @@ def main(argv):
             del anim_train
         video = timed(phase_video_disk, device, dance_ms)
         keypoint = timed(phase_keypoint, device)
+        timed(phase_metrics, device)
+        timed(phase_walkthrough)
     train = train["counts"]
     shapenet = {"shapenet_serve": sn_serve["launches"],
                 "shapenet_sweep": sn_sweep}

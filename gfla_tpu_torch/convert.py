@@ -30,7 +30,12 @@ the original GFLA's checkpoints, which loads into the port's module with
   `encoder0`'s input channels left in gfla_tpu's t * C + c order, which the
   port's fold keeps;
 * `vgg19_state_dict`: the VGG19 of the perceptual losses (the port's VGG19
-  module keys, `conv1_1.weight` ...).
+  module keys, `conv1_1.weight` ...);
+* `inception_state_dict` and `lpips_state_dict`: the metric networks
+  (metrics/inception.py's InceptionV3Features from gfla_tpu's
+  `{'params', 'batch_stats'}`, metrics/lpips.py's LPIPSNet from its AlexNet
+  variables and five linear weights), through the same key maps that read
+  the npz files of gfla_tpu's layout.
 
 * conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw), and likewise in 3-D
 * transposed-conv kernel (kh, kw, I, O), spatially flipped -> weight
@@ -374,3 +379,42 @@ def kp_generator_state_dict(params: Dict[str, Any],
     for i in (1, 2, 3):
         conv(f"feature_conv_{i}", f"feature_conv_{i}")
     return sd
+
+
+def _flatten(tree, prefix: str, out: Dict[str, Any]) -> Dict[str, Any]:
+    for k, v in tree.items():
+        key = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            _flatten(v, key, out)
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def inception_state_dict(variables: Dict[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu's InceptionV3Features variables ({'params', 'batch_stats'})
+    -> the port's InceptionV3Features state dict, BatchNorm's
+    num_batches_tracked aside (load with strict=False)."""
+    from gfla_tpu_torch.metrics.inception import (InceptionV3Features,
+                                                  state_dict_from_flat)
+
+    flat: Dict[str, Any] = {}
+    for collection in ("params", "batch_stats"):
+        _flatten(variables[collection], collection, flat)
+    return state_dict_from_flat(flat, InceptionV3Features().state_dict())
+
+
+def lpips_state_dict(variables: Dict[str, Any],
+                     lins) -> Dict[str, torch.Tensor]:
+    """gfla_tpu's AlexNetFeatures variables ({'params': {'conv{i}': {kernel,
+    bias}}}) and its five linear weights -> the port's LPIPSNet state
+    dict."""
+    from gfla_tpu_torch.metrics.lpips import state_dict_from_flat
+
+    params = variables.get("params", variables)
+    flat = {f"lin{i}": np.asarray(lin) for i, lin in enumerate(lins)}
+    for name, conv in params.items():
+        flat[f"{name}_kernel"] = np.asarray(conv["kernel"])
+        flat[f"{name}_bias"] = np.asarray(conv["bias"])
+    return state_dict_from_flat(flat)

@@ -19,8 +19,14 @@ them. So:
 - on the CPU (`--gpu_ids=-1`, the tests) both use PIL, imported inside the
   function: the reference's own decoder, so the CPU path gives gfla_tpu's
   pixels exactly;
-- `write_png` is the port's own writer on zlib and struct, for both.
-A file that does not decode, or a missing nvJPEG, raises with the file's
+- `write_png` is the port's own writer on zlib and struct, for both, and
+  `read_png` its reader: 8-bit grey, RGB and RGBA, not interlaced, every
+  PNG row filter, the pixels PIL gives.
+`read_images`, the metrics' reader, takes a JPEG to `decode_jpeg_batch`
+and a PNG of those layouts to `read_png`, by the file's first bytes; any
+other file (BMP, WEBP, the PNG layouts no head writes) goes to PIL,
+imported in the function, the reader gfla_tpu's metrics use for all.
+A JPEG that does not decode, or a missing nvJPEG, raises with the file's
 name; nothing falls back to another decoder.
 """
 
@@ -319,6 +325,11 @@ _SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 def jpeg_size(data) -> tuple:
     """(height, width) of a JPEG from its start-of-frame segment, read
     without decoding (the size PIL's `Image.open(...).size` gives)."""
+    return _jpeg_frame(data)[:2]
+
+
+def _jpeg_frame(data) -> tuple:
+    """(height, width, components) from a JPEG's start-of-frame segment."""
     buf = _as_bytes(data)
     if buf.size < 4 or buf[0] != 0xFF or buf[1] != 0xD8:
         raise ValueError("jpeg_size: not a JPEG (no SOI marker)")
@@ -335,9 +346,150 @@ def jpeg_size(data) -> tuple:
             continue
         length = (int(buf[i + 2]) << 8) | int(buf[i + 3])
         if marker in _SOF:
-            if i + 8 >= buf.size:
+            if i + 9 >= buf.size:
                 break
             return ((int(buf[i + 5]) << 8) | int(buf[i + 6]),
-                    (int(buf[i + 7]) << 8) | int(buf[i + 8]))
+                    (int(buf[i + 7]) << 8) | int(buf[i + 8]), int(buf[i + 9]))
         i += 2 + length
     raise ValueError("jpeg_size: no start-of-frame segment")
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> channels: grey, RGB, RGBA
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(raw: np.ndarray, H: int, stride: int, bpp: int) -> np.ndarray:
+    """The PNG row filters undone: raw is (H, 1 + stride) filter bytes and
+    filtered rows; returns uint8 (H, stride). None and Sub and Up are numpy
+    on the whole row; Average and Paeth depend on the byte just decoded to
+    the left, so they walk the row."""
+    out = np.zeros((H, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(H):
+        kind, row = int(raw[y, 0]), raw[y, 1:]
+        if kind == 0:
+            cur = row.copy()
+        elif kind == 1:
+            cur = np.cumsum(row.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = row + prev
+        elif kind in (3, 4):
+            r, up, cur_l = row.tolist(), prev.tolist(), [0] * stride
+            for i in range(stride):
+                left = cur_l[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    pred = (left + up[i]) >> 1
+                else:
+                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
+                cur_l[i] = (r[i] + pred) & 0xFF
+            cur = np.asarray(cur_l, np.uint8)
+        else:
+            raise ValueError(f"read_png: row {y} has filter type {kind}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png(data) -> Optional[np.ndarray]:
+    """PNG bytes -> uint8 (H, W), (H, W, 3) or (H, W, 4) as stored, for an
+    8-bit grey, RGB or RGBA image that is not interlaced; None for any other
+    PNG layout (palette, 16-bit, grey with alpha, interlaced). Raises
+    ValueError for bytes that are not a well-formed PNG."""
+    buf = bytes(data)
+    if not buf.startswith(PNG_SIGNATURE):
+        raise ValueError("read_png: no PNG signature")
+    pos, header, idat = len(PNG_SIGNATURE), None, []
+    while pos + 8 <= len(buf):
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        body = buf[pos + 8:pos + 8 + length]
+        if len(body) != length:
+            raise ValueError(f"read_png: {kind!r} chunk cut short")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None or not idat:
+        raise ValueError("read_png: no IHDR or no IDAT chunk")
+    W, H, depth, colour, compression, filtering, interlace = header
+    n = _PNG_CHANNELS.get(colour)
+    if depth != 8 or n is None or interlace != 0:
+        return None
+    if compression != 0 or filtering != 0:
+        raise ValueError(f"read_png: compression {compression}, filter "
+                         f"method {filtering}")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != H * (1 + W * n):
+        raise ValueError(f"read_png: {raw.size} bytes of image data for a "
+                         f"{W}x{H}x{n} image")
+    img = _unfilter(raw.reshape(H, 1 + W * n), H, W * n, n).reshape(H, W, n)
+    return img[..., 0] if n == 1 else img
+
+
+def _pil_read(path: str, mode: str) -> np.ndarray:
+    """A file of a layout no head writes, through PIL: `convert("RGB")` for
+    mode "RGB", and for "stored" the channels imageio's reader gives
+    (a palette image in its palette's mode)."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        if mode == "RGB":
+            img = img.convert("RGB")
+        elif img.mode == "P":
+            img = img.convert(img.palette.mode)
+        return np.array(img)
+
+
+def _as_rgb(arr: np.ndarray) -> np.ndarray:
+    """PIL's convert("RGB") of a stored grey, RGB or RGBA array: grey
+    repeated, alpha dropped."""
+    if arr.ndim == 2:
+        return np.repeat(arr[..., None], 3, axis=2)
+    return arr[..., :3]
+
+
+def read_images(paths: Sequence[str], device,
+                mode: str = "RGB") -> List[torch.Tensor]:
+    """Image files -> uint8 tensors on `device`, in order: with mode "RGB"
+    each is (H, W, 3), as PIL's `Image.open(p).convert("RGB")` gives
+    (gfla_tpu's FID and LPIPS readers); with mode "stored", (H, W) for a
+    grey image and (H, W, 4) for RGBA, as `imageio.imread` gives (its
+    reconstruction metrics). The JPEGs decode in one `decode_jpeg_batch`
+    (nvJPEG on the card, PIL on the CPU); the PNGs through `read_png`."""
+    if mode not in ("RGB", "stored"):
+        raise ValueError(f"read_images: mode {mode!r}, want 'RGB' or "
+                         "'stored'")
+    device = torch.device(device)
+    out: List[Optional[torch.Tensor]] = [None] * len(paths)
+    jpegs = []
+    for i, path in enumerate(paths):
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:2] == b"\xff\xd8":
+            jpegs.append((i, np.frombuffer(data, np.uint8)))
+            continue
+        arr = read_png(data) if data.startswith(PNG_SIGNATURE) else None
+        if arr is None:
+            arr = _pil_read(path, mode)
+        elif mode == "RGB":
+            arr = _as_rgb(arr)
+        out[i] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    if jpegs:
+        decoded = decode_jpeg_batch([d for _, d in jpegs], device,
+                                    [paths[i] for i, _ in jpegs])
+        for (i, data), img in zip(jpegs, decoded):
+            if mode == "stored" and _jpeg_frame(data)[2] == 1:
+                img = img[..., 0].contiguous()  # grey, as stored
+            out[i] = img
+    return out

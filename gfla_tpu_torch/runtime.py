@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import shutil
 import subprocess
 
@@ -33,6 +34,19 @@ def set_tf32(enabled: bool) -> None:
     float32 but cuDNN convolutions default to TF32."""
     torch.backends.cuda.matmul.allow_tf32 = enabled
     torch.backends.cudnn.allow_tf32 = enabled
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """Both TF32 switches off inside the block, restored after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    set_tf32(False)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def card_line() -> str:
