@@ -69,14 +69,18 @@ Phases, each failing the run (non-zero exit) on the first error:
      backward timed given hpre and recomputing it.
   8b. bf16 attn-math kernels: their bf16 instances (attn_math_fwd_bf16.cu,
      attn_math_bwd_bf16.cu) against the bf16 plain twins at both pose
-     sites, ShapeNet's and a ragged shape: each output by the bf16 rule, the
+     sites, ShapeNet's, the animation heads' two B=2 sites and a ragged
+     shape: each output by the bf16 rule, the
      f32 hpre within 1e-4 x max of the twin's, all six backward outputs
      bitwise equal over two launches; median ms and the bound at the bf16
      rate.
   9. poseflownet: stage-1 flow pretraining at full width, batch 8, with
      GFLA_PALLAS_CORR=1: four steps, 2 max-correlation launches each;
-     finite losses; every parameter the losses reach moved; one step
-     against the scan path from one state (float64 rule as in 6); a save,
+     finite losses; every parameter the losses reach moved; at each
+     correctness layer, the rows where the kernel's argmax differs from the
+     scan's held to the top-two-gap rule of 7 (near-ties); one step against
+     the scan path from one state, both under deterministic algorithms and
+     the scan given the kernel's argmax (float64 rule as in 6); a save,
      then the pose task's --continue_train on it starts its flow net from
      it (the two-stage protocol); median ms per step of both paths.
  10. switches: the pose head under GFLA_ATTN_PALLAS=1 (serving, one training
@@ -160,6 +164,24 @@ Phases, each failing the run (non-zero exit) on the first error:
      nvJPEG's and PIL's decodes disagree on (at most 2% of those either
      marks); host sample ms, device prepare_batch ms a chunk, and the dance
      step from disk beside phase 18's.
+ 20b. animation bf16 and masks: per head (dance, face) at full width under
+     --compute_dtype=bfloat16: four bf16 chunk steps as in 18 (24 launches
+     of each bf16 warp kernel a step, D's u computed in bf16 and stored in
+     f32, save/resume); the task's serving of a chunk in f32 whatever the
+     flag says, as gfla_tpu's (24 f32 warp-forward launches); one step on
+     the kernel path against the plain bf16 path from one state and both
+     against the f32 step (ANIM_BF16_STEP_HOLD, BF16_L2), and a fault
+     planted in one warp-fed G gradient (scaled by 1.5, then zeroed) failing
+     that hold; an f32 and a bf16 step's wall, device-busy ms and idle
+     share, peak memory beside 18's. Then
+     dance's bf16 step under GFLA_ATTN_PALLAS=1 (24 + 24 bf16
+     attention-math launches, against that route's plain twins) and under
+     GFLA_PALLAS_CORR=1 (4 max-correlation launches), each against the
+     default bf16 step; --remat in bf16 (each frame recomputed in bf16, 48
+     bf16 warp-forward launches) against the step without it; and
+     --use_mask: a dance tree with iPER masks (grey and RGB PNGs), mask_all
+     prepared on the card bitwise the CPU's, one masked full-width step in
+     f32 and one in bf16 from it.
  21. keypoint: the Motion Extraction Net at its one width (17 joints, 256
      channels, 4 dilated layers, receptive field 81) on a synthetic
      Human3.6M NPZ pair (scripts/make_synth_h36m_keypoints.py): four
@@ -227,6 +249,7 @@ import statistics
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -249,11 +272,17 @@ FLOW_GRAD_F64_REL = 1e-1  # the same for the stage-1 flow net alone: its
                      # deepest encoder weights get gradients of ~1e-6 that
                      # f32 sums 6.9e-2 off the f64 ones on both paths alike
 FLOW_PAIR_REL = BWD_REL  # ... so its kernel path is also held to its scan
-                     # path, each gradient within this x the tensor's max:
-                     # both take the same argmax, and their cmax differ in
-                     # the last bits (losses ~4e-7 apart), which those small
-                     # gradients magnify to ~7e-6 of a tensor's max on an
-                     # H100
+                     # path, each gradient within this x the tensor's max,
+                     # both steps under deterministic algorithms (each path
+                     # then repeats bitwise) and the scan given the kernel's
+                     # argmax. The paths differ in cmax's last bits (the
+                     # kernel's split-f32 products 4.0e-7 off the float64
+                     # maximum, cuBLAS's 7.0e-7), which the loss's
+                     # subtraction of exp(-1) magnifies to 7.6e-5 of the
+                     # loss and the flow net's small gradients to 1.0e-5 of
+                     # a tensor's max; without determinism the atomics of
+                     # the backward alone part two runs of one path by
+                     # 0.8-1.3e-5 (H100, chip runs of the phase alone)
 MASK_REL = 1e-3     # the parameters held tight: |grad| > 1e-3 x tensor max
 PARAM_ATOL = 1e-6   # how tight
 ADAM_FLOOR = 1e-6   # ... and |grad| > 100 x Adam's eps
@@ -292,7 +321,33 @@ BF16_LOSS_REL = 1e-2   # bf16 step, kernel vs plain path: each loss
 # images are ~1e-3). G's tensor floor and band stand 2.4x further from 1
 # than its readings; the others, read at 1 within 1e-6, at 1e-5 to 1e-3.
 BF16_STEP_HOLD = {"G": (0.9, 0.99999, (0.75, 1.33)),
-                  "D": (0.9999, 0.99999, (0.999, 1.001))}
+                  "D": (0.9999, 0.99999, (0.999, 1.001)),
+                  "D_V": (0.9999, 0.99999, (0.999, 1.001))}
+# The animation heads' bf16 chunk step, kernel vs plain path: G's 1-ulp
+# differences at the warp compound through six frames, each generated from
+# the last, so G's tensors part further than the pose step's. Read on an
+# H100 in two runs, where bf16 resolves the gradient: per-tensor cosine
+# 0.822 and 0.825 and up (dance), medians 0.993 (dance) and 0.965-0.966
+# (face); norm ratios dance 0.695-1.357, face 0.683-1.363, dance under
+# GFLA_ATTN_PALLAS=1 0.571 and 0.576 to 1.175, --remat 0.984-1.011; the
+# whole network 0.999955-0.999999. D and D_V read 1.000000 as pose's D.
+# The floor stands 1.4x further from 1 than the lowest cosine, the band's
+# top 2x further than the highest ratio; its foot stays at 0.5, 1.2x
+# further than the attention route's lowest ratio, for the ratio a tensor
+# bf16 does not resolve takes is not a fault's sign: the band does not
+# catch a warp-fed gradient scaled by 1.5 (BF16_L2 does). A one-element
+# gradient (each flow net's mask-head biases, a sum over 12 frames x 4096
+# positions) is held in the network's cosine and mean only: both bf16
+# paths land at 0.24-2.7x of the f32 value, each the nearer in turn.
+ANIM_BF16_STEP_HOLD = {"G": (0.75, 0.9999, (0.5, 1.75)),
+                       "D": BF16_STEP_HOLD["D"], "D_V": BF16_STEP_HOLD["D_V"]}
+# ... and by L2 against the f32 step: a tensor the plain bf16 path resolves
+# (its L2 distance to the f32 gradient at most BF16_L2[0] x the f32
+# gradient's norm) has the kernel path's distance there at most 2x the
+# plain path's + BF16_L2[1] x that norm. Two bf16 computations of a
+# gradient land about as far from f32 in L2, a statistic over the whole
+# tensor; a scale of 1.5 puts one 0.5 x its norm off.
+BF16_L2 = (0.25, 0.05)
 # The ShapeNet step's generator has gradients that bf16 rounding dominates:
 # the target net grows from the viewpoint code tiled to 8x8, and the biases
 # of its first two blocks (and of the flow net's deepest encoder) get
@@ -981,6 +1036,8 @@ ATTN_BF16_CASES = [  # name, N, k, C, D (LeakyReLU 0.1), cases of ATTN_CASES
     ("k=3 site N=8192 C256", 8 * 32 * 32, 3, 256, 128),
     ("shapenet k=3 site N=32768 C128", 8 * 64 * 64, 3, 128, 128),
     ("ragged N=1000 k=3 C21 D42", 1000, 3, 21, 42),
+    ("animation k=5 site N=8192 C128", 2 * 64 * 64, 5, 128, 128),
+    ("animation k=3 site N=2048 C256", 2 * 32 * 32, 3, 256, 128),
 ]
 
 
@@ -1499,18 +1556,90 @@ def off_the_kinks(task):
     return task
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (cuDNN's deterministic convolution
+    algorithms, sorted scatters in place of atomics) for the block: a step
+    then repeats bitwise, so two steps part only where their paths do. An
+    operation without a deterministic form raises."""
+    cudnn = torch.backends.cudnn.deterministic
+    with mock.patch.dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"):
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = cudnn
+
+
+def kernel_argmax():
+    """The scan path given the max-correlation kernel's argmax: the scan's
+    cmax, the kernel's indices, so two steps take the same argmax."""
+    from gfla_tpu_torch.losses import perceptual
+    from gfla_tpu_torch.ops.max_corr import max_corr, max_corr_plain
+
+    def scan_cmax(source_norm, target_norm, chunk):
+        cmax = max_corr_plain(source_norm, target_norm, chunk)[0]
+        return cmax, max_corr(source_norm.float().contiguous(),
+                              target_norm.float().contiguous())[1]
+
+    return mock.patch.object(perceptual, "_max_corr_fwd", scan_cmax)
+
+
+def correctness_flips(task, batch):
+    """The correctness loss's max-correlation inputs of one step of `task`
+    (each attention level's VGG layer), the kernel's (cmax, argmax) against
+    the scan's: cmax within CORR_ATOL; the rows whose argmax differs held
+    to the top-two-gap rule of phase_corr_kernel (the plain correlation's
+    top two within CORR_ATOL: a near-tie that the two summation orders
+    break each their way). Returns {layer: (rows, flipped rows, largest
+    gap among them)}."""
+    from gfla_tpu_torch.losses.perceptual import _EPS, _safe_norm
+    from gfla_tpu_torch.ops.max_corr import max_corr, max_corr_plain
+
+    with torch.no_grad():
+        flows = task.net_g(batch["P1"], batch["BP1"], batch["BP2"])[0]
+        feats = [task.vgg(batch[k]) for k in ("P1", "P2")]
+    used = sorted(task.attn_layer, reverse=True)
+    out = {}
+    for i in range(len(flows)):
+        name = task.correctness.layers[used[i]]
+        s, t = (f[name].float().permute(0, 2, 3, 1).flatten(1, 2)
+                for f in feats)
+        s, t = ((x / (_safe_norm(x, 2)[..., None] + _EPS)).contiguous()
+                for x in (s, t))
+        cmax, amax = max_corr(s, t)
+        want_max, want_idx = max_corr_plain(s, t)
+        err = (cmax - want_max).abs().max().item()
+        check(err <= CORR_ATOL, f"{name}: cmax off the scan's by {err:.3e}")
+        flips = gap = 0
+        for b in range(s.shape[0]):
+            flip = amax[b] != want_idx[b]
+            if flip.any():
+                top2 = (t[b][flip] @ s[b].T).topk(2, dim=1).values
+                gap = max(gap, (top2[:, 0] - top2[:, 1]).max().item())
+                flips += int(flip.sum())
+        check(gap <= CORR_ATOL, f"{name}: argmax differs at a row whose top "
+              f"two are {gap:.3e} apart, more than {CORR_ATOL:g}")
+        out[name] = (s.shape[0] * t.shape[1], flips, gap)
+    return out
+
+
 def compare_steps(what, state, batch, lrs, to_cpu=False,
-                  path_a=contextlib.nullcontext, path_b=plain_warp,
+                  path_a=(), path_b=(plain_warp,),
                   grad_rel=GRAD_F64_REL, pair_rel=None):
     """One step of `state` on path a (the kernel path) against one on path b
     (the plain path) or, with `to_cpu`, one on the card against one on the
     CPU, both held against a float64 step by check_step_pair; card and CPU
     convolutions round differently all through G, so that pair is not
-    masked. `path_a`/`path_b` give the context each step runs in;
+    masked. `path_a`/`path_b` give the contexts each step runs in;
     `pair_rel` holds a's gradients to b's (check_step_pair)."""
     exact = exact_grads(state, batch)
     a = copy.deepcopy(state)
-    with path_a():
+    with contextlib.ExitStack() as stack:
+        for path in path_a:
+            stack.enter_context(path())
         logs_a = a.train_step(batch)
     snap_a = snapshot(a)
     del a
@@ -1520,7 +1649,9 @@ def compare_steps(what, state, batch, lrs, to_cpu=False,
             module.cpu()
         logs_b = b.train_step({k: v.cpu() for k, v in batch.items()})
     else:
-        with path_b():
+        with contextlib.ExitStack() as stack:
+            for path in path_b:
+                stack.enter_context(path())
             logs_b = b.train_step(batch)
     snap_b = {tag: {kind: {n: t.to(batch["P1"].device) for n, t in d.items()}
                     for kind, d in s.items()}
@@ -1558,17 +1689,26 @@ def train_main_path(task, opt, batches, what, still_ok=(), **launches):
     from gfla_tpu_torch.tasks import create_task
 
     s0 = snapshot(task)
-    u_seen = []
-    hook = task.net_d.register_forward_hook(
-        lambda mod, args, kwargs, out: u_seen.append(
-            (kwargs.get("update_stats"),
-             {n: b.clone() for n, b in mod.named_buffers()
-              if n.endswith("weight_u")})), with_kwargs=True)
+
+    def weight_u(mod):
+        return {n: b for n, b in mod.named_buffers() if n.endswith("weight_u")}
+
+    # each D call of step 1: (update_stats, the u tensors at its start and
+    # at its end, its u values at the end, cloned)
+    u_start, u_seen = [], []
+    hooks = [task.net_d.register_forward_pre_hook(
+        lambda mod, args: u_start.append(weight_u(mod))),
+        task.net_d.register_forward_hook(
+            lambda mod, args, kwargs, out: u_seen.append(
+                (kwargs.get("update_stats"), u_start.pop(), weight_u(mod),
+                 {n: b.clone() for n, b in weight_u(mod).items()})),
+            with_kwargs=True)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     times, logs = timed_steps(task, batches[:1])
-    hook.remove()
+    for hook in hooks:
+        hook.remove()
     u_after = snapshot(task)
     more_times, more_logs = timed_steps(task, batches[1:TRAIN_STEPS])
     torch.cuda.synchronize()
@@ -1596,17 +1736,24 @@ def train_main_path(task, opt, batches, what, still_ok=(), **launches):
         check(not still, f"{what}{tag}: parameters unchanged: {still}")
         kinds = {t.dtype for t in (*net.parameters(), *net.buffers())}
         check(kinds == {torch.float32}, f"{what}{tag}: state in {kinds}")
-    check([flag for flag, _ in u_seen] == [True, True, False],
-          f"{what}D passes of step 1: update_stats {[f for f, _ in u_seen]}")
-    u0, (_, u_real), (_, u_fake), (_, u_gen) = s0["D"]["u"], *u_seen
+    flags = [seen[0] for seen in u_seen]
+    check(flags == [True, True, False],
+          f"{what}D passes of step 1: update_stats {flags}")
+    u0 = s0["D"]["u"]
     spectral = [n for n in u0 if u0[n].numel() > 1]  # 1 output: u is 1
     for n in spectral:
-        check(u_real[n].dtype == task.dtype
-              and not torch.equal(u_real[n].float(), u0[n])
-              and not torch.equal(u_fake[n], u_real[n]),
+        # a store rebinds the buffer inside the call, in either dtype
+        stored = [end[n] is not start[n] for _, start, end, _ in u_seen]
+        check(stored == [True, True, False], f"{what}{n} stored by D(real), "
+              f"D(fake) and the G-loss pass: {stored}")
+        u_real, u_fake, u_gen = (values[n] for *_, values in u_seen)
+        check(u_real.dtype == task.dtype
+              and not torch.equal(u_real.float(), u0[n])
+              and (task.dtype != torch.float32
+                   or not torch.equal(u_fake, u_real)),
               f"{what}the D step left {n} unchanged, or not in {task.dtype}")
-        check(torch.equal(u_gen[n], u_fake[n])
-              and torch.equal(u_after["D"]["u"][n], u_fake[n].float()),
+        check(torch.equal(u_gen, u_fake)
+              and torch.equal(u_after["D"]["u"][n], u_fake.float()),
               f"{what}the G-loss pass stored {n}")
     print(f"{what}u: D(real) and D(fake) each stored a new u, computed in "
           f"{task.dtype}, in the {len(spectral)} spectral convs with more "
@@ -1676,7 +1823,8 @@ def cosine(a, b):
     return (a @ b).item() / (na * nb) if na and nb else 0.0
 
 
-def grads_by_rule(what, kernel, plain, f32, resolved=None):
+def grads_by_rule(what, kernel, plain, f32, resolved=None,
+                  hold=BF16_STEP_HOLD, one_element=True, l2=None):
     """One step's gradients on the kernel path against the plain bf16 path
     directly, each tensor by its cosine and norm ratio and each network by
     its concatenated cosine (BF16_STEP_HOLD), the flow net's and the
@@ -1691,7 +1839,11 @@ def grads_by_rule(what, kernel, plain, f32, resolved=None):
     rule's first clause on its own instead (the kernel path's max error
     against the f32 gradient at most 2x the plain path's + BF16_SLACK x its
     max): two bf16 computations of a gradient that bf16 rounding dominates
-    need not point alike."""
+    need not point alike. `hold`: the floors and bands by network; without
+    `one_element`, a tensor of one element (its cosine is only its sign) is
+    held in the network's cosine and mean only; with `l2` (BF16_L2), each
+    tensor of the direct hold that the plain path resolves is also held by
+    its L2 distance to the f32 gradient."""
     for tag in f32:
         grads = {side: s[tag]["grads"] for side, s in (
             ("f32", f32), ("kernel", kernel), ("plain", plain))}
@@ -1704,7 +1856,8 @@ def grads_by_rule(what, kernel, plain, f32, resolved=None):
                 errs.append([(g - g32).abs().max().item() / top
                              for g in (gk, gp)])
             if g32.norm().item() > 1e-2 * gp.norm().item() and (
-                    gk.norm().item() or gp.norm().item()):
+                    gk.norm().item() or gp.norm().item()) and (
+                    one_element or g32.numel() > 1):
                 rows[name] = (cosine(gk, gp),
                               gk.norm().item() / max(gp.norm().item(), 1e-30),
                               (gk - gp).abs().max().item()
@@ -1724,12 +1877,13 @@ def grads_by_rule(what, kernel, plain, f32, resolved=None):
                   f"{min(ratio):.4f}-{max(ratio):.4f}, max error up to "
                   f"{max(rows[n][2] for n in names):.3e} of the plain "
                   f"path's max")
-        floor, whole_floor, band = BF16_STEP_HOLD[tag]
+        floor, whole_floor, band = hold[tag]
         bad = [(n, *rows[n][:2]) for n in rows
                if rows[n][0] < floor or not band[0] <= rows[n][1] <= band[1]]
         for name, c_kernel, ratio in list(bad):
             g32 = grads["f32"][name]
             gk, gp = grads["kernel"][name], grads["plain"][name]
+            plain_ratio = gp.norm().item() / max(g32.norm().item(), 1e-30)
             if resolved is None or cosine(gp, g32) >= resolved:
                 continue
             top = g32.abs().max().item()
@@ -1738,12 +1892,34 @@ def grads_by_rule(what, kernel, plain, f32, resolved=None):
                   f"{c_kernel:.4f}, norm ratio {ratio:.4f}; bf16 does not "
                   f"resolve it (cosine with the f32 gradient "
                   f"{cosine(gp, g32):.4f} on the plain path, "
-                  f"{cosine(gk, g32):.4f} on the kernel path); off the f32 "
+                  f"{cosine(gk, g32):.4f} on the kernel path; norm "
+                  f"{plain_ratio:.4f} and "
+                  f"{gk.norm().item() / max(g32.norm().item(), 1e-30):.4f} "
+                  f"x the f32 one's); off the f32 "
                   f"gradient by {e_k:.3e} (kernel path) and {e_p:.3e} (plain "
                   f"path) of its max")
             if e_k <= 2 * e_p + BF16_SLACK:
                 bad.remove((name, c_kernel, ratio))
         check(not bad, f"{what}: {tag} gradients unheld {bad}")
+        if l2 is not None:
+            dist = {}
+            for name in rows:
+                g32 = grads["f32"][name]
+                top = g32.norm().item()
+                d_k, d_p = ((grads[side][name] - g32).norm().item() / top
+                            for side in ("kernel", "plain"))
+                if d_p <= l2[0]:
+                    dist[name] = (d_k, d_p)
+            if dist:
+                worst = max(dist, key=lambda n: dist[n][0] - 2 * dist[n][1])
+                print(f"{what}: {tag} L2 to the f32 gradient, {len(dist)} "
+                      f"tensors the plain path resolves: the kernel path's "
+                      f"less 2x the plain path's at most "
+                      f"{dist[worst][0] - 2 * dist[worst][1]:.3e} of the "
+                      f"norm ({worst}: {dist[worst][0]:.3e} and "
+                      f"{dist[worst][1]:.3e}; bound {l2[1]:g})")
+            far = [(n, *d) for n, d in dist.items() if d[0] > 2 * d[1] + l2[1]]
+            check(not far, f"{what}: {tag} gradients off f32 in L2 {far}")
         whole = cosine(*(torch.cat([grads[side][n].flatten() for n in rows])
                          for side in ("kernel", "plain")))
         print(f"{what}: {tag} whole network cosine {whole:.6f} (floor "
@@ -1906,10 +2082,18 @@ def phase_poseflownet():
 
     state = off_the_kinks(state0)
     del state0
+    flips = correctness_flips(state, batches[0])
+    print("poseflownet max-correlation, kernel vs scan: argmax differs at "
+          + ", ".join(f"{n}: {f} of {r} rows (top two within {g:.3e})"
+                      for n, (r, f, g) in flips.items())
+          + f", every such row a near-tie (within {CORR_ATOL:g}); the "
+          "argmax does not reach this step's gradients (the VGG features "
+          "are constants), and the scan below is given the kernel's")
     compare_steps("poseflownet kernel vs scan path, batch 8 at 256x256",
                   state, batches[0], {"G": opt.lr},
-                  path_a=lambda: switches(GFLA_PALLAS_CORR="1"),
-                  path_b=lambda: switches(GFLA_PALLAS_CORR="0"),
+                  path_a=(deterministic,
+                          lambda: switches(GFLA_PALLAS_CORR="1")),
+                  path_b=(deterministic, kernel_argmax),
                   grad_rel=FLOW_GRAD_F64_REL, pair_rel=FLOW_PAIR_REL)
     ms = statistics.median(times[1:])
     plain_ms = statistics.median(plain_times)
@@ -3171,16 +3355,42 @@ def dance_joints(rng, H, W, k):
     return rows
 
 
-def write_video_tree(root, kind, H, W, seed, device, seqs=VIDEO_SEQS,
-                     frames=VIDEO_FRAMES):
-    """A dance (iPER layout: `{phase}_256/train_A`, `train_video2d` with
-    17-joint and `train_alphapose` with 18-joint skeleton JSONs) or face
-    (FaceForensics layout: `{phase}_data`, `{phase}_keypoints` with
-    68-point txt files) tree of H x W frames, train and test, encoded by
-    image_io.encode_jpeg on `device` (nvJPEG on the card, PIL on the CPU).
-    A dance frame now and then has no person. Returns {path: picture}."""
+MASK_FORMATS = ("L", "RGB")  # the dance trees' masks, sequence by sequence
+
+
+def dance_mask(rows, H, W, fmt):
+    """A person mask around an OpenPose skeleton (k, 3): disks of radius
+    max(2, H // 12) at the joints and along each limb, 255 inside, as a
+    grey (H, W) picture ("L"), or RGB with each channel its own share of it
+    ("RGB", "JPEG": PIL's grey conversion mixes them)."""
     from gfla_tpu_torch.data import openpose_utils
-    from gfla_tpu_torch.data.image_io import encode_jpeg
+    from gfla_tpu_torch.data.raster import circle_filled
+
+    mask = np.zeros((H, W), np.uint8)
+    r = max(2, H // 12)
+    for f, t in openpose_utils.LIMB_SEQ_HUMAN36M_17:
+        if rows[f, 2] and rows[t, 2]:
+            for a in np.linspace(0, 1, 6):
+                x, y = rows[f, :2] + a * (rows[t, :2] - rows[f, :2])
+                circle_filled(mask, (int(x), int(y)), r, 255)
+    if fmt == "L":
+        return mask
+    return (mask[..., None].astype(np.float32)
+            * np.array([1.0, 0.8, 0.6], np.float32)).astype(np.uint8)
+
+
+def write_video_tree(root, kind, H, W, seed, device, seqs=VIDEO_SEQS,
+                     frames=VIDEO_FRAMES, mask_formats=MASK_FORMATS):
+    """A dance (iPER layout: `{phase}_256/train_A`, `train_video2d` with
+    17-joint and `train_alphapose` with 18-joint skeleton JSONs, `train_C`
+    the person masks, sequence s in `mask_formats[s % len]`: a grey or RGB
+    PNG or a JPEG) or face (FaceForensics layout: `{phase}_data`,
+    `{phase}_keypoints` with 68-point txt files) tree of H x W frames,
+    train and test, encoded by image_io.encode_jpeg on `device` (nvJPEG on
+    the card, PIL on the CPU). A dance frame now and then has no person.
+    Returns {path: picture} of the frames."""
+    from gfla_tpu_torch.data import openpose_utils
+    from gfla_tpu_torch.data.image_io import encode_jpeg, write_png
 
     rng = np.random.RandomState(seed)
     sources = {}
@@ -3190,7 +3400,9 @@ def write_video_tree(root, kind, H, W, seed, device, seqs=VIDEO_SEQS,
             if kind == "dance":
                 base = os.path.join(root, f"{phase}_256")
                 dirs = [os.path.join(base, d, seq) for d in
-                        ("train_A", "train_video2d", "train_alphapose")]
+                        ("train_A", "train_video2d", "train_alphapose",
+                         "train_C")]
+                fmt = mask_formats[s % len(mask_formats)]
             else:
                 dirs = [os.path.join(root, f"{phase}_{d}", seq)
                         for d in ("data", "keypoints")]
@@ -3212,6 +3424,14 @@ def write_video_tree(root, kind, H, W, seed, device, seqs=VIDEO_SEQS,
                             {"pose_keypoints_2d": rows.ravel().tolist()}]
                         with open(os.path.join(d, name + ".json"), "w") as f:
                             json.dump({"people": people}, f)
+                    mask = dance_mask(clean, H, W, fmt)
+                    if fmt == "JPEG":
+                        with open(os.path.join(dirs[3], name + ".jpg"),
+                                  "wb") as f:
+                            f.write(encode_jpeg(
+                                torch.from_numpy(mask).to(device)))
+                    else:
+                        write_png(os.path.join(dirs[3], name + ".png"), mask)
                 else:
                     pts = face_landmarks(rng, H, W)
                     img = face_frame(rng, pts, H, W)
@@ -3463,6 +3683,366 @@ def phase_video_disk(device, synthetic_ms):
           f"clips' {synthetic_ms:.3f} ms (phase 18)")
     del task
     work.cleanup()
+    return counts
+
+
+ANIM_BF16 = "--compute_dtype=bfloat16"
+MASK_SEQS, MASK_FRAMES = 2, ANIM_T + 1  # the --use_mask tree: sequences,
+                                        # frames a phase
+
+
+def device_busy_ms(fn):
+    """Device-busy milliseconds of one call of `fn`, warm, under
+    torch.profiler (the card's activity only): the card's kernels and
+    copies summed, without the ranges drawn around them
+    (tools/serve_profile.py's rule), from the profiler's raw events
+    (building its event tree costs seconds for a chunk step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfla_tpu_torch.tools.serve_profile import is_annotation
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not is_annotation(types.SimpleNamespace(
+                   is_user_annotation=e.is_user_annotation(),
+                   name=e.name())))
+    check(busy > 0, "the profiler recorded no device time")
+    return busy / 1e6
+
+
+ANIM_RULE = dict(resolved=BF16_RESOLVED, hold=ANIM_BF16_STEP_HOLD,
+                 one_element=False, l2=BF16_L2)
+
+
+def planted_faults(what, kernel, plain, f32):
+    """The animation hold (ANIM_RULE) read on the kernel path's step with a
+    fault planted in one warp-fed G gradient, scaled by 1.5 and then
+    zeroed: each must fail it. The tensor: of the flow nets' and the
+    attention's, the one the plain bf16 path resolves best (the least L2
+    distance to the f32 gradient, x its norm)."""
+    g32, gp = f32["G"]["grads"], plain["G"]["grads"]
+    fed = [n for n in g32 if (n.startswith("flow_net") or ".attn" in n)
+           and g32[n].numel() > 1 and g32[n].norm().item() > 0]
+    name = min(fed, key=lambda n: (gp[n] - g32[n]).norm().item()
+               / g32[n].norm().item())
+    for scale in (1.5, 0.0):
+        grads = dict(kernel["G"]["grads"])
+        grads[name] = grads[name] * scale
+        try:
+            grads_by_rule(f"{what}, {name} x {scale:g} planted",
+                          {"G": {"grads": grads}}, plain, {"G": f32["G"]},
+                          **ANIM_RULE)
+        except RuntimeError as fault:
+            print(f"{what}: the hold fails {name} x {scale:g}: {fault}")
+            continue
+        check(False, f"{what}: the hold let {name} x {scale:g} pass")
+
+
+def anim_bf16_train(kind, f32_train):
+    """Four full-width bf16 chunk steps of one head through
+    train_main_path (24 launches of each bf16 warp kernel a step and
+    nothing else; finite losses; every parameter moved, in f32; D's u
+    computed in bf16, stored in f32; save/resume); the task's test_step in
+    f32 (24 f32 warp-forward launches), as gfla_tpu serves whatever the
+    flag; one step on the kernel path against the plain bf16 path from one
+    state, both against the f32 step (grads_by_rule), D_V's convolutions
+    (dance's 3-D ones on cuDNN) taking and giving bf16 there, and a fault
+    planted in that step (planted_faults); the wall ms of an f32 and a
+    bf16 step, the device-busy ms of one of each under the profiler and the
+    idle share, and peak memory beside phase 18's f32 step's
+    (`f32_train`). Returns the counts, and for dance the state, batch and
+    f32 snapshot the switches and --remat start from."""
+    from gfla_tpu_torch.tasks import create_task
+
+    opt, ckpt = train_opt(f"--name={kind}_train_bf16", "--batchSize=2",
+                          f"--n_frames_total={ANIM_T}", ANIM_BF16,
+                          model=kind, dataset="synthetic_video")
+    task = create_task(opt)
+    check(anim_full_width(task.net_g, kind)
+          and task.vgg.conv1_1.weight.dtype == torch.bfloat16,
+          f"{kind} bf16: not the full width, or VGG19 not cast once")
+    batches = [task.prepare_batch(b) for b in anim_clips(opt, 2)]
+    batches.append(batches[0])
+    state0 = copy.deepcopy(task)
+    counts, times, plain_times, peak = train_main_path(
+        task, opt, batches, f"{kind} bf16 ",
+        warp_fwd_bf16=ANIM_LAUNCHES * TRAIN_STEPS,
+        warp_bwd_pos_bf16=ANIM_LAUNCHES * TRAIN_STEPS,
+        warp_bwd_w1_bf16=ANIM_LAUNCHES * TRAIN_STEPS)
+    for tag, net in nets(task).items():
+        u = [b for n, b in net.named_buffers() if n.endswith("weight_u")]
+        check(all(b.dtype == torch.float32 for b in u),
+              f"{kind} bf16 {tag}: u not stored in f32")
+    reset_launch_counts()
+    frames = task.test_step(batches[0])[0]
+    torch.cuda.synchronize()
+    served = launch_counts()
+    print(f"{kind} bf16 task served a chunk: launches {served}")
+    check(only(served, warp_fwd=ANIM_LAUNCHES), f"{kind} bf16 task's "
+          f"test_step launched {served}, expected {ANIM_LAUNCHES} warp_fwd "
+          f"(G's f32 parameters) and nothing else")
+    check_clip(f"{kind} bf16 task serving", frames, 2, ANIM_T, ANIM_SIZE)
+    del task
+    ckpt.cleanup()
+
+    state = off_the_kinks(state0)
+    del state0
+    f32 = copy.deepcopy(state)
+    f32.dtype = torch.float32
+    f32.vgg.float()
+    f32.train_step(batches[0])
+    snap32 = snapshot(f32)
+    sides, d_v_convs = [], []
+    for path in (contextlib.nullcontext, plain_warp):
+        side = copy.deepcopy(state)
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out: d_v_convs.append(
+                (args[0].dtype, out.dtype)))
+            for m in side.net_d_v.modules()
+            if isinstance(m, (torch.nn.Conv3d, torch.nn.Conv2d))
+            or type(m).__name__.startswith("SpectralConv")]
+        with path():
+            side_logs = side.train_step(batches[0])
+        for hook in hooks:
+            hook.remove()
+        sides.append((side_logs, snapshot(side)))
+        if path is contextlib.nullcontext:
+            bf16 = side  # the kernel path's task, timed below
+        del side
+    kinds = sorted({f"{a} -> {b}" for a, b in d_v_convs})
+    print(f"{kind} bf16 D_V: {len(d_v_convs)} convolutions "
+          f"({'3-D and 2-D' if kind == 'dance' else '2-D'}) in the two "
+          f"steps, each {', '.join(kinds)}")
+    check(kinds == ["torch.bfloat16 -> torch.bfloat16"],
+          f"{kind} bf16 D_V convolutions ran {kinds}")
+    loss_rel = rel_diff(sides[0][0], sides[1][0])
+    print(f"{kind} bf16 kernel vs plain path, b2 x {ANIM_T} frames at "
+          f"256x256: losses within {loss_rel:.3e} rel (bound "
+          f"{BF16_LOSS_REL:g})")
+    check(loss_rel <= BF16_LOSS_REL, f"{kind} bf16 step losses {sides}")
+    grads_by_rule(f"{kind} bf16 kernel vs plain path", sides[0][1],
+                  sides[1][1], snap32, **ANIM_RULE)
+    planted_faults(f"{kind} bf16 kernel vs plain path", sides[0][1],
+                   sides[1][1], snap32)
+    del sides
+
+    # an f32 and a bf16 step, each from a state one step on (warm)
+    walls, busy = {}, {}
+    for side, work in (("f32", f32), ("bf16", bf16)):
+        walls[side] = timed_steps(work, batches[1:2])[0][0]
+        busy[side] = device_busy_ms(lambda: work.train_step(batches[2]))
+    del f32, bf16
+    ms = statistics.median(times[1:])
+    print(f"{kind} bf16 train step b2 x {ANIM_T} frames at 256x256: kernel "
+          f"path {ms:.3f} ms (steps {', '.join(f'{t:.1f}' for t in times)})"
+          f", plain bf16 path {statistics.median(plain_times):.3f} ms, peak "
+          f"{peak:.2f} GiB; f32 step {f32_train['ms']:.3f} ms, peak "
+          f"{f32_train['peak']:.2f} GiB (phase 18)")
+    for side, wall in walls.items():
+        print(f"{kind} {side} chunk step: wall {wall:.3f} ms, device busy "
+              f"{busy[side]:.3f} ms under the profiler, idle share "
+              f"{1 - busy[side] / wall:.3f}")
+    if kind != "dance":
+        return dict(counts=counts)
+    return dict(counts=counts, state=state, batch=batches[0], snap32=snap32)
+
+
+def anim_bf16_switches(train):
+    """One bf16 dance chunk step under GFLA_ATTN_PALLAS=1 (24 + 24 bf16
+    attention-math launches, no warp) held against its plain twins' step
+    (grads_by_rule), and one under GFLA_PALLAS_CORR=1 (the bf16 warp's
+    24 + 24 + 24 and 4 max-correlation launches on the widened f32
+    features); each step's losses against the default path's bf16 step
+    (BF16_LOSS_REL; the correctness losses relative to the size of the
+    terms their - 1/e cancels, as phase 19 holds them)."""
+    state, batch = train["state"], train["batch"]
+    want = copy.deepcopy(state).train_step(batch)
+    opt = state.opt
+    scale = {name: opt.lambda_correct * len(opt.attn_layer) / np.e
+             for name in ("correctness_p", "correctness_r")}
+    counts = {}
+    for name, env in (("attn", dict(GFLA_ATTN_PALLAS="1")),
+                      ("corr", dict(GFLA_PALLAS_CORR="1"))):
+        task = copy.deepcopy(state)
+        with switches(**env):
+            reset_launch_counts()
+            got = task.train_step(batch)
+            torch.cuda.synchronize()
+            counts[name] = launch_counts()
+            if name == "attn":
+                kernel_snap = snapshot(task)
+                plain = copy.deepcopy(state)
+                with plain_attn_math():
+                    plain_logs = plain.train_step(batch)
+                grads_by_rule("bf16 GFLA_ATTN_PALLAS=1 dance kernel vs plain "
+                              "path", kernel_snap, snapshot(plain),
+                              train["snap32"], **ANIM_RULE)
+                check(rel_diff(got, plain_logs) <= BF16_LOSS_REL,
+                      f"bf16 GFLA_ATTN_PALLAS=1 dance losses {got} vs "
+                      f"{plain_logs}")
+                del plain, kernel_snap
+            times, _ = timed_steps(task, [batch] * 2)
+        rel = {n: abs(float(got[n]) - float(w))
+               / max(abs(float(w)), scale.get(n, 0.0), 1e-30)
+               for n, w in want.items()}
+        worst = max(rel, key=rel.get)
+        del task
+        print(f"bf16 {env} dance step: launches {counts[name]}; losses "
+              f"within {rel[worst]:.3e} rel of the default bf16 path "
+              f"({worst}; bound {BF16_LOSS_REL:g}); "
+              f"{statistics.median(times):.3f} ms per step (steps "
+              f"{', '.join(f'{t:.1f}' for t in times)})")
+        check(rel[worst] <= BF16_LOSS_REL, f"bf16 {env}: losses {got} vs "
+              f"{want}")
+    check(only(counts["attn"], attn_math_fwd_bf16=ANIM_LAUNCHES,
+               attn_math_bwd_bf16=ANIM_LAUNCHES),
+          f"bf16 GFLA_ATTN_PALLAS=1 dance launches {counts['attn']}")
+    check(only(counts["corr"], warp_fwd_bf16=ANIM_LAUNCHES,
+               warp_bwd_pos_bf16=ANIM_LAUNCHES,
+               warp_bwd_w1_bf16=ANIM_LAUNCHES, max_corr=4),
+          f"bf16 GFLA_PALLAS_CORR=1 dance launches {counts['corr']}")
+    return dict(dance_train_bf16_attn=counts["attn"],
+                dance_train_bf16_corr=counts["corr"])
+
+
+def anim_bf16_remat(train):
+    """One bf16 dance chunk step with --remat against the step without it
+    from one state: each frame recomputed in the backward on the bf16
+    copies of the parameters (the target net's forward runs 2 x 6 times,
+    in bf16; the bf16 warp forward 48 times), the losses bitwise, the
+    gradients held as the kernel and plain paths are (grads_by_rule)."""
+    state, batch = train["state"], train["batch"]
+    want = copy.deepcopy(state)
+    want_logs = want.train_step(batch)
+    task = copy.deepcopy(state)
+    task.opt = copy.copy(state.opt)
+    task.opt.remat = True
+    dtypes = []
+    target = task.net_g.target.forward
+    task.net_g.target.forward = lambda *a: dtypes.append(
+        a[1][0].dtype) or target(*a)
+    reset_launch_counts()
+    logs = task.train_step(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"bf16 --remat dance step: launches {counts}; the target net ran "
+          f"{len(dtypes)} times, in {sorted({str(d) for d in dtypes})}")
+    check(dtypes == [torch.bfloat16] * (2 * ANIM_T),
+          f"--remat: the target net ran in {dtypes}")
+    check(only(counts, warp_fwd_bf16=2 * ANIM_LAUNCHES,
+               warp_bwd_pos_bf16=ANIM_LAUNCHES,
+               warp_bwd_w1_bf16=ANIM_LAUNCHES),
+          f"bf16 --remat dance launches {counts}")
+    check(all(torch.equal(logs[n], v) for n, v in want_logs.items()),
+          f"bf16 --remat losses {logs} vs {want_logs}")
+    grads_by_rule("bf16 --remat vs plain dance step", snapshot(task),
+                  snapshot(want), train["snap32"], **ANIM_RULE)
+    return counts
+
+
+def anim_masks(device):
+    """--use_mask: a dance tree with iPER masks (grey and RGB PNGs, the
+    frames through nvJPEG); each training sample's mask_all prepared on the
+    card bitwise the CPU's (its own PNG reader, PIL's grey, bicubic and
+    bilinear affine as the port's code, float64 on both); one masked
+    full-width dance chunk step in f32 and one in bf16 from the tree (24
+    launches of each warp kernel of the type, finite losses,
+    lambda_correct 2.0), from the seeded init (the bf16 task a copy of the
+    f32 one, its VGG19 cast as a bf16 task casts it)."""
+    from gfla_tpu_torch.data import collate, get_dataset_class
+    from gfla_tpu_torch.tasks import create_task
+    from gfla_tpu_torch.tasks.animation import prepare_batch as prepare
+
+    work = tempfile.TemporaryDirectory()
+    root = os.path.join(work.name, "dance")
+    t0 = time.perf_counter()
+    write_video_tree(root, "dance", ANIM_SIZE, ANIM_SIZE, 95, device,
+                     seqs=MASK_SEQS, frames=MASK_FRAMES)
+    write_s = time.perf_counter() - t0
+    opt, ckpt = train_opt(
+        f"--dataroot={root}", "--use_mask", "--batchSize=2",
+        f"--n_frames_total={ANIM_T}", "--name=mask", model="dance",
+        dataset="dance")
+    f32 = create_task(opt)
+    check(f32.use_mask and opt.lambda_correct == 2.0,
+          "--use_mask: the dance task's mask or lambda_correct")
+    bf16 = copy.deepcopy(f32)
+    bf16.dtype = torch.bfloat16
+    bf16.vgg.to(torch.bfloat16)
+    dataset = get_dataset_class("dance")(opt)
+    batch = collate([dataset[i] for i in range(2)])
+    on_card = prepare(batch, device, opt)["mask_all"]
+    on_cpu = prepare(batch, torch.device("cpu"), opt)["mask_all"]
+    apart = (on_card.cpu() != on_cpu).sum().item()
+    # the masks' cost: a loader worker's sample and the device's
+    # prepare_batch with them and without
+    plain = copy.copy(opt)
+    plain.use_mask = False
+    without = get_dataset_class("dance")(plain)
+    sample_ms = [host_ms(lambda: ds[0], iters=4, warmup=1)
+                 for ds in (dataset, without)]
+    bare = {k: v for k, v in batch.items() if not k.startswith("mask_")}
+    prepare_ms = [host_ms(lambda: prepare(b, device, opt))
+                  for b in (batch, bare)]
+    print(f"--use_mask: mask_all {tuple(on_card.shape)} {on_card.dtype} "
+          f"prepared on the card vs the CPU: {apart} values apart "
+          f"(bitwise: 0); mean {on_cpu.mean().item():.4f}, "
+          f"{on_cpu.unique().numel()} levels; the tree ({MASK_SEQS} "
+          f"sequences x {MASK_FRAMES} frames a phase, masks as "
+          f"{', '.join(MASK_FORMATS)} PNGs) in {write_s:.2f} s; a loader "
+          f"worker's {ANIM_T}-frame sample {sample_ms[0]:.1f} ms with the "
+          f"masks, {sample_ms[1]:.1f} without; the device's prepare_batch "
+          f"of the batch-2 chunk {prepare_ms[0]:.3f} ms with them, "
+          f"{prepare_ms[1]:.3f} without")
+    check(apart == 0 and 0 < on_cpu.mean().item() < 1,
+          f"--use_mask: card and CPU masks {apart} apart")
+    prepared = f32.prepare_batch(batch)
+    counts = {}
+    for dtype, task in (("float32", f32), ("bfloat16", bf16)):
+        reset_launch_counts()
+        logs = task.train_step(prepared)
+        torch.cuda.synchronize()
+        counts[dtype] = launch_counts()
+        sfx = "_bf16" if dtype == "bfloat16" else ""
+        check(only(counts[dtype], **{f"warp_{k}{sfx}": ANIM_LAUNCHES
+                                     for k in ("fwd", "bwd_pos", "bwd_w1")}),
+              f"--use_mask {dtype} step launched {counts[dtype]}")
+        check(all(bool(torch.isfinite(v)) for v in logs.values()),
+              f"--use_mask {dtype} step losses {logs}")
+        print(f"--use_mask dance step in {dtype} from the tree: launches "
+              f"{counts[dtype]}; correctness_p "
+              f"{float(logs['correctness_p']):.5f} correctness_r "
+              f"{float(logs['correctness_r']):.5f} total_G "
+              f"{float(logs['total_G']):.5f}")
+    del f32, bf16
+    ckpt.cleanup()
+    work.cleanup()
+    return dict(dance_mask_train=counts["float32"],
+                dance_mask_train_bf16=counts["bfloat16"])
+
+
+def phase_anim_bf16(device, f32_train):
+    """The animation heads as users train them: bf16 chunk training of
+    dance and face, the switches and --remat in bf16, and
+    --use_mask with the iPER masks. `f32_train`: phase 18's f32 step
+    ({kind: dict(ms, peak)}). Returns the launch counts by path."""
+    counts = {}
+    for kind in ("dance", "face"):
+        train = timed(anim_bf16_train, kind, f32_train[kind])
+        counts[f"{kind}_train_bf16"] = train["counts"]
+        if kind == "dance":
+            dance = train
+        del train
+    counts.update(timed(anim_bf16_switches, dance))
+    counts["dance_train_bf16_remat"] = timed(anim_bf16_remat, dance)
+    del dance
+    counts.update(timed(anim_masks, device))
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4239,16 +4819,17 @@ def main(argv):
         sn_train = timed(phase_shapenet_train)
         sn_flow = timed(phase_shapenetflow)
         sn_bf16 = timed(phase_shapenet_bf16, sn_serve, sn_train)
-        anim = {}
+        anim, anim_f32 = {}, {}
         for kind in ("dance", "face"):
             anim[f"{kind}_serve"] = timed(phase_anim_serve, kind)["launches"]
             anim_train = timed(phase_anim_train, kind)
             anim[f"{kind}_train"] = anim_train["counts"]
+            anim_f32[kind] = {k: anim_train[k] for k in ("ms", "peak")}
             if kind == "dance":
                 anim_switched = timed(phase_anim_switches, anim_train)
-                dance_ms = anim_train["ms"]
             del anim_train
-        video = timed(phase_video_disk, device, dance_ms)
+        video = timed(phase_video_disk, device, anim_f32["dance"]["ms"])
+        anim_bf16 = timed(phase_anim_bf16, device, anim_f32)
         keypoint = timed(phase_keypoint, device)
         timed(phase_metrics, device)
         timed(phase_walkthrough)
@@ -4273,7 +4854,8 @@ def main(argv):
             for path in ("dance_train", "face_train")},
          "dance_train_corr": anim_switched["dance_train_corr"]["warp_fwd"],
          "train_kernel_size": switched["train_kernel_size"]["warp_fwd"],
-         **{path: c["warp_fwd"] for path, c in video.items()}},
+         **{path: c["warp_fwd"] for path, c in video.items()},
+         "dance_mask_train": anim_bf16["dance_mask_train"]["warp_fwd"]},
         max(e for e, _, _ in kernel.values()), f"{KERNEL_ATOL:g} abs", ms,
         plain_ms, work["warp_fwd"], none, shape,
         both_cases(KERNEL_CASES, kernel, lambda r: r,
@@ -4291,7 +4873,8 @@ def main(argv):
                 for path in ("dance_train", "face_train")},
              "dance_train_corr": anim_switched["dance_train_corr"][name],
              "train_kernel_size": switched["train_kernel_size"][name],
-             "dance_disk_train": video["dance_disk_train"][name]},
+             "dance_disk_train": video["dance_disk_train"][name],
+             "dance_mask_train": anim_bf16["dance_mask_train"][name]},
             max(r[part][0] for r in bwd.values()),
             f"{BWD_REL:g} x max|value| of each output",
             bwd[site[0]][part][1], bwd[site[0]][part][2], work[name], none,
@@ -4299,6 +4882,9 @@ def main(argv):
                 KERNEL_CASES, bwd, lambda r, part=part: r[part],
                 lambda c, name=name: warp_work(*c[1:7])[name])))
     work16 = warp_work_bf16(*site[1:7])
+    anim_paths = ("dance_train_bf16", "face_train_bf16",
+                  "dance_train_bf16_corr", "dance_train_bf16_remat",
+                  "dance_mask_train_bf16")
     for name, part, source, replaces, paths in (
             ("warp_fwd_bf16", "fwd", "warp_fwd_bf16.cu", "166",
              {"serve_bf16": serve_bf16["launches"],
@@ -4311,6 +4897,7 @@ def main(argv):
             ("warp_bwd_w1_bf16", "w1", "warp_bwd_bf16.cu", "243",
              {"train_bf16": train_bf16["counts"]["warp_bwd_w1_bf16"],
               "shapenet_train_bf16": sn_bf16["train"]["warp_bwd_w1_bf16"]})):
+        paths.update({path: anim_bf16[path][name] for path in anim_paths})
         kern = name.removesuffix("_bf16")
         entries.append(kernel_entry(
             name, f"gfla_tpu_torch/csrc/{source}",
@@ -4330,7 +4917,9 @@ def main(argv):
         {"poseflownet": flow["max_corr"],
          "train_corr": switched["train_corr"]["max_corr"],
          "shapenetflow": sn_flow["max_corr"],
-         "dance_train_corr": anim_switched["dance_train_corr"]["max_corr"]},
+         "dance_train_corr": anim_switched["dance_train_corr"]["max_corr"],
+         "dance_train_bf16_corr":
+             anim_bf16["dance_train_bf16_corr"]["max_corr"]},
         max(r["err"] for r in corr.values()), f"{CORR_ATOL:g} abs (cmax)",
         c["ms"], c["plain_ms"], c["work"], c["library_ms"],
         "B=8 Ns=Nt=4096 C=256",
@@ -4375,10 +4964,14 @@ def main(argv):
             ("attn_math_fwd_bf16", "fwd",
              {"serve_bf16_attn": serve_bf16["attn_launches"],
               "train_bf16_attn":
-                  switched["train_attn_bf16"]["attn_math_fwd_bf16"]}),
+                  switched["train_attn_bf16"]["attn_math_fwd_bf16"],
+              "dance_train_bf16_attn":
+                  anim_bf16["dance_train_bf16_attn"]["attn_math_fwd_bf16"]}),
             ("attn_math_bwd_bf16", "bwd",
              {"train_bf16_attn":
-                  switched["train_attn_bf16"]["attn_math_bwd_bf16"]})):
+                  switched["train_attn_bf16"]["attn_math_bwd_bf16"],
+              "dance_train_bf16_attn":
+                  anim_bf16["dance_train_bf16_attn"]["attn_math_bwd_bf16"]})):
         entries.append(kernel_entry(
             name, f"gfla_tpu_torch/csrc/{name}.cu",
             "gfla_tpu/ops/pallas_attn.py:"
@@ -4394,12 +4987,13 @@ def main(argv):
                                       r[part]["plain_ms"]),
                 lambda c, part=part: attn_work_bf16(*c[1:5])[
                     0 if part == "fwd" else 1], BF16_PEAK),
-             "shapenet": site_cases(
-                "shapenet", ATTN_BF16_CASES, attn_bf16,
+             **{head: site_cases(
+                head, ATTN_BF16_CASES, attn_bf16,
                 lambda r, part=part: (r[part]["err"], r[part]["ms"],
                                       r[part]["plain_ms"]),
                 lambda c, part=part: attn_work_bf16(*c[1:5])[
-                    0 if part == "fwd" else 1], BF16_PEAK)},
+                    0 if part == "fwd" else 1], BF16_PEAK)
+                for head in ("shapenet", "animation")}},
             peak=BF16_PEAK))
     # the keypoint head's own path (training and serving) launches none of
     # them, the dance chunk served on its JSONs the warp forward's 24

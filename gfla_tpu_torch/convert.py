@@ -334,6 +334,24 @@ def temporal_discriminator_state_dict(params: Dict[str, Any],
     return sd
 
 
+def patch_discriminator_state_dict(params: Dict[str, Any],
+                                   batch_stats: Dict[str, Any],
+                                   layers: int = 3,
+                                   use_coord: bool = False
+                                   ) -> Dict[str, torch.Tensor]:
+    """gfla_tpu PatchDiscriminator params (and, spectral-normed, its
+    batch_stats) -> the original-keyed torch state dict: conv0 ...
+    conv{layers-1}, conv_last, conv_out as model.0, model.2, ... (every
+    other index an activation), `model.{i}.conv` with `use_coord`."""
+    sd: Dict[str, torch.Tensor] = {}
+    names = [f"conv{i}" for i in range(layers)] + ["conv_last", "conv_out"]
+    for i, name in enumerate(names):
+        key = f"model.{2 * i}" + (".conv" if use_coord else "")
+        _conv(params[name], key, sd,
+              batch_stats.get(name) if batch_stats else None)
+    return sd
+
+
 def vgg19_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """gfla_tpu VGG19 params ({'conv1_1': {kernel, bias}, ...}, or the
     `{'params': ...}` variables) -> the port's VGG19 state dict."""

@@ -1,7 +1,7 @@
-"""Random affine augmentation of the pose datasets (numpy twin of
-gfla_tpu/data/affine.py:17-54): the draws, in gfla_tpu's order from the
-dataset's RandomState, and the inverse and forward matrices. The warp itself
-is data/resample.py, on tensors."""
+"""Random affine augmentation of the pose and dance datasets (numpy twin of
+gfla_tpu/data/affine.py:17-66): the draws, in gfla_tpu's order from the
+dataset's RandomState, and the inverse and forward matrices. The warps
+themselves are data/resample.py, on tensors."""
 
 from __future__ import annotations
 
@@ -41,6 +41,19 @@ def inverse_affine_matrix(center, angle, translate, scale) -> list:
     matrix[2] += center[0]
     matrix[5] += center[1]
     return matrix
+
+
+def image_inverse(size, affine) -> np.ndarray:
+    """The (2, 3) float64 inverse map of an affine draw (a dict of angle,
+    shift and scale, or None: the identity) for an image of `size` (H, W),
+    about its centre (W * 0.5 + 0.5, H * 0.5 + 0.5), as gfla_tpu's
+    `apply_affine` builds it for PIL's transform of the resized image."""
+    if affine is None:
+        return np.array([[1, 0, 0], [0, 1, 0]], np.float64)
+    H, W = size
+    return np.asarray(inverse_affine_matrix(
+        (W * 0.5 + 0.5, H * 0.5 + 0.5), affine["angle"], affine["shift"],
+        affine["scale"]), np.float64).reshape(2, 3)
 
 
 def forward_affine_matrix(center, angle, translate, scale) -> np.ndarray:

@@ -13,13 +13,15 @@ and what needs the pixels run on the task's device (tasks/animation.py
   (T, 2, 3) float32, each frame's inverse affine matrix (the identity
   without augmentation);
 - dance: ref_image (bytes) and ref_inv, the reference drawn from the
-  sequence's first 20 frames; with the device encode (training, the
-  default) KP_all (T, 17, 2) float32 (y, x) at the loaded size, 0 where
-  missing, BP_all_rgb (T, H, W, 3) uint8, the drawn limbs, and ref_KP,
-  ref_rgb for the reference; else (test time, --no_device_encode)
-  BP_all (T, H, W, 20) and ref_skeleton (H, W, 20) float32, the 17
-  heatmaps and the limbs in [0, 1]; at test time also gen_kps_clean and
-  gen_kps_noise (34, T), the normalised joints;
+  sequence's first 20 frames; with --use_mask (iPER, training) mask_all,
+  the T frames' `train_C` masks' bytes (PNG or JPEG), and mask_inv
+  (T, 2, 3) float64, the matrix of PIL's transform of each; with the
+  device encode (training, the default) KP_all (T, 17, 2) float32 (y, x)
+  at the loaded size, 0 where missing, BP_all_rgb (T, H, W, 3) uint8, the
+  drawn limbs, and ref_KP, ref_rgb for the reference; else (test time,
+  --no_device_encode) BP_all (T, H, W, 20) and ref_skeleton (H, W, 20)
+  float32, the 17 heatmaps and the limbs in [0, 1]; at test time also
+  gen_kps_clean and gen_kps_noise (34, T), the normalised joints;
 - face: edges (T, H, W) uint8, the landmark curves (0 or 255); dist
   (T, H, W, 14) int16, each part's city-block distance to its curve,
   clipped at 765 (absent with --no_dist_map); labels (T, H, W) uint8, the
@@ -40,7 +42,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from gfla_tpu_torch.data import openpose_utils
-from gfla_tpu_torch.data.affine import inverse_affine_matrix
+from gfla_tpu_torch.data.affine import image_inverse
 from gfla_tpu_torch.data.image_io import jpeg_size
 from gfla_tpu_torch.data.keypoint2img import draw_edge, interp_points
 from gfla_tpu_torch.data.raster import (
@@ -51,10 +53,6 @@ from gfla_tpu_torch.data.raster import (
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 IDENTITY = np.array([[1, 0, 0], [0, 1, 0]], np.float32)
-USE_MASK_TODO = ("--use_mask with --dataset_mode=dance (the iPER masks, "
-                 "read through PIL's bicubic resize and PIL's affine "
-                 "transform) is not ported yet (ROADMAP.md, queue 1, "
-                 "--use_mask)")
 DIST_MAX = 765  # clip(dist / 3, 0, 255) saturates from here
 
 
@@ -178,13 +176,9 @@ class AnimationDatasetBase:
         }
 
     def inverse(self, affine) -> np.ndarray:
-        """The 2x3 inverse matrix of an affine draw, in output pixels."""
-        if affine is None:
-            return IDENTITY
-        H, W = self.load_size
-        return np.asarray(inverse_affine_matrix(
-            (W * 0.5 + 0.5, H * 0.5 + 0.5), affine["angle"], affine["shift"],
-            affine["scale"]), np.float32).reshape(2, 3)
+        """The 2x3 inverse matrix of an affine draw, in output pixels,
+        float32 (the frames' warp-resize)."""
+        return image_inverse(self.load_size, affine).astype(np.float32)
 
 
 class DanceDataset(AnimationDatasetBase):
@@ -192,7 +186,9 @@ class DanceDataset(AnimationDatasetBase):
     original; gfla_tpu/data/animation_data.py:149-382): `{phase}_256/
     train_A/<seq>/` frames, `train_video2d/` the clean Human3.6M-17
     skeletons that drive the generator, `train_alphapose/` the OpenPose-18
-    ones of the reference."""
+    ones of the reference; with --use_mask, `train_C/` the iPER person
+    masks, read only for --sub_dataset=iper in training, as gfla_tpu reads
+    them (silently ignored otherwise)."""
 
     @staticmethod
     def modify_options(parser, is_train: bool):
@@ -233,9 +229,9 @@ class DanceDataset(AnimationDatasetBase):
 
     def __init__(self, opt):
         super().__init__(opt)
-        if getattr(opt, "use_mask", False):
-            raise NotImplementedError(USE_MASK_TODO)
         self.sub_dataset = getattr(opt, "sub_dataset", "iper")
+        self.use_mask = bool(getattr(opt, "use_mask", False)) \
+            and self.sub_dataset == "iper" and self.is_train
         self.device_encode = self.is_train and \
             not getattr(opt, "no_device_encode", False)
         base = os.path.join(opt.dataroot, opt.phase + "_256")
@@ -243,6 +239,8 @@ class DanceDataset(AnimationDatasetBase):
         self.clean = make_grouped_dataset(os.path.join(base, "train_video2d"))
         self.noise = make_grouped_dataset(
             os.path.join(base, "train_alphapose"))
+        self.masks = make_grouped_dataset(os.path.join(base, "train_C")) \
+            if self.use_mask else None
         if not self.is_train:
             chunk = opt.n_frames_pre_load_test
             self.sequences, self.clean, self.noise = (
@@ -314,6 +312,10 @@ class DanceDataset(AnimationDatasetBase):
                                           for p in poses])
         else:
             out["BP_all"] = np.stack([self._maps(p, True) for p in poses])
+        if self.use_mask:
+            out["mask_all"] = [read_bytes(self.masks[seq][i]) for i in idxs]
+            out["mask_inv"] = np.stack(
+                [image_inverse(self.load_size, affine)] * n_frames)
         if not self.is_train:
             out["gen_kps_clean"] = np.concatenate(
                 [self._norm_kp(p) for p in poses], axis=1)

@@ -26,6 +26,8 @@ them. So:
 and a PNG of those layouts to `read_png`, by the file's first bytes; any
 other file (BMP, WEBP, the PNG layouts no head writes) goes to PIL,
 imported in the function, the reader gfla_tpu's metrics use for all.
+`decode_images` does the same from the files' bytes, also to PIL's grey
+(the dance masks).
 A JPEG that does not decode, or a missing nvJPEG, raises with the file's
 name; nothing falls back to another decoder.
 """
@@ -42,6 +44,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from gfla_tpu_torch.data.resample import convert_l
 
 QUALITY = 75  # PIL's and imageio's JPEG default, with 4:2:0 chroma
 
@@ -437,15 +441,16 @@ def read_png(data) -> Optional[np.ndarray]:
     return img[..., 0] if n == 1 else img
 
 
-def _pil_read(path: str, mode: str) -> np.ndarray:
-    """A file of a layout no head writes, through PIL: `convert("RGB")` for
-    mode "RGB", and for "stored" the channels imageio's reader gives
-    (a palette image in its palette's mode)."""
+def _pil_read(path, mode: str) -> np.ndarray:
+    """A file (a path or a file object) of a layout no head writes, through
+    PIL: `convert(mode)` for mode "RGB" or "L", and for "stored" the
+    channels imageio's reader gives (a palette image in its palette's
+    mode)."""
     from PIL import Image
 
     with Image.open(path) as img:
-        if mode == "RGB":
-            img = img.convert("RGB")
+        if mode in ("RGB", "L"):
+            img = img.convert(mode)
         elif img.mode == "P":
             img = img.convert(img.palette.mode)
         return np.array(img)
@@ -461,35 +466,52 @@ def _as_rgb(arr: np.ndarray) -> np.ndarray:
 
 def read_images(paths: Sequence[str], device,
                 mode: str = "RGB") -> List[torch.Tensor]:
-    """Image files -> uint8 tensors on `device`, in order: with mode "RGB"
-    each is (H, W, 3), as PIL's `Image.open(p).convert("RGB")` gives
-    (gfla_tpu's FID and LPIPS readers); with mode "stored", (H, W) for a
-    grey image and (H, W, 4) for RGBA, as `imageio.imread` gives (its
-    reconstruction metrics). The JPEGs decode in one `decode_jpeg_batch`
-    (nvJPEG on the card, PIL on the CPU); the PNGs through `read_png`."""
-    if mode not in ("RGB", "stored"):
-        raise ValueError(f"read_images: mode {mode!r}, want 'RGB' or "
-                         "'stored'")
-    device = torch.device(device)
-    out: List[Optional[torch.Tensor]] = [None] * len(paths)
-    jpegs = []
-    for i, path in enumerate(paths):
+    """Image files -> uint8 tensors on `device`, in order, as
+    `decode_images` gives them from the files' bytes."""
+    datas = []
+    for path in paths:
         with open(path, "rb") as f:
-            data = f.read()
-        if data[:2] == b"\xff\xd8":
-            jpegs.append((i, np.frombuffer(data, np.uint8)))
+            datas.append(np.frombuffer(f.read(), np.uint8))
+    return decode_images(datas, paths, device, mode)
+
+
+def decode_images(datas, names: Sequence[str], device,
+                  mode: str = "RGB") -> List[torch.Tensor]:
+    """Image files' bytes (uint8 arrays) -> uint8 tensors on `device`, in
+    order: with mode "RGB" each is (H, W, 3), as PIL's
+    `Image.open(f).convert("RGB")` gives (gfla_tpu's FID and LPIPS
+    readers); with "L", (H, W), as `convert("L")` gives (the dance masks);
+    with "stored", (H, W) for a grey image and (H, W, 4) for RGBA, as
+    `imageio.imread` gives (its reconstruction metrics). The JPEGs decode
+    in one `decode_jpeg_batch` (nvJPEG on the card, PIL on the CPU); the
+    PNGs through `read_png`; "L" then takes PIL's grey conversion
+    (`convert_l`, the identity on grey). `names` label the errors."""
+    if mode not in ("RGB", "L", "stored"):
+        raise ValueError(f"decode_images: mode {mode!r}, want 'RGB', 'L' "
+                         "or 'stored'")
+    device = torch.device(device)
+    out: List[Optional[torch.Tensor]] = [None] * len(datas)
+    jpegs = []
+    for i, data in enumerate(datas):
+        if bytes(data[:2]) == b"\xff\xd8":
+            jpegs.append(i)
             continue
-        arr = read_png(data) if data.startswith(PNG_SIGNATURE) else None
+        arr = read_png(data) if bytes(data[:8]) == PNG_SIGNATURE else None
         if arr is None:
-            arr = _pil_read(path, mode)
+            arr = _pil_read(io.BytesIO(bytes(data)), mode)
         elif mode == "RGB":
             arr = _as_rgb(arr)
-        out[i] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        img = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        if mode == "L" and img.dim() == 3:
+            img = convert_l(img[..., :3])
+        out[i] = img
     if jpegs:
-        decoded = decode_jpeg_batch([d for _, d in jpegs], device,
-                                    [paths[i] for i, _ in jpegs])
-        for (i, data), img in zip(jpegs, decoded):
-            if mode == "stored" and _jpeg_frame(data)[2] == 1:
+        decoded = decode_jpeg_batch([datas[i] for i in jpegs], device,
+                                    [names[i] for i in jpegs])
+        for i, img in zip(jpegs, decoded):
+            if mode == "L":
+                img = convert_l(img)
+            elif mode == "stored" and _jpeg_frame(datas[i])[2] == 1:
                 img = img[..., 0].contiguous()  # grey, as stored
             out[i] = img
     return out

@@ -1,6 +1,8 @@
 """The datasets' image passes on tensors. `pil_resize` is PIL's bilinear
 and bicubic resize (ShapeNet's images, through `resize_like_pil`;
-the face dataset's Canny input, after `convert_l`, PIL's `convert("L")`).
+the face dataset's Canny input, after `convert_l`, PIL's `convert("L")`;
+the dance dataset's iPER masks), and `pil_affine` PIL's bilinear affine
+transform (the masks' augmentation).
 `affine_resize_normalize`, for the pose and animation datasets, is an
 inverse affine warp, bilinear resize and [-1, 1] normalization in one
 batched function (torch twin of gfla_tpu's native pass,
@@ -199,3 +201,47 @@ def convert_l(rgb: torch.Tensor) -> torch.Tensor:
     c = rgb.to(torch.int32)
     return ((c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471
              + 0x8000) >> 16).to(torch.uint8)
+
+
+def pil_affine(images: torch.Tensor, matrices, fill=0) -> torch.Tensor:
+    """uint8 (N, H, W, C) -> uint8 (N, H, W, C) on the images' device: PIL's
+    `transform(size, AFFINE, matrix, BILINEAR, fillcolor=fill)` of each
+    image at its own size (libImaging/Geometry.c, affine_transform and
+    bilinear_filter*), `matrices` (N, 6) or (N, 2, 3), each output pixel's
+    map to the input. In float64, as PIL's doubles, in PIL's order:
+    output pixel (x, y) reads the input at (a0 xc + a1 yc) + a2 and
+    (a3 xc + a4 yc) + a5 with xc, yc = x + 0.5, y + 0.5; a point outside
+    [0, W) x [0, H) is the fill; inside, shifted back by 0.5, its four
+    neighbours are blended along x then y, v = a + (b - a) d, the columns
+    and the first row clamped to the image, the second row replaced by the
+    first past the last; the blend is truncated to uint8."""
+    if images.dtype != torch.uint8 or images.dim() != 4:
+        raise ValueError(f"pil_affine: want uint8 (N, H, W, C), got "
+                         f"{images.dtype} {tuple(images.shape)}")
+    N, H, W, C = images.shape
+    f64 = dict(dtype=torch.float64, device=images.device)
+    a = torch.as_tensor(matrices, **f64).reshape(N, 6, 1, 1).unbind(1)
+    xc = torch.arange(W, **f64).view(1, 1, W) + 0.5
+    yc = torch.arange(H, **f64).view(1, H, 1) + 0.5
+    xin = a[0] * xc + a[1] * yc + a[2]                  # (N, H, W)
+    yin = a[3] * xc + a[4] * yc + a[5]
+    inside = (xin >= 0) & (xin < W) & (yin >= 0) & (yin < H)
+    xin, yin = xin - 0.5, yin - 0.5
+    x0f, y0f = torch.floor(xin), torch.floor(yin)
+    dx, dy = (xin - x0f)[..., None], (yin - y0f)[..., None]
+    x0, y0 = x0f.long(), y0f.long()
+    flat = images.reshape(N * H * W, C)
+    base = (torch.arange(N, device=images.device) * (H * W)).view(N, 1, 1)
+
+    def row(yy):
+        at = base + yy.clamp(0, H - 1) * W
+        left = flat[at + x0.clamp(0, W - 1)].double()
+        right = flat[at + (x0 + 1).clamp(0, W - 1)].double()
+        return left + (right - left) * dx
+
+    v1 = row(y0)
+    v2 = torch.where(((y0 + 1 >= 0) & (y0 + 1 < H))[..., None],
+                     row(y0 + 1), v1)
+    out = (v1 + (v2 - v1) * dy).to(torch.uint8)  # truncation, as PIL's cast
+    fill = torch.as_tensor(fill, dtype=torch.uint8, device=images.device)
+    return torch.where(inside[..., None], out, fill.expand(C))

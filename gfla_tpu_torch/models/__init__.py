@@ -1,13 +1,14 @@
 """Network registry (counterpart of gfla_tpu/models/__init__.py): the pose
 and ShapeNet generators and their stage-1 flow heads, the recurrent face and
 dance generators, the keypoint head's Motion Extraction Net, and the
-residual and temporal discriminators."""
+residual, temporal and patch discriminators."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from gfla_tpu_torch.models.discriminators import (
+    PatchDiscriminator,
     ResDiscriminator,
     TemporalDiscriminator,
 )
@@ -29,6 +30,7 @@ GENERATORS: Dict[str, Any] = {"pose": PoseGenerator,
                                "dance": DanceGenerator,
                                "kpinput2d": KPInput2DGenerator}
 DISCRIMINATORS: Dict[str, Any] = {"res": ResDiscriminator,
+                                  "patch": PatchDiscriminator,
                                   "temporal": TemporalDiscriminator}
 
 

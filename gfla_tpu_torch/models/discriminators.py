@@ -1,9 +1,10 @@
 """Discriminators (NCHW), in the original GFLA's module layout.
 
-Counterpart of gfla_tpu/models/discriminators.py:26-106 (the original's
-discriminator.py:10-47, 100-140). Both end in a 1x1 conv to a logit map,
-with no sigmoid (they pair with the lsgan and hinge losses), spectral-normed
-whatever `use_spect` says, as in both.
+Counterpart of gfla_tpu/models/discriminators.py:26-146 (the original's
+discriminator.py:10-140). Each ends in a conv to a logit map, with no
+sigmoid (they pair with the lsgan and hinge losses); the residual and
+temporal ones end in a 1x1 conv spectral-normed whatever `use_spect` says,
+as in both.
 
 * ResDiscriminator: a stack of ResBlockEncoders. Keys: `block0`,
   `encoder{i}`, `conv`.
@@ -14,6 +15,11 @@ whatever `use_spect` says, as in both.
   (discriminators.py:88-91), not the original's c * T + t: the keys are the
   original's, but `encoder0`'s input channels are in gfla_tpu's order, so
   gfla_tpu's parameters load as they are (convert.py).
+* PatchDiscriminator: the 70x70 PatchGAN, registered as `patch` (no task
+  uses it, as in gfla_tpu): 4x4 convs without bias, stride 2 then 1,
+  LeakyReLU between, in
+  `model` (keys `model.0`, `model.2`, ...; with `use_coord` each conv
+  takes the coordinate channels first, keys `model.{i}.conv.*`).
 """
 
 from __future__ import annotations
@@ -21,7 +27,12 @@ from __future__ import annotations
 from torch import nn
 
 from gfla_tpu_torch.nn.blocks import ResBlock3DEncoder, ResBlockEncoder
-from gfla_tpu_torch.nn.norms import SpectralConv2d, get_activation
+from gfla_tpu_torch.nn.norms import (
+    SpectralConv2d,
+    SpectralNormed,
+    add_coords,
+    get_activation,
+)
 
 
 def _mult(i: int, ndf: int, img_f: int) -> int:
@@ -86,3 +97,57 @@ class TemporalDiscriminator(nn.Module):
         for i in range(self.layers - 2):
             out = getattr(self, f"encoder{i}")(out, update_stats)
         return self.conv(self.nonlinearity(out), update_stats)
+
+
+class CoordConv(nn.Module):
+    """The coordinate channels (`add_coords`), then `conv` (the original's
+    CoordConv, base_function.py:315-332)."""
+
+    def __init__(self, conv: nn.Module):
+        super().__init__()
+        self.conv = conv
+
+    def forward(self, x, update_stats=None):
+        x = add_coords(x)
+        if isinstance(self.conv, SpectralNormed):
+            return self.conv(x, update_stats)
+        return self.conv(x)
+
+
+class PatchDiscriminator(nn.Module):
+    """gfla_tpu/models/discriminators.py:109-146 (the original's
+    discriminator.py:50-98): `layers` stride-2 convs (ndf * min(2^i,
+    img_f / ndf) channels), a stride-1 conv at the last width, and a
+    stride-1 conv to one channel; 4x4 kernels, zero padding 1, no bias,
+    spectral-normed with `use_spect`."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, img_f: int = 512,
+                 layers: int = 3, activation: str = "LeakyReLU",
+                 use_spect: bool = True, use_coord: bool = False):
+        super().__init__()
+
+        def conv(cin, cout, stride):
+            cin += 2 * use_coord
+            c = (SpectralConv2d(cin, cout, 4, stride, 1, bias=False)
+                 if use_spect else
+                 nn.Conv2d(cin, cout, 4, stride, 1, bias=False))
+            return CoordConv(c) if use_coord else c
+
+        seq = [conv(input_nc, ndf, 2), get_activation(activation)]
+        mult = 1
+        for i in range(1, layers):
+            mult_prev, mult = mult, _mult(i, ndf, img_f)
+            seq += [conv(ndf * mult_prev, ndf * mult, 2),
+                    get_activation(activation)]
+        seq += [conv(ndf * mult, ndf * mult, 1), get_activation(activation),
+                conv(ndf * mult, 1, 1)]
+        self.model = nn.Sequential(*seq)
+
+    def forward(self, x, update_stats=None):
+        """x (B, C, H, W) -> logits (B, 1, H', W'); `update_stats` as
+        ResDiscriminator's."""
+        for layer in self.model:
+            x = (layer(x, update_stats)
+                 if isinstance(layer, (SpectralNormed, CoordConv))
+                 else layer(x))
+        return x

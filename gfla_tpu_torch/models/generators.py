@@ -73,7 +73,7 @@ from gfla_tpu_torch.nn.blocks import (
     ResBlockDecoder,
     ResBlocks,
 )
-from gfla_tpu_torch.nn.norms import recompute_keeping_u, spectral_modules
+from gfla_tpu_torch.nn.norms import recompute_keeping_u
 
 
 def _mult(i: int, ngf: int, img_f: int) -> int:
@@ -494,13 +494,12 @@ class _AnimationGenerator(nn.Module):
         ref_features = self.source_reference(p_ref)
         frame_step, per_frame = self.chunk_setup(bp_frames, p_ref, bp_ref,
                                                  ref_features)
-        spectral = spectral_modules(self) if remat else None
         gen, flows, masks, prev = [], [], [], []
         for t in range(bp_frames.shape[1]):
             bp = _channels_last(bp_frames[:, t])
             args = (p_prev, bp_prev, bp, *(x[:, t] for x in per_frame))
             if remat:
-                img, f, m = recompute_keeping_u(spectral, frame_step, *args)
+                img, f, m = recompute_keeping_u(self, frame_step, *args)
             else:
                 img, f, m = frame_step(*args)
             gen.append(img)

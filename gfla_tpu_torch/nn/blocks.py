@@ -98,6 +98,15 @@ class ResBlockEncoder(nn.Module):
                 + _run(self.shortcut, x, update_stats))
 
 
+class AvgPool3d(nn.AvgPool3d):
+    """nn.AvgPool3d computed in float32 and rounded once to the input's
+    type: what cuDNN-free CUDA does for a bf16 input (float sums, one
+    rounding), on every device; torch's CPU pool takes no bf16."""
+
+    def forward(self, x):
+        return super().forward(x.float()).to(x.dtype)
+
+
 class ResBlock3DEncoder(nn.Module):
     """The temporal discriminator's 3-D residual block on NCDHW input
     (gfla_tpu/nn/blocks.py:212-238, the original's base_function.py:43-67,
@@ -117,7 +126,7 @@ class ResBlock3DEncoder(nn.Module):
             conv3d(hidden_nc, output_nc, (3, 4, 4), (1, 2, 2), (0, 1, 1),
                    use_spect))
         self.shortcut = nn.Sequential(
-            nn.AvgPool3d((3, 2, 2), (1, 2, 2)),
+            AvgPool3d((3, 2, 2), (1, 2, 2)),
             conv3d(input_nc, output_nc, 1, 1, 0, use_spect))
 
     def forward(self, x, update_stats=None):

@@ -243,33 +243,33 @@ def init_weights(module: nn.Module, generator: torch.Generator,
     return module
 
 
-def spectral_modules(module: nn.Module):
-    """The spectral-norm convolutions under `module`."""
-    return [m for m in module.modules() if isinstance(m, SpectralNormed)]
-
-
-def recompute_keeping_u(modules, fn, *args):
+def recompute_keeping_u(module: nn.Module, fn, *args):
     """`fn(*args)` under torch.utils.checkpoint (its activations recomputed
-    in the backward), with the spectral-norm convs in `modules` seeing the
-    u they saw in the forward: the recomputation starts from the u the
-    forward started from and leaves the u stored since, so u advances once
-    per forward, as in gfla_tpu's jax.checkpoint (and the values and
-    gradients are those of the call without it)."""
+    in the backward), the recomputation seeing every parameter and buffer
+    of `module`'s modules as the forward saw them: the spectral-norm u the
+    forward started from, and under a bf16 compute dtype the bf16 copies
+    `train.precision.cast_call` had swapped in, though the call that swapped
+    them has returned by the backward. It leaves each as it found it, so u
+    advances once per forward, as in gfla_tpu's jax.checkpoint, which
+    recomputes inside the cast (the values and gradients are those of the
+    call without it)."""
     from torch.utils.checkpoint import checkpoint
 
-    before = [(m.weight_u, m.weight_v) for m in modules]
+    slots = [(store, name) for m in module.modules()
+             for store in (m._parameters, m._buffers) for name in store]
+    before = [store[name] for store, name in slots]
     runs = []
 
     def run(*args):
-        after = [(m.weight_u, m.weight_v) for m in modules]
-        for m, (u, v) in zip(modules, before):
-            m.weight_u, m.weight_v = u, v
+        after = [store[name] for store, name in slots]
+        for (store, name), t in zip(slots, before):
+            store[name] = t
         try:
             return fn(*args)
         finally:  # also when the recomputation stops early, by raising
             if runs:  # the recomputation in the backward
-                for m, (u, v) in zip(modules, after):
-                    m.weight_u, m.weight_v = u, v
+                for (store, name), t in zip(slots, after):
+                    store[name] = t
             runs.append(1)
 
     return checkpoint(run, *args, use_reentrant=False)

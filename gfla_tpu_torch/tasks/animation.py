@@ -33,7 +33,16 @@ passed in. Checkpoints are `{iter}_net_{G,D,D_V}.pth`. Serving
 (`test_step`, `run_test`) generates chunk after chunk, the last frame and
 skeleton carried into the next.
 
-Only float32: `--compute_dtype=bfloat16` raises (ROADMAP.md, queue 1).
+`--compute_dtype=bfloat16` follows gfla_tpu's mixed precision
+(tasks/animation.py:160-161, 227-260): G over the chunk, D and D_V run in
+bf16 through `train.precision.cast_call` from the f32 parameters, which keep
+their f32 gradients, Adam state and checkpoints; their outputs (frames,
+flows, masks, logits) come back in f32, and so the carry between chunks,
+and the spectral-norm u they store is kept in f32. Under `--remat` each
+frame is recomputed on the same bf16 copies (`nn.norms.recompute_keeping_u`).
+The frozen VGG19 is cast to bf16 once, here. Serving (`test_step`) runs G's
+f32 parameters whatever the flag says, as gfla_tpu's animation test step
+does (tasks/animation.py:495-514).
 """
 
 from __future__ import annotations
@@ -42,10 +51,15 @@ import numpy as np
 import torch
 
 from gfla_tpu_torch.data.animation_data import DIST_MAX
-from gfla_tpu_torch.data.image_io import decode_jpeg_batch
+from gfla_tpu_torch.data.image_io import decode_images, decode_jpeg_batch
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
 from gfla_tpu_torch.data.raster import canny_l1
-from gfla_tpu_torch.data.resample import convert_l, pil_resize, resample_images
+from gfla_tpu_torch.data.resample import (
+    convert_l,
+    pil_affine,
+    pil_resize,
+    resample_images,
+)
 from gfla_tpu_torch.losses import (
     MultiAffineRegularizationLoss,
     PerceptualCorrectness,
@@ -66,12 +80,8 @@ from gfla_tpu_torch.runtime import select_device
 from gfla_tpu_torch.tasks.pose import PoseTask
 from gfla_tpu_torch.tasks.testing import run_test_animation
 from gfla_tpu_torch.train import checkpoint
+from gfla_tpu_torch.train.precision import cast_call, compute_dtype
 from gfla_tpu_torch.train.state import make_optimizer
-
-BF16_TODO = ("--compute_dtype=bfloat16 on the animation heads is not ported "
-             "yet (ROADMAP.md, queue 1, bf16 for the animation heads); they "
-             "run in float32")
-
 
 BLACK, WHITE = (0.0, 0.0, 0.0), (255.0, 255.0, 255.0)
 CANNY_LOW, CANNY_HIGH = 100, 200  # face_dataset.py's cv2.Canny thresholds
@@ -95,16 +105,39 @@ def prepare_batch(batch, device, opt=None):
             if isinstance(value, np.ndarray) and value.dtype == np.float32}
 
 
+def _bicubic_at(greys, size):
+    """uint8 (H0, W0) grey images on one device -> uint8 (N, H, W) at
+    `size`: PIL's resize(BICUBIC), one resize per input size."""
+    out = torch.empty((len(greys), *size), dtype=torch.uint8,
+                      device=greys[0].device)
+    for shape in sorted({tuple(g.shape) for g in greys}):
+        idx = [i for i, g in enumerate(greys) if tuple(g.shape) == shape]
+        out[idx] = pil_resize(torch.stack([greys[i] for i in idx])[..., None],
+                              size, "bicubic")[..., 0]
+    return out
+
+
 def _grey_at(images, size):
     """Decoded uint8 (H0, W0, 3) frames -> uint8 (N, H, W) grey at `size`:
-    PIL's convert("L") then resize(BICUBIC), one resize per input size."""
-    out = torch.empty((len(images), *size), dtype=torch.uint8,
-                      device=images[0].device)
-    for shape in sorted({tuple(img.shape) for img in images}):
-        idx = [i for i, img in enumerate(images) if tuple(img.shape) == shape]
-        grey = convert_l(torch.stack([images[i] for i in idx]))
-        out[idx] = pil_resize(grey[..., None], size, "bicubic")[..., 0]
-    return out
+    PIL's convert("L") then resize(BICUBIC)."""
+    return _bicubic_at([convert_l(img) for img in images], size)
+
+
+def prepare_masks(batch, device, size):
+    """dance's --use_mask masks -> float32 (B, T, 1, H, W) on `device`:
+    each read as PIL reads it in grey (`decode_images`), resized to `size` by
+    PIL's bicubic, warped by PIL's bilinear affine transform with black fill
+    (`pil_affine`, the frame's augmentation matrix), / 255 as numpy
+    divides: gfla_tpu's `transform_image(..., normalize=False)` channel 0
+    (gfla_tpu/data/animation_data.py:313-317)."""
+    B, T = len(batch["mask_all"]), len(batch["mask_all"][0])
+    grey = _bicubic_at(decode_images(
+        [d for clip in batch["mask_all"] for d in clip],
+        [f"the mask of {p}" for clip in batch["gen_paths"] for p in clip],
+        device, "L"), size)
+    inverse = torch.from_numpy(batch["mask_inv"].reshape(B * T, 6))
+    warped = pil_affine(grey[..., None], inverse.to(device), 0)
+    return RGB_LEVELS.to(device)[warped.long()].reshape(B, T, 1, *size)
 
 
 def face_structure(edges, labels, dist, images, canny: bool):
@@ -134,7 +167,8 @@ def prepare_video_batch(batch, device, opt):
     dance's heatmaps encoded from the joints (missing at 0) beside the drawn
     limbs, as gfla_tpu's train.py does, or its host maps moved; face's
     structure built by `face_structure`, the reference being the first
-    frame. Everything after the decode is the same code on every device."""
+    frame; dance's --use_mask masks by `prepare_masks`. Everything after
+    the decode is the same code on every device."""
     frames = batch["P_all"]
     B, T = len(frames), len(frames[0])
     H, W = ((opt.load_size, opt.load_size) if isinstance(opt.load_size, int)
@@ -174,6 +208,8 @@ def prepare_video_batch(batch, device, opt):
             not getattr(opt, "no_canny_edge", False)).movedim(-1, -3)
         out.update(BP_all=bp, ref_image=out["P_all"][:, 0],
                    ref_skeleton=bp[:, 0])
+    if "mask_all" in batch:
+        out["mask_all"] = prepare_masks(batch, device, (H, W))
     for key in ("gen_kps_clean", "gen_kps_noise"):
         if key in batch:
             out[key] = dev(key)
@@ -229,9 +265,7 @@ class AnimationTaskBase:
 
     def __init__(self, opt, device: torch.device | None = None):
         self.opt = opt
-        if getattr(opt, "compute_dtype", "float32") != "float32":
-            raise NotImplementedError(BF16_TODO)
-        self.dtype = torch.float32
+        self.dtype = compute_dtype(getattr(opt, "compute_dtype", "float32"))
         self.is_train = getattr(opt, "isTrain", False)
         F = opt.frames_D_V
         if self.is_train and F > opt.max_frames_per_gpu:
@@ -273,7 +307,7 @@ class AnimationTaskBase:
         for net in (self.net_d, self.net_d_v):
             init_weights(net, gen)
             net.to(self.device)
-        self.vgg = load_vgg19().to(self.device)
+        self.vgg = load_vgg19().to(self.device, self.dtype)
         self.correctness = PerceptualCorrectness(self.vgg)
         self.regularization = MultiAffineRegularizationLoss(
             {int(k): v for k, v in kz.items()})
@@ -348,9 +382,9 @@ class AnimationTaskBase:
         p_step = chunk["P_step"]
         T = p_step.shape[1]
         i_d, s_d, i_g, s_g = indices or self.draw_indices(T)
-        gen, flows, _, prev = self.net_g(
-            chunk["BP_step"], chunk["ref_image"], chunk["ref_skeleton"],
-            chunk["pre_image"], chunk["pre_skeleton"],
+        gen, flows, _, prev = cast_call(
+            self.net_g, self.dtype, chunk["BP_step"], chunk["ref_image"],
+            chunk["ref_skeleton"], chunk["pre_image"], chunk["pre_skeleton"],
             remat=getattr(opt, "remat", False))
         fake = gen.detach()
 
@@ -358,12 +392,16 @@ class AnimationTaskBase:
         for net in (self.net_d, self.net_d_v):
             net.requires_grad_(True)
         self.opt_d.zero_grad(set_to_none=True)
-        d_real = self.net_d(p_step[:, i_d], update_stats=True)
-        d_fake = self.net_d(fake[:, i_d], update_stats=True)
+        d_real = cast_call(self.net_d, self.dtype, p_step[:, i_d],
+                           update_stats=True)
+        d_fake = cast_call(self.net_d, self.dtype, fake[:, i_d],
+                           update_stats=True)
         loss_d = 0.5 * (adversarial_loss(d_real, True, True, opt.gan_mode)
                         + adversarial_loss(d_fake, False, True, opt.gan_mode))
-        dv_real = self.net_d_v(self.dv_input(p_step, s_d), update_stats=True)
-        dv_fake = self.net_d_v(self.dv_input(fake, s_d), update_stats=True)
+        dv_real = cast_call(self.net_d_v, self.dtype,
+                            self.dv_input(p_step, s_d), update_stats=True)
+        dv_fake = cast_call(self.net_d_v, self.dtype,
+                            self.dv_input(fake, s_d), update_stats=True)
         loss_dv = 0.5 * (adversarial_loss(dv_real, True, True, opt.gan_mode)
                          + adversarial_loss(dv_fake, False, True,
                                             opt.gan_mode))
@@ -406,10 +444,12 @@ class AnimationTaskBase:
             "regularization_r": self.regularization(flow_r) * T
             * opt.lambda_regularization,
             "ad_gen": adversarial_loss(
-                self.net_d(gen[:, i_g], update_stats=False), True, False,
+                cast_call(self.net_d, self.dtype, gen[:, i_g],
+                          update_stats=False), True, False,
                 opt.gan_mode) * opt.lambda_g,
             "ad_gen_v": adversarial_loss(
-                self.net_d_v(self.dv_input(gen, s_g), update_stats=False),
+                cast_call(self.net_d_v, self.dtype, self.dv_input(gen, s_g),
+                          update_stats=False),
                 True, False, opt.gan_mode) * opt.lambda_g,
         }
         total = sum(logs.values())

@@ -42,11 +42,7 @@ from gfla_tpu_torch.losses import (
 )
 from gfla_tpu_torch.models import define_d, define_g
 from gfla_tpu_torch.models.vgg import load_vgg19
-from gfla_tpu_torch.nn.norms import (
-    init_weights,
-    recompute_keeping_u,
-    spectral_modules,
-)
+from gfla_tpu_torch.nn.norms import init_weights, recompute_keeping_u
 from gfla_tpu_torch.options import (
     StoreDictKeyPair,
     StoreList,
@@ -226,8 +222,8 @@ class PoseTask:
         if not getattr(self.opt, "remat", False):
             return cast_call(self.net_g, self.dtype, p1, bp1, bp2)
         return recompute_keeping_u(
-            spectral_modules(self.net_g),
-            lambda *a: cast_call(self.net_g, self.dtype, *a), p1, bp1, bp2)
+            self.net_g, lambda *a: cast_call(self.net_g, self.dtype, *a),
+            p1, bp1, bp2)
 
     def d_forward(self, x, update_stats):
         """D's logits in f32, computed in the compute dtype."""

@@ -8,8 +8,11 @@ their fixed widths (their bottleneck 2x2, so no instance norm gives an exact
 the port's seeded init with gfla_tpu's own converters (dance's D_V from
 gfla_tpu's init with the port's, since gfla_tpu's converter reorders its
 fold), the flow heads moved off the resampler's kinks. Held:
-- one chunk step of each head against gfla_tpu's `_chunk_step_impl`, its
-  four random indices drawn by gfla_tpu and passed to the port: the 11
+- one chunk step of each head against gfla_tpu's `_chunk_step_impl`, and
+  one of dance with `--use_mask` and a seeded mask, hard and soft, that
+  weights its correctness losses (`lambda_correct` 2.0 as gfla_tpu sets
+  it), its four random indices drawn by gfla_tpu and passed to the
+  port: the 11
   logged losses and total_G within 1e-4 relative; every G, D and D_V
   gradient within 1e-4 x its net's largest of gfla_tpu's (Adam's first
   moment, beta1 = 0); D's and D_V's stored u within 1e-5; the carry (last
@@ -40,6 +43,7 @@ from gfla_tpu.convert import convert_face_generator as jax_convert_face
 from gfla_tpu.convert import convert_res_discriminator as jax_convert_res
 from gfla_tpu.tasks import create_task as jax_create_task
 from gfla_tpu.tasks.animation import AnimationTrainState
+from gfla_tpu.train.precision import to_f32
 from gfla_tpu_torch import convert
 from gfla_tpu_torch.tasks.animation import DanceTask, FaceTask
 
@@ -119,13 +123,25 @@ def _port(batch):
             for k, v in _f32(batch).items()}
 
 
+def _mask(frames, seed):
+    """A (B, N, H, W, 1) person mask in gfla_tpu's layout: a hard block,
+    soft values around it, and zeros."""
+    rng = np.random.RandomState(seed)
+    mask = np.clip(rng.rand(B, frames, H, H, 1) * 1.5 - 0.25, 0, 1)
+    mask[:, :, H // 4:3 * H // 4, H // 3:2 * H // 3] = 1.0
+    return mask
+
+
 def _first_chunk(batch):
-    return {"P_step": batch["P_all"], "BP_step": batch["BP_all"],
-            "ref_image": batch["ref_image"],
-            "ref_skeleton": batch["ref_skeleton"],
-            "pre_image": batch["ref_image"],
-            "pre_skeleton": batch["ref_skeleton"],
-            "pre_gt_image": batch["ref_image"]}
+    chunk = {"P_step": batch["P_all"], "BP_step": batch["BP_all"],
+             "ref_image": batch["ref_image"],
+             "ref_skeleton": batch["ref_skeleton"],
+             "pre_image": batch["ref_image"],
+             "pre_skeleton": batch["ref_skeleton"],
+             "pre_gt_image": batch["ref_image"]}
+    if "mask_all" in batch:
+        chunk["mask_step"] = batch["mask_all"]
+    return chunk
 
 
 def _off_the_kinks(task, seed=33):
@@ -168,12 +184,13 @@ def _dv_state_dict(kind, params, stats):
 
 def _pair(kind, seed=0, **over):
     """The port's task at its seeded init (flow heads off the kinks), and
-    gfla_tpu's task and state holding the same weights, VGG19 included."""
+    gfla_tpu's task and state holding the same weights, VGG19 included (in
+    f32 on the port's side: the port's task casts its own copy)."""
     opt = _opt(kind, seed=seed, **over)
     task = _off_the_kinks((FaceTask if kind == "face" else DanceTask)(opt))
     task_j = jax_create_task(_opt(kind, seed=seed, **over))
     task.vgg.load_state_dict(convert.vgg19_state_dict(
-        jax.device_get(task_j.vgg_params)), strict=True)
+        jax.device_get(to_f32(task_j.vgg_params))), strict=True)
     d = jax_convert_res(task.net_d.state_dict(), layers=D_LAYERS)
     if kind == "face":
         dv = jax_convert_res(task.net_d_v.state_dict(), layers=D_LAYERS)
@@ -218,9 +235,13 @@ def _chunk_step(task_j, state, chunk, rng):
                                              _dev(rng)))
 
 
-def _chunk_pair(kind):
-    task, task_j, state = _pair(kind)
-    batch = _f32(_clip(kind, FRAMES[kind], 1))
+def _chunk_pair(kind, masked=False):
+    """With `masked`, --use_mask and a mask in the clip."""
+    task, task_j, state = _pair(kind, use_mask=masked)
+    batch = _clip(kind, FRAMES[kind], 1)
+    if masked:
+        batch["mask_all"] = _mask(FRAMES[kind], 2)
+    batch = _f32(batch)
     rng = jax.random.PRNGKey(5)
     state2, logs_j, carry_j = _chunk_step(task_j, state,
                                           _first_chunk(batch), rng)
@@ -238,7 +259,12 @@ def dance_pair():
     return _chunk_pair("dance")
 
 
-@pytest.fixture(params=["face", "dance"])
+@pytest.fixture(scope="module")
+def dance_mask_pair():
+    return _chunk_pair("dance", masked=True)
+
+
+@pytest.fixture(params=["face", "dance", "dance_mask"])
 def chunk_pair(request):
     return request.getfixturevalue(f"{request.param}_pair")
 
@@ -296,6 +322,7 @@ def test_chunk_step_matches_gfla_tpu(chunk_pair):
     kind, task, _, _, state2, logs_j, carry_j, batch, idx = chunk_pair
     task = copy.deepcopy(task)
     logs, carry = task.train_chunk(_first_chunk(_port(batch)), idx)
+    assert task.opt.lambda_correct == (2.0 if "mask_all" in batch else 5.0)
     _hold_logs(logs, logs_j, task)
     _hold_grads(kind, task, state2)
     assert _hold_u(kind, task, state2) == 2 * (3 * D_LAYERS + 1)

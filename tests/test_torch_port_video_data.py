@@ -20,8 +20,8 @@ gfla_tpu's train.py prepare:
 The cases: dance iper and fashion in training (augmentation on, the device
 encode and --no_device_encode), dance at test time, face in training with
 and without --no_canny_edge and --no_dist_map, and face at test time.
-Also: the refusal of --use_mask with --dataset_mode=dance, the loader's
-batches, and the streaming test on the CPU through both CLIs.
+Also: the loader's batches, and the streaming test on the CPU through both
+CLIs (`--use_mask` is tests/test_torch_port_use_mask.py's).
 """
 
 import argparse
@@ -157,13 +157,6 @@ def test_samples_after_prepare_match_gfla_tpu(trees, case):
         assert (got["BP_all"][0, :, 0].numpy() > 0).sum() \
             > (raw["edges"] > 0).sum()
     assert moved == (is_train and kind == "dance")
-
-
-def test_dance_refuses_use_mask(trees):
-    opt = DanceDataset.apply_defaults(
-        _opt(trees["dance"], "train", use_mask=True), True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*use_mask"):
-        DanceDataset(opt)
 
 
 def test_loader_keeps_bytes_and_the_test_order(trees):
