@@ -91,6 +91,17 @@ Phases, each failing the run (non-zero exit) on the first error:
      BF16_STEP_HOLD; 6b's f32 step for the bf16 rule), its peak memory; one
      f32 step at --kernel_size 2=4,3=9 (k=4 and k=9 on the warp kernels'
      run-time instance) against the plain path by phase 6's rule.
+ 10b. data parallel (gfla_tpu_torch.parallel) on phase 6's full-width
+     pose task: a world of one under NCCL, from torchrun's variables: the
+     kernel-path step timed without a group and with one, then one untimed
+     step in which allreduce_grads hands back every gradient bitwise, its
+     own ms on G's and D's gradients; two plain-path steps under deterministic algorithms with
+     the group and two without, bitwise equal (every loss, parameter, u and
+     Adam moment); the training CLI's main with --distributed in a world of
+     one, two steps counted as path ddp_train; where the machine has two
+     cards, two spawned ranks' batch-8 SGD step held to one card's by
+     gfla_tpu's 8-vs-1 device rule and timed (else a line says it did not
+     run).
  11. disk data: a DeepFashion-layout tree (16 images of 256x176 a phase, 24
      train and 8 test pairs) and a Market-layout one (128x64) written
      through nvJPEG (image_io.encode_jpeg) and decoded back (PSNR >= 35 dB
@@ -2262,6 +2273,273 @@ def kernel_size_step():
     return counts
 
 
+DP_STEPS = 2      # (a): steps taken with the group of one and without it
+DP_TIMED = 5      # (a): kernel-path steps timed each way
+DP_RANKS = 2      # (c): ranks, where the machine has the cards
+DP_TIMEOUT = 300  # (c): seconds the spawned ranks may take, build included
+DP_SGD_LR = 1e-3  # (c): SGD in place of Adam, so that the step is the grad
+# (c): gfla_tpu's 8-vs-1 device rule (tests/test_train.py:148-208): under
+# DP_SHARE of a network's entries more than DP_DIVERGE x its largest
+# |gradient| apart, none more than DP_WORST
+DP_DIVERGE, DP_SHARE, DP_WORST = 2e-4, 0.005, 0.1
+
+
+def torchrun_env():
+    """torchrun's variables for a world of one on this host, a fresh
+    port."""
+    from gfla_tpu_torch.parallel import free_port
+
+    return dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(free_port()))
+
+
+def replica_state(task):
+    """Parameters, buffers (spectral-norm u) and Adam state of the task's
+    networks."""
+    out = {f"{tag}.{n}": t.detach().clone()
+           for tag, net in nets(task).items()
+           for n, t in (*net.named_parameters(), *net.named_buffers())}
+    for tag in ("opt_g", "opt_d")[:1 + hasattr(task, "opt_d")]:
+        for i, state in getattr(task, tag).state_dict()["state"].items():
+            out.update({f"{tag}.{i}.{k}": v.clone()
+                        for k, v in state.items() if torch.is_tensor(v)})
+    return out
+
+
+def sgd(task):
+    """The task's Adams replaced by plain SGD (its step is then the
+    gradient, as gfla_tpu's 8-vs-1 device test does)."""
+    task.opt_g = torch.optim.SGD(task.net_g.parameters(), lr=DP_SGD_LR)
+    if hasattr(task, "opt_d"):
+        task.opt_d = torch.optim.SGD(
+            [p for g in task.opt_d.param_groups for p in g["params"]],
+            lr=DP_SGD_LR)
+    return task
+
+
+def dp_grads(task):
+    """{net: {name: gradient}}, copied to the host."""
+    return {tag: {n: p.grad.detach().to("cpu", copy=True)
+                  for n, p in net.named_parameters() if p.grad is not None}
+            for tag, net in nets(task).items()}
+
+
+def dp_rank(device, state_path, out_dir):
+    """(c)'s rank: the full-width pose task loaded from `state_path`, one
+    SGD step on its block of the batch-8 batch, then DP_TIMED more, timed;
+    its gradients, logs, launches and times to `out_dir`."""
+    from gfla_tpu_torch import parallel
+    from gfla_tpu_torch.runtime import set_tf32
+    from gfla_tpu_torch.tasks import create_task
+
+    set_tf32(False)
+    at = parallel.world()
+    opt, ckpt = train_opt("--name=dp_rank")
+    task = create_task(opt, device)
+    for tag, sd in torch.load(state_path, weights_only=True).items():
+        nets(task)[tag].load_state_dict(sd)
+    sgd(task)
+    full = task.prepare_batch(deepfashion_batch(200))
+    rows = full["P1"].shape[0] // at.size
+    batch = {k: v[at.rank * rows:(at.rank + 1) * rows]
+             for k, v in full.items()}
+    reset_launch_counts()
+    logs = parallel.allreduce_mean(task.train_step(batch))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    grads = dp_grads(task)
+    times, _ = timed_steps(task, [batch] * DP_TIMED)
+    torch.save({"grads": grads, "counts": counts, "times": times,
+                "rows": rows,
+                "logs": {k: float(v) for k, v in logs.items()}},
+               os.path.join(out_dir, f"rank{at.rank}.pt"))
+    ckpt.cleanup()
+
+
+def dp_rule(what, one, two):
+    """gfla_tpu's 8-vs-1 device rule on one network's gradients; returns
+    (share above DP_DIVERGE, max) for the line."""
+    g1 = torch.cat([one[k].flatten() for k in sorted(one)]).double()
+    g2 = torch.cat([two[k].flatten() for k in sorted(one)]).double()
+    d = (g1 - g2).abs() / max(1e-6, g1.abs().max().item())
+    share, worst = (d > DP_DIVERGE).double().mean().item(), d.max().item()
+    check(one.keys() == two.keys() and share < DP_SHARE and worst < DP_WORST,
+          f"{what}: {share:.4%} of entries above {DP_DIVERGE:g} of max "
+          f"(bound {DP_SHARE:.1%}), max {worst:.3e} (bound {DP_WORST:g})")
+    return share, worst
+
+
+def phase_data_parallel(train):
+    """10b. data parallel (gfla_tpu_torch.parallel) on phase 6's full-width
+    pose task: (a) a world of one under NCCL (torchrun's variables, a free
+    port): DP_TIMED kernel-path steps without a group and with one, timed,
+    then one more with the group, untimed, in which allreduce_grads hands
+    back every gradient bitwise as it took it; the all-reduce's own ms on
+    G's and D's gradients; DP_STEPS steps with the
+    group and DP_STEPS without, each on the plain path under deterministic
+    algorithms (the warp backward's scatter adds in no fixed order), bitwise
+    equal: every loss, parameter, spectral-norm u and Adam moment. (b) the
+    training CLI's main with --distributed in a world of one: two steps,
+    counted as path ddp_train (2 launches of each warp kernel a step, as
+    train), one checkpoint set and loss log, the group left. (c) where the
+    machine has DP_RANKS cards: DP_RANKS spawned ranks each take their 4
+    rows of a batch-8 step with SGD in place of Adam, held to the one-rank
+    step here by gfla_tpu's 8-vs-1 device rule, the ranks' gradients
+    bitwise equal, then time DP_TIMED steps each; else a line says it did
+    not run."""
+    import gfla_tpu_torch.train.__main__ as train_cli
+    from gfla_tpu_torch import parallel
+    from gfla_tpu_torch.runtime import card_line
+
+    device = torch.device("cuda", 0)
+    state = train["state"]
+    batches = [state.prepare_batch(deepfashion_batch(200 + s))
+               for s in range(DP_STEPS)]
+    check(not parallel.active(), "a process group before phase 10b")
+
+    # (a) no group: the kernel path timed; the plain path's steps
+    solo = copy.deepcopy(state)
+    solo_ms, _ = timed_steps(solo, [batches[0]] * DP_TIMED)
+    del solo
+    plain = copy.deepcopy(state)
+    with plain_warp(), deterministic():
+        logs_solo = [plain.train_step(b) for b in batches]
+    want = replica_state(plain)
+    del plain
+
+    # (a) a world of one
+    with mock.patch.dict(os.environ, torchrun_env()):
+        parallel.init_world(parallel.env_world(), device)
+    try:
+        check(parallel.active() and parallel.world().size == 1,
+              "no world of one")
+        grouped = copy.deepcopy(state)
+        group_ms, _ = timed_steps(grouped, [batches[0]] * DP_TIMED)
+        reduce = parallel.allreduce_grads
+        calls, moved = [0], []
+
+        def checked_reduce(params):
+            params = list(params)
+            before = [p.grad.clone() for p in params if p.grad is not None]
+            reduce(params)
+            after = [p.grad for p in params if p.grad is not None]
+            calls[0] += 1
+            moved.extend(i for i, (a, b) in enumerate(zip(before, after))
+                         if not torch.equal(a, b))
+
+        # one more step, untimed, with every all-reduce's output checked
+        with mock.patch.object(parallel, "allreduce_grads", checked_reduce):
+            grouped.train_step(batches[0])
+        torch.cuda.synchronize()
+        check(calls[0] == 2 and not moved,
+              f"allreduce_grads: {calls[0]} calls in a step (2 expected), "
+              f"{len(moved)} gradients changed")
+        reduce_ms = {tag: cuda_ms(lambda net=net: reduce(net.parameters()))
+                     for tag, net in nets(grouped).items()}
+        grad_mb = {tag: sum(p.numel() for p in net.parameters()) * 4 / 1e6
+                   for tag, net in nets(grouped).items()}
+        del grouped
+        plain = copy.deepcopy(state)
+        with plain_warp(), deterministic():
+            logs_group = [plain.train_step(b) for b in batches]
+        got = replica_state(plain)
+        del plain
+    finally:
+        parallel.close_world()
+    same_logs = all(torch.equal(a[k], b[k]) for a, b in
+                    zip(logs_group, logs_solo) for k in a)
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    moments = sum(k.endswith(("exp_avg", "exp_avg_sq")) for k in want)
+    print(f"world of one under NCCL: {DP_STEPS} plain-path steps with the "
+          f"group and without, deterministic: losses "
+          f"{'bitwise equal' if same_logs else 'DIFFER'}; {len(want)} "
+          f"tensors (parameters, u, {moments} Adam moments), "
+          f"{len(differ)} differ; allreduce_grads handed back every kernel-"
+          f"path gradient of a step bitwise in its {calls[0]} calls")
+    check(same_logs and not differ and got.keys() == want.keys(),
+          f"the world of one moved {differ[:8]}")
+    print(f"pose step batch 8 at 256x256, kernel path: "
+          f"{statistics.median(solo_ms[1:]):.3f} ms without a group, "
+          f"{statistics.median(group_ms[1:]):.3f} ms in a world of one "
+          f"(steps {', '.join(f'{t:.1f}' for t in solo_ms)}; "
+          f"{', '.join(f'{t:.1f}' for t in group_ms)}); the all-reduce "
+          + ", ".join(f"{tag} {reduce_ms[tag]:.3f} ms for {grad_mb[tag]:.1f} "
+                      f"MB" for tag in reduce_ms))
+
+    # (b) the training CLI, --distributed, in a world of one
+    ckpt = tempfile.TemporaryDirectory()
+    args = ["--distributed", "--model=pose", "--dataset_mode=synthetic",
+            "--load_size=256", "--batchSize=8", "--gpu_ids=0",
+            "--max_iters=2", "--print_freq=1", "--nThreads=0",
+            f"--checkpoints_dir={ckpt.name}", "--name=ddp"]
+    with mock.patch.dict(os.environ, torchrun_env()), \
+            cli_run("--distributed training CLI") as lines:
+        reset_launch_counts()
+        check(train_cli.main(args) == 0, "--distributed: exit code")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    run = os.path.join(ckpt.name, "ddp")
+    with open(os.path.join(run, "loss_log.txt")) as f:
+        logged = [line for line in f if line.startswith("(epoch:")]
+    print(f"--distributed training CLI, world of one: 2 steps, kernel "
+          f"launches {counts}; {len(logged)} loss lines")
+    check(only(counts, warp_fwd=4, warp_bwd_pos=4, warp_bwd_w1=4),
+          f"ddp_train launches {counts}, expected 2 of each warp kernel a "
+          f"step")
+    check(len(logged) == 2 and not parallel.active()
+          and "training finished at iteration 2" in lines
+          and all(os.path.exists(os.path.join(run, f"{tag}_net_G.pth"))
+                  for tag in ("2", "latest")),
+          f"--distributed: {len(logged)} loss lines, files "
+          f"{sorted(os.listdir(run))}")
+    ckpt.cleanup()
+
+    # (c) DP_RANKS ranks, where there are the cards
+    if torch.cuda.device_count() < DP_RANKS:
+        print(f"data_parallel_{DP_RANKS}rank: not run "
+              f"({torch.cuda.device_count()} card)")
+        return {"ddp_train": counts}
+    tmp = tempfile.TemporaryDirectory()
+    state_path = os.path.join(tmp.name, "state.pt")
+    torch.save({tag: net.state_dict() for tag, net in nets(state).items()},
+               state_path)
+    one = sgd(copy.deepcopy(state))
+    one_logs = one.train_step(state.prepare_batch(deepfashion_batch(200)))
+    want = dp_grads(one)
+    one_ms, _ = timed_steps(one, [batches[0]] * DP_TIMED)
+    del one
+    parallel.spawn(dp_rank, [torch.device("cuda", i)
+                             for i in range(DP_RANKS)],
+                   state_path, tmp.name, timeout=DP_TIMEOUT)
+    ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_RANKS)]
+    tmp.cleanup()
+    for r in ranks[1:]:
+        check(all(torch.equal(r["grads"][tag][n], g)
+                  for tag, d in ranks[0]["grads"].items()
+                  for n, g in d.items()), "the ranks' gradients differ")
+    rules = {tag: dp_rule(f"{DP_RANKS} ranks vs 1, {tag}", want[tag],
+                          ranks[0]["grads"][tag]) for tag in want}
+    total_rel = abs(ranks[0]["logs"]["total_G"] - float(one_logs["total_G"])) \
+        / abs(float(one_logs["total_G"]))
+    check(total_rel <= 1e-4, f"total_G {total_rel:.3e} rel apart")
+    for r, res in enumerate(ranks):
+        check(only(res["counts"], warp_fwd=2, warp_bwd_pos=2, warp_bwd_w1=2),
+              f"rank {r} launches {res['counts']}")
+    print(f"data_parallel_{DP_RANKS}rank on {card_line()!r}: "
+          f"{ranks[0]['rows']} rows a rank; "
+          + "; ".join(f"{tag} {100 * s:.4f}% of entries above "
+                      f"{DP_DIVERGE:g} of max, max {w:.3e}"
+                      for tag, (s, w) in rules.items())
+          + f"; total_G {total_rel:.3e} rel; SGD step ms per rank "
+          + ", ".join(f"{statistics.median(r['times'][1:]):.3f}"
+                      for r in ranks)
+          + f" against {statistics.median(one_ms[1:]):.3f} on one card at "
+            f"batch 8")
+    return {"ddp_train": counts}
+
+
 DISK_PSNR_MIN = 35.0   # dB: nvJPEG encode + decode at quality 75, each image
 FIXTURE_MEAN_ABS = 0.1  # levels: nvJPEG's planes, upsampled and converted
 FIXTURE_MAX_ABS = 4     # as libjpeg does, vs PIL's pixels on the committed
@@ -2390,11 +2668,12 @@ def train_from_disk(what, args, steps, task_cls=None, paths=pair_paths,
     ms. A list given as `initial` receives the new task's snapshot."""
     import gfla_tpu_torch.train.__main__ as train_cli
     from gfla_tpu_torch.tasks.pose import PoseTask
+    from gfla_tpu_torch.train import loop
 
     task_cls = task_cls or PoseTask
     tasks, prepared, step_ms = [], [], []
     prepare, train_step = task_cls.prepare_batch, task_cls.train_step
-    create_task = train_cli.create_task
+    create_task = loop.create_task
 
     def recording_prepare(self, batch):
         prepared.append(paths(batch))
@@ -2416,7 +2695,7 @@ def train_from_disk(what, args, steps, task_cls=None, paths=pair_paths,
 
     with mock.patch.object(task_cls, "prepare_batch", recording_prepare), \
             mock.patch.object(task_cls, "train_step", timed_step), \
-            mock.patch.object(train_cli, "create_task", capture), \
+            mock.patch.object(loop, "create_task", capture), \
             cli_run(what) as lines:
         reset_launch_counts()
         check(train_cli.main(args) == 0, f"{what}: exit code")
@@ -4813,6 +5092,7 @@ def main(argv):
         train_bf16 = timed(phase_train_bf16, train)
         flow = timed(phase_poseflownet)
         switched = timed(phase_switches, serve, train, train_bf16)
+        data_parallel = timed(phase_data_parallel, train)
         disk = timed(phase_disk_data, device)
         sn_serve = timed(phase_shapenet_serve)
         sn_sweep = timed(phase_shapenet_sweep, sn_serve)
@@ -4846,6 +5126,7 @@ def main(argv):
         "gfla_tpu/ops/pallas_warp.py:166",
         {"serve": serve["launches"], "train": train["warp_fwd"],
          "train_corr": switched["train_corr"]["warp_fwd"],
+         "ddp_train": data_parallel["ddp_train"]["warp_fwd"],
          **{path: c["warp_fwd"] for path, c in disk.items()},
          **shapenet, "shapenet_train": sn_train["counts"]["warp_fwd"],
          "dance_serve": anim["dance_serve"],
@@ -4866,6 +5147,7 @@ def main(argv):
             "gfla_tpu/ops/pallas_warp.py:243",
             {"train": train[name],
              "train_corr": switched["train_corr"][name],
+             "ddp_train": data_parallel["ddp_train"][name],
              **{path: c[name] for path, c in disk.items()
                 if path.endswith("_train")},
              "shapenet_train": sn_train["counts"][name],

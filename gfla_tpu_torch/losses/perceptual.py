@@ -23,6 +23,7 @@ from typing import Sequence
 
 import torch
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.ops import acc_dtype
 from gfla_tpu_torch.ops.gaussian_resample import gaussian_resample
 from gfla_tpu_torch.ops.max_corr import max_corr, max_corr_plain
@@ -107,6 +108,19 @@ def _safe_norm(x, dim: int):
     return torch.sqrt(torch.clamp((x * x).sum(dim), min=1e-30))
 
 
+def _global_ratio(num, den):
+    """num / (den + eps) of the global batch, from this rank's numerator
+    and denominator: in a data-parallel run the denominator (mask sums,
+    which carry no gradient) is summed over the ranks and the ratio scaled
+    by the world size, so that the mean over the ranks, of the gradients as
+    of the logged values, is gfla_tpu's ratio of global sums. Without a
+    process group it is num / (den + eps)."""
+    if not parallel.active():
+        return num / (den + _EPS)
+    den = parallel.allreduce_sum_(den.detach().clone())
+    return parallel.world().size * (num / (den + _EPS))
+
+
 def _nearest_resize(x, H: int, W: int):
     """torch F.interpolate(mode='nearest') on NCHW: source index
     floor(dst * in / out), as gfla_tpu's `_nearest_resize`."""
@@ -180,7 +194,11 @@ class PerceptualCorrectness:
                    use_bilinear_sampling: bool = False,
                    frames: int | None = None):
         """Features (B,C,H,W), flow (B,2,h,w) in feature pixels; the
-        features are promoted to `acc_dtype` first."""
+        features are promoted to `acc_dtype` first. With a `mask`, in a
+        data-parallel run, the loss is a collective (its mask sums are
+        summed over the ranks, `_global_ratio`): every rank must call it
+        in the same order, so a caller on rank 0 alone would hang the
+        world."""
         target_vgg = target_vgg.to(acc_dtype(target_vgg.dtype))
         source_vgg = source_vgg.to(acc_dtype(source_vgg.dtype))
         B, C, H, W = target_vgg.shape
@@ -208,8 +226,8 @@ class PerceptualCorrectness:
         m = m.reshape(B, H * W)
         loss_map = loss_map - e1
         if frames is None:
-            return (m * loss_map).sum() / (m.sum() + _EPS)
+            return _global_ratio((m * loss_map).sum(), m.sum())
         lm = loss_map.reshape(-1, frames, H * W)
         mm = m.reshape(-1, frames, H * W)
-        return ((mm * lm).sum(dim=(0, 2))
-                / (mm.sum(dim=(0, 2)) + _EPS)).sum()
+        return _global_ratio((mm * lm).sum(dim=(0, 2)),
+                             mm.sum(dim=(0, 2))).sum()

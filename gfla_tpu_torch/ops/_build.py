@@ -9,13 +9,18 @@ objects are linked into one shared library with a plain C interface under
 that calls nvJPEG, is built beside it into a library of its own, linked with
 the toolkit's `-lnvjpeg`, so that the kernels never need nvJPEG. Each file
 name carries a hash of its sources, so an edited source is rebuilt and a
-current one is loaded as is. Importing this module needs neither nvcc nor a
-GPU.
+current one is loaded as is. The ranks of a data-parallel run share the
+build directory: the first to need a library builds it under a file lock
+while the others wait on the lock, then load what it built, so a host runs
+one batch of nvcc processes, not one a rank (a collective would hang: the
+first kernel call can come inside rank 0's evaluation, which the other
+ranks skip). Importing this module needs neither nvcc nor a GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -132,11 +137,22 @@ def build(verbose: bool = False, kernels: bool = True,
     sources, digest = _sources()
     kernel_target = BUILD_DIR / f"libgfla_kernels_{digest}.so"
     jpeg_target = _jpeg_target()
-    kernels = kernels and not kernel_target.exists()
-    jpeg = jpeg and not jpeg_target.exists()
-    if not (kernels or jpeg):
+    if not (kernels and not kernel_target.exists()
+            or jpeg and not jpeg_target.exists()):
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        # another process may have built them while this one waited
+        _build_missing(sources, kernel_target, jpeg_target,
+                       kernels and not kernel_target.exists(),
+                       jpeg and not jpeg_target.exists(), verbose)
+
+
+def _build_missing(sources, kernel_target: Path, jpeg_target: Path,
+                   kernels: bool, jpeg: bool, verbose: bool) -> None:
+    if not (kernels or jpeg):
+        return
     nvcc = _nvcc()
     ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()

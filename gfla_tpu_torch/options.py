@@ -5,7 +5,8 @@ the same command lines parse to the same namespace.
 The composition is the same three phases: base flags, then the task's
 `modify_options` (from the port's own task registry), then the dataset's
 flags and defaults. `--gpu_ids` selects the device here: -1 is the CPU,
-anything else `cuda:<id>` (gfla_tpu_torch.runtime.select_device).
+anything else `cuda:<id>`, and with `--mesh_devices` the devices of a
+host's training ranks (gfla_tpu_torch.runtime.select_devices).
 """
 
 from __future__ import annotations
@@ -67,22 +68,17 @@ def resolve_use_spect_d(opt) -> bool:
     return not getattr(opt, "no_spect_d", False)
 
 
-MULTI_GPU_TODO = ("multi-GPU runs are not ported yet (ROADMAP.md, queue 1, "
-                  "item 9)")
+SPATIAL_TODO = ("the data x spatial mode is not ported yet (ROADMAP.md, "
+                "queue 1, item 2: data x spatial partitioning)")
 
 
 def refuse_parallel_flags(opt) -> None:
-    """Raise NotImplementedError for a parallelism flag of gfla_tpu that asks
-    for more than one device: `--mesh_devices` other than 0 or 1, `--spatial`
-    above 1 (gfla_tpu's train.py reads 0 as 1 too, and `--halo` only under
-    it) or `--distributed`. The port runs on one device."""
-    if opt.mesh_devices not in (0, 1):
-        raise NotImplementedError(
-            f"--mesh_devices={opt.mesh_devices}: {MULTI_GPU_TODO}")
+    """Raise NotImplementedError for `--spatial` above 1 (gfla_tpu's
+    train.py reads 0 as 1 too, and `--halo` only under it): the training
+    CLI runs the data axis (`--mesh_devices`, `--gpu_ids` lists,
+    `--distributed`), not gfla_tpu's data x spatial mesh."""
     if (opt.spatial or 1) > 1:
-        raise NotImplementedError(f"--spatial={opt.spatial}: {MULTI_GPU_TODO}")
-    if opt.distributed:
-        raise NotImplementedError(f"--distributed: {MULTI_GPU_TODO}")
+        raise NotImplementedError(f"--spatial={opt.spatial}: {SPATIAL_TODO}")
 
 
 class BaseOptions:
@@ -99,7 +95,8 @@ class BaseOptions:
         add("--checkpoints_dir", type=str, default="./result")
         add("--which_iter", type=str, default="latest")
         add("--gpu_ids", "--gpu_id", dest="gpu_ids", type=str, default="0",
-            help="-1 runs on the CPU; N runs on cuda:N")
+            help="-1 runs on the CPU; N runs on cuda:N; a list N,M,... "
+                 "trains on each (serving takes the first)")
         add("--phase", type=str, default="train")
         add("--continue_train", action="store_true")
 
@@ -135,13 +132,23 @@ class BaseOptions:
             help="the pose head's compute dtype: f32 master parameters, "
                  "G, D and VGG19 (and the warp kernels) in this type, as "
                  "gfla_tpu's; poseflownet trains in float32")
-        # parallelism flags of gfla_tpu: the defaults parse, any other value
-        # is refused by both CLIs (refuse_parallel_flags); the port runs on
-        # one device
-        add("--mesh_devices", type=int, default=0)
-        add("--spatial", type=int, default=1)
-        add("--halo", type=int, default=8)
-        add("--distributed", action="store_true", default=False)
+        # gfla_tpu's parallelism flags. Training: --mesh_devices=N runs N
+        # ranks on this host, --distributed joins a torchrun world, and
+        # --spatial above 1 is refused (refuse_parallel_flags). Serving runs
+        # on one device, as gfla_tpu's test.py does.
+        add("--mesh_devices", type=int, default=0,
+            help="training: data-parallel ranks on this host, one a device "
+                 "(the first N --gpu_ids, or cuda:0..N-1 when one id is "
+                 "given; N CPU ranks with --gpu_ids=-1); 0 = every listed "
+                 "id; the global batch is --batchSize per host")
+        add("--spatial", type=int, default=1,
+            help="data x spatial partitioning: not ported, above 1 refused")
+        add("--halo", type=int, default=8,
+            help="halo rows of --spatial (read only under it)")
+        add("--distributed", action="store_true", default=False,
+            help="training: join the multi-host world torchrun's "
+                 "environment describes (RANK, WORLD_SIZE, LOCAL_RANK, "
+                 "LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
         add("--remat", action="store_true", default=False)
         add("--seed", type=int, default=0)
         return parser
@@ -162,10 +169,12 @@ class BaseOptions:
         opt = parser.parse_args(args)
         return ds_cls.apply_defaults(opt, self.isTrain)
 
-    def parse(self, args=None, save: bool = True):
+    def parse(self, args=None, save: bool = True, show: bool = True):
+        """The parsed options, printed and (with `save`) written to the
+        experiment directory unless `show` is False."""
         opt = self.gather_options(args)
         opt.isTrain = self.isTrain
-        if opt.phase != "val":
+        if show and opt.phase != "val":
             self.print_options(opt, save=save)
         self.opt = opt
         return opt

@@ -1,32 +1,53 @@
-"""Device selection, float32 math policy and the card line."""
+"""Device selection (one device, or the devices of a host's ranks), the
+float32 math policy and the card line."""
 
 from __future__ import annotations
 
 import contextlib
 import shutil
 import subprocess
+from typing import List
 
 import torch
 
 
-def select_device(gpu_ids: str) -> torch.device:
-    """--gpu_ids semantics: -1 is the CPU, N is cuda:N. Asking for CUDA where
-    there is none raises; the port never moves to the CPU on its own."""
+def select_devices(gpu_ids: str, mesh_devices: int = 0
+                   ) -> List[torch.device]:
+    """The devices of this host's ranks. `--gpu_ids` lists CUDA ids (the
+    original GFLA's multi-GPU interface) or -1 for the CPU;
+    `--mesh_devices=N` (gfla_tpu's) takes the first N listed ids, or
+    cuda:0..N-1 when one id is listed, as gfla_tpu's mesh takes the first N
+    devices; 0 takes every listed id. On the CPU, N ranks share it. Asking
+    for CUDA where there is none, or for more cards than there are, raises:
+    the port never moves to the CPU on its own."""
     ids = [int(x) for x in str(gpu_ids).split(",") if x.strip()]
+    if mesh_devices < 0:
+        raise ValueError(f"--mesh_devices={mesh_devices}")
     if not ids or ids[0] < 0:
-        return torch.device("cpu")
-    if len(ids) > 1:
-        raise NotImplementedError(
-            f"--gpu_ids={gpu_ids}: the port runs on one device; multi-GPU is "
-            "not ported yet")
+        return [torch.device("cpu")] * max(1, mesh_devices)
+    if mesh_devices > len(ids) > 1:
+        raise RuntimeError(f"--mesh_devices={mesh_devices} asks for more "
+                           f"cards than --gpu_ids={gpu_ids} lists")
+    if mesh_devices > len(ids):
+        ids = list(range(mesh_devices))
+    elif mesh_devices:
+        ids = ids[:mesh_devices]
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"--gpu_ids={gpu_ids} asks for cuda:{ids[0]}, but CUDA is not "
             "available; pass --gpu_ids=-1 to run on the CPU")
-    if ids[0] >= torch.cuda.device_count():
-        raise RuntimeError(f"--gpu_ids={gpu_ids}: only "
-                           f"{torch.cuda.device_count()} CUDA device(s)")
-    return torch.device("cuda", ids[0])
+    count = torch.cuda.device_count()
+    if max(ids) >= count or len(set(ids)) < len(ids):
+        raise RuntimeError(f"--gpu_ids={gpu_ids} --mesh_devices="
+                           f"{mesh_devices} asks for cuda:{ids}; there are "
+                           f"{count} CUDA device(s)")
+    return [torch.device("cuda", i) for i in ids]
+
+
+def select_device(gpu_ids: str) -> torch.device:
+    """--gpu_ids semantics for one device: -1 is the CPU, N (or the first
+    of a list) is cuda:N."""
+    return select_devices(gpu_ids)[0]
 
 
 def set_tf32(enabled: bool) -> None:

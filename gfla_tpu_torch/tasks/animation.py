@@ -27,11 +27,13 @@ the first starts from the reference pair. A chunk's step
   each stream (x T), and the adversarial terms against the updated D (frame
   i_g) and D_V (window from s_g), which iterate u without storing it;
 * the G backward and Adam step.
-The four indices are drawn from a torch.Generator seeded from `--seed` and
-the step count (gfla_tpu draws them with jax.random from the step), or
-passed in. Checkpoints are `{iter}_net_{G,D,D_V}.pth`. Serving
-(`test_step`, `run_test`) generates chunk after chunk, the last frame and
-skeleton carried into the next.
+In a data-parallel run each gradient is averaged over the ranks just before
+its Adam step (gfla_tpu_torch.parallel), once a chunk. The four indices
+are drawn from a torch.Generator seeded from `--seed` and the step count
+(gfla_tpu draws them with jax.random from the step), so every rank draws
+the same ones, or passed in. Checkpoints are `{iter}_net_{G,D,D_V}.pth`.
+Serving (`test_step`, `run_test`) generates chunk after chunk, the last
+frame and skeleton carried into the next.
 
 `--compute_dtype=bfloat16` follows gfla_tpu's mixed precision
 (tasks/animation.py:160-161, 227-260): G over the chunk, D and D_V run in
@@ -50,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.data.animation_data import DIST_MAX
 from gfla_tpu_torch.data.image_io import decode_images, decode_jpeg_batch
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
@@ -406,7 +409,7 @@ class AnimationTaskBase:
                          + adversarial_loss(dv_fake, False, True,
                                             opt.gan_mode))
         (loss_d + loss_dv).backward()
-        self.opt_d.step()
+        parallel.step(self.opt_d)
         self.sched_d.step()
 
         # G losses, the frame axis folded into the batch
@@ -455,7 +458,7 @@ class AnimationTaskBase:
         total = sum(logs.values())
         self.opt_g.zero_grad(set_to_none=True)
         total.backward()
-        self.opt_g.step()
+        parallel.step(self.opt_g)
         self.sched_g.step()
         self.step += 1
         logs = {k: v.detach() for k, v in logs.items()}

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.models import define_g
 from gfla_tpu_torch.models.keypoint_net import init_kp_weights
 from gfla_tpu_torch.runtime import select_device
@@ -99,7 +100,7 @@ class KeypointTask:
         loss = torch.mean((out - batch["gt_data"]) ** 2)
         self.opt_g.zero_grad(set_to_none=True)
         loss.backward()
-        self.opt_g.step()
+        parallel.step(self.opt_g)
         self.sched_g.step()
         self.step += 1
         loss = loss.detach()

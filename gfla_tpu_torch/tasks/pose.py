@@ -11,7 +11,9 @@ betas (0, 0.999), D lr = 0.1 G lr.
 pose_model.py:130-196) in its order: one G forward (recomputed in the
 backward under `--remat`); a D step on the detached fake, D(real) then
 D(fake), each storing its spectral-norm u; the G losses against the updated
-D, which iterates u without storing it; the G backward and Adam step. Serving runs G in eval mode under `torch.inference_mode()`.
+D, which iterates u without storing it; the G backward and Adam step. In a
+data-parallel run each gradient is averaged over the ranks just before its
+Adam step (gfla_tpu_torch.parallel). Serving runs G in eval mode under `torch.inference_mode()`.
 Checkpoints are the original GFLA's per-network files, `{iter}_net_G.pth`
 and `{iter}_net_D.pth`.
 
@@ -30,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.data.image_io import decode_jpeg_batch
 from gfla_tpu_torch.data.pose_utils import encode_heatmaps
 from gfla_tpu_torch.data.resample import resample_images, resize_like_pil
@@ -245,7 +248,7 @@ class PoseTask:
         loss_d = 0.5 * (adversarial_loss(d_real, True, True, opt.gan_mode)
                         + adversarial_loss(d_fake, False, True, opt.gan_mode))
         loss_d.backward()
-        self.opt_d.step()
+        parallel.step(self.opt_d)
         self.sched_d.step()
 
         # G losses against the updated D, frozen and not storing u
@@ -270,7 +273,7 @@ class PoseTask:
         total = sum(logs.values())
         self.opt_g.zero_grad(set_to_none=True)
         total.backward()
-        self.opt_g.step()
+        parallel.step(self.opt_g)
         self.sched_g.step()
         self.step += 1
         logs = {k: v.detach() for k, v in logs.items()}

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.losses import (
     MultiAffineRegularizationLoss,
     PerceptualCorrectness,
@@ -123,7 +124,7 @@ class PoseFlowNetTask:
         total = logs["correctness"] + logs["regularization"]
         self.opt_g.zero_grad(set_to_none=True)
         total.backward()
-        self.opt_g.step()
+        parallel.step(self.opt_g)
         self.sched_g.step()
         self.step += 1
         logs = {k: v.detach() for k, v in logs.items()}

@@ -9,6 +9,8 @@ continues as gfla_tpu's full-state restore does; the text file `latest`
 holds the step of the newest save. A directory whose files do not match the
 networks (a stage-1 poseflownet run resumed by the pose task) loads
 tolerantly, as gfla_tpu's restore does after its strict restore fails.
+Every rank of a data-parallel run loads the same files, to the CPU and then
+into its own device's tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from gfla_tpu_torch import parallel
 
 
 def _dir(checkpoints_dir: str, name: str) -> str:
@@ -33,18 +37,22 @@ def _save(obj, path: str) -> None:
 def save_checkpoint(checkpoints_dir: str, name: str, step: int,
                     nets: Dict[str, torch.nn.Module], train_state: Dict,
                     numbered: bool = True) -> str:
-    """Write the `latest` files and, with `numbered`, the `{step}` files."""
+    """Write the `latest` files and, with `numbered`, the `{step}` files. In
+    a data-parallel run every rank calls it: rank 0 writes (the replicas
+    are equal), and all ranks leave once the files are on disk."""
     base = _dir(checkpoints_dir, name)
-    os.makedirs(base, exist_ok=True)
-    tags = ["latest"] + ([str(step)] if numbered else [])
-    for tag in tags:
-        for net_name, net in nets.items():
-            sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
-            _save(sd, os.path.join(base, f"{tag}_net_{net_name}.pth"))
-        _save(dict(train_state, step=step),
-              os.path.join(base, f"{tag}_train_state.pth"))
-    with open(os.path.join(base, "latest"), "w") as f:
-        f.write(str(step))
+    if parallel.is_main():
+        os.makedirs(base, exist_ok=True)
+        tags = ["latest"] + ([str(step)] if numbered else [])
+        for tag in tags:
+            for net_name, net in nets.items():
+                sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+                _save(sd, os.path.join(base, f"{tag}_net_{net_name}.pth"))
+            _save(dict(train_state, step=step),
+                  os.path.join(base, f"{tag}_train_state.pth"))
+        with open(os.path.join(base, "latest"), "w") as f:
+            f.write(str(step))
+    parallel.barrier()
     return base
 
 

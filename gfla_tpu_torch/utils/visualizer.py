@@ -4,7 +4,9 @@ reference's util/visualizer.py): loss lines printed and appended to
 gfla_tpu's formats, and visuals as `web/images/iter{N:08d}_{label}.png`
 with an HTML index. The PNGs go through the port's own writer
 (data/image_io.write_png), so this runs where no image library is
-installed. gfla_tpu's optional TensorBoard writer is not ported."""
+installed. gfla_tpu's optional TensorBoard writer is not ported. In a
+data-parallel run only rank 0 records; on the other ranks every method
+does nothing."""
 
 from __future__ import annotations
 
@@ -12,11 +14,15 @@ import os
 import time
 from typing import Dict
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.data.image_io import write_png
 
 
 class Visualizer:
     def __init__(self, opt):
+        self.enabled = parallel.is_main()
+        if not self.enabled:
+            return
         self.name = opt.name
         self.log_dir = os.path.join(opt.checkpoints_dir, opt.name)
         os.makedirs(self.log_dir, exist_ok=True)
@@ -34,6 +40,8 @@ class Visualizer:
 
     def print_current_errors(self, epoch: int, iters: int,
                              errors: Dict[str, float], t: float):
+        if not self.enabled:
+            return
         message = f"(epoch: {epoch}, iters: {iters}, time: {t:.3f}) "
         for k, v in errors.items():
             message += f"{k}: {float(v):.3f} "
@@ -43,6 +51,8 @@ class Visualizer:
 
     def print_current_eval(self, epoch: int, iters: int,
                            eval_results: Dict[str, float]):
+        if not self.enabled:
+            return
         message = f"(epoch: {epoch}, iters: {iters}) "
         for k, v in eval_results.items():
             message += f"{k}: {float(v):.5f} "
@@ -53,7 +63,7 @@ class Visualizer:
     def display_current_results(self, visuals: Dict, iters: int):
         """Write each uint8 (H, W, 3) visual as a PNG and refresh the
         gallery (nothing with --no_html)."""
-        if not self.use_html:
+        if not (self.enabled and self.use_html):
             return
         for label, img in visuals.items():
             write_png(os.path.join(self.img_dir,

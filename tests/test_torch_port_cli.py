@@ -80,8 +80,8 @@ def test_gpu_ids_select_cpu_or_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         select_device("0")
-    with pytest.raises(NotImplementedError):
-        select_device("0,1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        select_device("0,1")  # a list trains on each; serving on the first
 
 
 def test_pose_task_asks_for_cuda_without_falling_back(monkeypatch):

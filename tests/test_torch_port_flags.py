@@ -5,9 +5,12 @@
   at 32x32 (ngf 16, img_f 64) gives the losses, the gradients of G and D and
   the stored spectral-norm u of the step without it, each within 1e-6 x its
   largest |value| (the same f32 sums, in the order the recomputation takes).
-- `--mesh_devices` other than 0 or 1, `--spatial` above 1 and
-  `--distributed` ask for more than one device: both CLIs raise
-  NotImplementedError naming the flag, before any data or network is built.
+- gfla_tpu's parallelism flags: `--spatial` above 1 (the data x spatial
+  mode) makes the training CLI raise NotImplementedError naming the flag
+  and its ROADMAP item, before any data or network is built; the training
+  CLI trains one step with `--mesh_devices=2` on two CPU ranks and with
+  `--distributed` in a torchrun world of one; the serving CLI takes all
+  three, serves on one device and says so.
 - `--model=poseflownet --compute_dtype=bfloat16` trains in float32, as
   gfla_tpu's poseflownet task does: its step equals the float32 step.
 """
@@ -15,6 +18,7 @@
 import argparse
 import copy
 import os
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -101,25 +105,63 @@ def test_remat_keeps_the_pose_step(spect):
     assert any(n.endswith("weight_u") for n in buffers) == spect
 
 
-def _cli(module, *args):
-    return subprocess.run(
+def _cli(module, *args, env=None):
+    """The CLI in a session of its own, killed with any ranks it started if
+    it outlives 120 s."""
+    proc = subprocess.Popen(
         [sys.executable, "-m", module, "--gpu_ids=-1", "--model=pose",
          "--dataset_mode=synthetic", "--load_size=64", *args],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2"))
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2",
+                 PYTHONUNBUFFERED="1", **(env or {})))
+    try:
+        out, err = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        pytest.fail(f"{module} {' '.join(args)} still running after 120 s; "
+                    f"its output ends:\n{out[-2000:]}\n{err[-3000:]}")
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _torchrun_world_of_one():
+    """torchrun's variables for one process on this host."""
+    from gfla_tpu_torch.parallel import free_port
+
+    return dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(free_port()))
 
 
 @pytest.mark.parametrize("module", ["gfla_tpu_torch.train",
                                     "gfla_tpu_torch.test"])
-@pytest.mark.parametrize("flag", ["--mesh_devices=8", "--spatial=2",
+@pytest.mark.parametrize("flag", ["--mesh_devices=2", "--spatial=2",
                                   "--distributed"])
 def test_parallel_flags_are_refused(tmp_path, module, flag):
+    train = module == "gfla_tpu_torch.train"
     proc = _cli(module, flag, f"--checkpoints_dir={tmp_path}",
-                f"--results_dir={tmp_path}")
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
-    assert flag in proc.stderr and "queue 1, item 9" in proc.stderr
-    assert "dataset [" not in proc.stdout
+                f"--results_dir={tmp_path}", "--name=flags", "--nThreads=0",
+                *(["--load_size=32", "--batchSize=2", "--max_iters=1"] if train
+                  else ["--max_dataset_size=1"]),
+                env=_torchrun_world_of_one() if flag == "--distributed"
+                else None)
+    if train and flag == "--spatial=2":  # the one refusal left
+        assert proc.returncode != 0
+        assert "NotImplementedError" in proc.stderr
+        assert flag in proc.stderr and "queue 1, item 2" in proc.stderr
+        assert "dataset [" not in proc.stdout
+        return
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    if train:
+        assert proc.stdout.count("training finished at iteration 1") == 1
+        assert (tmp_path / "flags" / "1_net_G.pth").exists()
+        ranks = "data parallel: 2 ranks on ['cpu', 'cpu'], 1 rows each"
+        assert (ranks in proc.stdout) == (flag == "--mesh_devices=2")
+    else:
+        assert "serving runs on one device" in proc.stdout
+        assert [p.name for p in (tmp_path / "flags").glob("*_vis.jpg")] \
+            == ["syn_0_a_2_syn_0_b_vis.jpg"]
 
 
 def test_poseflownet_bfloat16_trains_in_float32():

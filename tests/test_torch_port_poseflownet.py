@@ -37,6 +37,17 @@ REPO = Path(__file__).resolve().parents[1]
 H = W = 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: the other test workers share these cores, where
+    torch's default of one thread a core oversubscribes them many times
+    over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(
         np.asarray(x).transpose(0, 3, 1, 2)))

@@ -53,6 +53,17 @@ from gfla_tpu_torch.train.state import make_optimizer
 REL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: the other test workers share these cores, where
+    torch's default of one thread a core oversubscribes them many times
+    over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(
         np.asarray(x).transpose(0, 3, 1, 2)))
