@@ -74,6 +74,23 @@
 // that are unrolled to that width: the per-position product takes one offset
 // row a band, the cell dots one footprint row a pass over the channels, and
 // the dW1s tile its widest column count (warp_bwd_tiles.cuh).
+//
+// Above k = 9, the wide instances (KT < 0), which take every k gfla_tpu's
+// Pallas warp does: nothing in them sized by k is held in registers or
+// shared memory.
+//  * The per-position backward is two kernels. warp_bwd_wide_prep_kernel
+//    does what the first half of warp_bwd_pos_kernel does (softmax, cell
+//    dots, d_attn, d_logits, the dW2/db2 partial, d_hpre) with the
+//    per-offset and per-cell rows in device memory (N x k^2 and
+//    N x (k+1)^2 floats of scratch), a warp per position in strides of 32
+//    offsets or cells; warp_bwd_pos_kernel's wide instance then reads d_hpre
+//    and the softmax back and runs the product and its epilogue as above,
+//    its bands runs of up to kWideCols offsets of one offset row
+//    (warp_bwd_tiles.cuh's wide_band), each pre-summing the 2 x (cols + 1)
+//    footprint cells it touches (warp_cells.cuh's band_tap).
+//  * The dW1s kernel keeps the run-time instance's tile of 25 offsets x 4
+//    channels; its threads blend each block value from the four taps in
+//    device memory (through L1) in place of a staged copy of the cells.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -195,11 +212,14 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_hi)[4],
 // fragments of 8 columns, 4 accumulators each, a lane): warp_bwd_tiles.cuh.
 // KT: the instance's k, or 0 for the run-time instance, whose tile is one
 // offset row of up to kWarpMaxK offsets.
+// KT < 0: the wide instance, whose bands are runs of up to kWideCols
+// offsets of one row.
 template <int KT>
 struct PosShape {
-  static constexpr int KM = KT ? KT : gfla::kWarpMaxK;  // its widest k
+  static constexpr int KM =  // its widest k, or a wide band's offsets
+      KT > 0 ? KT : (KT == 0 ? gfla::kWarpMaxK : gfla::kWideCols);
   static constexpr int K1M = KM + 1;
-  static constexpr int R = KT ? gfla::pos_band_rows(KT) : 1;
+  static constexpr int R = KT > 0 ? gfla::pos_band_rows(KT) : 1;
   static constexpr int NT = R * KM;
   static constexpr int RowsB = NT * 8;  // W1s rows of a stage
   static constexpr int Ring = kStages * RowsB * kLdw;
@@ -217,6 +237,7 @@ __host__ __device__ constexpr int pos_ldw2(int k) { return k * k | 1; }
 // before it, the cell dots, d_attn and W2.
 template <int KT>
 __host__ __device__ int pos_ring_floats(int k, int D) {
+  if (KT < 0) return PosShape<KT>::Ring;  // the wide instance: the ring alone
   const int before =
       kRows * ((k + 1) * (k + 1) + k * k) + D * pos_ldw2(k);
   constexpr int kRing = PosShape<KT>::Ring;
@@ -225,6 +246,11 @@ __host__ __device__ int pos_ring_floats(int k, int D) {
 
 template <int KT>
 size_t pos_smem_bytes(int k, int D) {
+  if (KT < 0) {  // d_hpre, the ring, and each position's footprint
+    return sizeof(float) * (static_cast<size_t>(kRows) * pos_lda(D) +
+                            pos_ring_floats<KT>(k, D)) +
+           kRows * (sizeof(float2) + sizeof(gfla::Footprint) + sizeof(int));
+  }
   return sizeof(float) * (static_cast<size_t>(kRows) * pos_lda(D) +
                           kRows * k * k + pos_ring_floats<KT>(k, D)) +
          kRows * (sizeof(float2) + 2 * (k + 1) * sizeof(int));
@@ -246,25 +272,46 @@ __global__ void __launch_bounds__(kPosThreads, 2)
                         const SrcT* __restrict__ g, float* __restrict__ dsrc,
                         float* __restrict__ dflow_part,
                         float* __restrict__ dhbt, float* __restrict__ w2_part,
-                        int N, int H, int W, int C, int D, float slope,
-                        int n_items, int per_cta, int k_run) {
+                        const float* __restrict__ attn_g, int N, int H,
+                        int W, int C, int D, float slope, int n_items,
+                        int per_cta, int k_run) {
   using S = PosShape<KT>;
   constexpr int NT = S::NT, K1M = S::K1M;
-  const int K = KT ? KT : k_run;
+  constexpr bool kWide = KT < 0;
+  const int K = KT > 0 ? KT : k_run;
   const int K1 = K + 1, K2 = K * K, KC = K1 * K1;
   const int ldw2 = pos_ldw2(K);
   const float inv_k2 = 1.0f / static_cast<float>(K2);
   const int lda = pos_lda(D);
   extern __shared__ __align__(16) float smem[];
   float* at = smem;                        // kRows x lda: hidden, then d_hpre
-  float* att = at + kRows * lda;           // kRows x K2: softmax
-  float* ring = att + kRows * K2;          // W1s ring; before it:
-  float* cdot = ring;                      //   kRows x KC cell dots
+  float* att = at + kRows * lda;           // kRows x K2: softmax (wide: none,
+  float* ring = att + (kWide ? 0 : kRows * K2);  // attn_g); W1s ring;
+  float* cdot = ring;                      //   before it kRows x KC cell dots,
   float* dat = ring + kRows * KC;          //   kRows x K2 d_attn, d_logits
-  float* w2s = dat + kRows * K2;           //   D x ldw2 W2
+  float* w2s = dat + kRows * K2;           //   D x ldw2 W2 (none when wide)
   float2* wyx = reinterpret_cast<float2*>(ring + pos_ring_floats<KT>(K, D));
   int* rowoff = reinterpret_cast<int*>(wyx + kRows);  // kRows x K1: pixel of
   int* col = rowoff + kRows * K1;          // (row, 0) in the batch; column
+  // wide: each position's footprint and batch element in place of the tables
+  gfla::Footprint* fpw = reinterpret_cast<gfla::Footprint*>(wyx + kRows);
+  int* bat = reinterpret_cast<int*>(fpw + kRows);
+  // pixel of footprint row i, column 0 of position t; column of footprint
+  // column j
+  auto row_off = [&](int t, int i) -> int {
+    if constexpr (kWide) {
+      return (bat[t] * H + gfla::tap_row(fpw[t], i, H)) * W;
+    } else {
+      return rowoff[t * K1 + i];
+    }
+  };
+  auto col_at = [&](int t, int j) -> int {
+    if constexpr (kWide) {
+      return gfla::tap_col(fpw[t], j, W);
+    } else {
+      return col[t * K1 + j];
+    }
+  };
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -283,176 +330,196 @@ __global__ void __launch_bounds__(kPosThreads, 2)
       const gfla::Footprint fp =
           gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, K);
       wyx[t] = make_float2(fp.wy, fp.wx);
-      for (int i = 0; i < K1; ++i) {
-        rowoff[t * K1 + i] = (b * H + gfla::tap_row(fp, i, H)) * W;
-        col[t * K1 + i] = gfla::tap_col(fp, i, W);
+      if constexpr (kWide) {
+        fpw[t] = fp;
+        bat[t] = b;
+      } else {
+        for (int i = 0; i < K1; ++i) {
+          rowoff[t * K1 + i] = (b * H + gfla::tap_row(fp, i, H)) * W;
+          col[t * K1 + i] = gfla::tap_col(fp, i, W);
+        }
       }
     } else {  // past the end: weights 0 on pixel 0
       wyx[t] = make_float2(0.0f, 0.0f);
-      for (int i = 0; i < K1; ++i) {
-        rowoff[t * K1 + i] = 0;
-        col[t * K1 + i] = 0;
+      if constexpr (kWide) {
+        fpw[t] = gfla::Footprint{0, 0, 0.0f, 0.0f};
+        bat[t] = 0;
+      } else {
+        for (int i = 0; i < K1; ++i) {
+          rowoff[t * K1 + i] = 0;
+          col[t * K1 + i] = 0;
+        }
       }
     }
   }
-  // W2 (D x K2, rows ldw2 apart: pos_ldw2)
-  for (int e = tid; e < D * K2; e += kPosThreads) {
-    const int d = e / K2;
-    w2s[d * ldw2 + e - d * K2] = gfla::to_float(w2[e]);
-  }
-  // hidden = LeakyReLU(hpre), zero past D and past N
-  for (int e = tid; e < kRows * lda; e += kPosThreads) {
-    const int t = e / lda;
-    const int d = e - t * lda;
-    const int p = p0 + t;
-    float h = 0.0f;
-    if (p < N && d < D) {
-      h = hpre[static_cast<size_t>(p) * D + d];
-      h = h >= 0.0f ? h : h * slope;
-    }
-    at[e] = h;
-  }
-  __syncthreads();
-
-  // ---- logits, softmax over the k^2 offsets (a warp per 16 positions) ----
-  for (int e = tid; e < kRows * K2; e += kPosThreads) {
-    const int t = e / K2;
-    const int mm = e - t * K2;
-    float s = 0.0f;
-    for (int dd = 0; dd < D; ++dd) {
-      s = fmaf(at_bf16(at[t * lda + dd]), w2s[dd * ldw2 + mm], s);
-    }
-    att[e] = s + b2[mm];
-  }
-  __syncthreads();
-  for (int t = 16 * warp; t < 16 * warp + 16; ++t) {
-    float* a = att + t * K2;
-    constexpr int kVals = (S::KM * S::KM + 31) / 32;  // values a lane
-    float v[kVals];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < kVals; ++u) {
-      v[u] = lane + 32 * u < K2 ? a[lane + 32 * u] : -INFINITY;
-      mx = fmaxf(mx, v[u]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kVals; ++u) {
-      v[u] = lane + 32 * u < K2 ? expf(v[u] - mx) : 0.0f;
-      sum += v[u];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int u = 0; u < kVals; ++u) {
-      if (lane + 32 * u < K2) a[lane + 32 * u] = v[u] / sum;
-    }
-  }
-
-  // ---- cell dots <src[cell], g>: 8 lanes a position, 4 channels a lane ----
-  // A compiled instance takes all K1 footprint rows in one pass over the
-  // channels, the run-time instance one row a pass.
-  {
-    constexpr int kPassRows = KT ? KT + 1 : 1;
-    constexpr int kPassCells = kPassRows * K1M;
-    const int sub = lane & 7;
-    for (int t = tid >> 3; t < kRows; t += kPosThreads / 8) {
+  if constexpr (kWide) {
+    // d_hpre from warp_bwd_wide_prep_kernel, zero past D and past N
+    for (int e = tid; e < kRows * lda; e += kPosThreads) {
+      const int t = e / lda;
+      const int d = e - t * lda;
       const int p = p0 + t;
-      for (int r0 = 0; r0 < K1; r0 += kPassRows) {
-        float acc[kPassCells];
+      at[e] = p < N && d < D ? dhbt[static_cast<size_t>(p) * D + d] : 0.0f;
+    }
+  } else {
+    // W2 (D x K2, rows ldw2 apart: pos_ldw2)
+    for (int e = tid; e < D * K2; e += kPosThreads) {
+      const int d = e / K2;
+      w2s[d * ldw2 + e - d * K2] = gfla::to_float(w2[e]);
+    }
+    // hidden = LeakyReLU(hpre), zero past D and past N
+    for (int e = tid; e < kRows * lda; e += kPosThreads) {
+      const int t = e / lda;
+      const int d = e - t * lda;
+      const int p = p0 + t;
+      float h = 0.0f;
+      if (p < N && d < D) {
+        h = hpre[static_cast<size_t>(p) * D + d];
+        h = h >= 0.0f ? h : h * slope;
+      }
+      at[e] = h;
+    }
+    __syncthreads();
+
+    // ---- logits, softmax over the k^2 offsets (a warp per 16 positions) ----
+    for (int e = tid; e < kRows * K2; e += kPosThreads) {
+      const int t = e / K2;
+      const int mm = e - t * K2;
+      float s = 0.0f;
+      for (int dd = 0; dd < D; ++dd) {
+        s = fmaf(at_bf16(at[t * lda + dd]), w2s[dd * ldw2 + mm], s);
+      }
+      att[e] = s + b2[mm];
+    }
+    __syncthreads();
+    for (int t = 16 * warp; t < 16 * warp + 16; ++t) {
+      float* a = att + t * K2;
+      constexpr int kVals = (S::KM * S::KM + 31) / 32;  // values a lane
+      float v[kVals];
+      float mx = -INFINITY;
 #pragma unroll
-        for (int q = 0; q < kPassCells; ++q) acc[q] = 0.0f;
-        if (p < N && GFLA_SPLIT != 2) {
-          for (int c = 4 * sub; c < C; c += 32) {
-            const float4 gv = load4<kVec>(g, p, c, C);
+      for (int u = 0; u < kVals; ++u) {
+        v[u] = lane + 32 * u < K2 ? a[lane + 32 * u] : -INFINITY;
+        mx = fmaxf(mx, v[u]);
+      }
+      mx = warp_max(mx);
+      float sum = 0.0f;
 #pragma unroll
-            for (int r = 0; r < kPassRows; ++r) {
-              const int ro = rowoff[t * K1 + r0 + r];
+      for (int u = 0; u < kVals; ++u) {
+        v[u] = lane + 32 * u < K2 ? expf(v[u] - mx) : 0.0f;
+        sum += v[u];
+      }
+      sum = warp_sum(sum);
 #pragma unroll
-              for (int s = 0; s < K1M; ++s) {
-                if (s < K1) {
-                  acc[r * K1M + s] = dot4(
-                      load4<kVec>(src, ro + col[t * K1 + s], c, C), gv,
-                      acc[r * K1M + s]);
+      for (int u = 0; u < kVals; ++u) {
+        if (lane + 32 * u < K2) a[lane + 32 * u] = v[u] / sum;
+      }
+    }
+
+    // ---- cell dots <src[cell], g>: 8 lanes a position, 4 channels a lane ----
+    // A compiled instance takes all K1 footprint rows in one pass over the
+    // channels, the run-time instance one row a pass.
+    {
+      constexpr int kPassRows = KT ? KT + 1 : 1;
+      constexpr int kPassCells = kPassRows * K1M;
+      const int sub = lane & 7;
+      for (int t = tid >> 3; t < kRows; t += kPosThreads / 8) {
+        const int p = p0 + t;
+        for (int r0 = 0; r0 < K1; r0 += kPassRows) {
+          float acc[kPassCells];
+#pragma unroll
+          for (int q = 0; q < kPassCells; ++q) acc[q] = 0.0f;
+          if (p < N && GFLA_SPLIT != 2) {
+            for (int c = 4 * sub; c < C; c += 32) {
+              const float4 gv = load4<kVec>(g, p, c, C);
+#pragma unroll
+              for (int r = 0; r < kPassRows; ++r) {
+                const int ro = rowoff[t * K1 + r0 + r];
+#pragma unroll
+                for (int s = 0; s < K1M; ++s) {
+                  if (s < K1) {
+                    acc[r * K1M + s] = dot4(
+                        load4<kVec>(src, ro + col[t * K1 + s], c, C), gv,
+                        acc[r * K1M + s]);
+                  }
                 }
               }
             }
           }
-        }
 #pragma unroll
-        for (int q = 0; q < kPassCells; ++q) {
-          float v = acc[q];
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          const int s = q % K1M;
-          if (s < K1 && sub == (q & 7)) {
-            cdot[t * KC + (r0 + q / K1M) * K1 + s] = v;
+          for (int q = 0; q < kPassCells; ++q) {
+            float v = acc[q];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            const int s = q % K1M;
+            if (s < K1 && sub == (q & 7)) {
+              cdot[t * KC + (r0 + q / K1M) * K1 + s] = v;
+            }
           }
         }
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // ---- d_attn from the cell dots; d_logits = attn (d_attn - <attn, d_attn>)
-  for (int e = tid; e < kRows * K2; e += kPosThreads) {
-    const int t = e / K2;
-    const int m = e - t * K2;
-    const int i = m / K;
-    const float2 w = wyx[t];
-    dat[e] = p0 + t < N
-                 ? inv_k2 * gfla::cell_dattn(cdot + t * KC, K1,
-                                             gfla::tap_weights(w.x, w.y), i,
-                                             m - i * K)
-                 : 0.0f;
-  }
-  __syncthreads();
-  for (int t = tid; t < kRows; t += kPosThreads) {
-    const float* a = att + t * K2;
-    float* da = dat + t * K2;
-    float s = 0.0f;
-    for (int mm = 0; mm < K2; ++mm) s = fmaf(a[mm], da[mm], s);
-    for (int mm = 0; mm < K2; ++mm) da[mm] = a[mm] * (da[mm] - s);
-  }
-  __syncthreads();
-
-  // ---- this tile's dW2 = hidden^T d_logits and db2 = sum d_logits ---------
-  if (first) {
-    float* part = w2_part + static_cast<size_t>(blockIdx.x) * (D * K2 + K2);
-    for (int e = tid; e < D * K2; e += kPosThreads) {
-      const int d = e / K2;
-      const int mm = e - d * K2;
+    // ---- d_attn from the cell dots; d_logits = attn (d_attn - <attn, d_attn>)
+    for (int e = tid; e < kRows * K2; e += kPosThreads) {
+      const int t = e / K2;
+      const int m = e - t * K2;
+      const int i = m / K;
+      const float2 w = wyx[t];
+      dat[e] = p0 + t < N
+                   ? inv_k2 * gfla::cell_dattn(cdot + t * KC, K1,
+                                               gfla::tap_weights(w.x, w.y), i,
+                                               m - i * K)
+                   : 0.0f;
+    }
+    __syncthreads();
+    for (int t = tid; t < kRows; t += kPosThreads) {
+      const float* a = att + t * K2;
+      float* da = dat + t * K2;
       float s = 0.0f;
-      for (int t = 0; t < kRows; ++t) {
-        s = fmaf(at[t * lda + d], dat[t * K2 + mm], s);
+      for (int mm = 0; mm < K2; ++mm) s = fmaf(a[mm], da[mm], s);
+      for (int mm = 0; mm < K2; ++mm) da[mm] = a[mm] * (da[mm] - s);
+    }
+    __syncthreads();
+
+    // ---- this tile's dW2 = hidden^T d_logits and db2 = sum d_logits ---------
+    if (first) {
+      float* part = w2_part + static_cast<size_t>(blockIdx.x) * (D * K2 + K2);
+      for (int e = tid; e < D * K2; e += kPosThreads) {
+        const int d = e / K2;
+        const int mm = e - d * K2;
+        float s = 0.0f;
+        for (int t = 0; t < kRows; ++t) {
+          s = fmaf(at[t * lda + d], dat[t * K2 + mm], s);
+        }
+        part[e] = s;
       }
-      part[e] = s;
-    }
-    for (int mm = tid; mm < K2; mm += kPosThreads) {
-      float s = 0.0f;
-      for (int t = 0; t < kRows; ++t) s += dat[t * K2 + mm];
-      part[D * K2 + mm] = s;
-    }
-  }
-  __syncthreads();  // hidden fully read before d_hpre overwrites it
-
-  // ---- d_hpre = LeakyReLU'(hpre) (d_logits . W2^T): the product's A -------
-  for (int e = tid; e < kRows * lda; e += kPosThreads) {
-    const int t = e / lda;
-    const int d = e - t * lda;
-    const int p = p0 + t;
-    float dh = 0.0f;
-    if (p < N && d < D) {
-      float s = 0.0f;
-      for (int mm = 0; mm < K2; ++mm) {
-        s = fmaf(at_bf16(dat[t * K2 + mm]), w2s[d * ldw2 + mm], s);
+      for (int mm = tid; mm < K2; mm += kPosThreads) {
+        float s = 0.0f;
+        for (int t = 0; t < kRows; ++t) s += dat[t * K2 + mm];
+        part[D * K2 + mm] = s;
       }
-      dh = at_bf16(hpre[static_cast<size_t>(p) * D + d] >= 0.0f ? s
-                                                                 : s * slope);
-      if (first) dhbt[static_cast<size_t>(p) * D + d] = dh;
     }
-    at[e] = dh;
+    __syncthreads();  // hidden fully read before d_hpre overwrites it
+
+    // ---- d_hpre = LeakyReLU'(hpre) (d_logits . W2^T): the product's A -------
+    for (int e = tid; e < kRows * lda; e += kPosThreads) {
+      const int t = e / lda;
+      const int d = e - t * lda;
+      const int p = p0 + t;
+      float dh = 0.0f;
+      if (p < N && d < D) {
+        float s = 0.0f;
+        for (int mm = 0; mm < K2; ++mm) {
+          s = fmaf(at_bf16(dat[t * K2 + mm]), w2s[d * ldw2 + mm], s);
+        }
+        dh = at_bf16(hpre[static_cast<size_t>(p) * D + d] >= 0.0f ? s
+                                                                   : s * slope);
+        if (first) dhbt[static_cast<size_t>(p) * D + d] = dh;
+      }
+      at[e] = dh;
+    }
   }
 
   // ---- d_block = d_hpre . W1s^T per (band, channel group), on the tensor
@@ -465,8 +532,8 @@ __global__ void __launch_bounds__(kPosThreads, 2)
   const int n_chunks = my_items * n_dchunks;
 
   // W1s rows of chunk q into a ring stage: stage row n is the W1s row of
-  // column n of the item's tile (gfla::pos_column); zero past the band, C
-  // and D.
+  // column n of the item's tile (gfla::pos_column, or wide_column); zero
+  // past the band, C and D.
   // One commit per call, empty past the end.
   auto copy_b = [&](int q, float* stage) {
     if (q < n_chunks) {
@@ -474,13 +541,16 @@ __global__ void __launch_bounds__(kPosThreads, 2)
       const int d0 = (q % n_dchunks) * kDepth;
       const int band = item / n_groups;
       const int group = item - band * n_groups;
-      const int nt_live = gfla::pos_band_fragments(K, band);
+      const int nt_live = kWide ? gfla::wide_band(K, band).cols
+                                : gfla::pos_band_fragments(K, band);
       constexpr int kPer = kVec ? 4 : 1;
       constexpr int kAcross = kDepth / kPer;
       for (int idx = tid; idx < S::RowsB * kAcross; idx += kPosThreads) {
         const int row = idx / kAcross;
         const int d = d0 + kPer * (idx - row * kAcross);
-        const gfla::OffsetChannel mc = gfla::pos_column(K, band, group, row);
+        const gfla::OffsetChannel mc =
+            kWide ? gfla::wide_column(K, band, group, row)
+                  : gfla::pos_column(K, band, group, row);
         const bool ok = (row >> 3) < nt_live && mc.c < C && d < D;
         const float* from =
             ok ? w1s + static_cast<size_t>(mc.m * C + mc.c) * D + d : w1s;
@@ -586,7 +656,13 @@ __global__ void __launch_bounds__(kPosThreads, 2)
       const int item = item0 + q / n_dchunks;
       const int band = item / n_groups;
       const int c = (item - band * n_groups) * 8 + cq;
-      const int i0 = band * S::R;
+      // the band's first offset row and column, and its offsets a row (a
+      // run of one row when wide)
+      const gfla::WideBand wb = kWide ? gfla::wide_band(K, band)
+                                      : gfla::WideBand{band * S::R, 0, K};
+      const int i0 = wb.i;
+      const int j0 = wb.j0;
+      const int bcols = wb.cols;
       const int rows = min(S::R, K - i0);
       // trade with lane ^ 1: one row and four channels a lane
 #pragma unroll
@@ -600,10 +676,13 @@ __global__ void __launch_bounds__(kPosThreads, 2)
       // + (1/k^2) attn g
       const float4 gv = live ? load4<kVec>(g, p_mine, c, C)
                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      const float* a_row = att + t_mine * K2 + i0 * K;
+      const float* a_row =
+          kWide ? attn_g + static_cast<size_t>(live ? p_mine : 0) * K2 +
+                      i0 * K + j0
+                : att + t_mine * K2 + i0 * K;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        if (nt < rows * K) {
+        if (nt < rows * bcols) {
           const float w = inv_k2 * a_row[nt];
           acc[nt][0] = at_bf16(fmaf(w, gv.x, acc[nt][0]));
           acc[nt][1] = at_bf16(fmaf(w, gv.y, acc[nt][1]));
@@ -627,7 +706,7 @@ __global__ void __launch_bounds__(kPosThreads, 2)
       // counters, so the fragment index is known when compiling (clamped
       // into the array where the tap is not valid and never read).
       auto tap_of = [&](int role, int r, int s) {
-        if (!gfla::role_valid(role, r, s, rows, K)) {
+        if (!gfla::role_valid(role, r, s, rows, bcols)) {
           return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
         const int nt =
@@ -635,16 +714,16 @@ __global__ void __launch_bounds__(kPosThreads, 2)
         const float* v = acc[nt < 0 ? 0 : (nt < NT ? nt : NT - 1)];
         return make_float4(v[0], v[1], v[2], v[3]);
       };
-      const int* cols = col + t_mine * K1;
       if (live && GFLA_SPLIT != 2) {
 #pragma unroll
         for (int r = 0; r <= S::R; ++r) {
           if (r > rows) continue;
-          const int ro = rowoff[t_mine * K1 + i0 + r];
+          const int ro = row_off(t_mine, i0 + r);
 #pragma unroll
           for (int s = 0; s < K1M; ++s) {
-            if (s >= K1) break;
-            const float4 sv = load4<kVec>(src, ro + cols[s], c, C);
+            if (s > bcols) break;
+            const float4 sv =
+                load4<kVec>(src, ro + col_at(t_mine, j0 + s), c, C);
             float4 vy = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             float4 vx = vy;
 #pragma unroll
@@ -662,16 +741,16 @@ __global__ void __launch_bounds__(kPosThreads, 2)
 #pragma unroll
         for (int r = 0; r <= S::R; ++r) {
           if (r > rows) continue;
-          const int ro = rowoff[t_mine * K1 + i0 + r];
+          const int ro = row_off(t_mine, i0 + r);
 #pragma unroll
           for (int s = 0; s < K1M; ++s) {
-            if (s >= K1) break;
+            if (s > bcols) break;
             float4 vd = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
             for (int role = 0; role < 4; ++role) {
               vd = fma4(coef[role].d, tap_of(role, r, s), vd);
             }
-            red4<kVec>(dsrc, ro + cols[s], c, C, vd);
+            red4<kVec>(dsrc, ro + col_at(t_mine, j0 + s), c, C, vd);
           }
         }
       }
@@ -697,14 +776,177 @@ __global__ void __launch_bounds__(kPosThreads, 2)
   }
 }
 
+// ---- wide per-position backward, first part ---------------------------------
+
+// Shared memory of warp_bwd_wide_prep_kernel: the hidden layer and each
+// position's footprint.
+size_t prep_smem_bytes(int D) {
+  return sizeof(float) * static_cast<size_t>(kRows) * pos_lda(D) +
+         kRows * (sizeof(gfla::Footprint) + sizeof(int));
+}
+
+// For k above kWarpMaxK, per tile of kRows positions, what the first half of
+// warp_bwd_pos_kernel computes, with the rows sized by k in device memory:
+// the softmax into attn (N x k^2, which the wide product's epilogue reads),
+// the cell dots <src[cell], g> into cdot (N x (k+1)^2) and d_logits into dl
+// (N x k^2), this tile's dW2/db2 partial into w2_part, and d_hpre into dhbt
+// (the wide product's A). A warp per position, in strides of 32 offsets or
+// 4 channels a lane, where a position's rows are walked.
+template <bool kVec>
+__global__ void __launch_bounds__(kPosThreads)
+    warp_bwd_wide_prep_kernel(const SrcT* __restrict__ src,
+                              const float* __restrict__ flow,
+                              const float* __restrict__ hpre,
+                              const SrcT* __restrict__ w2,
+                              const float* __restrict__ b2,
+                              const SrcT* __restrict__ g,
+                              float* __restrict__ dhbt,
+                              float* __restrict__ w2_part,
+                              float* __restrict__ attn,
+                              float* __restrict__ dl,
+                              float* __restrict__ cdot, int N, int H, int W,
+                              int C, int D, int K, float slope) {
+  constexpr int kWarps = kPosThreads / 32;
+  const int K1 = K + 1, K2 = K * K, KC = K1 * K1;
+  const float inv_k2 = 1.0f / static_cast<float>(K2);
+  const int lda = pos_lda(D);
+  extern __shared__ __align__(16) float smem[];
+  float* hid = smem;  // kRows x lda: LeakyReLU(hpre), zero past D and N
+  gfla::Footprint* fpw =
+      reinterpret_cast<gfla::Footprint*>(hid + kRows * lda);
+  int* bat = reinterpret_cast<int*>(fpw + kRows);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int p0 = blockIdx.x * kRows;
+  const int HW = H * W;
+  const int n_live = min(kRows, N - p0);
+
+  for (int t = tid; t < n_live; t += kPosThreads) {
+    const int p = p0 + t;
+    const int b = p / HW;
+    const int rem = p - b * HW;
+    const int y = rem / W;
+    const int x = rem - y * W;
+    fpw[t] = gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, K);
+    bat[t] = b;
+  }
+  for (int e = tid; e < kRows * lda; e += kPosThreads) {
+    const int t = e / lda;
+    const int d = e - t * lda;
+    float h = 0.0f;
+    if (t < n_live && d < D) {
+      h = hpre[static_cast<size_t>(p0 + t) * D + d];
+      h = h >= 0.0f ? h : h * slope;
+    }
+    hid[e] = h;
+  }
+  __syncthreads();
+
+  // logits, then the softmax over the k^2 offsets
+  for (int e = tid; e < n_live * K2; e += kPosThreads) {
+    const int t = e / K2;
+    const int mm = e - t * K2;
+    float s = 0.0f;
+    for (int dd = 0; dd < D; ++dd) {
+      s = fmaf(at_bf16(hid[t * lda + dd]), gfla::to_float(w2[dd * K2 + mm]),
+               s);
+    }
+    attn[static_cast<size_t>(p0 + t) * K2 + mm] = s + b2[mm];
+  }
+  __syncthreads();
+  for (int t = warp; t < n_live; t += kWarps) {
+    float* a = attn + static_cast<size_t>(p0 + t) * K2;
+    float mx = -INFINITY;
+    for (int m = lane; m < K2; m += 32) mx = fmaxf(mx, a[m]);
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int m = lane; m < K2; m += 32) sum += expf(a[m] - mx);
+    sum = warp_sum(sum);
+    for (int m = lane; m < K2; m += 32) a[m] = expf(a[m] - mx) / sum;
+  }
+
+  // cell dots <src[cell], g>
+  for (int t = warp; t < n_live; t += kWarps) {
+    const int p = p0 + t;
+    float* cd = cdot + static_cast<size_t>(p) * KC;
+    for (int cell = 0; cell < KC; ++cell) {
+      const int r = cell / K1;
+      const int pix = gfla::cell_pixel(fpw[t], bat[t], r, cell - r * K1, H, W);
+      float acc = 0.0f;
+      if (GFLA_SPLIT != 2) {
+        for (int c = 4 * lane; c < C; c += 4 * 32) {
+          acc = dot4(load4<kVec>(src, pix, c, C), load4<kVec>(g, p, c, C),
+                     acc);
+        }
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) cd[cell] = acc;
+    }
+  }
+  __syncthreads();  // the softmax and cell dots in for every thread
+
+  // d_attn from the cell dots; d_logits = attn (d_attn - <attn, d_attn>)
+  for (int t = warp; t < n_live; t += kWarps) {
+    const size_t p = p0 + t;
+    const float* a = attn + p * K2;
+    const float* cd = cdot + p * KC;
+    float* da = dl + p * K2;
+    const gfla::TapWeights w = gfla::tap_weights(fpw[t].wy, fpw[t].wx);
+    float s = 0.0f;
+    for (int m = lane; m < K2; m += 32) {
+      const int i = m / K;
+      const float v = inv_k2 * gfla::cell_dattn(cd, K1, w, i, m - i * K);
+      da[m] = v;
+      s = fmaf(a[m], v, s);
+    }
+    s = warp_sum(s);
+    for (int m = lane; m < K2; m += 32) da[m] = a[m] * (da[m] - s);
+  }
+  __syncthreads();
+
+  // this tile's dW2 = hidden^T d_logits and db2 = sum d_logits
+  float* part = w2_part + static_cast<size_t>(blockIdx.x) * (D * K2 + K2);
+  const float* dl0 = dl + static_cast<size_t>(p0) * K2;
+  for (int e = tid; e < D * K2; e += kPosThreads) {
+    const int d = e / K2;
+    const int mm = e - d * K2;
+    float s = 0.0f;
+    for (int t = 0; t < n_live; ++t) {
+      s = fmaf(hid[t * lda + d], dl0[t * K2 + mm], s);
+    }
+    part[e] = s;
+  }
+  for (int mm = tid; mm < K2; mm += kPosThreads) {
+    float s = 0.0f;
+    for (int t = 0; t < n_live; ++t) s += dl0[t * K2 + mm];
+    part[D * K2 + mm] = s;
+  }
+
+  // d_hpre = LeakyReLU'(hpre) (d_logits . W2^T)
+  for (int e = tid; e < n_live * D; e += kPosThreads) {
+    const int t = e / D;
+    const int d = e - t * D;
+    const size_t p = p0 + t;
+    float s = 0.0f;
+    for (int mm = 0; mm < K2; ++mm) {
+      s = fmaf(at_bf16(dl0[t * K2 + mm]), gfla::to_float(w2[d * K2 + mm]), s);
+    }
+    dhbt[p * D + d] = at_bf16(hpre[p * D + d] >= 0.0f ? s : s * slope);
+  }
+}
+
 // ---- dW1s kernel ------------------------------------------------------------
 
 // A CTA's columns: MT offsets x CW channels, offset-major, in NT fragments
 // (warp_bwd_tiles.cuh); the run-time instance (KT = 0) holds the widest
-// tile, kW1MaxFragments, and uses w1_fragments(k) of it.
+// tile, kW1MaxFragments, and uses w1_fragments(k) of it, as the wide one
+// (KT < 0) does.
 template <int KT>
 struct W1Shape {
-  static constexpr int NT = KT ? gfla::w1_fragments(KT) : gfla::kW1MaxFragments;
+  static constexpr int NT =
+      KT > 0 ? gfla::w1_fragments(KT) : gfla::kW1MaxFragments;
   static constexpr int Ldb = gfla::mma_col_stride(NT * 8);
 };
 
@@ -713,18 +955,23 @@ __host__ __device__ constexpr int w1_cells(int k) {
   return kChunk * (k + 1) * (k + 1) * gfla::w1_channels(k);
 }
 __host__ __device__ constexpr int w1_fp(int k) { return 2 * (k + 1) + 2; }
+// the wide instance stages no cells; its footprint: batch element, first
+// row and column, wy and wx bits
+constexpr int kWideFp = 5;
 
 template <int KT>
 size_t w1_smem_bytes(int k) {
-  return sizeof(float) * (2 * kChunk * 2 + 2 * w1_cells(k) +
-                          2 * kChunk * kLdh + 2 * kChunk * W1Shape<KT>::Ldb +
-                          3 * kChunk * w1_fp(k));
+  const int cells = KT < 0 ? 0 : w1_cells(k);
+  const int fp = KT < 0 ? kWideFp : w1_fp(k);
+  return sizeof(float) * (2 * kChunk * 2 + 2 * cells + 2 * kChunk * kLdh +
+                          2 * kChunk * W1Shape<KT>::Ldb + 3 * kChunk * fp);
 }
 
 // Grid (offset tiles x channel tiles, hidden-unit tiles, position ranges).
 // CTA (x, y, z) writes part[z][m * C + c][d] = sum over its positions p of
 // block_p[m][c] d_hpre_p[d], for its offsets m, channels c and units d.
-// k_run: the block size, read by the run-time instance (KT = 0) only.
+// k_run: the block size, read by the run-time and wide instances (KT <= 0)
+// only.
 template <int KT, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     warp_bwd_w1_kernel(const SrcT* __restrict__ src,
@@ -734,11 +981,13 @@ __global__ void __launch_bounds__(kThreads, 2)
                        int D, int n_ctiles, int span, int k_run) {
   using S = W1Shape<KT>;
   constexpr int NT = S::NT;
-  const int K = KT ? KT : k_run;
+  constexpr bool kWide = KT < 0;
+  const int K = KT > 0 ? KT : k_run;
   const int K1 = K + 1, K2 = K * K, KC = K1 * K1;
   const int CW = gfla::w1_channels(K), MT = gfla::w1_offsets(K);
-  const int n_cells = w1_cells(K), Fp = w1_fp(K);
-  const int nt_live = KT ? NT : gfla::w1_fragments(K);
+  const int n_cells = kWide ? 0 : w1_cells(K);
+  const int Fp = kWide ? kWideFp : w1_fp(K);
+  const int nt_live = KT > 0 ? NT : gfla::w1_fragments(K);
   extern __shared__ __align__(16) float smem[];
   float* flow_st = smem;                      // 2 x kChunk x 2
   // 2 x kChunk x KC x CW source values (in the room of as many floats)
@@ -748,6 +997,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   //                                             hi parts, then lo parts
   int* fp = reinterpret_cast<int*>(bt + 2 * kChunk * S::Ldb);
   // 3 x kChunk footprints of Fp ints: rowoff[K1], col[K1], wy and wx bits
+  // (wide: batch element, first row and column, wy and wx bits)
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -787,21 +1037,30 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int y = rem / W;
         const int x = rem - y * W;
         const gfla::Footprint ft = gfla::footprint(fl[0], fl[1], y, x, H, W, K);
-        for (int i = 0; i < K1; ++i) {
-          f[i] = (b * H + gfla::tap_row(ft, i, H)) * W;
-          f[K1 + i] = gfla::tap_col(ft, i, W);
+        if constexpr (kWide) {
+          f[0] = b;
+          f[1] = ft.y0;
+          f[2] = ft.x0;
+          f[3] = __float_as_int(ft.wy);
+          f[4] = __float_as_int(ft.wx);
+        } else {
+          for (int i = 0; i < K1; ++i) {
+            f[i] = (b * H + gfla::tap_row(ft, i, H)) * W;
+            f[K1 + i] = gfla::tap_col(ft, i, W);
+          }
+          f[2 * K1] = __float_as_int(ft.wy);
+          f[2 * K1 + 1] = __float_as_int(ft.wx);
         }
-        f[2 * K1] = __float_as_int(ft.wy);
-        f[2 * K1 + 1] = __float_as_int(ft.wx);
       } else {
-        for (int i = 0; i < 2 * K1 + 2; ++i) f[i] = 0;
+        for (int i = 0; i < Fp; ++i) f[i] = 0;
       }
     }
   };
-  // the footprint cells (CW channels) and d_hpre rows of chunk q
+  // the footprint cells (CW channels; none when wide) and d_hpre rows of
+  // chunk q
   auto copy_tiles = [&](int q) {
     SrcT* cst = cells + (q & 1) * n_cells;
-    if (GFLA_SPLIT != 2) {
+    if (!kWide && GFLA_SPLIT != 2) {
       const int kQuads = CW / 4;
       for (int idx = tid; idx < kChunk * KC * kQuads; idx += kThreads) {
         const int t = idx / (KC * kQuads);
@@ -885,6 +1144,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     gfla::cp_async_commit();
 
     // blend: block[t][mo * CW + c] from the four cells of offset m0 + mo
+    // (wide: from its four taps in device memory)
     if (GFLA_SPLIT != 2) {
       const SrcT* cst = cells + (q & 1) * n_cells;
       const int kQuads = CW / 4;
@@ -898,14 +1158,31 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int i = m / K;
         const int j = m - i * K;
         const int* f = fp + ((q % 3) * kChunk + t) * Fp;
-        const gfla::TapWeights w = gfla::tap_weights(
-            __int_as_float(f[2 * K1]), __int_as_float(f[2 * K1 + 1]));
-        const SrcT* c00 = cst + (t * KC + i * K1 + j) * CW + cw;
         float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        v = fma4(w.tl, gfla::lds4(c00), v);
-        v = fma4(w.tr, gfla::lds4(c00 + CW), v);
-        v = fma4(w.bl, gfla::lds4(c00 + K1 * CW), v);
-        v = fma4(w.br, gfla::lds4(c00 + (K1 + 1) * CW), v);
+        if constexpr (kWide) {
+          if (pbeg + q * kChunk + t < pend) {
+            const gfla::Footprint ft{f[1], f[2], __int_as_float(f[3]),
+                                     __int_as_float(f[4])};
+            const gfla::TapWeights w = gfla::tap_weights(ft.wy, ft.wx);
+            const int c = c0 + cw;
+            auto tap = [&](int r, int s) {
+              return load4<kVec>(
+                  src, gfla::cell_pixel(ft, f[0], i + r, j + s, H, W), c, C);
+            };
+            v = fma4(w.tl, tap(0, 0), v);
+            v = fma4(w.tr, tap(0, 1), v);
+            v = fma4(w.bl, tap(1, 0), v);
+            v = fma4(w.br, tap(1, 1), v);
+          }
+        } else {
+          const gfla::TapWeights w = gfla::tap_weights(
+              __int_as_float(f[2 * K1]), __int_as_float(f[2 * K1 + 1]));
+          const SrcT* c00 = cst + (t * KC + i * K1 + j) * CW + cw;
+          v = fma4(w.tl, gfla::lds4(c00), v);
+          v = fma4(w.tr, gfla::lds4(c00 + CW), v);
+          v = fma4(w.bl, gfla::lds4(c00 + K1 * CW), v);
+          v = fma4(w.br, gfla::lds4(c00 + (K1 + 1) * CW), v);
+        }
         float* at_hi = bt + t * S::Ldb + mo * CW + cw;
         if (kBf16) {  // the block rounded to bf16; no lo part
           *reinterpret_cast<float4*>(at_hi) =
@@ -1030,11 +1307,31 @@ int launch_pos(const SrcT* src, const float* flow, const float* hpre,
   float* w2_part = scratch;
   float* flow_part =
       scratch + static_cast<size_t>(plan.tiles) * (D * K2 + K2);
+  // the wide instance's rows: softmax, d_logits (N x k^2), cell dots
+  float* attn = flow_part + static_cast<size_t>(plan.splits) * N * 2;
+  float* dl = attn + static_cast<size_t>(N) * K2;
+  float* cdot = dl + static_cast<size_t>(N) * K2;
+  int e = 0;
+  if (KT < 0) {
+    const size_t prep_smem = prep_smem_bytes(D);
+    e = static_cast<int>(cudaFuncSetAttribute(
+        warp_bwd_wide_prep_kernel<kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(prep_smem)));
+    if (e != 0) return e;
+    warp_bwd_wide_prep_kernel<kVec><<<plan.tiles, kPosThreads, prep_smem,
+                                      stream>>>(
+        src, flow, hpre, w2, b2, g, dhbt, w2_part, attn, dl, cdot, N, H, W, C,
+        D, K, slope);
+    e = static_cast<int>(cudaGetLastError());
+    if (e != 0) return e;
+  }
   const dim3 grid(plan.tiles, plan.splits);
   warp_bwd_pos_kernel<KT, kVec><<<grid, kPosThreads, smem, stream>>>(
-      src, flow, hpre, w1s, w2, b2, g, dsrc, flow_part, dhbt, w2_part, N, H,
-      W, C, D, slope, plan.items, plan.per_cta, K);
-  int e = static_cast<int>(cudaGetLastError());
+      src, flow, hpre, w1s, w2, b2, g, dsrc, flow_part, dhbt, w2_part,
+      KT < 0 ? attn : nullptr, N, H, W, C, D, slope, plan.items,
+      plan.per_cta, K);
+  e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
   e = gfla::launch_reduce(w2_part, plan.tiles,
                           static_cast<size_t>(D) * K2 + K2, dw2b2, stream);
@@ -1083,13 +1380,19 @@ bool aligned16(const void* p) {
 #endif
 
 // Scratch sizes, in floats, that the wrapper allocates for the partial sums:
-// the per-position kernel's dW2/db2 and d_flow partials; the dW1s partials.
+// the per-position kernel's dW2/db2 and d_flow partials (and above k = 9
+// the wide instance's rows: softmax and d_logits, N x k^2 each, cell dots,
+// N x (k+1)^2); the dW1s partials.
 // The bf16 instances have the same plans (and their own copies, so that a
 // library of either alone is whole).
 extern "C" long long GFLA_WARP_BWD_POS_SCRATCH(int N, int C, int D, int k) {
   const gfla::PosPlan plan = gfla::pos_plan(N, C, k);
+  const long long rows =
+      gfla::warp_k_wide(k)
+          ? static_cast<long long>(N) * (2 * k * k + (k + 1) * (k + 1))
+          : 0;
   return static_cast<long long>(plan.tiles) * (D * k * k + k * k) +
-         static_cast<long long>(plan.splits) * N * 2;
+         static_cast<long long>(plan.splits) * N * 2 + rows;
 }
 
 extern "C" long long GFLA_WARP_BWD_W1_SCRATCH(int N, int C, int D, int k) {
@@ -1117,15 +1420,16 @@ extern "C" int GFLA_WARP_BWD_POS(const SrcT* src, const float* flow,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = C % 4 == 0 && D % 4 == 0 && aligned16(src) &&
                    aligned16(g) && aligned16(dsrc) && aligned16(w1s);
-  if (k < 1 || k > gfla::kWarpMaxK) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define GFLA_POS(KT, V)                                                    \
   return launch_pos<KT, V>(src, flow, hpre, w1s, w2, b2, g, dsrc, dflow,   \
                            dhbt, scratch, dw2b2, N, H, W, C, D, k, slope, s)
 #define GFLA_POS_K(KT)          \
   if (vec) GFLA_POS(KT, true);  \
   GFLA_POS(KT, false)
+  if (gfla::warp_k_wide(k)) {  // every k above 9
+    GFLA_POS_K(-1);
+  }
   switch (k) {
     case 3: GFLA_POS_K(3);
     case 5: GFLA_POS_K(5);
@@ -1148,14 +1452,15 @@ extern "C" int GFLA_WARP_BWD_W1(const SrcT* src, const float* flow,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = C % 4 == 0 && D % 4 == 0 && aligned16(src) &&
                    aligned16(dhpre);
-  if (k < 1 || k > gfla::kWarpMaxK) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define GFLA_W1(KT, V) \
   return launch_w1<KT, V>(src, flow, dhpre, part, dw1s, N, H, W, C, D, k, s)
 #define GFLA_W1_K(KT)          \
   if (vec) GFLA_W1(KT, true);  \
   GFLA_W1(KT, false)
+  if (gfla::warp_k_wide(k)) {  // every k above 9
+    GFLA_W1_K(-1);
+  }
   switch (k) {
     case 3: GFLA_W1_K(3);
     case 5: GFLA_W1_K(5);

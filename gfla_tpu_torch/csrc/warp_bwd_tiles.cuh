@@ -12,13 +12,16 @@ constexpr int kPosRows = 64;      // per-position kernel: positions per CTA
 constexpr int kW1Units = 128;     // dW1s kernel: hidden units per CTA
 constexpr int kW1Chunk = 32;      // dW1s kernel: positions per stage
 constexpr int kBwdTargetCtas = 264;  // two CTAs per SM of the H100's 132
-constexpr int kWarpMaxK = 9;      // the widest block the kernels take
+constexpr int kWarpMaxK = 9;      // the widest block of the k <= 9 instances
+constexpr int kWideCols = 8;      // wide instance: offsets of a band
 
 // Both backward kernels have an instance compiled for each k of the live
-// sites (3 and 5), and one that takes k at run time for every other k in
-// 1..kWarpMaxK, odd or even; the maps below name the tiles of the instance
-// that a k runs on.
+// sites (3 and 5), one that takes k at run time for every other k in
+// 1..kWarpMaxK, odd or even, and a wide one for every k above kWarpMaxK,
+// in which nothing sized by k is held in registers or shared memory; the
+// maps below name the tiles of the instance that a k runs on.
 GFLA_HD constexpr bool warp_k_compiled(int k) { return k == 3 || k == 5; }
+GFLA_HD constexpr bool warp_k_wide(int k) { return k > kWarpMaxK; }
 
 struct OffsetChannel {
   int m, c;  // offset i * k + j, channel
@@ -52,6 +55,32 @@ GFLA_HD int pos_band_fragments(int k, int band) {
 GFLA_HD OffsetChannel pos_column(int k, int band, int group, int n) {
   return OffsetChannel{band * pos_band_rows(k) * k + (n >> 3),
                        8 * group + (n & 7)};
+}
+
+// The wide instance's bands: a run of up to kWideCols offsets of one offset
+// row, so that the tile of a band is kWideCols fragments at any k. Band b
+// is row b / wide_runs(k), run b % wide_runs(k).
+GFLA_HD constexpr int wide_runs(int k) {
+  return (k + kWideCols - 1) / kWideCols;
+}
+
+GFLA_HD constexpr int wide_bands(int k) { return k * wide_runs(k); }
+
+struct WideBand {
+  int i, j0, cols;  // offset row, first offset column, offsets
+};
+
+GFLA_HD WideBand wide_band(int k, int band) {
+  const int i = band / wide_runs(k);
+  const int j0 = (band - i * wide_runs(k)) * kWideCols;
+  return WideBand{i, j0, k - j0 < kWideCols ? k - j0 : kWideCols};
+}
+
+// Offset and channel of column n of the wide tile (band, group): fragment
+// n / 8 is offset (i, j0 + n / 8).
+GFLA_HD OffsetChannel wide_column(int k, int band, int group, int n) {
+  const WideBand b = wide_band(k, band);
+  return OffsetChannel{b.i * k + b.j0 + (n >> 3), 8 * group + (n & 7)};
 }
 
 // The trade of an accumulator fragment with lane ^ 1 before the epilogue:
@@ -88,7 +117,7 @@ struct PosPlan {
 GFLA_HD PosPlan pos_plan(int N, int C, int k) {
   PosPlan p;
   p.tiles = (N + kPosRows - 1) / kPosRows;
-  p.items = pos_bands(k) * ((C + 7) / 8);
+  p.items = (warp_k_wide(k) ? wide_bands(k) : pos_bands(k)) * ((C + 7) / 8);
   int splits = 1;
   while (p.tiles * splits < kBwdTargetCtas * 3 / 4 && 2 * splits <= p.items) {
     splits *= 2;
@@ -103,7 +132,8 @@ GFLA_HD PosPlan pos_plan(int N, int C, int k) {
 // offset-major, in w1_fragments(k) fragments; its rows kW1Units hidden
 // units; its depth a range of positions. Up to 25 offsets a tile, and as
 // many 4-channel groups as keep the tile within 100 columns (13 fragments,
-// kW1MaxFragments, which the run-time instance holds for every k).
+// kW1MaxFragments, which the run-time and wide instances hold for every k;
+// above 5 a tile is 25 offsets of 4 channels).
 
 GFLA_HD constexpr int w1_offsets(int k) { return k * k < 25 ? k * k : 25; }
 

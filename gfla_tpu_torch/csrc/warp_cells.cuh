@@ -57,4 +57,26 @@ GFLA_HD float cell_dattn(const float* cdot, int k1, const TapWeights& w,
   return w.tl * c[0] + w.tr * c[1] + w.bl * c[k1] + w.br * c[k1 + 1];
 }
 
+// The forward's weight of cell (r, c), 0 <= r, c <= k, in
+// (1/k^2) sum_m attn_m block_m: the blend weights of the offsets that use
+// it as a tap times their attention weights att[i * k + j], summed in the
+// order top-left, top-right, bottom-left, bottom-right (csrc/warp_fwd.cu).
+GFLA_HD float cell_coef(const float* att, int k, const TapWeights& w, int r,
+                        int c) {
+  float f = 0.0f;
+  if (r < k && c < k) f = fmaf(w.tl, att[r * k + c], f);
+  if (r < k && c > 0) f = fmaf(w.tr, att[r * k + c - 1], f);
+  if (r > 0 && c < k) f = fmaf(w.bl, att[(r - 1) * k + c], f);
+  if (r > 0 && c > 0) f = fmaf(w.br, att[(r - 1) * k + c - 1], f);
+  return f * (1.0f / static_cast<float>(k * k));
+}
+
+// In a band of one offset row and `cols` offsets (the wide per-position
+// backward's, csrc/warp_bwd_tiles.cuh), the band-local offset column, and so
+// the product fragment, that holds band-local cell (r, s), 0 <= r <= 1,
+// 0 <= s <= cols, in `role`; -1 where no offset of the band does.
+GFLA_HD int band_tap(int role, int r, int s, int cols) {
+  return role_valid(role, r, s, 1, cols) ? role_col(role, s) : -1;
+}
+
 }  // namespace gfla

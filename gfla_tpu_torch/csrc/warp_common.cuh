@@ -66,6 +66,15 @@ GFLA_HD int tap_col(const Footprint& f, int j, int W) {
   return clamp_index(f.x0 + j, 0, W - 1);
 }
 
+// Pixel of footprint cell (i, j), 0 <= i, j <= k, of a position of batch
+// element b, in the batch's (B*H*W) pixel order: what the tables of the
+// kernels for k <= 9 hold, computed where it is needed (the wide instances
+// keep nothing sized by k).
+GFLA_HD int cell_pixel(const Footprint& f, int b, int i, int j, int H,
+                       int W) {
+  return (b * H + tap_row(f, i, H)) * W + tap_col(f, j, W);
+}
+
 // Blend weights of the four taps of an offset: top-left, top-right,
 // bottom-left, bottom-right. A block value is their weighted sum; its
 // cotangent goes back to the taps with the same weights (scattered into

@@ -43,6 +43,20 @@
 // gfla_tpu's block_extract offsets i - k/2; warp_common.cuh's footprint
 // follows it): nothing in it is sized by k but shared memory.
 //
+// Above k = 9, the wide instance (kWide), which takes every k gfla_tpu's
+// Pallas warp does: nothing in it is sized by k. The product is the same
+// (the taps' rows and columns clamped as they are loaded, from each
+// position's footprint, in place of the tables); the logits go to a scratch
+// of B*H*W x k^2 floats in device memory, and a warp per position takes the
+// softmax over them in strides of 32 offsets and the weighted sum over the
+// footprint cells, each cell's weight made from the attention weights
+// where it is used (warp_cells.cuh's cell_coef), 4 channels a lane. Its
+// product sums each chunk of 32 channels from 0 on the tensor cores and
+// adds it to the running sum on the FP32 cores (as the dW1s kernel does):
+// the tensor cores add by truncation, and over a depth of k^2 C = 21632
+// (k = 13, C = 128) that alone left hpre 1.2e-4 of its max off the plain
+// product's.
+//
 // bf16 (warp_fwd_bf16.cu builds this file with GFLA_WARP_BF16 = 1, entry
 // gfla_warp_fwd_bf16): gfla_tpu's kernel with a bf16 source
 // (pallas_warp.py:435-451). It reads the source and W2 in bf16 and blends
@@ -62,6 +76,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
+#include "warp_cells.cuh"
 #include "warp_common.cuh"
 
 #ifndef GFLA_WARP_BF16
@@ -79,7 +94,7 @@ constexpr int kChunk = 32;   // channels per depth chunk
 constexpr int kLda = gfla::mma_row_stride(kChunk);
 constexpr int kStagesB = 3;  // W1s ring
 constexpr int kThreads = 256;
-constexpr int kMaxK = 9;     // the widest block it takes
+constexpr int kMaxK = 9;     // the widest block of the k <= 9 instances
 constexpr bool kBf16 = GFLA_WARP_BF16;
 // the source, W2 and the output: f32, or bf16 as bits
 using SrcT = std::conditional_t<kBf16, uint16_t, float>;
@@ -141,10 +156,36 @@ struct Cursor {
   }
 };
 
+// Channels c..c+3 of output position p from their f32 sums, zero past C.
+template <bool kVecA>
+__device__ __forceinline__ void store_out4(SrcT* __restrict__ out, int p,
+                                           int c, int C, float4 o) {
+  SrcT* to = out + static_cast<size_t>(p) * C + c;
+  if constexpr (kBf16) {
+    const uint16_t v[4] = {gfla::bf16_bits(o.x), gfla::bf16_bits(o.y),
+                           gfla::bf16_bits(o.z), gfla::bf16_bits(o.w)};
+    if (kVecA) {  // 8 bytes: C % 4 == 0, out 16-byte aligned
+      *reinterpret_cast<uint2*>(to) =
+          make_uint2(v[0] | (uint32_t{v[1]} << 16),
+                     v[2] | (uint32_t{v[3]} << 16));
+    } else {
+      for (int u = 0; u < 4 && c + u < C; ++u) to[u] = v[u];
+    }
+  } else if (kVecA) {
+    *reinterpret_cast<float4*>(to) = o;
+  } else {
+    to[0] = o.x;
+    if (c + 1 < C) to[1] = o.y;
+    if (c + 2 < C) to[2] = o.z;
+    if (c + 3 < C) to[3] = o.w;
+  }
+}
+
 // NT: 8-column fragments per warp, so the tile is 32 NT >= D columns wide.
 // kVecA: C % 4 == 0 and source and out 16-byte aligned; kVecB: D % 4 == 0 and
-// W1s 16-byte aligned.
-template <int NT, bool kVecA, bool kVecB>
+// W1s 16-byte aligned. kWide: the instance for k above kMaxK, whose logits
+// go to att_g (N x k^2; null for the others).
+template <int NT, bool kVecA, bool kVecB, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     warp_fwd_kernel(const SrcT* __restrict__ src,
                     const float* __restrict__ flow,
@@ -152,8 +193,8 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ w1s,
                     const SrcT* __restrict__ w2,
                     const float* __restrict__ b2, SrcT* __restrict__ out,
-                    float* __restrict__ hpre, int N, int H, int W, int C,
-                    int D, int K, float slope) {
+                    float* __restrict__ hpre, float* __restrict__ att_g,
+                    int N, int H, int W, int C, int D, int K, float slope) {
   // two rows of four warps, each warp 32 positions x 8 NT hidden units
   constexpr gfla::WarpGrid kGrid{4, 2, NT};
   constexpr int kCols = 32 * NT;
@@ -168,12 +209,31 @@ __global__ void __launch_bounds__(kThreads)
   float* a_ring = smem;                   // 2 x kPos x kLda
   float* b_ring = smem + 2 * kPos * kLda; // kStagesB x kChunk x kLdb
   float* hid = smem;                      // kPos x kLdh, once the ring is free
-  float* att = smem + kRing;              // kPos x K2
-  float* coef = att + kPos * K2;          // kPos x K1 x K1
+  float* att = smem + kRing;              // kPos x K2 (none when wide)
+  float* coef = att + (kWide ? 0 : kPos * K2);  // kPos x K1 x K1 (none)
   gfla::TapWeights* wts = reinterpret_cast<gfla::TapWeights*>(
-      coef + kPos * K1 * K1);             // kPos
+      coef + (kWide ? 0 : kPos * K1 * K1));  // kPos
   int* rowoff = reinterpret_cast<int*>(wts + kPos);  // kPos x K1: pixel of
   int* col = rowoff + kPos * K1;          // (row, 0) in the batch; column
+  // wide: each position's footprint and batch element in place of the tables
+  gfla::Footprint* fpw = reinterpret_cast<gfla::Footprint*>(wts + kPos);
+  int* bat = reinterpret_cast<int*>(fpw + kPos);
+  // pixel of footprint row i, column 0 of position t; column of footprint
+  // column j
+  auto row_off = [&](int t, int i) -> int {
+    if constexpr (kWide) {
+      return (bat[t] * H + gfla::tap_row(fpw[t], i, H)) * W;
+    } else {
+      return rowoff[t * K1 + i];
+    }
+  };
+  auto col_at = [&](int t, int j) -> int {
+    if constexpr (kWide) {
+      return gfla::tap_col(fpw[t], j, W);
+    } else {
+      return col[t * K1 + j];
+    }
+  };
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -191,15 +251,25 @@ __global__ void __launch_bounds__(kThreads)
       const gfla::Footprint fp =
           gfla::footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, K);
       wts[t] = gfla::tap_weights(fp.wy, fp.wx);
-      for (int i = 0; i < K1; ++i) {
-        rowoff[t * K1 + i] = (b * H + gfla::tap_row(fp, i, H)) * W;
-        col[t * K1 + i] = gfla::tap_col(fp, i, W);
+      if constexpr (kWide) {
+        fpw[t] = fp;
+        bat[t] = b;
+      } else {
+        for (int i = 0; i < K1; ++i) {
+          rowoff[t * K1 + i] = (b * H + gfla::tap_row(fp, i, H)) * W;
+          col[t * K1 + i] = gfla::tap_col(fp, i, W);
+        }
       }
     } else {  // past the end: weights 0 on pixel 0
       wts[t] = gfla::TapWeights{0.0f, 0.0f, 0.0f, 0.0f};
-      for (int i = 0; i < K1; ++i) {
-        rowoff[t * K1 + i] = 0;
-        col[t * K1 + i] = 0;
+      if constexpr (kWide) {
+        fpw[t] = gfla::Footprint{0, 0, 0.0f, 0.0f};
+        bat[t] = 0;
+      } else {
+        for (int i = 0; i < K1; ++i) {
+          rowoff[t * K1 + i] = 0;
+          col[t * K1 + i] = 0;
+        }
       }
     }
   }
@@ -219,9 +289,9 @@ __global__ void __launch_bounds__(kThreads)
         for (int q = 0; q < 4; ++q) taps[h][q] = make_float4(1, 1, 1, 1);
         continue;
       }
-      const int at = (gp + 32 * h) * K1;
-      const int r0 = rowoff[at + cur.i], r1 = rowoff[at + cur.i + 1];
-      const int x0 = col[at + cur.j], x1 = col[at + cur.j + 1];
+      const int t = gp + 32 * h;
+      const int r0 = row_off(t, cur.i), r1 = row_off(t, cur.i + 1);
+      const int x0 = col_at(t, cur.j), x1 = col_at(t, cur.j + 1);
       const int c = cur.c0 + gc;
       taps[h][0] = load4<kVecA>(src, r0 + x0, c, C);
       taps[h][1] = load4<kVecA>(src, r0 + x1, c, C);
@@ -282,12 +352,13 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   float acc[2][NT][4];
+  float sum[2][NT][4];  // wide: the chunks' sums (the narrow ones use acc)
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = sum[mt][nt][e] = 0.0f;
     }
   }
   // this lane's first fragment elements: element e of an A fragment lies
@@ -395,6 +466,22 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
+    if constexpr (kWide) {
+      // the tensor cores add by truncation, which a depth of k^2 C past
+      // 10^4 makes felt: each chunk's products are summed from 0 and added
+      // to the sum on the FP32 cores
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sum[mt][nt][e] += acc[mt][nt][e];
+            acc[mt][nt][e] = 0.0f;
+          }
+        }
+      }
+    }
     // the other A buffer was last read one chunk ago, before a barrier
     if (more) store_blend(taps, a_ring + ((q + 1) & 1) * kPos * kLda);
     gfla::cp_async_wait<kStagesB - 2>();  // the next chunk of W1s is in
@@ -415,7 +502,7 @@ __global__ void __launch_bounds__(kThreads)
         const int n = gfla::grid_col(kGrid, warp, lane, nt, e);
         const int p = p0 + row;
         if (n < D) {
-          float h = acc[mt][nt][e];
+          float h = kWide ? sum[mt][nt][e] : acc[mt][nt][e];
           if (p < N) {
             h += hbt[static_cast<size_t>(p) * D + n];
             if (hpre != nullptr) hpre[static_cast<size_t>(p) * D + n] = h;
@@ -427,186 +514,239 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // ---- logits, softmax over the k^2 offsets (a warp per 8 positions) ------
-  for (int e = tid; e < kPos * K2; e += kThreads) {
-    const int t = e / K2;
-    const int mm = e - t * K2;
-    float s = 0.0f;
-    for (int dd = 0; dd < D; ++dd) {
-      s = fmaf(hid[t * kLdh + dd], gfla::to_float(w2[dd * K2 + mm]), s);
+  if constexpr (kWide) {
+    // ---- logits into this CTA's rows of the scratch -----------------------
+    for (int e = tid; e < kPos * K2; e += kThreads) {
+      const int t = e / K2;
+      const int mm = e - t * K2;
+      if (p0 + t >= N) continue;
+      float s = 0.0f;
+      for (int dd = 0; dd < D; ++dd) {
+        s = fmaf(hid[t * kLdh + dd], gfla::to_float(w2[dd * K2 + mm]), s);
+      }
+      att_g[static_cast<size_t>(p0 + t) * K2 + mm] = s + b2[mm];
     }
-    att[e] = s + b2[mm];
-  }
-  __syncthreads();
-  for (int t = warp * (kPos / 8); t < (warp + 1) * (kPos / 8); ++t) {
-    float* a = att + t * K2;  // K2 <= 81: three values a lane
-    constexpr int kVals = (kMaxK * kMaxK + 31) / 32;
-    float v[kVals];
-    float mx = -INFINITY;
+    __syncthreads();
+    // ---- a warp per position: the softmax over the k^2 offsets in strides
+    // of 32, then out = sum over the footprint cells, 4 channels a lane ----
+    for (int t = warp * (kPos / 8); t < (warp + 1) * (kPos / 8); ++t) {
+      const int p = p0 + t;
+      if (p >= N) break;
+      float* a = att_g + static_cast<size_t>(p) * K2;
+      float mx = -INFINITY;
+      for (int m = lane; m < K2; m += 32) mx = fmaxf(mx, a[m]);
+      mx = warp_max(mx);
+      float sum = 0.0f;
+      for (int m = lane; m < K2; m += 32) sum += expf(a[m] - mx);
+      sum = warp_sum(sum);
+      for (int m = lane; m < K2; m += 32) {
+        a[m] = at_bf16(expf(a[m] - mx) / sum);
+      }
+      __syncwarp();  // every lane's weights in for all
+      const gfla::TapWeights w = wts[t];
+      for (int c = 4 * lane; c < C; c += 4 * 32) {
+        float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int r = 0; r < K1; ++r) {
+          const int ro = row_off(t, r);
+          for (int cc = 0; cc < K1; ++cc) {
+            o = fma4(gfla::cell_coef(a, K, w, r, cc),
+                     load4<kVecA>(src, ro + col_at(t, cc), c, C), o);
+          }
+        }
+        store_out4<kVecA>(out, p, c, C, o);
+      }
+    }
+  } else {
+    // ---- logits, softmax over the k^2 offsets (a warp per 8 positions) ----
+    for (int e = tid; e < kPos * K2; e += kThreads) {
+      const int t = e / K2;
+      const int mm = e - t * K2;
+      float s = 0.0f;
+      for (int dd = 0; dd < D; ++dd) {
+        s = fmaf(hid[t * kLdh + dd], gfla::to_float(w2[dd * K2 + mm]), s);
+      }
+      att[e] = s + b2[mm];
+    }
+    __syncthreads();
+    for (int t = warp * (kPos / 8); t < (warp + 1) * (kPos / 8); ++t) {
+      float* a = att + t * K2;  // K2 <= 81: three values a lane
+      constexpr int kVals = (kMaxK * kMaxK + 31) / 32;
+      float v[kVals];
+      float mx = -INFINITY;
 #pragma unroll
-    for (int u = 0; u < kVals; ++u) {
-      v[u] = lane + 32 * u < K2 ? a[lane + 32 * u] : -INFINITY;
-      mx = fmaxf(mx, v[u]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
+      for (int u = 0; u < kVals; ++u) {
+        v[u] = lane + 32 * u < K2 ? a[lane + 32 * u] : -INFINITY;
+        mx = fmaxf(mx, v[u]);
+      }
+      mx = warp_max(mx);
+      float sum = 0.0f;
 #pragma unroll
-    for (int u = 0; u < kVals; ++u) {
-      v[u] = lane + 32 * u < K2 ? expf(v[u] - mx) : 0.0f;
-      sum += v[u];
-    }
-    sum = warp_sum(sum);
+      for (int u = 0; u < kVals; ++u) {
+        v[u] = lane + 32 * u < K2 ? expf(v[u] - mx) : 0.0f;
+        sum += v[u];
+      }
+      sum = warp_sum(sum);
 #pragma unroll
-    for (int u = 0; u < kVals; ++u) {
-      if (lane + 32 * u < K2) a[lane + 32 * u] = at_bf16(v[u] / sum);
+      for (int u = 0; u < kVals; ++u) {
+        if (lane + 32 * u < K2) a[lane + 32 * u] = at_bf16(v[u] / sum);
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // ---- out = (1/k^2) sum_m attn_m block_m over the footprint cells --------
-  // cell (r, c) is the top-left tap of offset (r, c), the top-right of
-  // (r, c-1), the bottom-left of (r-1, c) and the bottom-right of (r-1, c-1)
-  const float scale = 1.0f / static_cast<float>(K2);
-  for (int e = tid; e < kPos * K1 * K1; e += kThreads) {
-    const int t = e / (K1 * K1);
-    const int cell = e - t * K1 * K1;
-    const int r = cell / K1;
-    const int c = cell - r * K1;
-    const float* a = att + t * K2;
-    const gfla::TapWeights w = wts[t];
-    float f = 0.0f;
-    if (r < K && c < K) f = fmaf(w.tl, a[r * K + c], f);
-    if (r < K && c > 0) f = fmaf(w.tr, a[r * K + c - 1], f);
-    if (r > 0 && c < K) f = fmaf(w.bl, a[(r - 1) * K + c], f);
-    if (r > 0 && c > 0) f = fmaf(w.br, a[(r - 1) * K + c - 1], f);
-    coef[e] = f * scale;
-  }
-  __syncthreads();
-  const int C4 = (C + 3) / 4;
-  for (int e = tid; e < kPos * C4; e += kThreads) {
-    const int t = e / C4;
-    const int c = 4 * (e - t * C4);
-    const int p = p0 + t;
-    if (p >= N) continue;
-    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (GFLA_SPLIT == 3) {
-      o.x = coef[t * K1 * K1];
-    } else {
-      for (int r = 0; r < K1; ++r) {
-        const int ro = rowoff[t * K1 + r];
-        for (int cc = 0; cc < K1; ++cc) {
-          o = fma4(coef[(t * K1 + r) * K1 + cc],
-                   load4<kVecA>(src, ro + col[t * K1 + cc], c, C), o);
+    // ---- out = (1/k^2) sum_m attn_m block_m over the footprint cells ------
+    // cell (r, c) is the top-left tap of offset (r, c), the top-right of
+    // (r, c-1), the bottom-left of (r-1, c) and the bottom-right of (r-1, c-1)
+    const float scale = 1.0f / static_cast<float>(K2);
+    for (int e = tid; e < kPos * K1 * K1; e += kThreads) {
+      const int t = e / (K1 * K1);
+      const int cell = e - t * K1 * K1;
+      const int r = cell / K1;
+      const int c = cell - r * K1;
+      const float* a = att + t * K2;
+      const gfla::TapWeights w = wts[t];
+      float f = 0.0f;
+      if (r < K && c < K) f = fmaf(w.tl, a[r * K + c], f);
+      if (r < K && c > 0) f = fmaf(w.tr, a[r * K + c - 1], f);
+      if (r > 0 && c < K) f = fmaf(w.bl, a[(r - 1) * K + c], f);
+      if (r > 0 && c > 0) f = fmaf(w.br, a[(r - 1) * K + c - 1], f);
+      coef[e] = f * scale;
+    }
+    __syncthreads();
+    const int C4 = (C + 3) / 4;
+    for (int e = tid; e < kPos * C4; e += kThreads) {
+      const int t = e / C4;
+      const int c = 4 * (e - t * C4);
+      const int p = p0 + t;
+      if (p >= N) continue;
+      float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (GFLA_SPLIT == 3) {
+        o.x = coef[t * K1 * K1];
+      } else {
+        for (int r = 0; r < K1; ++r) {
+          const int ro = rowoff[t * K1 + r];
+          for (int cc = 0; cc < K1; ++cc) {
+            o = fma4(coef[(t * K1 + r) * K1 + cc],
+                     load4<kVecA>(src, ro + col[t * K1 + cc], c, C), o);
+          }
         }
       }
-    }
-    SrcT* to = out + static_cast<size_t>(p) * C + c;
-    if constexpr (kBf16) {
-      const uint16_t v[4] = {gfla::bf16_bits(o.x), gfla::bf16_bits(o.y),
-                             gfla::bf16_bits(o.z), gfla::bf16_bits(o.w)};
-      if (kVecA) {  // 8 bytes: C % 4 == 0, out 16-byte aligned
-        *reinterpret_cast<uint2*>(to) =
-            make_uint2(v[0] | (uint32_t{v[1]} << 16),
-                       v[2] | (uint32_t{v[3]} << 16));
-      } else {
-        for (int u = 0; u < 4 && c + u < C; ++u) to[u] = v[u];
-      }
-    } else if (kVecA) {
-      *reinterpret_cast<float4*>(to) = o;
-    } else {
-      to[0] = o.x;
-      if (c + 1 < C) to[1] = o.y;
-      if (c + 2 < C) to[2] = o.z;
-      if (c + 3 < C) to[3] = o.w;
+      store_out4<kVecA>(out, p, c, C, o);
     }
   }
 }
 
-template <int NT, bool kVecA, bool kVecB>
+template <int NT, bool kVecA, bool kVecB, bool kWide>
 int launch(const SrcT* src, const float* flow, const float* hbt,
            const float* w1s, const SrcT* w2, const float* b2, SrcT* out,
-           float* hpre, int N, int H, int W, int C, int D, int K, float slope,
-           cudaStream_t stream) {
+           float* hpre, float* att_g, int N, int H, int W, int C, int D,
+           int K, float slope, cudaStream_t stream) {
   const int K1 = K + 1;
-  const size_t smem =
+  const size_t ring =
       sizeof(float) * (2 * kPos * kLda +
-                       kStagesB * kChunk * gfla::mma_col_stride(32 * NT) +
-                       kPos * (K * K + K1 * K1)) +
-      kPos * (sizeof(gfla::TapWeights) + 2 * K1 * sizeof(int));
+                       kStagesB * kChunk * gfla::mma_col_stride(32 * NT));
+  const size_t smem =
+      kWide ? ring + kPos * (sizeof(gfla::TapWeights) +
+                             sizeof(gfla::Footprint) + sizeof(int))
+            : ring + sizeof(float) * kPos * (K * K + K1 * K1) +
+                  kPos * (sizeof(gfla::TapWeights) + 2 * K1 * sizeof(int));
   const cudaError_t err = cudaFuncSetAttribute(
-      warp_fwd_kernel<NT, kVecA, kVecB>,
+      warp_fwd_kernel<NT, kVecA, kVecB, kWide>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kPos - 1) / kPos);
-  warp_fwd_kernel<NT, kVecA, kVecB><<<grid, kThreads, smem, stream>>>(
-      src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W, C, D, K, slope);
+  warp_fwd_kernel<NT, kVecA, kVecB, kWide><<<grid, kThreads, smem, stream>>>(
+      src, flow, hbt, w1s, w2, b2, out, hpre, att_g, N, H, W, C, D, K, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NT>
 int launch_aligned(const SrcT* src, const float* flow, const float* hbt,
                    const float* w1s, const SrcT* w2, const float* b2,
-                   SrcT* out, float* hpre, int N, int H, int W, int C, int D,
-                   int K, float slope, cudaStream_t s) {
+                   SrcT* out, float* hpre, float* att_g, int N, int H, int W,
+                   int C, int D, int K, float slope, cudaStream_t s) {
   const uintptr_t a_bits =
       reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out);
   const bool vec_a = C % 4 == 0 && a_bits % 16 == 0;
   const bool vec_b = D % 4 == 0 && reinterpret_cast<uintptr_t>(w1s) % 16 == 0;
+  if (K > kMaxK) {  // the wide instance: vector loads where both allow them
+    if (vec_a && vec_b) {
+      return launch<NT, true, true, true>(src, flow, hbt, w1s, w2, b2, out,
+                                          hpre, att_g, N, H, W, C, D, K,
+                                          slope, s);
+    }
+    return launch<NT, false, false, true>(src, flow, hbt, w1s, w2, b2, out,
+                                          hpre, att_g, N, H, W, C, D, K,
+                                          slope, s);
+  }
   if (vec_a && vec_b) {
-    return launch<NT, true, true>(src, flow, hbt, w1s, w2, b2, out, hpre, N,
-                                  H, W, C, D, K, slope, s);
+    return launch<NT, true, true, false>(src, flow, hbt, w1s, w2, b2, out,
+                                         hpre, nullptr, N, H, W, C, D, K,
+                                         slope, s);
   }
   if (vec_a) {
-    return launch<NT, true, false>(src, flow, hbt, w1s, w2, b2, out, hpre, N,
-                                   H, W, C, D, K, slope, s);
+    return launch<NT, true, false, false>(src, flow, hbt, w1s, w2, b2, out,
+                                          hpre, nullptr, N, H, W, C, D, K,
+                                          slope, s);
   }
   if (vec_b) {
-    return launch<NT, false, true>(src, flow, hbt, w1s, w2, b2, out, hpre, N,
-                                   H, W, C, D, K, slope, s);
+    return launch<NT, false, true, false>(src, flow, hbt, w1s, w2, b2, out,
+                                          hpre, nullptr, N, H, W, C, D, K,
+                                          slope, s);
   }
-  return launch<NT, false, false>(src, flow, hbt, w1s, w2, b2, out, hpre, N,
-                                  H, W, C, D, K, slope, s);
+  return launch<NT, false, false, false>(src, flow, hbt, w1s, w2, b2, out,
+                                         hpre, nullptr, N, H, W, C, D, K,
+                                         slope, s);
 }
 
 }  // namespace
 
 #if GFLA_WARP_BF16
 #define GFLA_WARP_FWD gfla_warp_fwd_bf16
+#define GFLA_WARP_FWD_SCRATCH gfla_warp_fwd_scratch_bf16
 #else
 #define GFLA_WARP_FWD gfla_warp_fwd
+#define GFLA_WARP_FWD_SCRATCH gfla_warp_fwd_scratch
 #endif
+
+// Floats of the scratch the wrapper allocates: the wide instance's logits
+// (N x k^2) above k = 9, none below. The bf16 instances have their own copy,
+// so that a library of either alone is whole.
+extern "C" long long GFLA_WARP_FWD_SCRATCH(int N, int k) {
+  return k > kMaxK ? static_cast<long long>(N) * k * k : 0;
+}
 
 // source (B,H,W,C), flow (B,H,W,2) as (x, y), hbt (B*H*W, D), w1s (k*k*C, D),
 // w2 (D, k*k), b2 (k*k), out (B,H,W,C): float32, contiguous, on one device;
-// 1 <= k <= 9; D at most 256. hpre: null, or (B*H*W, D), which then
+// k >= 1; D at most 256. hpre: null, or (B*H*W, D), which then
 // gets the pre-activation hidden layer blocks . W1s + hbt for the backward.
+// scratch: gfla_warp_fwd_scratch floats (null where that is 0).
 // gfla_warp_fwd_bf16: the same with source, W2 and out in bf16 (bits) and
 // W1s holding bf16 values in f32. Returns a cudaError_t; 0 means the
 // launch was accepted.
 extern "C" int GFLA_WARP_FWD(const SrcT* src, const float* flow,
                              const float* hbt, const float* w1s,
                              const SrcT* w2, const float* b2, SrcT* out,
-                             float* hpre, int B, int H, int W, int C, int D,
-                             int k, float slope, void* stream) {
+                             float* hpre, float* scratch, int B, int H, int W,
+                             int C, int D, int k, float slope, void* stream) {
   const int N = B * H * W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > kMaxK || D < 1 || D > 256) {
+  if (k < 1 || D < 1 || D > 256 || (k > kMaxK && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (D <= 32) {
-    return launch_aligned<1>(src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W,
-                             C, D, k, slope, s);
+    return launch_aligned<1>(src, flow, hbt, w1s, w2, b2, out, hpre, scratch,
+                             N, H, W, C, D, k, slope, s);
   }
   if (D <= 64) {
-    return launch_aligned<2>(src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W,
-                             C, D, k, slope, s);
+    return launch_aligned<2>(src, flow, hbt, w1s, w2, b2, out, hpre, scratch,
+                             N, H, W, C, D, k, slope, s);
   }
   if (D <= 128) {
-    return launch_aligned<4>(src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W,
-                             C, D, k, slope, s);
+    return launch_aligned<4>(src, flow, hbt, w1s, w2, b2, out, hpre, scratch,
+                             N, H, W, C, D, k, slope, s);
   }
-  return launch_aligned<8>(src, flow, hbt, w1s, w2, b2, out, hpre, N, H, W, C,
-                           D, k, slope, s);
+  return launch_aligned<8>(src, flow, hbt, w1s, w2, b2, out, hpre, scratch, N,
+                           H, W, C, D, k, slope, s);
 }
 
 #if !GFLA_WARP_BF16

@@ -60,13 +60,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for suffix in ("", "_bf16"):  # warp_*.cu and their bf16 instances
         fwd = getattr(lib, f"gfla_warp_fwd{suffix}")
-        fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
+        fwd.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, p]
         pos = getattr(lib, f"gfla_warp_bwd_pos{suffix}")
         pos.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, p]
         w1 = getattr(lib, f"gfla_warp_bwd_w1{suffix}")
         w1.argtypes = [p] * 5 + [i] * 6 + [p]
         for fn in (fwd, pos, w1):
             fn.restype = i
+    lib.gfla_warp_fwd_scratch.argtypes = [i, i]
+    lib.gfla_warp_fwd_scratch.restype = ctypes.c_longlong
     lib.gfla_warp_bwd_pos_scratch.argtypes = [i, i, i, i]
     lib.gfla_warp_bwd_pos_scratch.restype = ctypes.c_longlong
     lib.gfla_warp_bwd_w1_scratch.argtypes = [i, i, i, i]

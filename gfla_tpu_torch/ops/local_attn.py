@@ -13,9 +13,9 @@ read when called:
   CUDA tensor and runs its plain twin on a CPU tensor. gfla_tpu's `auto`
   takes the warp kernel on its accelerator and the composition on the CPU;
   the port takes the warp route on both, since its CPU twin is plain torch.
-  The warp kernels take k in 1..9, odd or even; on a CUDA tensor a wider
-  block raises in the wrapper (GFLA_ATTN_PALLAS=0 selects the composite),
-  and on a CPU tensor the plain twin takes any k.
+  The warp kernels take every k >= 1, odd or even, as gfla_tpu's Pallas
+  warp does (from k = 10 on their wide instances), and so does the plain
+  twin on a CPU tensor: no kernel size sends the route to the composite.
 - `1`: the blocks are gathered in plain torch (`block_extract`,
   `extract_patches`) and the attention math goes to
   `attn_math.attn_math`, the math-fused kernel, for any LeakyReLU or ReLU

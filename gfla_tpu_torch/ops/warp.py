@@ -11,6 +11,12 @@ kernel or raises; on a CPU tensor it runs the plain torch twin of the same
 function (`warp_fwd_plain`, `warp_bwd_plain`). Nothing falls back from a
 kernel to a plain version.
 
+The kernels take every kernel size k >= 1, as gfla_tpu's Pallas warp does
+(`fused_warp_eligible`, pallas_warp.py:56-89, sets no limit on k): compiled
+instances for k = 3 and 5, a run-time-k instance for the other k up to 9,
+and from k = WIDE_K the wide instances, which keep nothing sized by k on
+chip (each wrapper counts their launches apart).
+
 Layouts follow gfla_tpu: source (B,H,W,C); flow (B,H,W,2) as (x, y);
 hidden_bt (B,H*W,D), the target-stream dense term including b1;
 w1s (k*k*C, D), the source half of the first projection; w2 (D, k*k);
@@ -48,10 +54,14 @@ bwd_w1_launches = 0   # warp_bwd.cu, dW1s kernel (+ its reduce)
 bf16_launches = 0          # warp_fwd_bf16.cu
 bf16_bwd_pos_launches = 0  # warp_bwd_bf16.cu, per-position kernel
 bf16_bwd_w1_launches = 0   # warp_bwd_bf16.cu, dW1s kernel
+# ... and of the wide instances (k >= WIDE_K), in the same sources
+wide_launches = wide_bwd_pos_launches = wide_bwd_w1_launches = 0
+bf16_wide_launches = bf16_wide_bwd_pos_launches = 0
+bf16_wide_bwd_w1_launches = 0
 
 MAX_D = 256      # one thread per hidden unit
 MAX_C = 1024     # keeps the shared-memory tile within the 227 KB per block
-KERNEL_SIZES = tuple(range(1, 10))  # any k in 1..9, odd or even
+WIDE_K = 10      # the wide instances take k from here up
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -176,6 +186,27 @@ def warp_bwd_plain(source, flow, hidden_bt, w1s, w2, b2, g, kernel_size: int,
     return d_source, d_flow, d_hpre, dw1s, dw2, db2
 
 
+def _check_sizes(name, N, C, D, k):
+    """What every warp kernel takes: any k >= 1, C and D within the
+    kernels' tiles, and every tensor and scratch they index (N x C, N x D,
+    N x (k+1)^2, k^2 C x D) within 32-bit indexing."""
+    if k < 1:
+        raise ValueError(f"{name}: kernel_size must be >= 1, got {k}")
+    if not 1 <= D <= MAX_D or not 1 <= C <= MAX_C:
+        raise ValueError(f"{name}: the CUDA kernels take 1 <= D <= {MAX_D} "
+                         f"and 1 <= C <= {MAX_C}, got D={D}, C={C}")
+    if N * max(C, D, (k + 1) ** 2) >= 2**31 or k * k * C * D >= 2**31:
+        raise ValueError(f"{name}: tensor too large for 32-bit indexing")
+
+
+def _count(name, bf16, k):
+    """Adds one to the launch count of kernel `name` ("", "bwd_pos_",
+    "bwd_w1_") in its type and instance."""
+    counter = (("bf16_" if bf16 else "") + ("wide_" if k >= WIDE_K else "")
+               + name + "launches")
+    globals()[counter] += 1
+
+
 def _check_kernel_inputs(source, flow, hidden, w1s, w2, b2, k, g=None):
     """`hidden` is hidden_bt (B, H*W, D) for the forward kernel and, with the
     cotangent g, the forward's hpre (B*H*W, D) for the backward. The source
@@ -205,14 +236,7 @@ def _check_kernel_inputs(source, flow, hidden, w1s, w2, b2, k, g=None):
                          f"{tuple(source.shape)}")
     B, H, W, C = source.shape
     D = w1s.shape[-1]
-    if k not in KERNEL_SIZES:
-        raise ValueError(f"warp: kernel_size {k} not in {KERNEL_SIZES}; "
-                         f"GFLA_ATTN_PALLAS=0 selects the composite")
-    if not 1 <= D <= MAX_D or not 1 <= C <= MAX_C:
-        raise ValueError(f"warp: the CUDA kernels take 1 <= D <= {MAX_D} "
-                         f"and 1 <= C <= {MAX_C}, got D={D}, C={C}")
-    if B * H * W * max(C, D) >= 2**31:
-        raise ValueError("warp: tensor too large for 32-bit indexing")
+    _check_sizes("warp", B * H * W, C, D, k)
     expected = {"flow": (B, H, W, 2),
                 hidden_name: (B, H * W, D) if g is None else (B * H * W, D),
                 "w1s": (k * k * C, D), "w2": (D, k * k), "b2": (k * k,)}
@@ -226,13 +250,14 @@ def _check_kernel_inputs(source, flow, hidden, w1s, w2, b2, k, g=None):
 
 def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope,
                 with_hpre=False):
-    global launches, bf16_launches
     _check_kernel_inputs(source, flow, hidden_bt, w1s, w2, b2, k)
     lib = load_library()
     B, H, W, C = source.shape
     D = w1s.shape[-1]
     out = torch.empty_like(source)
     hpre = hidden_bt.new_empty(B * H * W, D) if with_hpre else None
+    n_scratch = lib.gfla_warp_fwd_scratch(B * H * W, k)  # the wide logits
+    scratch = hidden_bt.new_empty(n_scratch) if n_scratch else None
     bf16 = source.dtype == torch.bfloat16
     entry = lib.gfla_warp_fwd_bf16 if bf16 else lib.gfla_warp_fwd
     w1s = widen(w1s)  # the kernels' W1s ring is f32; the values stay bf16
@@ -241,18 +266,15 @@ def _launch_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope,
         err = entry(
             source.data_ptr(), flow.data_ptr(), hidden_bt.data_ptr(),
             w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            None if hpre is None else hpre.data_ptr(), B, H, W, C, D, k,
-            float(slope), stream)
+            None if hpre is None else hpre.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, H, W, C, D,
+            k, float(slope), stream)
     check_launch(lib, err, "warp_fwd")
-    if bf16:
-        bf16_launches += 1
-    else:
-        launches += 1
+    _count("", bf16, k)
     return (out, hpre) if with_hpre else out
 
 
 def _launch_bwd_pos(source, flow, hpre, w1s, w2, b2, g, k, slope):
-    global bwd_pos_launches, bf16_bwd_pos_launches
     _check_kernel_inputs(source, flow, hpre, w1s, w2, b2, k, g)
     lib = load_library()
     bf16 = source.dtype == torch.bfloat16
@@ -276,16 +298,12 @@ def _launch_bwd_pos(source, flow, hpre, w1s, w2, b2, g, k, slope):
             part.data_ptr(), dw2b2.data_ptr(), B, H, W, C, D, k,
             float(slope), stream)
     check_launch(lib, err, "warp_bwd_pos")
-    if bf16:
-        bf16_bwd_pos_launches += 1
-    else:
-        bwd_pos_launches += 1
+    _count("bwd_pos_", bf16, k)
     return (d_source, d_flow, d_hpre, dw2b2[:D * k2].view(D, k2),
             dw2b2[D * k2:])
 
 
 def _launch_bwd_w1(source, flow, d_hpre, k):
-    global bwd_w1_launches, bf16_bwd_w1_launches
     B, H, W, C = source.shape
     D = d_hpre.shape[-1]
     if source.dtype not in KERNEL_DTYPES:
@@ -300,9 +318,7 @@ def _launch_bwd_w1(source, flow, d_hpre, k):
             raise ValueError(f"warp_bwd_w1: {name} must be a contiguous "
                              f"{want} {tuple(shape)} on {source.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if k not in KERNEL_SIZES or not 1 <= D <= MAX_D or not 1 <= C <= MAX_C:
-        raise ValueError(f"warp_bwd_w1: kernel_size {k}, C={C}, D={D} out of "
-                         f"range")
+    _check_sizes("warp_bwd_w1", B * H * W, C, D, k)
     lib = load_library()
     bf16 = source.dtype == torch.bfloat16
     entry = lib.gfla_warp_bwd_w1_bf16 if bf16 else lib.gfla_warp_bwd_w1
@@ -314,10 +330,7 @@ def _launch_bwd_w1(source, flow, d_hpre, k):
             source.data_ptr(), flow.data_ptr(), d_hpre.data_ptr(),
             part.data_ptr(), dw1s.data_ptr(), B, H, W, C, D, k, stream)
     check_launch(lib, err, "warp_bwd_w1")
-    if bf16:
-        bf16_bwd_w1_launches += 1
-    else:
-        bwd_w1_launches += 1
+    _count("bwd_w1_", bf16, k)
     return dw1s
 
 

@@ -82,7 +82,7 @@ def build_variants(stems, suffix=""):
         lib = ctypes.CDLL(str(path))
         if stem == "warp_fwd":
             lib.warp_fwd = getattr(lib, f"gfla_warp_fwd{suffix}")
-            lib.warp_fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
+            lib.warp_fwd.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, p]
         elif stem == "warp_bwd":
             lib.warp_bwd_pos = getattr(lib, f"gfla_warp_bwd_pos{suffix}")
             lib.warp_bwd_pos.argtypes = [p] * 12 + [i] * 6 + [
@@ -162,7 +162,8 @@ def time_warp(libs, iters, bf16=False):
                 must(lib.warp_fwd(
                     src.data_ptr(), flow.data_ptr(), hbt.data_ptr(),
                     w1s.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                    out.data_ptr(), None, B, H, W, C, D, k, 0.1, stream),
+                    out.data_ptr(), None, None, B, H, W, C, D, k, 0.1,
+                    stream),
                     f"warp_fwd variant {n}")
 
             rows.append(dict(kernel="warp_fwd", site=name, variant=n,

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import os
 import re
+import shutil
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -34,22 +35,42 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)  # a reader never sees a half-written file
 
 
+def _link_or_copy(src: str, dst: str) -> None:
+    """dst becomes src's contents: a hard link where the file system has
+    them, else a copy; dst appears whole or not at all."""
+    tmp = dst + ".tmp"
+    if os.path.lexists(tmp):
+        os.remove(tmp)
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
+
+
 def save_checkpoint(checkpoints_dir: str, name: str, step: int,
                     nets: Dict[str, torch.nn.Module], train_state: Dict,
                     numbered: bool = True) -> str:
     """Write the `latest` files and, with `numbered`, the `{step}` files. In
     a data-parallel run every rank calls it: rank 0 writes (the replicas
-    are equal), and all ranks leave once the files are on disk."""
+    are equal), and all ranks leave once the files are on disk. A numbered
+    save serializes once: its `latest` files are hard links of the
+    `{step}` files (a later save replaces the links, not the files)."""
     base = _dir(checkpoints_dir, name)
     if parallel.is_main():
         os.makedirs(base, exist_ok=True)
-        tags = ["latest"] + ([str(step)] if numbered else [])
-        for tag in tags:
-            for net_name, net in nets.items():
-                sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
-                _save(sd, os.path.join(base, f"{tag}_net_{net_name}.pth"))
-            _save(dict(train_state, step=step),
-                  os.path.join(base, f"{tag}_train_state.pth"))
+        first = str(step) if numbered else "latest"
+        files = [f"_net_{net_name}.pth" for net_name in nets] + [
+            "_train_state.pth"]
+        for net_name, net in nets.items():
+            sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+            _save(sd, os.path.join(base, f"{first}_net_{net_name}.pth"))
+        _save(dict(train_state, step=step),
+              os.path.join(base, f"{first}_train_state.pth"))
+        if numbered:
+            for tail in files:
+                _link_or_copy(os.path.join(base, first + tail),
+                              os.path.join(base, "latest" + tail))
         with open(os.path.join(base, "latest"), "w") as f:
             f.write(str(step))
     parallel.barrier()

@@ -8,11 +8,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from gfla_tpu_torch.metrics.reconstruction import (
-    compare_l1,
-    compare_psnr,
-    compare_ssim,
-)
 from gfla_tpu_torch.utils.images import flow2color, tensor2im
 
 HOLDOUT_SEED = 9973
@@ -47,6 +42,14 @@ def evaluate_held_out(task, batch) -> Dict[str, float]:
     window (its centre T frames) against gt_data, and kp_mse_identity, the
     raw input's centre T frames against it, the floor a denoiser must
     beat."""
+    # imported here: the metrics bring scipy, which a run that never
+    # evaluates (a rank of a short data-parallel run) need not load
+    from gfla_tpu_torch.metrics.reconstruction import (
+        compare_l1,
+        compare_psnr,
+        compare_ssim,
+    )
+
     out = task.test_step(batch)
     if "gt_data" in batch and "input_data" in batch:
         gt = batch["gt_data"].cpu().numpy()

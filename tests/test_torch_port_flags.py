@@ -105,9 +105,13 @@ def test_remat_keeps_the_pose_step(spect):
     assert any(n.endswith("weight_u") for n in buffers) == spect
 
 
+CLI_TIMEOUT = 240  # s: the two-rank training run takes 14-15 s alone on
+                  # an 8-core host, 90-152 s beside seven 8-thread loads
+
+
 def _cli(module, *args, env=None):
     """The CLI in a session of its own, killed with any ranks it started if
-    it outlives 120 s."""
+    it outlives CLI_TIMEOUT."""
     proc = subprocess.Popen(
         [sys.executable, "-m", module, "--gpu_ids=-1", "--model=pose",
          "--dataset_mode=synthetic", "--load_size=64", *args],
@@ -116,12 +120,13 @@ def _cli(module, *args, env=None):
         env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2",
                  PYTHONUNBUFFERED="1", **(env or {})))
     try:
-        out, err = proc.communicate(timeout=120)
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
-        pytest.fail(f"{module} {' '.join(args)} still running after 120 s; "
-                    f"its output ends:\n{out[-2000:]}\n{err[-3000:]}")
+        pytest.fail(f"{module} {' '.join(args)} still running after "
+                    f"{CLI_TIMEOUT} s; its output ends:\n{out[-2000:]}\n"
+                    f"{err[-3000:]}")
     return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
 
 

@@ -108,16 +108,24 @@ void swizzled(int rows, int* off) {
 }
 
 // Counts how often each (offset, channel) of W1s (k*k x C) is a column of
-// the per-position product's tiles. Returns 1 if a column fell outside.
+// the per-position product's tiles (the wide instance's above k = 9).
+// Returns 1 if a column fell outside.
 int pos_cover(int k, int C, int* count) {
+  const bool wide = warp_k_wide(k);
+  auto column = [&](int band, int group, int n) {
+    return wide ? wide_column(k, band, group, n)
+                : pos_column(k, band, group, n);
+  };
   int outside = 0;
-  for (int band = 0; band < pos_bands(k); ++band) {
+  for (int band = 0; band < (wide ? wide_bands(k) : pos_bands(k)); ++band) {
+    const int frags = wide ? wide_band(k, band).cols
+                           : pos_band_fragments(k, band);
     for (int group = 0; group < (C + 7) / 8; ++group) {
-      for (int n = 0; n < 8 * pos_band_fragments(k, band); ++n) {
-        const OffsetChannel oc = pos_column(k, band, group, n);
+      for (int n = 0; n < 8 * frags; ++n) {
+        const OffsetChannel oc = column(band, group, n);
         if (oc.c >= C) continue;  // zero-padded channels
-        if (oc.m < 0 || oc.m >= k * k || oc.m != pos_column(k, band, group,
-                                                          n & ~7).m) {
+        if (oc.m < 0 || oc.m >= k * k ||
+            oc.m != column(band, group, n & ~7).m) {
           outside = 1;
         } else {
           ++count[oc.m * C + oc.c];
@@ -433,11 +441,12 @@ def test_split_product_keeps_f32_where_one_tf32_product_does_not(harness, C):
     assert out3[1] == out3[3]
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 16])
 @pytest.mark.parametrize("C", [21, 128])
 def test_warp_bwd_product_columns_cover_w1s_once(harness, k, C):
     """csrc/warp_bwd.cu: the d_block product's offset-major tiles (every
-    fragment one offset of the band, 8 channels) and the dW1s product's
+    fragment one offset of the band, 8 channels; above k = 9 the wide
+    instance's runs of up to 8 offsets of a row) and the dW1s product's
     columns each take every (offset, channel) of W1s once."""
     for cover in (harness.pos_cover, harness.w1_cover):
         count = np.zeros(k * k * C, np.int32)
@@ -454,7 +463,10 @@ SITES = [  # N, C, D, k: the two live sites, a 64x64 input's, ragged, and
     (8 * 64 * 64, 128, 128, 5), (8 * 32 * 32, 256, 128, 3),
     (2 * 16 * 16, 128, 128, 5), (2 * 12 * 10, 21, 42, 3),
     (2 * 16 * 12, 22, 40, 7), (1000, 36, 200, 1),
-    (8 * 64 * 64, 128, 128, 4), (8 * 64 * 64, 128, 128, 9)]
+    (8 * 64 * 64, 128, 128, 4), (8 * 64 * 64, 128, 128, 9),
+    # the wide instances' k at the pose sites and past Market's width
+    (8 * 64 * 64, 128, 128, 11), (8 * 32 * 32, 256, 128, 13),
+    (8 * 32 * 16, 128, 128, 17)]
 
 
 @pytest.mark.parametrize("N,C,D,k", SITES)

@@ -13,7 +13,12 @@ position's (k+1)^2 footprint cells in bands of offset rows
 (csrc/warp_cells.cuh, csrc/warp_common.cuh), are compiled here with g++ and
 fed the block cotangents of the plain backward: they must equal what
 gfla_tpu's `_core_bwd` returns, with the kernel's bands and with others,
-and at far-off flows (scale 40) that clamp cells onto one pixel.
+and at far-off flows (scale 40) that clamp cells onto one pixel. The wide
+instances' bands (k = 10, 11 and 16: runs of up to 8 offsets of one row,
+csrc/warp_bwd_tiles.cuh's `wide_band`, each cell's offsets by
+csrc/warp_cells.cuh's `band_tap`) are held against the plain twin's
+`block_extract_bwd`, since gfla_tpu's kernel is not its own function above
+k = 8 (tests/test_torch_port_kernel_sizes.py).
 """
 
 import ctypes
@@ -122,9 +127,50 @@ def test_warp_fwd_needs_no_grad_for_plain_serving():
 # ---------------------------------------------------------------------------
 
 HARNESS = r"""
+#include "warp_bwd_tiles.cuh"
 #include "warp_cells.cuh"
 using namespace gfla;
 extern "C" {
+// The same in the wide instance's bands: runs of up to kWideCols offsets of
+// one offset row, each over its 2 x (cols + 1) cells.
+void scatter_wide(const float* src, const float* flow, const float* db,
+                  int B, int H, int W, int C, int k, float* dsrc,
+                  float* dflow) {
+  const int k2 = k * k;
+  for (int p = 0; p < B * H * W; ++p) {
+    const int b = p / (H * W), y = (p / W) % H, x = p % W;
+    const Footprint f = footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, k);
+    TapCoef coef[4];
+    for (int role = 0; role < 4; ++role) coef[role] = tap_coef(role, f.wy, f.wx);
+    float sy = 0.0f, sx = 0.0f;
+    for (int band = 0; band < wide_bands(k); ++band) {
+      const WideBand wb = wide_band(k, band);
+      for (int r = 0; r <= 1; ++r) {
+        for (int s = 0; s <= wb.cols; ++s) {
+          const size_t pix = cell_pixel(f, b, wb.i + r, wb.j0 + s, H, W);
+          for (int c = 0; c < C; ++c) {
+            float vd = 0.0f, vy = 0.0f, vx = 0.0f;
+            for (int role = 0; role < 4; ++role) {
+              const int nt = band_tap(role, r, s, wb.cols);
+              if (nt < 0) continue;
+              const int m = wb.i * k + wb.j0 + nt;
+              const float v = db[((size_t)p * k2 + m) * C + c];
+              vd += coef[role].d * v;
+              vy += coef[role].y * v;
+              vx += coef[role].x * v;
+            }
+            dsrc[pix * C + c] += vd;
+            sy += src[pix * C + c] * vy;
+            sx += src[pix * C + c] * vx;
+          }
+        }
+      }
+    }
+    dflow[2 * p] = sx;
+    dflow[2 * p + 1] = sy;
+  }
+}
+
 // d_blocks (B*H*W, k*k, C) -> d_source (+=) and d_flow (x, y): per band of
 // `band_rows` offset rows, each of its cells gets the tap-weighted sum of
 // the d_block values of the offsets that use it.
@@ -182,6 +228,7 @@ def harness(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.scatter.argtypes = [p, p, p] + [i] * 6 + [p, p]
+    lib.scatter_wide.argtypes = [p, p, p] + [i] * 5 + [p, p]
     return lib
 
 
@@ -234,3 +281,36 @@ def test_header_scatter_and_dflow_match_core_bwd(harness, k, scale, seed,
                                atol=GRAD_REL * np.abs(want_src).max())
     np.testing.assert_allclose(dflow, want_flow, rtol=0,
                                atol=GRAD_REL * np.abs(want_flow).max())
+
+
+@pytest.mark.parametrize("k,scale,seed", [
+    pytest.param(10, 1.5, 0, id="k10"),
+    pytest.param(11, 1.5, 1, id="k11"),
+    pytest.param(16, 1.5, 2, id="k16"),
+    pytest.param(11, 40.0, 3, id="k11-far-flow"),
+    pytest.param(16, 40.0, 4, id="k16-far-flow"),
+])
+def test_header_wide_scatter_and_dflow_match_plain_twin(harness, k, scale,
+                                                         seed):
+    """The wide bands' pre-summed scatter into d_source and their d_flow,
+    from the plain backward's block cotangents, against the plain twin's
+    transpose of block_extract (f32 sums in another order: 1e-5 x max)."""
+    a, g = _inputs(k, flow_scale=scale, seed=30 + seed)
+    B, H, W, C = a["source"].shape
+    t = {n: torch.from_numpy(a[n]) for n in NAMES}
+    hbt = target_stream(t["target"], t["w1"], t["b1"], k)
+    w1s = t["w1"][:, C:, :].reshape(k * k * C, -1).contiguous()
+    d_blocks = warp.warp_bwd_pos_plain(t["source"], t["flow"], hbt, w1s,
+                                       t["w2"], t["b2"], torch.from_numpy(g),
+                                       k)[5]
+    want_src, want_flow = (x.numpy() for x in warp.block_extract_bwd(
+        t["source"], t["flow"], d_blocks, k))
+    db = np.ascontiguousarray(d_blocks.numpy())
+    dsrc = np.zeros_like(a["source"])
+    dflow = np.zeros_like(a["flow"])
+    harness.scatter_wide(_ptr(a["source"]), _ptr(a["flow"]), _ptr(db), B, H,
+                         W, C, k, _ptr(dsrc), _ptr(dflow))
+    np.testing.assert_allclose(dsrc, want_src, rtol=0,
+                               atol=1e-5 * np.abs(want_src).max())
+    np.testing.assert_allclose(dflow, want_flow, rtol=0,
+                               atol=1e-5 * np.abs(want_flow).max())

@@ -7,9 +7,14 @@ instead of its k^2 blended blocks (csrc/warp_cells.cuh). Here a g++ harness
 runs the cell form of d_attn, the blend of the cell dots <src[cell], g>,
 over every position: it must give (1/k^2) <block, g> within 1e-5 x its
 largest |value| (f32 sums in another order), at odd and even k up to 9 (an
-even block's footprint starts one further up and left), also at far-off
-flows (scale 40) that clamp whole footprints onto the border, where cells
-share a pixel.
+even block's footprint starts one further up and left) and at k = 10, 11
+and 16, where the wide instances take over, also at far-off flows (scale
+40) that clamp whole footprints onto the border, where cells share a pixel.
+The wide forward's steps run there too: the footprint pixels computed
+where they are used (`cell_pixel`, which the wide kernels read in place of
+the narrow ones' tables) and the weighted sum over the cells with each
+cell's weight made from the attention weights (`cell_coef`), against the
+plain twin's output at k = 10, 11 and 16.
 The cell pre-sum into d_source and d_flow is held against gfla_tpu's
 `_core_bwd` in tests/test_torch_port_warp_bwd.py.
 
@@ -39,6 +44,7 @@ GRAD_REL = 1e-4
 DATTN_REL = 1e-5
 
 HARNESS = r"""
+#include <vector>
 #include "warp_cells.cuh"
 using namespace gfla;
 extern "C" {
@@ -46,7 +52,7 @@ extern "C" {
 void cell_dattn_all(const float* src, const float* flow, const float* g,
                     int B, int H, int W, int C, int k, float* dattn) {
   const int k1 = k + 1;
-  float cdot[100];  // (k + 1)^2 cells, k <= 9
+  std::vector<float> cdot(k1 * k1);  // (k + 1)^2 cells
   for (int p = 0; p < B * H * W; ++p) {
     const int b = p / (H * W), y = (p / W) % H, x = p % W;
     const Footprint f = footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, k);
@@ -62,7 +68,39 @@ void cell_dattn_all(const float* src, const float* flow, const float* g,
     const TapWeights w = tap_weights(f.wy, f.wx);
     for (int m = 0; m < k * k; ++m) {
       dattn[(size_t)p * k * k + m] =
-          cell_dattn(cdot, k1, w, m / k, m % k) / (float)(k * k);
+          cell_dattn(cdot.data(), k1, w, m / k, m % k) / (float)(k * k);
+    }
+  }
+}
+
+// The wide forward's output from the attention weights att (B*H*W, k*k):
+// out = sum over the (k+1)^2 cells of cell_coef x src[cell_pixel].
+void wide_out(const float* src, const float* flow, const float* att, int B,
+              int H, int W, int C, int k, float* out) {
+  for (int p = 0; p < B * H * W; ++p) {
+    const int b = p / (H * W), y = (p / W) % H, x = p % W;
+    const Footprint f = footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, k);
+    const TapWeights w = tap_weights(f.wy, f.wx);
+    for (int r = 0; r <= k; ++r) {
+      for (int s = 0; s <= k; ++s) {
+        const float coef = cell_coef(att + (size_t)p * k * k, k, w, r, s);
+        const float* px = src + (size_t)cell_pixel(f, b, r, s, H, W) * C;
+        for (int c = 0; c < C; ++c) out[(size_t)p * C + c] += coef * px[c];
+      }
+    }
+  }
+}
+
+// cell_pixel of every footprint cell of every position: (B*H*W, k+1, k+1)
+void cell_pixels(const float* flow, int B, int H, int W, int k, int* pix) {
+  for (int p = 0; p < B * H * W; ++p) {
+    const int b = p / (H * W), y = (p / W) % H, x = p % W;
+    const Footprint f = footprint(flow[2 * p], flow[2 * p + 1], y, x, H, W, k);
+    for (int r = 0; r <= k; ++r) {
+      for (int s = 0; s <= k; ++s) {
+        pix[((size_t)p * (k + 1) + r) * (k + 1) + s] =
+            cell_pixel(f, b, r, s, H, W);
+      }
     }
   }
 }
@@ -110,6 +148,8 @@ def harness(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cell_dattn_all.argtypes = [p, p, p] + [i] * 5 + [p]
+    lib.wide_out.argtypes = [p, p, p] + [i] * 5 + [p]
+    lib.cell_pixels.argtypes = [p] + [i] * 4 + [p]
     return lib
 
 
@@ -130,7 +170,13 @@ CASES = [  # k, flow scale; even k reach one row and column further up-left
     pytest.param(2, 40.0, id="k2-far-flow"),
     pytest.param(4, 40.0, id="k4-far-flow"),
     pytest.param(9, 40.0, id="k9-far-flow"),
+    pytest.param(10, 1.5, id="k10"),
+    pytest.param(11, 1.5, id="k11"),
+    pytest.param(16, 1.5, id="k16"),
+    pytest.param(11, 40.0, id="k11-far-flow"),
+    pytest.param(16, 40.0, id="k16-far-flow"),
 ]
+WIDE_CASES = CASES[-5:]  # the wide instances' k
 
 
 @pytest.mark.parametrize("k,scale", CASES)
@@ -146,6 +192,33 @@ def test_cell_dattn_matches_block_dots(harness, k, scale):
                            _ptr(g.numpy()), B, H, W, C, k, _ptr(got))
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=DATTN_REL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("k,scale", WIDE_CASES)
+def test_wide_forward_cells_match_plain_twin(harness, k, scale):
+    """The wide forward's weighted sum over the footprint cells, from the
+    plain twin's attention weights, is its output (1e-5 x max: f32 sums in
+    another order), and each cell's pixel is the one block_extract reads."""
+    from gfla_tpu_torch.ops.block_extract import patch_index
+
+    args, _ = _inputs(k, flow_scale=scale, seed=60 + k + int(scale))
+    src, flow, hbt, w1s, w2, b2 = args
+    B, H, W, C = src.shape
+    blocks = block_extract(src, flow, k).reshape(B, H * W, k * k * C)
+    hidden = torch.nn.functional.leaky_relu(blocks @ w1s + hbt, 0.1)
+    att = torch.softmax(hidden @ w2 + b2, dim=-1).reshape(B * H * W, k * k)
+    want = warp.warp_fwd_plain(*args, k).reshape(B * H * W, C).numpy()
+    got = np.zeros((B * H * W, C), np.float32)
+    harness.wide_out(_ptr(src.numpy()), _ptr(flow.numpy()),
+                     _ptr(np.ascontiguousarray(att.numpy())), B, H, W, C, k,
+                     _ptr(got))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=DATTN_REL * np.abs(want).max())
+    flat = patch_index(flow, H, W, k)[0] + (torch.arange(B) * H * W)[
+        :, None, None, None, None]
+    pix = np.zeros((B * H * W, k + 1, k + 1), np.int32)
+    harness.cell_pixels(_ptr(flow.numpy()), B, H, W, k, _ptr(pix))
+    np.testing.assert_array_equal(pix.reshape(flat.shape), flat.numpy())
 
 
 @pytest.mark.parametrize("k,scale", [(3, 1.5), (5, 40.0)], ids=["k3", "k5-far"])
