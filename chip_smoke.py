@@ -113,6 +113,20 @@ Phases, each failing the run (non-zero exit) on the first error:
      cards, two spawned ranks' batch-8 SGD step held to one card's by
      gfla_tpu's 8-vs-1 device rule and timed (else a line says it did not
      run).
+ 10c. the data x spatial mode (--spatial) on phase 6's task: on every
+     machine the warp route's band form (ops/local_attn._warp_window: the
+     forward and both backward kernels on the band's halo window), run as
+     each band of an S=2 and an S=4 split of the two pose sites runs it
+     (a flow row planted past the halo), against its plain twin, and the
+     bands against the halo-gather reference on the whole map; the window
+     kernels timed beside the whole map's; where the machine has two cards
+     (four: dp 2 x sp 2 at batch 8, else dp 1 x sp 2 at batch 2), spawned
+     ranks on bands of phase 6's batch: a kernel-path step against the
+     plain path's by phase 6's rule, an SGD step against one card's by
+     gfla_tpu's spatial rule with every rank's state bitwise equal, its
+     launches counted as path spatial_train (on one card no such count is
+     printed), the step's ms, peak memory a card and the halo exchange's
+     ms beside one card's.
  11. disk data: a DeepFashion-layout tree (16 images of 256x176 a phase, 24
      train and 8 test pairs) and a Market-layout one (128x64) written
      through nvJPEG (image_io.encode_jpeg) and decoded back (PSNR >= 35 dB
@@ -1694,7 +1708,8 @@ def compare_steps(what, state, batch, lrs, to_cpu=False,
     CPU, both held against a float64 step by check_step_pair; card and CPU
     convolutions round differently all through G, so that pair is not
     masked. `path_a`/`path_b` give the contexts each step runs in;
-    `pair_rel` holds a's gradients to b's (check_step_pair)."""
+    `pair_rel` holds a's gradients to b's (check_step_pair). Returns the
+    float64 step's gradients."""
     exact = exact_grads(state, batch)
     a = copy.deepcopy(state)
     with contextlib.ExitStack() as stack:
@@ -1719,6 +1734,7 @@ def compare_steps(what, state, batch, lrs, to_cpu=False,
     del b
     check_step_pair(what, logs_a, snap_a, logs_b, snap_b, exact, lrs,
                     masked=not to_cpu, grad_rel=grad_rel, pair_rel=pair_rel)
+    return exact
 
 
 def train_opt(*extra, model="pose", dataset="synthetic", ckpt=None):
@@ -1860,8 +1876,10 @@ def phase_train():
     # one step from one state: kernel vs plain path; card vs CPU
     state = off_the_kinks(state0)
     del state0
-    compare_steps("kernel vs plain path, batch 8 at 256x256", state,
-                  batches[0], lrs)
+    exact = compare_steps("kernel vs plain path, batch 8 at 256x256", state,
+                          batches[0], lrs)
+    exact = {tag: {n: g.cpu() for n, g in d.items()}
+             for tag, d in exact.items()}
     small = state.prepare_batch(deepfashion_batch(7, B=2, size=64,
                                                   content_w=44))
     compare_steps("card vs CPU at 2x64x64", state, small, lrs, to_cpu=True)
@@ -1874,7 +1892,7 @@ def phase_train():
           f"{', '.join(f'{t:.1f}' for t in plain_times)}), "
           f"peak {peak:.2f} GiB")
     return dict(counts=counts, state=state, batch=batches[0], ms=ms,
-                peak=peak)
+                peak=peak, exact=exact)
 
 
 def cosine(a, b):
@@ -2720,6 +2738,464 @@ def phase_data_parallel(train):
             f"batch 8")
     return {"ddp_train": counts}
 
+
+
+SP_SPLITS = (2, 4)  # (a): band splits of the window kernels' sites
+SP_HALO = 8         # --halo's default
+SP_FAR_Y = 30.0     # (a): a flow row planted past the halo
+SP_RANKS = (4, 2)   # (b): dp 2 x sp 2 on four cards, else dp 1 x sp 2
+SP_TOTAL_REL = 2e-3  # (b): total_G, gfla_tpu's spatial rule
+# (b): gfla_tpu's rule for its 2 x 4 spatial step against one device
+# (tests/test_train.py:334-357): under SP_SHARE_1 of a network's entries
+# more than 1e-3 x its largest |gradient| apart, under SP_SHARE_2 more than
+# 1e-2
+SP_SHARE_1, SP_SHARE_2 = 1e-4, 1e-6
+SP_TIMEOUT = 300    # (b): seconds the spawned ranks may take
+SP_ITERS = 20       # (b): launches of a timed collective, the same on all
+SP_TIMED = 3        # (b): SGD steps timed on each rank and on one card
+
+
+def window_rows(t, s, S, h):
+    """Band s of S of `t` (B, H, ...) with h rows above and below, the
+    image's first and last rows repeated past its edges: the window the
+    port's halo exchange builds (parallel.pad_rows, replicate), cut here
+    from the whole map."""
+    H = t.shape[1]
+    Hl = H // S
+    rows = torch.arange(s * Hl - h, (s + 1) * Hl + h, device=t.device)
+    return t[:, rows.clamp(0, H - 1)]
+
+
+def as_band(s, S, h, whole):
+    """A context in which `parallel.bands()` is band s of S (halo h) and
+    `parallel.pad_rows` cuts that band's window from `whole`, the source's
+    whole map (`window_rows`): `ops/local_attn._warp_window` then runs as
+    band s's rank runs it, on one card, and the gradient of the window
+    goes back into `whole`'s rows as the exchange's adjoint sends it."""
+    from gfla_tpu_torch import parallel
+
+    band = parallel.Bands(s, S, h)
+
+    def pad_rows(x, top, bottom, mode="zeros", dim=2):
+        Hl = whole.shape[1] // S
+        check(x.shape[1] == Hl and (top, bottom, mode, dim)
+              == (h, h, "replicate", 1), f"pad_rows: {x.shape[1]} rows of "
+              f"a band of {Hl}, {top} and {bottom} rows, {mode}, dim {dim}")
+        return window_rows(whole, s, S, h)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(parallel, "bands", lambda: band))
+    stack.enter_context(mock.patch.object(parallel, "pad_rows", pad_rows))
+    return stack
+
+
+def halo_attention(src, flow, hidden_bt, w1s, w2, b2, k, S, h, slope=0.1):
+    """The warp's function on the whole map with gfla_tpu's halo-gather
+    clamp (block_extract.py:124-147) for S bands of h halo rows, written
+    out here: each band's taps clamped to the image, then to the band's
+    rows - h ... + h, gathered from the whole map; the reference the
+    bands are held to."""
+    import torch.nn.functional as F
+
+    B, H, W, C = src.shape
+    Hl, D, k2 = H // S, w1s.shape[-1], k * k
+    xs = torch.arange(W, device=src.device, dtype=flow.dtype)
+    offs = torch.arange(k + 1, device=src.device) - k // 2
+    outs = []
+    for s in range(S):
+        r0 = s * Hl
+        ys = torch.arange(r0, r0 + Hl, device=src.device, dtype=flow.dtype)
+        dy = flow[:, r0:r0 + Hl, :, 1] + ys[None, :, None]
+        dx = flow[:, r0:r0 + Hl, :, 0] + xs[None, None, :]
+        fy, fx = torch.floor(dy), torch.floor(dx)
+        iy = (fy.long()[..., None] + offs).clamp(0, H - 1).clamp(
+            r0 - h, r0 + Hl + h - 1)
+        ix = (fx.long()[..., None] + offs).clamp(0, W - 1)
+        flat = iy[..., :, None] * W + ix[..., None, :]
+        patch = torch.gather(src.reshape(B, H * W, C), 1, flat.reshape(
+            B, -1, 1).expand(-1, -1, C)).reshape(B, Hl, W, k + 1, k + 1, C)
+        wy = (dy - fy)[..., None, None, None]
+        wx = (dx - fx)[..., None, None, None]
+        block = ((1 - wy) * (1 - wx) * patch[:, :, :, :k, :k]
+                 + (1 - wy) * wx * patch[:, :, :, :k, 1:]
+                 + wy * (1 - wx) * patch[:, :, :, 1:, :k]
+                 + wy * wx * patch[:, :, :, 1:, 1:]).reshape(B, Hl * W, k2, C)
+        hid = hidden_bt.reshape(B, H, W, D)[:, r0:r0 + Hl].reshape(
+            B, Hl * W, D) + block.reshape(B, Hl * W, k2 * C) @ w1s
+        attn = torch.softmax(F.leaky_relu(hid, slope) @ w2 + b2, -1)
+        outs.append(((attn[..., None] * block).sum(2) / k2).reshape(
+            B, Hl, W, C))
+    return torch.cat(outs, 1)
+
+
+def band_warp(args, g, k, S, h, s):
+    """Band s of S of the warp route's `_warp_window` (ops/local_attn.py),
+    on `args` (the whole map's source, flow, hidden_bt, w1s, w2, b2) under
+    `as_band`, and its gradients under the cotangent `g`'s band: (the
+    band's output, the gradients of BWD_OUTPUTS, the window's kernel
+    arguments)."""
+    from gfla_tpu_torch.ops import local_attn, warp
+
+    src, flow, hidden_bt, w1s, w2, b2 = args
+    B, H, W, C = src.shape
+    Hl, D = H // S, hidden_bt.shape[-1]
+    rows = slice(s * Hl, (s + 1) * Hl)
+    leaves = [src, flow[:, rows], hidden_bt.reshape(B, H, W, D)[:, rows],
+              w1s, w2, b2]
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    seen = []
+    launch = warp.warp_fwd
+
+    def spy(*a):
+        seen.append([t.detach() for t in a[:6]])
+        return launch(*a)
+
+    with as_band(s, S, h, leaves[0]), \
+            mock.patch.object(warp, "warp_fwd", spy):
+        out = local_attn._warp_window(
+            leaves[0][:, rows], leaves[1],
+            leaves[2].reshape(B, Hl * W, D), *leaves[3:], k, 0.1)
+        grads = torch.autograd.grad((out * g[:, rows]).sum(), leaves)
+    check(len(seen) == 1 and seen[0][0].shape[1] == Hl + 2 * h,
+          f"_warp_window launched {len(seen)} warps")
+    return out.detach(), grads, seen[0]
+
+
+class PlainAtKernelHpre(torch.autograd.Function):
+    """The warp's plain twins as phase 4 holds the backward kernels to
+    them: forward `warp_fwd_plain`, backward `warp_bwd_plain` from the
+    forward kernel's hpre on the same inputs (a pre-activation within
+    rounding of 0 would otherwise take LeakyReLU's other slope in one of
+    the two)."""
+
+    @staticmethod
+    def forward(ctx, source, flow, hidden_bt, w1s, w2, b2, k, slope):
+        from gfla_tpu_torch.ops import warp
+
+        ctx.save_for_backward(source, flow, hidden_bt, w1s, w2, b2)
+        ctx.k, ctx.slope = k, slope
+        return warp.warp_fwd_plain(source, flow, hidden_bt, w1s, w2, b2, k,
+                                   slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        from gfla_tpu_torch.ops import warp
+
+        saved = ctx.saved_tensors
+        _, hpre = warp.warp_fwd_with_hpre(*saved, ctx.k, ctx.slope)
+        return (*warp.warp_bwd_plain(*saved, g.contiguous(), ctx.k,
+                                     ctx.slope, hpre=hpre), None, None)
+
+
+def spatial_windows(device):
+    """(a) The warp route over row bands, `ops/local_attn._warp_window`
+    itself (the warp kernels on each band's halo window), for each band of
+    an S=2 and an S=4 split of the pose sites (k=5 on 64x64x128, k=3 on
+    32x32x256, batch 8) on one card (`as_band`), a flow row planted
+    SP_FAR_Y rows down, past the halo: its output and its gradients (the
+    whole source's through the exchange's adjoint) against the same call
+    on the plain twins (KERNEL_ATOL, BWD_REL x each gradient's
+    max |value|); the bands' outputs against `halo_attention` on the whole
+    map (KERNEL_ATOL), and the planted row apart from the whole-map
+    kernel's (the window's clamp, not the image's); band 0's window
+    kernels timed beside the whole map's. The plain twin's backward starts
+    from the forward kernel's hpre (`PlainAtKernelHpre`)."""
+    import torch.nn.functional as F
+
+    from gfla_tpu_torch.ops import warp
+
+    results = {}
+    for i, (name, B, H, W, C, D, k, scale) in enumerate(KERNEL_CASES[:2]):
+        args = warp_inputs(B, H, W, C, D, k, scale, 60 + i, device)
+        src, flow, hidden_bt, w1s, w2, b2 = args
+        far = H // 2 - 2
+        flow[0, far, :, 1] = SP_FAR_Y
+        g = torch.from_numpy(np.random.RandomState(70 + i).randn(
+            B, H, W, C).astype(np.float32)).to(device)
+        whole, hpre = warp.warp_fwd_with_hpre(*args, k)
+        whole_ms = cuda_ms(lambda: warp.warp_fwd(*args, k))
+        whole_bwd_ms = cuda_ms(lambda: warp.warp_bwd(
+            src, flow, hpre, w1s, w2, b2, g, k), iters=10)
+        for S in SP_SPLITS:
+            Hl = H // S
+            h = min(SP_HALO, Hl)
+            bands, errs = [], [0.0, 0.0]
+            for s in range(S):
+                got, got_g, win = band_warp(args, g, k, S, h, s)
+                with mock.patch.object(warp, "warp_fwd",
+                                       PlainAtKernelHpre.apply):
+                    want, want_g, _ = band_warp(args, g, k, S, h, s)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                check(err <= KERNEL_ATOL, f"{name} S={S} band {s}: window "
+                      f"forward kernel vs plain {err:.3e}")
+                errs[0] = max(errs[0], err)
+                for out, a, b in zip(BWD_OUTPUTS, got_g, want_g):
+                    e = (a - b).abs().max().item()
+                    check(e <= BWD_REL * b.abs().max().item(),
+                          f"{name} S={S} band {s}: window {out} kernel vs "
+                          f"plain {e:.3e}")
+                    errs[1] = max(errs[1], e)
+                bands.append(got)
+                if s == 0:
+                    gw = F.pad(g[:, :Hl], (0, 0, 0, 0, h, h))
+                    _, hp = warp.warp_fwd_with_hpre(*win, k)
+                    fwd_ms = cuda_ms(lambda: warp.warp_fwd(*win, k))
+                    bwd_ms = cuda_ms(lambda: warp.warp_bwd(
+                        *win[:2], hp, *win[3:], gw, k), iters=10)
+            full = torch.cat(bands, 1)
+            ref = halo_attention(*args, k, S, h)
+            ref_err = (full - ref).abs().max().item()
+            froze = (full - whole)[0, far].abs().max().item()
+            check(ref_err <= KERNEL_ATOL and froze > 1e-3,
+                  f"{name} S={S}: bands vs the halo reference {ref_err:.3e},"
+                  f" the planted row {froze:.3e} from the whole map's")
+            print(f"spatial window kernels {name} S={S} (bands of {Hl} "
+                  f"rows, halo {h}, windows of {Hl + 2 * h}), through "
+                  f"_warp_window: forward max_abs_err {errs[0]:.3e} (tol "
+                  f"{KERNEL_ATOL:g}), gradients {errs[1]:.3e} (tol "
+                  f"{BWD_REL:g} x max|value|) against the plain twins on "
+                  f"each band; the bands against the halo-gather reference "
+                  f"{ref_err:.3e}, the row planted {SP_FAR_Y:g} rows down "
+                  f"{froze:.3e} from the whole map's; one band's window: "
+                  f"forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms; "
+                  f"whole map {whole_ms:.4f} ms and {whole_bwd_ms:.4f} ms; "
+                  f"the {S} bands' kernels do {(Hl + 2 * h) * S / H:.2f}x "
+                  f"the whole map's work")
+            results[(name, S)] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                                      whole_ms=whole_ms,
+                                      whole_bwd_ms=whole_bwd_ms)
+    return results
+
+
+def _collective_ms(fn):
+    """Median CUDA-event ms of `fn()` over SP_ITERS launches after 3, the
+    same count on every rank (the ranks must call collectives alike)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(SP_ITERS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def spatial_rank(device, state_path, out_dir, sp, rows):
+    """(b)'s rank: phase 6's state, fresh Adams, on this rank's band of its
+    data index's `rows` rows of phase 6's batch: a kernel-path and a
+    plain-path Adam step (rank 0's snapshots kept); an SGD step, its
+    launches counted; SP_TIMED more, timed, with the peak memory; the halo
+    exchanges and band sums of a step counted, and each timed alone at the
+    pose path's largest shapes."""
+    from gfla_tpu_torch import parallel
+    from gfla_tpu_torch.runtime import set_tf32
+    from gfla_tpu_torch.tasks import create_task
+
+    start = time.perf_counter()
+    # the ranks share the host's cores for their set-up on the CPU
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // parallel.world().size))
+    set_tf32(False)
+    b = parallel.init_bands(sp, SP_HALO)
+    data = parallel.data_world()
+    seconds = {"groups": time.perf_counter() - start}
+    opt, ckpt = train_opt("--name=spatial_rank", f"--spatial={sp}")
+    task = create_task(opt, device)
+    seconds["task"] = time.perf_counter() - start
+    for tag, sd in torch.load(state_path, weights_only=True).items():
+        nets(task)[tag].load_state_dict(sd)
+    band = task.prepare_batch(deepfashion_batch(100))
+    batch = {k: v[data.rank * rows:(data.rank + 1) * rows]
+             for k, v in band.items()}
+    seconds["state and batch"] = time.perf_counter() - start
+    out = {"band": b.index, "data": data.rank, "seconds": seconds}
+    for key, path in (("a", contextlib.nullcontext), ("b", plain_warp)):
+        t = copy.deepcopy(task)
+        with path():
+            logs = t.train_step(batch)
+        if parallel.is_main():
+            out[key] = (logs, {tag: {kind: {n: v.cpu() for n, v in d.items()}
+                                     for kind, d in snap.items()}
+                               for tag, snap in snapshot(t).items()})
+        del t
+    out["seconds"]["Adam pair"] = time.perf_counter() - start
+    task = sgd(task)
+    calls = {"halo": 0, "sum": 0}
+    halo, band_sum = parallel._Halo.apply, parallel._BandSum.apply
+
+    def counted(kind, fn):
+        def call(*args):
+            calls[kind] += 1
+            return fn(*args)
+        return call
+
+    reset_launch_counts()
+    with mock.patch.object(parallel._Halo, "apply", counted("halo", halo)), \
+            mock.patch.object(parallel._BandSum, "apply",
+                              counted("sum", band_sum)):
+        logs = task.train_step(batch)
+    torch.cuda.synchronize()
+    out["counts"] = launch_counts()
+    out["calls"] = calls
+    out["logs"] = {k: float(v)
+                   for k, v in parallel.allreduce_mean(logs).items()}
+    out["grads"] = dp_grads(task)
+    out["replica"] = {k: v.cpu() for k, v in replica_state(task).items()}
+    torch.cuda.reset_peak_memory_stats()
+    out["times"], _ = timed_steps(task, [batch] * SP_TIMED)
+    out["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"]["SGD steps"] = time.perf_counter() - start
+    Hl = 256 // sp
+    conv = torch.randn(rows, 64, Hl // 2, 128, device=device)
+    window = torch.randn(rows, 64 // sp, 64, 128, device=device)
+    stats = torch.randn(rows, 256, 1, 1, device=device)
+    out["ms"] = {
+        "conv halo, 1 row each way of a band of G's (B, 64, 128, 128)":
+            _collective_ms(lambda: parallel.pad_rows(conv, 1, 1)),
+        "attention window, 8 rows each way of a band of the k=5 site's "
+        "(B, 64, 64, 128)":
+            _collective_ms(lambda: parallel.pad_rows(window, SP_HALO,
+                                                     SP_HALO, dim=1)),
+        "instance-norm band sum of (B, 256, 1, 1)":
+            _collective_ms(lambda: parallel.band_sum(stats))}
+    out["seconds"]["collectives"] = time.perf_counter() - start
+    torch.save(out, os.path.join(out_dir, f"rank{parallel.world().rank}.pt"))
+    ckpt.cleanup()
+
+
+def sp_rule(what, one, two):
+    """gfla_tpu's spatial rule (SP_SHARE_1, SP_SHARE_2) on one network's
+    gradients; returns the two shares."""
+    g1 = torch.cat([one[k].flatten() for k in sorted(one)]).double()
+    g2 = torch.cat([two[k].flatten() for k in sorted(one)]).double()
+    d = (g1 - g2).abs() / max(1e-6, g1.abs().max().item())
+    shares = [(d > bound).double().mean().item() for bound in (1e-3, 1e-2)]
+    check(one.keys() == two.keys() and shares[0] < SP_SHARE_1
+          and shares[1] < SP_SHARE_2,
+          f"{what}: {shares[0]:.2e} of entries above 1e-3 of max (bound "
+          f"{SP_SHARE_1:g}), {shares[1]:.2e} above 1e-2 (bound "
+          f"{SP_SHARE_2:g}), max {d.max().item():.3e}")
+    return shares
+
+
+def phase_spatial(train):
+    """10c. the data x spatial mode (--spatial, gfla_tpu_torch.parallel's
+    spatial axis) on phase 6's full-width pose task: (a) on every machine
+    the warp kernels' window form (`spatial_windows`); (b) where the
+    machine has two cards (four: dp 2 x sp 2 at batch 8; else dp 1 x sp 2
+    at batch 2), spawned ranks from phase 6's state on bands of its
+    256x256 batch: a kernel-path Adam step against the plain path's under
+    --spatial by phase 6's rule (check_step_pair, the f64 step of one card
+    the reference: phase 6's own where the batch is its whole batch); an
+    SGD step held to one card's on the same global
+    batch by gfla_tpu's spatial rule (SP_TOTAL_REL, SP_SHARE_1,
+    SP_SHARE_2), every rank's gradients, parameters and u bitwise equal
+    after it, its launches counted as path spatial_train (2 of each warp
+    kernel a rank); SP_TIMED more timed on each rank with the peak memory
+    a card, beside one card's; the halo exchanges and band sums of a step
+    counted, each timed alone; the wall time of its parts. Else a line
+    says (b) did not run, and no spatial_train count is returned."""
+    from gfla_tpu_torch import parallel
+    from gfla_tpu_torch.runtime import card_line
+
+    device = train["batch"]["P1"].device
+    windows = spatial_windows(device)
+    n = next((r for r in SP_RANKS if torch.cuda.device_count() >= r), 0)
+    if not n:
+        print(f"spatial_train: the two-rank step did not run "
+              f"({torch.cuda.device_count()} card); the window kernels ran "
+              f"alone")
+        return {"spatial_train": None, "windows": windows}
+    start = time.perf_counter()
+    sp, dp = 2, n // 2
+    rows = (8 if dp == 2 else 2) // dp  # a data index's rows
+    state = train["state"]
+    batch = {k: v[:rows * dp] for k, v in train["batch"].items()}
+    lrs = {"G": state.opt.lr, "D": state.opt.lr * state.opt.ratio_g2d}
+    exact = train["exact"]  # phase 6's, of its state on its whole batch
+    if rows * dp != len(train["batch"]["P1"]):
+        exact = {tag: {k: g.cpu() for k, g in d.items()}
+                 for tag, d in exact_grads(state, batch).items()}
+    one = sgd(copy.deepcopy(state))
+    one_logs = one.train_step(batch)
+    want = dp_grads(one)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one_ms, _ = timed_steps(one, [batch] * SP_TIMED)
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    del one
+    tmp = tempfile.TemporaryDirectory()
+    state_path = os.path.join(tmp.name, "state.pt")
+    torch.save({tag: net.state_dict() for tag, net in nets(state).items()},
+               state_path)
+    spawned = time.perf_counter()
+    ref_s = spawned - start
+    parallel.spawn(spatial_rank, [torch.device("cuda", i) for i in range(n)],
+                   state_path, tmp.name, sp, rows, timeout=SP_TIMEOUT)
+    spawned = time.perf_counter() - spawned
+    ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"),
+                        weights_only=False) for r in range(n)]
+    tmp.cleanup()
+    check([(r["data"], r["band"]) for r in ranks]
+          == [(i // sp, i % sp) for i in range(n)], "the rank layout")
+    logs_a, snap_a = ranks[0]["a"]
+    logs_b, snap_b = ranks[0]["b"]
+    snap_b = {tag: {kind: {k: v.to(device) for k, v in d.items()}
+                    for kind, d in s.items()} for tag, s in snap_b.items()}
+    snap_a = {tag: {kind: {k: v.to(device) for k, v in d.items()}
+                    for kind, d in s.items()} for tag, s in snap_a.items()}
+    exact = {tag: {k: g.to(device) for k, g in d.items()}
+             for tag, d in exact.items()}
+    check_step_pair(f"spatial dp {dp} x sp {sp}: kernel vs plain path",
+                    logs_a, snap_a, logs_b, snap_b, exact, lrs)
+    for r in ranks[1:]:
+        check(r["logs"] == ranks[0]["logs"]
+              and all(torch.equal(r["replica"][k], v)
+                      for k, v in ranks[0]["replica"].items())
+              and all(torch.equal(r["grads"][tag][k], g)
+                      for tag, d in ranks[0]["grads"].items()
+                      for k, g in d.items()),
+              "the ranks' logs, gradients, parameters or u differ")
+    rules = {tag: sp_rule(f"spatial vs one card, {tag}", want[tag],
+                          ranks[0]["grads"][tag]) for tag in want}
+    total_rel = abs(ranks[0]["logs"]["total_G"]
+                    - float(one_logs["total_G"])) \
+        / abs(float(one_logs["total_G"]))
+    check(total_rel <= SP_TOTAL_REL, f"total_G {total_rel:.3e} rel apart")
+    for r, res in enumerate(ranks):
+        check(only(res["counts"], warp_fwd=2, warp_bwd_pos=2, warp_bwd_w1=2),
+              f"rank {r} launches {res['counts']}")
+    print(f"spatial dp {dp} x sp {sp} on {card_line()!r}: {rows} rows of "
+          f"{256 // sp} lines a rank, global batch {rows * dp}; SGD step "
+          + "; ".join(f"{tag} {s1:.2e} of entries above 1e-3 of max, "
+                      f"{s2:.2e} above 1e-2" for tag, (s1, s2)
+                      in rules.items())
+          + f"; total_G {ranks[0]['logs']['total_G']!r} against "
+          f"{float(one_logs['total_G'])!r} ({total_rel:.3e} rel); every "
+          f"rank's gradients, "
+          f"parameters and u bitwise equal; step ms per rank "
+          + ", ".join(f"{statistics.median(r['times'][1:]):.3f}"
+                      for r in ranks)
+          + f" against {statistics.median(one_ms[1:]):.3f} on one card at "
+          f"batch {rows * dp}; peak GiB per card "
+          + ", ".join(f"{r['peak']:.2f}" for r in ranks)
+          + f" against {one_peak:.2f}; the forwards of a step: "
+          f"{ranks[0]['calls']['halo']} halo exchanges, "
+          f"{ranks[0]['calls']['sum']} band sums (the backward takes each "
+          f"again where a gradient flows back); alone: "
+          + ", ".join(f"{what} {ms:.4f} ms"
+                      for what, ms in ranks[0]["ms"].items()))
+    print(f"spatial dp {dp} x sp {sp}, wall: one card's reference "
+          f"{ref_s:.1f} s, the ranks {spawned:.1f} s (rank 0's own, from "
+          f"its start: "
+          + ", ".join(f"{what} done at {t:.1f} s"
+                      for what, t in ranks[0]["seconds"].items()) + ")")
+    return {"spatial_train": ranks[0]["counts"], "windows": windows}
 
 DISK_PSNR_MIN = 35.0   # dB: nvJPEG encode + decode at quality 75, each image
 FIXTURE_MEAN_ABS = 0.1  # levels: nvJPEG's planes, upsampled and converted
@@ -5224,6 +5700,12 @@ UNITS = {TF32X3_PEAK: "tensor cores, 3 TF32 products per f32 product: "
          BF16_PEAK: "tensor cores, dense bf16: 989 TFLOP/s"}
 
 
+def if_ran(path, counts, name):
+    """{path: counts[name]} where the path ran (its counts not None), else
+    {}: a path that did not run prints no count."""
+    return {} if counts is None else {path: counts[name]}
+
+
 def kernel_entry(name, source, replaces, by_path, err, tolerance, ms,
                  plain_ms, work, library_ms, shape, cases=None,
                  peak=TF32X3_PEAK):
@@ -5277,6 +5759,7 @@ def main(argv):
         switched = timed(phase_switches, serve, train, train_bf16)
         wide = timed(phase_wide_kernel_size)
         data_parallel = timed(phase_data_parallel, train)
+        spatial = timed(phase_spatial, train)
         disk = timed(phase_disk_data, device)
         sn_serve = timed(phase_shapenet_serve)
         sn_sweep = timed(phase_shapenet_sweep, sn_serve)
@@ -5319,6 +5802,7 @@ def main(argv):
         {"serve": serve["launches"], "train": train["warp_fwd"],
          "train_corr": switched["train_corr"]["warp_fwd"],
          "ddp_train": data_parallel["ddp_train"]["warp_fwd"],
+         **if_ran("spatial_train", spatial["spatial_train"], "warp_fwd"),
          **{path: c["warp_fwd"] for path, c in disk.items()},
          **shapenet, "shapenet_train": sn_train["counts"]["warp_fwd"],
          "dance_serve": anim["dance_serve"],
@@ -5340,6 +5824,7 @@ def main(argv):
             {"train": train[name],
              "train_corr": switched["train_corr"][name],
              "ddp_train": data_parallel["ddp_train"][name],
+             **if_ran("spatial_train", spatial["spatial_train"], name),
              **{path: c[name] for path, c in disk.items()
                 if path.endswith("_train")},
              "shapenet_train": sn_train["counts"][name],

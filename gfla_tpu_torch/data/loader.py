@@ -13,6 +13,9 @@ devices. `--nThreads` worker processes, started by spawn and kept across
 epochs, build the samples; each reseeds the dataset's augmentation
 RandomState with seed + 7919 x node + its worker id, as gfla_tpu's workers
 do, plus nThreads x the local rank, so that no two ranks share a stream.
+In the data x spatial mode the shard is the data index's
+(`parallel.data_world`): the ranks of one spatial group load the same rows
+with the same streams, and each keeps its band (tasks/pose.py).
 `collate` stacks the arrays and keeps the JPEG byte arrays (1-D uint8, of
 any length) and the paths as lists.
 """
@@ -118,10 +121,10 @@ def make_loader(dataset, opt, train: bool,
     """The loader gfla_tpu's create_dataloader makes: shuffled unless
     `--serial_batches`, drop_last in training, `--nThreads` workers; in
     training, this rank's shard of each batch (gfla_tpu_torch.parallel's
-    world)."""
+    world of data indices)."""
     workers = max(0, getattr(opt, "nThreads", 2))
     seed = getattr(opt, "seed", 0)
-    at = parallel.world()
+    at = parallel.data_world()
     shard = (at.node, at.nodes, at.local_rank, at.local_size) \
         if train and at.size > 1 else None
     sampler = EpochBatchSampler(len(dataset), opt.batchSize,

@@ -75,12 +75,16 @@ def transform_cords(cords: np.ndarray, img_size: Tuple[int, int],
 
 def encode_heatmaps(cords: torch.Tensor, height: int, width: int,
                     sigma: float = 6.0,
-                    missing_value: float = MISSING_VALUE) -> torch.Tensor:
+                    missing_value: float = MISSING_VALUE,
+                    row0: int = 0) -> torch.Tensor:
     """cords (..., K, 2) as (y, x), `missing_value` for absent joints ->
-    heatmaps (..., H, W, K) on cords' device; absent joints give zero maps."""
+    heatmaps (..., H, W, K) on cords' device; absent joints give zero maps.
+    The `height` rows are the map's rows from `row0` (a row band's, from its
+    global coordinates)."""
     y = cords[..., 0]
     x = cords[..., 1]
-    yy = torch.arange(height, dtype=torch.float32, device=cords.device)
+    yy = torch.arange(row0, row0 + height, dtype=torch.float32,
+                      device=cords.device)
     xx = torch.arange(width, dtype=torch.float32, device=cords.device)
     dy2 = (yy[:, None] - y[..., None, :]) ** 2      # (..., H, K)
     dx2 = (xx[:, None] - x[..., None, :]) ** 2      # (..., W, K)

@@ -1,10 +1,13 @@
 """Adversarial GAN losses, nsgan | lsgan | hinge (counterpart of
 gfla_tpu/losses/adversarial.py; the original's external_function.py:82-119).
-`outputs` are raw discriminator logit maps."""
+`outputs` are raw discriminator logit maps; over row bands (the data x
+spatial mode) each mean is the whole map's (`parallel.band_mean`)."""
 
 from __future__ import annotations
 
 import torch
+
+from gfla_tpu_torch import parallel
 
 _EPS = 1e-7
 
@@ -17,12 +20,13 @@ def adversarial_loss(outputs, is_real: bool, for_dis: bool = False,
     if gan_mode == "hinge":
         if for_dis:
             x = -outputs if is_real else outputs
-            return torch.relu(1.0 + x).mean()
-        return -outputs.mean()
+            return parallel.band_mean(torch.relu(1.0 + x))
+        return -parallel.band_mean(outputs)
     if gan_mode == "lsgan":
         label = 1.0 if is_real else 0.0
-        return ((outputs - label) ** 2).mean()
+        return parallel.band_mean((outputs - label) ** 2)
     if gan_mode == "nsgan":
         p = torch.sigmoid(outputs).clamp(_EPS, 1.0 - _EPS)
-        return -(torch.log(p) if is_real else torch.log(1.0 - p)).mean()
+        return -parallel.band_mean(torch.log(p) if is_real
+                                   else torch.log(1.0 - p))
     raise NotImplementedError(f"gan mode [{gan_mode}] not implemented")

@@ -5,6 +5,13 @@ For every k x k patch of the flow-displaced coordinate grid, the squared
 residual of its best-fit affine transform, ||K v||^2 with
 K = A (A^T A)^-1 A^T - I, averaged over patches and summed over the x and y
 grids. Flows are NCHW, (B, 2, H, W) with channel 0 = x.
+
+Over row bands (the data x spatial mode) a band's flow is its rows of the
+whole flow: its grid counts rows from its first global row, takes the
+k - 1 rows below it from the next band, anchors the patches at its own
+rows (the last band loses the image's bottom k - 1, as the valid patches
+do), and its residual sum is summed over the bands and divided by the
+whole image's patch count.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from gfla_tpu_torch import parallel
 
 
 @lru_cache(maxsize=8)
@@ -44,13 +53,25 @@ class AffineRegularizationLoss:
 
     def __call__(self, flow):
         B, _, H, W = flow.shape
+        kz = self.kz
+        b = parallel.bands()
+        row0 = 0 if b is None else b.first_row(H)
         xs = torch.arange(W, device=flow.device, dtype=flow.dtype)
-        ys = torch.arange(H, device=flow.device, dtype=flow.dtype)
+        ys = torch.arange(row0, row0 + H, device=flow.device,
+                          dtype=flow.dtype)
         proj = self.projector.to(flow.device, flow.dtype)
         loss = 0.0
         for g in (flow[:, 0] + xs[None, None, :], flow[:, 1] + ys[None, :, None]):
-            r = _patches(g, self.kz) @ proj.t()
-            loss = loss + (r * r).sum(-1).mean()
+            if b is None:
+                r = _patches(g, kz) @ proj.t()
+                loss = loss + (r * r).sum(-1).mean()
+                continue
+            patches = _patches(parallel.pad_rows(g, 0, kz - 1, dim=1), kz)
+            if b.bottom:
+                patches = patches[:, :H - kz + 1]
+            r = patches @ proj.t()
+            count = B * (H * b.size - kz + 1) * (W - kz + 1)
+            loss = loss + parallel.band_sum((r * r).sum()) / count
         return loss
 
 

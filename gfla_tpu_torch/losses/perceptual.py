@@ -13,6 +13,16 @@ gfla_tpu's `_acc` does (perceptual.py:29-47, 263-266): the L1 differences
 and the Gram products in f32, and the correctness loss promotes its
 features to f32 before the normalisation, the max-correlation and the
 resampling, so `GFLA_PALLAS_CORR=1` still hands the kernel f32.
+
+Over row bands (the data x spatial mode, `gfla_tpu_torch.parallel.bands`)
+each loss is the whole image's: an L1 mean and the correctness map's mean
+are band sums over the global count (`parallel.band_mean`), a Gram matrix
+sums its band products over the bands (every band then holds it whole, so
+the style L1 is a plain mean), and the correctness loss gathers the source
+features whole, as gfla_tpu gathers a replicated operand, and compares the
+band's target rows with the source sampled at their global positions. The
+masked, per-frame and bilinear forms of the correctness loss (the
+animation heads) refuse bands.
 """
 
 from __future__ import annotations
@@ -36,17 +46,26 @@ CONTENT_LAYERS = ["relu1_1", "relu2_1", "relu3_1", "relu4_1", "relu5_1"]
 STYLE_LAYERS = ["relu2_2", "relu3_4", "relu4_4", "relu5_2"]
 
 
-def l1_loss(a, b):
+def _abs_diff(a, b):
     dt = torch.promote_types(acc_dtype(a.dtype), acc_dtype(b.dtype))
-    return (a.to(dt) - b.to(dt)).abs().mean()
+    return (a.to(dt) - b.to(dt)).abs()
+
+
+def l1_loss(a, b):
+    """mean |a - b| over the whole image (over bands, `band_mean`)."""
+    return parallel.band_mean(_abs_diff(a, b))
 
 
 def gram_matrix(x):
     """(B, C, H, W) -> (B, C, C), normalised by h*w*c; the products of x's
-    values summed in `acc_dtype`."""
+    values summed in `acc_dtype`; over bands the band products summed over
+    the bands, normalised by the whole image's h*w*c."""
     B, C, H, W = x.shape
     f = x.reshape(B, C, H * W).to(acc_dtype(x.dtype))
-    return f @ f.transpose(1, 2) / (H * W * C)
+    b = parallel.bands()
+    if b is None:
+        return f @ f.transpose(1, 2) / (H * W * C)
+    return parallel.band_sum(f @ f.transpose(1, 2)) / (H * b.size * W * C)
 
 
 def vgg_content_style_loss(vgg, x, y, weights: Sequence[float] = (1.0,) * 5,
@@ -60,7 +79,8 @@ def vgg_content_style_loss(vgg, x, y, weights: Sequence[float] = (1.0,) * 5,
         content = content + w * l1_loss(fx[name], fy[name])
     style = 0.0
     for name in STYLE_LAYERS:
-        style = style + l1_loss(gram_matrix(fx[name]), gram_matrix(fy[name]))
+        style = style + _abs_diff(gram_matrix(fx[name]),
+                                  gram_matrix(fy[name])).mean()
     return content, style
 
 
@@ -117,15 +137,27 @@ def _global_ratio(num, den):
     process group it is num / (den + eps)."""
     if not parallel.active():
         return num / (den + _EPS)
+    if parallel.bands() is not None:
+        raise NotImplementedError(
+            "the masked correctness loss over row bands (--spatial with "
+            "--use_mask) is not ported yet (ROADMAP.md, queue 1, item 2a)")
     den = parallel.allreduce_sum_(den.detach().clone())
     return parallel.world().size * (num / (den + _EPS))
 
 
 def _nearest_resize(x, H: int, W: int):
     """torch F.interpolate(mode='nearest') on NCHW: source index
-    floor(dst * in / out), as gfla_tpu's `_nearest_resize`."""
+    floor(dst * in / out), as gfla_tpu's `_nearest_resize`; over bands
+    from the band's global rows to its source band's (the bands of both
+    sizes cover the same image rows)."""
     h, w = x.shape[2:]
-    iy = torch.floor(torch.arange(H, device=x.device) * (h / H)).long()
+    b = parallel.bands()
+    if b is None:
+        iy = torch.floor(torch.arange(H, device=x.device) * (h / H)).long()
+    else:
+        rows = torch.arange(b.first_row(H), b.first_row(H) + H,
+                            device=x.device)
+        iy = torch.floor(rows * (h / H)).long() - b.first_row(h)
     ix = torch.floor(torch.arange(W, device=x.device) * (w / W)).long()
     return x[:, :, iy][:, :, :, ix]
 
@@ -199,19 +231,28 @@ class PerceptualCorrectness:
         summed over the ranks, `_global_ratio`): every rank must call it
         in the same order, so a caller on rank 0 alone would hang the
         world."""
+        b = parallel.bands()
+        if b is not None and (mask is not None or frames is not None
+                              or use_bilinear_sampling):
+            raise NotImplementedError(
+                "the animation heads' correctness loss (a mask, frames or "
+                "bilinear sampling) over row bands is not ported yet "
+                "(ROADMAP.md, queue 1, item 2a)")
         target_vgg = target_vgg.to(acc_dtype(target_vgg.dtype))
-        source_vgg = source_vgg.to(acc_dtype(source_vgg.dtype))
+        source_vgg = parallel.gather_rows(
+            source_vgg.to(acc_dtype(source_vgg.dtype)))
         B, C, H, W = target_vgg.shape
         if flow.shape[2:] != (H, W):
             flow = _nearest_resize(flow, H, W)
         t = target_vgg.permute(0, 2, 3, 1).reshape(B, H * W, C)
         s_nhwc = source_vgg.permute(0, 2, 3, 1)
-        s = s_nhwc.reshape(B, H * W, C)
+        s = s_nhwc.reshape(B, -1, C)
         s_norm = s / (_safe_norm(s, 2)[..., None] + _EPS)
         t_norm = t / (_safe_norm(t, 2)[..., None] + _EPS)
         cmax = MaxCorrelation.apply(s_norm, t_norm)              # (B, N)
+        row0 = 0 if b is None else b.first_row(H)
         warp = _bilinear_warp if use_bilinear_sampling else \
-            lambda s, f: gaussian_resample(s, f, 4, 1, 2.0)
+            lambda s, f: gaussian_resample(s, f, 4, 1, 2.0, row0)
         sampled = warp(s_nhwc, flow.permute(0, 2, 3, 1)).reshape(B, H * W, C)
         num = (sampled * t).sum(2)
         den = torch.clamp(_safe_norm(sampled, 2) * _safe_norm(t, 2), min=1e-8)
@@ -219,7 +260,7 @@ class PerceptualCorrectness:
         e1 = math.exp(-1.0)
         if mask is None:
             if frames is None:
-                return loss_map.mean() - e1
+                return parallel.band_mean(loss_map) - e1
             lm = loss_map.reshape(-1, frames, H * W)
             return (lm.mean(dim=(0, 2)) - e1).sum()
         m = mask if mask.shape[2:] == (H, W) else _nearest_resize(mask, H, W)

@@ -73,7 +73,7 @@ from gfla_tpu_torch.nn.blocks import (
     ResBlockDecoder,
     ResBlocks,
 )
-from gfla_tpu_torch.nn.norms import recompute_keeping_u
+from gfla_tpu_torch.nn.norms import Conv2d, recompute_keeping_u
 
 
 def _mult(i: int, ngf: int, img_f: int) -> int:
@@ -138,9 +138,9 @@ class PoseFlowNet(nn.Module):
                          use_spect=use_spect))
             if encoder_layer - i - 1 in self.attn_layer:
                 setattr(self, f"output{i}",
-                        nn.Conv2d(nc, 2 * self.streams, 3, 1, 1))
+                        Conv2d(nc, 2 * self.streams, 3, 1, 1))
                 setattr(self, f"mask{i}", nn.Sequential(
-                    nn.Conv2d(nc, self.streams, 3, 1, 1), nn.Sigmoid()))
+                    Conv2d(nc, self.streams, 3, 1, 1), nn.Sigmoid()))
             nc_prev = nc
 
     def forward(self, source, source_b, target_b):

@@ -13,6 +13,10 @@ original's. gfla_tpu's own fallback comes from a JAX key that torch cannot
 reproduce, so tests carry its parameters across with
 `gfla_tpu_torch.convert.vgg19_state_dict`.
 
+Over row bands (the data x spatial mode) its 3x3 convs take their halo
+rows from the neighbouring bands (`nn.norms.Conv2d`) and its 2x2 max pools
+stay inside the band, whose first row is even at every level.
+
 The network runs in its parameters' type, the input cast to it, as
 gfla_tpu's `vgg19_features` does (models/vgg.py:97-104): a task that
 computes in bfloat16 casts the frozen parameters once at set-up.
@@ -29,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gfla_tpu_torch.nn.norms import Conv2d
 
 # (name, out_channels); 'M' = 2x2 max pool
 CFG = [
@@ -55,7 +61,7 @@ class VGG19(nn.Module):
         for item in CFG:
             if item != "M":
                 name, ch = item
-                setattr(self, name, nn.Conv2d(cin, ch, 3, padding=1))
+                setattr(self, name, Conv2d(cin, ch, 3, padding=1))
                 cin = ch
         self.requires_grad_(False)
 

@@ -18,6 +18,7 @@ from torch import nn
 
 from gfla_tpu_torch.nn.norms import (
     ConvTranspose2x,
+    ReflectionPad2d,
     SpectralNormed,
     conv2d,
     conv3d,
@@ -198,7 +199,7 @@ class Jump(nn.Module):
         super().__init__()
         self.conv1 = conv2d(input_nc, output_nc, kernel_size, 1, 0, use_spect)
         layers = [get_activation(activation),
-                  nn.ReflectionPad2d(kernel_size // 2), self.conv1]
+                  ReflectionPad2d(kernel_size // 2), self.conv1]
         if norm_type != "none":
             layers.insert(0, norm_layer(norm_type, input_nc))
         self.model = nn.Sequential(*layers)

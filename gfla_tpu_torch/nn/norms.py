@@ -9,6 +9,16 @@ which keeps the key indices. gfla_tpu's `Conv3d` (the temporal
 discriminator's, NDHWC there, NCDHW here) is `nn.Conv3d` or `SpectralConv3d`
 (`conv3d`); `add_coords` is its CoordConv input.
 
+Over row bands (the data x spatial mode, `gfla_tpu_torch.parallel.bands`)
+the convolutions, the transposed 2x convolution, the reflection pad and the
+instance norm take their input's band and return their output's: a
+zero-padded conv takes its halo rows from the neighbouring bands first
+(`band_conv2d`: p rows above the band and kh - s - p below), the transposed
+conv the one row below (`band_conv_transpose2x`), the pad its rows
+(`ReflectionPad2d`), and the norm sums its statistics over the bands. A
+module built here is `nn.Conv2d`, `nn.ConvTranspose2d` or
+`nn.ReflectionPad2d` without bands, bit for bit, with the same keys.
+
 Under a bf16 compute dtype (`train.precision.cast_call`) these modules run
 on bf16 copies of their parameters and buffers: InstanceNorm's reductions
 then accumulate in f32 and round to bf16, as gfla_tpu's jnp reductions do,
@@ -23,6 +33,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gfla_tpu_torch import parallel
 
 
 def get_activation(name: str) -> nn.Module:
@@ -49,7 +61,14 @@ class InstanceNorm(nn.InstanceNorm2d):
                          track_running_stats=False)
 
     def forward(self, x):
-        var, mean = torch.var_mean(x, dim=(2, 3), correction=0, keepdim=True)
+        if parallel.bands() is None:
+            var, mean = torch.var_mean(x, dim=(2, 3), correction=0,
+                                       keepdim=True)
+        else:  # the band sums, then the squares about the global mean
+            n = x.shape[2] * x.shape[3] * parallel.bands().size
+            mean = parallel.band_sum(x.sum((2, 3), keepdim=True)) / n
+            var = parallel.band_sum(
+                ((x - mean) ** 2).sum((2, 3), keepdim=True)) / n
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight[:, None, None] + self.bias[:, None, None]
 
@@ -61,6 +80,60 @@ def norm_layer(norm_type: str, num_features: int) -> nn.Module:
     if norm_type == "batch":
         return nn.BatchNorm2d(num_features, eps=1e-5, momentum=0.1)
     raise NotImplementedError(f"normalization layer [{norm_type}] not found")
+
+
+def band_conv2d(x, w, b, stride: int, padding: int):
+    """F.conv2d(x, w, b, stride, padding) on a row band: output row o reads
+    input rows o * s - p ... o * s - p + kh - 1, so the band takes p rows
+    from the band above and kh - s - p from the band below (zeros at the
+    image's edges, as the zero padding), and pads only its columns."""
+    kh = w.shape[2]
+    x = parallel.pad_rows(x, padding, max(0, kh - stride - padding))
+    return F.conv2d(x, w, b, stride, (0, padding))
+
+
+def band_conv_transpose2x(x, w, b):
+    """ConvTranspose2x on a row band (rows r0 ... r0 + h - 1 -> 2 r0 ...
+    2 r0 + 2h - 1): output row 2m reads input row m, 2m + 1 rows m and
+    m + 1, so the band takes one row from below (zeros under the image)."""
+    h = x.shape[2]
+    y = F.conv_transpose2d(parallel.pad_rows(x, 0, 1), w, b, stride=2,
+                           padding=1, output_padding=1)
+    return y[:, :, :2 * h]
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that also takes a row band (`band_conv2d`) when it pads;
+    an unpadded conv (1x1, or after its own pad) runs as it is."""
+
+    def forward(self, x):
+        if parallel.bands() is None or not self.padding[0]:
+            return super().forward(x)
+        return band_conv2d(x, self.weight, self.bias, self.stride[0],
+                           self.padding[0])
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """ConvTranspose2x's nn.ConvTranspose2d, which also takes a row band
+    (`band_conv_transpose2x`)."""
+
+    def forward(self, x, output_size=None):
+        if parallel.bands() is None:
+            return super().forward(x, output_size)
+        return band_conv_transpose2x(x, self.weight, self.bias)
+
+
+class ReflectionPad2d(nn.ReflectionPad2d):
+    """nn.ReflectionPad2d that also takes a row band: its columns
+    reflected, its rows from the neighbouring bands, reflected at the
+    image's top and bottom only."""
+
+    def forward(self, x):
+        if parallel.bands() is None:
+            return super().forward(x)
+        left, right, top, bottom = self.padding
+        x = F.pad(x, (left, right, 0, 0), mode="reflect")
+        return parallel.pad_rows(x, top, bottom, "reflect")
 
 
 def _l2_normalize(x, eps: float = 1e-12):
@@ -139,6 +212,8 @@ class SpectralConv2d(SpectralNormed):
         return w.reshape(w.shape[0], -1)
 
     def conv(self, x, w):
+        if parallel.bands() is not None and self.padding:
+            return band_conv2d(x, w, self.bias, self.stride, self.padding)
         return F.conv2d(x, w, self.bias, self.stride, self.padding)
 
 
@@ -153,6 +228,8 @@ class SpectralConvTranspose2x(SpectralNormed):
         return w.transpose(0, 1).reshape(w.shape[1], -1)
 
     def conv(self, x, w):
+        if parallel.bands() is not None:
+            return band_conv_transpose2x(x, w, self.bias)
         return F.conv_transpose2d(x, w, self.bias, stride=2, padding=1,
                                   output_padding=1)
 
@@ -205,10 +282,10 @@ def add_coords(x: torch.Tensor, with_r: bool = False) -> torch.Tensor:
 
 def conv2d(in_nc: int, out_nc: int, kernel_size: int, stride: int = 1,
            padding: int = 0, use_spect: bool = False) -> nn.Module:
-    """nn.Conv2d, or SpectralConv2d with `use_spect` (gfla_tpu's Conv2d)."""
+    """Conv2d, or SpectralConv2d with `use_spect` (gfla_tpu's Conv2d)."""
     if use_spect:
         return SpectralConv2d(in_nc, out_nc, kernel_size, stride, padding)
-    return nn.Conv2d(in_nc, out_nc, kernel_size, stride, padding)
+    return Conv2d(in_nc, out_nc, kernel_size, stride, padding)
 
 
 def ConvTranspose2x(in_nc: int, out_nc: int,
@@ -217,8 +294,8 @@ def ConvTranspose2x(in_nc: int, out_nc: int,
     or SpectralConvTranspose2x with `use_spect`."""
     if use_spect:
         return SpectralConvTranspose2x(in_nc, out_nc)
-    return nn.ConvTranspose2d(in_nc, out_nc, 3, stride=2, padding=1,
-                              output_padding=1)
+    return ConvTranspose2d(in_nc, out_nc, 3, stride=2, padding=1,
+                           output_padding=1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator,

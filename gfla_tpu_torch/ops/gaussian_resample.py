@@ -24,13 +24,16 @@ def _tap_offsets(kernel_size: int, dilation: int, device) -> torch.Tensor:
 
 
 def gaussian_resample(source, flow, kernel_size: int = 2, dilation: int = 1,
-                      sigma: float = 5.0):
-    """Warp `source` (B,H,W,C) by `flow` (B,H,W,2), channel 0 = x, with a
-    Gaussian kernel. Returns (B,H,W,C)."""
+                      sigma: float = 5.0, row0: int = 0):
+    """Warp `source` (B,H,W,C) by `flow` (B,Hf,W,2), channel 0 = x, with a
+    Gaussian kernel. Returns (B,Hf,W,C). The flow's rows are the source's
+    rows from `row0` (a row band's, over the whole source); by default
+    Hf = H from row 0."""
     B, H, W, C = source.shape
+    Hf = flow.shape[1]
     k = kernel_size
     offs = _tap_offsets(k, dilation, source.device)               # (k,)
-    ys = torch.arange(H, device=flow.device, dtype=flow.dtype)
+    ys = torch.arange(row0, row0 + Hf, device=flow.device, dtype=flow.dtype)
     xs = torch.arange(W, device=flow.device, dtype=flow.dtype)
     yf = flow[..., 1] + ys[None, :, None]
     xf = flow[..., 0] + xs[None, None, :]
@@ -48,7 +51,7 @@ def gaussian_resample(source, flow, kernel_size: int = 2, dilation: int = 1,
     ix = (fx.long()[..., None] + offs).clamp(0, W - 1)
     flat = (iy[..., :, None] * W + ix[..., None, :]).reshape(B, -1, 1)
     taps = torch.gather(source.reshape(B, H * W, C), 1,
-                        flat.expand(-1, -1, C)).reshape(B, H, W, k, k, C)
+                        flat.expand(-1, -1, C)).reshape(B, Hf, W, k, k, C)
     w2d = wy[..., :, None] * wx[..., None, :]                    # (B,H,W,k,k)
     val = (w2d[..., None] * taps).sum((3, 4))
     total = w2d.sum((3, 4))[..., None]

@@ -29,6 +29,13 @@ setting, as gfla_tpu does. An activation that no kernel computes runs the
 composite on the CPU and raises on CUDA unless `0` asks for the composite:
 the kernel routes never give way silently.
 
+Over row bands (the data x spatial mode) every route takes the band: the
+target's edge pad takes its rows from the neighbouring bands
+(`block_extract.edge_pad`), `1` and `0` gather through gfla_tpu's halo
+gather (`block_extract.halo_block_extract`), and the warp route launches
+the warp kernels on the band's halo window (`_warp_window`), whose clamp
+is the halo gather's.
+
 In bfloat16 (`--compute_dtype=bfloat16`) the warp route runs the warp
 kernels' bf16 instances and `1` the attention-math kernels' bf16 instances
 (csrc/attn_math_{fwd,bwd}_bf16.cu); on the CPU their plain twins round where
@@ -43,8 +50,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.ops import acc_dtype, attn_math, warp
-from gfla_tpu_torch.ops.block_extract import block_extract, extract_patches
+from gfla_tpu_torch.ops.block_extract import (
+    block_extract,
+    edge_pad,
+    extract_patches,
+    halo_block_extract,
+    halo_debug,
+    halo_rows,
+)
 
 
 def _leaky_slope(activation):
@@ -64,15 +79,21 @@ def target_stream(target, w1, b1, kernel_size: int):
     (pallas_warp.py:515-522)."""
     B, H, W, C = target.shape
     k = kernel_size
-    r = k // 2
     D = w1.shape[-1]
     acc = acc_dtype(target.dtype)
     w_bt = w1[:, :C, :].reshape(k, k, C, D).permute(3, 2, 0, 1)  # (D,C,k,k)
-    padded = F.pad(target.permute(0, 3, 1, 2), (r, k - 1 - r, r, k - 1 - r),
-                   mode="replicate")
+    padded = edge_pad(target.permute(0, 3, 1, 2), k)
     hidden = F.conv2d(padded, w_bt.to(target.dtype)).to(acc) \
         + b1.to(acc)[:, None, None]                               # (B,D,H,W)
     return hidden.permute(0, 2, 3, 1).reshape(B, H * W, D).contiguous()
+
+
+def _source_blocks(source, flow, k):
+    """The source's k x k blocks at the flow: over row bands gfla_tpu's
+    halo gather on the band."""
+    if parallel.bands() is None:
+        return block_extract(source, flow, k)
+    return halo_block_extract(source, flow, k)
 
 
 def _composite(source, target, flow, k, w1, b1, w2, b2, activation,
@@ -81,7 +102,7 @@ def _composite(source, target, flow, k, w1, b1, w2, b2, activation,
     products of the inputs' values summed in `acc_dtype` of their type, the
     attention weights in the source's type for the weighted sum."""
     acc = acc_dtype(source.dtype)
-    block_source = block_extract(source, flow, k)            # (B,H,W,k²,C)
+    block_source = _source_blocks(source, flow, k)           # (B,H,W,k²,C)
     block_target = extract_patches(target, k)
     cat = torch.cat([block_target, block_source], dim=-1)
     hidden = activation(torch.einsum("bhwkc,kcd->bhwd", cat.to(acc),
@@ -91,6 +112,28 @@ def _composite(source, target, flow, k, w1, b1, w2, b2, activation,
     out = (torch.einsum("bhwk,bhwkc->bhwc", attn.to(source.dtype).to(acc),
                         block_source.to(acc)) / float(k * k)).to(source.dtype)
     return (attn, out) if return_attn else out
+
+
+def _warp_window(source, flow, hidden_bt, w1s, w2, b2, k, slope):
+    """The warp kernels on this band's halo window: the source's band with
+    h = min(halo, band rows) rows from each neighbour, the image's edge row
+    repeated past its top and bottom; flow and hidden_bt padded to the
+    window's rows (their outputs dropped, so their gradients are 0). A
+    tap's clamp to the window is then the halo gather's window clamp, and
+    past the image's edge it reads the edge row, as the image clamp does;
+    d_source on the window goes back through the exchange's adjoint (and
+    the repeated rows into the edge row). The kernel's work on the 2h
+    padded rows is spent for nothing."""
+    B, H, W, C = source.shape
+    D = hidden_bt.shape[-1]
+    h = halo_rows(H)
+    halo_debug(flow, k, h)
+    window = parallel.pad_rows(source, h, h, "replicate", dim=1).contiguous()
+    flow = F.pad(flow, (0, 0, 0, 0, h, h))
+    hidden = F.pad(hidden_bt.reshape(B, H, W, D), (0, 0, 0, 0, h, h))
+    out = warp.warp_fwd(window, flow, hidden.reshape(B, -1, D), w1s, w2, b2,
+                        k, slope)
+    return out[:, h:h + H]
 
 
 def local_attn_warp(source, target, flow, kernel_size: int, w1, b1, w2, b2,
@@ -111,11 +154,13 @@ def local_attn_warp(source, target, flow, kernel_size: int, w1, b1, w2, b2,
                           return_attn)
     B, H, W, C = source.shape
     if route == "1":
-        bs = block_extract(source, flow, k).reshape(-1, k * k, C)
+        bs = _source_blocks(source, flow, k).reshape(-1, k * k, C)
         bt = extract_patches(target, k).reshape(-1, k * k, C)
         out = attn_math.attn_math(bs, bt, w1, b1, w2, b2, slope)
         return out.reshape(B, H, W, C)
     D = w1.shape[-1]
     hidden_bt = target_stream(target, w1, b1, k)
     w1s = w1[:, C:, :].reshape(k * k * C, D)
+    if parallel.bands() is not None:
+        return _warp_window(source, flow, hidden_bt, w1s, w2, b2, k, slope)
     return warp.warp_fwd(source, flow, hidden_bt, w1s, w2, b2, k, slope)

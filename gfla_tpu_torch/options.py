@@ -68,17 +68,96 @@ def resolve_use_spect_d(opt) -> bool:
     return not getattr(opt, "no_spect_d", False)
 
 
-SPATIAL_TODO = ("the data x spatial mode is not ported yet (ROADMAP.md, "
-                "queue 1, item 2: data x spatial partitioning)")
+# what each --spatial refusal waits for (ROADMAP.md, queue 1)
+SPATIAL_TODO = {
+    "heads": "item 2a: --spatial for the other heads",
+    "bfloat16": "item 2b: --spatial with --compute_dtype=bfloat16",
+    "remat": "item 2c: --spatial with --remat",
+}
+
+
+def _todo(what: str) -> str:
+    return f"not ported yet (ROADMAP.md, queue 1, {SPATIAL_TODO[what]})"
 
 
 def refuse_parallel_flags(opt) -> None:
     """Raise NotImplementedError for `--spatial` above 1 (gfla_tpu's
-    train.py reads 0 as 1 too, and `--halo` only under it): the training
-    CLI runs the data axis (`--mesh_devices`, `--gpu_ids` lists,
-    `--distributed`), not gfla_tpu's data x spatial mesh."""
-    if (opt.spatial or 1) > 1:
-        raise NotImplementedError(f"--spatial={opt.spatial}: {SPATIAL_TODO}")
+    train.py reads 0 as 1 too, and `--halo` only under it) where the port
+    has no data x spatial mode yet: any head but pose, and with bfloat16 or
+    `--remat`. Each message names the ROADMAP item that will port it."""
+    sp = opt.spatial or 1
+    if sp <= 1:
+        return
+    if opt.model != "pose":
+        raise NotImplementedError(
+            f"--spatial={sp} with --model={opt.model}: {_todo('heads')}")
+    if getattr(opt, "compute_dtype", "float32") == "bfloat16":
+        raise NotImplementedError(
+            f"--spatial={sp} with --compute_dtype=bfloat16: "
+            f"{_todo('bfloat16')}")
+    if getattr(opt, "remat", False):
+        raise NotImplementedError(f"--spatial={sp} with --remat: "
+                                  f"{_todo('remat')}")
+
+
+def _height(opt) -> int:
+    size = opt.load_size
+    return size if isinstance(size, int) else size[0]
+
+
+def spatial_levels(opt):
+    """(what, rows, rows each band must hold) of every resolution the pose
+    step convolves, pools or gathers: every band needs a whole number of
+    rows, at least 1 (each conv lends a neighbour 1 row), 2 where the flow
+    net's and G's output reflect-pad (a band reflects about its edge row),
+    and at an attention level k - 1 (the target's edge pad lends k//2, the
+    affine regularisation's patches k - 1)."""
+    H = _height(opt)
+    d_layers = getattr(opt, "d_layers", None) or (
+        3 if opt.dataset_mode == "market" else 4)
+    levels = [("G's output", H, 2)]
+    levels += [(f"G's level {d}", H >> d, 1) for d in range(1, opt.layers + 1)]
+    levels += [(f"the flow net's level {d}", H >> d, 2 if d < 5 else 1)
+               for d in range(1, 6)]
+    levels += [(f"D's level {d}", H >> d, 1) for d in range(1, d_layers + 1)]
+    levels += [(f"VGG19's level {d}", H >> d, 1) for d in range(1, 5)]
+    for key, k in opt.kernel_size.items():
+        if int(key) in [int(a) for a in opt.attn_layer]:
+            levels.append((f"the attention at level {key} (k={k})",
+                           H >> int(key), max(1, k - 1)))
+    return levels
+
+
+def spatial_layout(opt, ranks: int, local_ranks: int) -> int:
+    """The spatial size S of `--spatial` on `ranks` ranks, `local_ranks` of
+    them on this host, after gfla_tpu's checks (train.py:153-162: S divides
+    the device count and the image height) and the port's: a spatial group
+    stays on one host, the host's batch splits over its data indices, and
+    at every level of the path (`spatial_levels`) a band holds a whole
+    number of rows, enough for what it lends (gfla_tpu's GSPMD also takes
+    uneven shards; the port does not). Raises SystemExit otherwise."""
+    sp = max(1, opt.spatial or 1)
+    if sp == 1:
+        return 1
+    if ranks % sp:
+        raise SystemExit(f"--spatial {sp} must divide the device count "
+                         f"{ranks}")
+    if _height(opt) % sp:
+        raise SystemExit(f"--spatial {sp} must divide the image height "
+                         f"{opt.load_size}")
+    if local_ranks % sp:
+        raise SystemExit(f"--spatial {sp}: a spatial group stays on one "
+                         f"host, which has {local_ranks} ranks")
+    if opt.batchSize % (local_ranks // sp):
+        raise SystemExit(f"--batchSize={opt.batchSize} does not split over "
+                         f"{local_ranks // sp} data indices on this host")
+    for what, rows, need in spatial_levels(opt):
+        if rows % sp or rows // sp < need:
+            raise SystemExit(
+                f"--spatial {sp}: {what} has {rows} rows, which do not "
+                f"split into {sp} bands of at least {need} row"
+                f"{'s' if need > 1 else ''} each (raise --load_size)")
+    return sp
 
 
 class BaseOptions:
@@ -134,17 +213,21 @@ class BaseOptions:
                  "gfla_tpu's; poseflownet trains in float32")
         # gfla_tpu's parallelism flags. Training: --mesh_devices=N runs N
         # ranks on this host, --distributed joins a torchrun world, and
-        # --spatial above 1 is refused (refuse_parallel_flags). Serving runs
-        # on one device, as gfla_tpu's test.py does.
+        # --spatial=S splits every image's rows over S of them (pose only,
+        # refuse_parallel_flags and spatial_layout). Serving runs on one
+        # device, as gfla_tpu's test.py does.
         add("--mesh_devices", type=int, default=0,
             help="training: data-parallel ranks on this host, one a device "
                  "(the first N --gpu_ids, or cuda:0..N-1 when one id is "
                  "given; N CPU ranks with --gpu_ids=-1); 0 = every listed "
                  "id; the global batch is --batchSize per host")
         add("--spatial", type=int, default=1,
-            help="data x spatial partitioning: not ported, above 1 refused")
+            help="training, --model=pose: split every image's rows into "
+                 "this many bands, one a rank (the ranks / S data indices "
+                 "split the batch)")
         add("--halo", type=int, default=8,
-            help="halo rows of --spatial (read only under it)")
+            help="rows each band's attention gathers take from each "
+                 "neighbour under --spatial")
         add("--distributed", action="store_true", default=False,
             help="training: join the multi-host world torchrun's "
                  "environment describes (RANK, WORLD_SIZE, LOCAL_RANK, "

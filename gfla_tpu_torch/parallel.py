@@ -1,6 +1,9 @@
 """Data parallelism over ranks, one process a device (counterpart of
 gfla_tpu/parallel/__init__.py's data axis, `make_mesh`, `shard_batch` and
-`replicate_state`, and of gfla_tpu/runtime.py's `init_distributed`).
+`replicate_state`, and of gfla_tpu/runtime.py's `init_distributed`), and
+the spatial axis of its data x spatial mode (`make_mesh_2d`,
+`shard_batch_spatial`, `enable_spatial_halo`; see "The spatial axis"
+below).
 
 gfla_tpu shards each global batch over a 1-axis ('data',) mesh, replicates
 the parameters and the optimizer state, and lets XLA insert the all-reduce
@@ -119,11 +122,12 @@ def init_world(at: World, device: torch.device,
 
 def close_world() -> None:
     """Leave the process group, if any; the process is a world of one
-    again."""
-    global _world
+    again, without bands."""
+    global _world, _bands
     if active():
         dist.destroy_process_group()
     _world = World()
+    _bands = None
 
 
 def free_port() -> int:
@@ -273,3 +277,265 @@ def replicate_(modules: Iterable[torch.nn.Module]) -> None:
             tensors = [*module.parameters(), *module.buffers()]
             if tensors:
                 _one_bucket(tensors, lambda flat: dist.broadcast(flat, 0))
+
+
+# --- the spatial axis -------------------------------------------------------
+#
+# gfla_tpu's data x spatial mode (train.py --spatial=S) reshapes its devices
+# to a (dp, S) mesh and shards every image's rows over the second axis;
+# GSPMD then partitions each op, and the attention gather is a hand-written
+# halo exchange (block_extract.py:75-153). The port runs the same program by
+# hand: rank i is data index i // S and band i % S of its spatial group
+# (ranks S * (i // S) ... S * (i // S) + S - 1), which loads the same rows
+# of the global batch; every activation on a rank is its band, rows
+# [s * h, (s + 1) * h) of an image of S * h rows (so a tensor's band rows
+# give its global geometry). The modules read `bands()`:
+# - a convolution, a reflection pad and the attention's edge pad take the
+#   rows they need from the neighbouring bands (`pad_rows`), padding at the
+#   image's top and bottom edges only;
+# - a reduction over the image (instance norm, a loss mean, a Gram matrix)
+#   sums its band partials over the spatial group (`band_sum`);
+# - the correctness loss's source features are gathered whole
+#   (`gather_rows`).
+# Each of the three collectives is differentiable, with the sum over the
+# spatial group as its adjoint: `band_sum`'s backward all-reduces the
+# cotangent, `gather_rows`' keeps the rank's rows of the summed cotangent,
+# and `pad_rows`' sends each halo row's cotangent back to the band it came
+# from. Every rank seeds its own copy of the loss with 1, so each rank's
+# gradients are S times its band's share, and `allreduce_grads`' mean over
+# the world is then exactly the single-device gradient of the global batch:
+# no other factor goes in. The data axis needs no group of its own: the
+# gradients, the logs and the checkpoints go over the world, where the S
+# ranks of a spatial group hold the same logs and the same parameters.
+
+@dataclasses.dataclass(frozen=True)
+class Bands:
+    """This rank's band: `index` of `size` over every image's rows, in the
+    spatial group `group`; `halo`, the attention gathers' halo rows
+    (--halo)."""
+
+    index: int
+    size: int
+    halo: int
+    group: object = dataclasses.field(default=None, compare=False)
+
+    @property
+    def top(self) -> bool:
+        """The band holds the image's first row."""
+        return self.index == 0
+
+    @property
+    def bottom(self) -> bool:
+        """The band holds the image's last row."""
+        return self.index == self.size - 1
+
+    def first_row(self, rows: int) -> int:
+        """The global index of the first row of a band of `rows` rows."""
+        return self.index * rows
+
+
+_bands: Optional[Bands] = None
+
+
+def bands() -> Optional[Bands]:
+    """This rank's band, or None outside the data x spatial mode."""
+    return _bands
+
+
+def init_bands(spatial: int, halo: int) -> Bands:
+    """Enter the data x spatial mode in the world this process belongs to
+    (gfla_tpu's `make_mesh_2d(size // spatial, spatial)` and
+    `enable_spatial_halo(mesh, "spatial", halo)`): one spatial group of
+    `spatial` consecutive ranks for each data index, every group created on
+    every rank in the same order, as `dist.new_group` asks."""
+    global _bands
+    size, rank = _world.size, _world.rank
+    if spatial < 2 or size % spatial:
+        raise ValueError(f"{spatial} bands do not split a world of {size}")
+    mine = None
+    for first in range(0, size, spatial):
+        group = dist.new_group(list(range(first, first + spatial)),
+                               timeout=TIMEOUT)
+        if first <= rank < first + spatial:
+            mine = group
+    _bands = Bands(rank % spatial, spatial, halo, mine)
+    return _bands
+
+
+def data_world() -> World:
+    """The world of data indices: this process's place among the spatial
+    groups (each group one member), or `world()` without bands. A spatial
+    group stays on one host (options.spatial_layout)."""
+    if _bands is None:
+        return _world
+    s = _bands.size
+    return World(_world.rank // s, _world.size // s, _world.local_rank // s,
+                 _world.local_size // s)
+
+
+def first_group() -> bool:
+    """The ranks that evaluate and write the visuals: rank 0, or with
+    bands rank 0's spatial group, whose members each run their band."""
+    return data_world().rank == 0
+
+
+def _collect(t: torch.Tensor) -> list:
+    """Every band's `t` (contiguous, the same shape on each), in band
+    order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(_bands.size)]
+    dist.all_gather(parts, t, group=_bands.group)
+    return parts
+
+
+def _sum_over_bands(t: torch.Tensor) -> torch.Tensor:
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, group=_bands.group)
+    return t
+
+
+class _BandSum(torch.autograd.Function):
+    """The sum over the spatial group; its adjoint is the same sum."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _sum_over_bands(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over_bands(g)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every band's rows along `dim`, in order; the adjoint sums the
+    cotangent over the group and keeps this band's rows (a reduce-scatter,
+    written as an all-reduce and a slice so that gloo runs it too)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.rows = dim, x.shape[dim]
+        return torch.cat(_collect(x), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_sum_over_bands(g).narrow(
+            ctx.dim, _bands.index * ctx.rows, ctx.rows), None)
+
+
+class _Halo(torch.autograd.Function):
+    """(the `top` rows above this band, the `bottom` rows below it): the
+    previous band's last rows and the next band's first, along `dim`; at
+    the image's top and bottom, where there is no neighbour, zeros. One
+    all-gather of each band's first `bottom` and last `top` rows; the
+    adjoint all-gathers the cotangents and adds each into the rows it came
+    from."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, dim):
+        n = x.shape[dim]
+        ctx.top, ctx.bottom, ctx.dim, ctx.shape = top, bottom, dim, x.shape
+        parts = _collect(torch.cat([x.narrow(dim, 0, bottom),
+                                    x.narrow(dim, n - top, top)], dim))
+        s = _bands.index
+        shape = list(x.shape)
+        shape[dim] = top
+        above = (parts[s - 1].narrow(dim, bottom, top) if s > 0
+                 else x.new_zeros(shape))
+        shape[dim] = bottom
+        below = (parts[s + 1].narrow(dim, 0, bottom) if s < _bands.size - 1
+                 else x.new_zeros(shape))
+        return above, below
+
+    @staticmethod
+    def backward(ctx, g_above, g_below):
+        top, bottom, dim = ctx.top, ctx.bottom, ctx.dim
+        parts = _collect(torch.cat([g_above, g_below], dim))
+        s, n = _bands.index, ctx.shape[dim]
+        grad = g_above.new_zeros(ctx.shape)
+        if s < _bands.size - 1:  # our last rows were the next band's above
+            grad.narrow(dim, n - top, top).add_(parts[s + 1].narrow(
+                dim, 0, top))
+        if s > 0:  # our first rows were the previous band's below
+            grad.narrow(dim, 0, bottom).add_(parts[s - 1].narrow(
+                dim, top, bottom))
+        return grad, None, None, None
+
+
+def band_sum(x: torch.Tensor) -> torch.Tensor:
+    """`x` summed over the spatial group (differentiable), or `x` itself
+    without bands."""
+    return x if _bands is None else _BandSum.apply(x)
+
+
+def band_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of the whole image's `x` from this band's: `x.mean()`
+    without bands, else the band sums summed over the group, over S times
+    the band's count."""
+    if _bands is None:
+        return x.mean()
+    return band_sum(x.sum()) / (x.numel() * _bands.size)
+
+
+def gather_rows(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
+    """The whole image's `x` from every band's rows along `dim`
+    (differentiable), or `x` itself without bands."""
+    return x if _bands is None else _GatherRows.apply(x, dim)
+
+
+def whole(tree):
+    """Every 4-D tensor of `tree` (a tensor, or a dict, list or tuple of
+    them) gathered whole along its rows, outside autograd: the
+    evaluation's and the visuals' outputs and inputs. `tree` itself
+    without bands."""
+    if _bands is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: whole(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(whole(v) for v in tree)
+    if torch.is_tensor(tree) and tree.dim() == 4:
+        with torch.no_grad():
+            return torch.cat(_collect(tree), 2)
+    return tree
+
+
+def _edge(x, rows, mode, dim, first):
+    """`rows` rows beyond the image's first (or last) row of `x`'s band, as
+    `mode` pads: zeros, replicate (the edge row) or reflect (the rows
+    inside, mirrored about the edge row)."""
+    n = x.shape[dim]
+    if mode == "zeros":
+        shape = list(x.shape)
+        shape[dim] = rows
+        return x.new_zeros(shape)
+    if mode == "replicate":
+        edge = x.narrow(dim, 0 if first else n - 1, 1)
+        shape = list(x.shape)
+        shape[dim] = rows
+        return edge.expand(shape)
+    if mode == "reflect":
+        return x.narrow(dim, 1 if first else n - 1 - rows, rows).flip(dim)
+    raise ValueError(f"pad_rows: no mode {mode!r}")
+
+
+def pad_rows(x: torch.Tensor, top: int, bottom: int, mode: str = "zeros",
+             dim: int = 2) -> torch.Tensor:
+    """This band of `x` (rows along `dim`) with `top` rows above and
+    `bottom` below it: the neighbouring bands' rows (the halo exchange),
+    and at the image's top and bottom edges the rows `mode` pads there
+    (zeros, replicate or reflect), as the single-device op pads the whole
+    image. A band must hold at least as many rows as it lends (more than
+    it pads, for reflect)."""
+    b = _bands
+    n = x.shape[dim]
+    if max(top, bottom) > n or (mode == "reflect" and max(top, bottom) >= n):
+        raise ValueError(f"pad_rows: a band of {n} rows cannot lend "
+                         f"{top} and {bottom} rows ({mode})")
+    if not top and not bottom:
+        return x
+    above, below = _Halo.apply(x, top, bottom, dim)
+    if b.top:
+        above = _edge(x, top, mode, dim, True)
+    if b.bottom:
+        below = _edge(x, bottom, mode, dim, False)
+    return torch.cat([above, x, below], dim)

@@ -13,7 +13,11 @@ backward under `--remat`); a D step on the detached fake, D(real) then
 D(fake), each storing its spectral-norm u; the G losses against the updated
 D, which iterates u without storing it; the G backward and Adam step. In a
 data-parallel run each gradient is averaged over the ranks just before its
-Adam step (gfla_tpu_torch.parallel). Serving runs G in eval mode under `torch.inference_mode()`.
+Adam step (gfla_tpu_torch.parallel); in the data x spatial mode
+(`--spatial`) each rank runs this step on its row band of its data index's
+rows, every module and loss band-aware (parallel.bands), and that same
+average is the single-device gradient. Serving runs G in eval mode under
+`torch.inference_mode()`.
 Checkpoints are the original GFLA's per-network files, `{iter}_net_G.pth`
 and `{iter}_net_D.pth`.
 
@@ -67,7 +71,9 @@ def prepare_batch(batch, device, load_size):
     (B, V, H, W, 3), are resized there as PIL resizes them; a synthetic
     batch's NHWC float images move as they are. Heatmaps are encoded on the
     device from the (B, K, 2) keypoints; ShapeNet's viewpoint labels, (B, 2)
-    or (B, V, 2) ints, move as they are, for the task to one-hot."""
+    or (B, V, 2) ints, move as they are, for the task to one-hot. Over row
+    bands (the data x spatial mode) the images keep the rank's band and
+    the heatmaps encode only its rows, from their global coordinates."""
     dev = {}
     if "P1_inv" in batch:
         n = len(batch["P1"])
@@ -90,9 +96,15 @@ def prepare_batch(batch, device, load_size):
             dev[key] = torch.from_numpy(batch[key]).to(device)
         return dev
     H, W = dev["P1"].shape[2:]
+    row0, b = 0, parallel.bands()
+    if b is not None:
+        H //= b.size
+        row0 = b.first_row(H)
+        for key in ("P1", "P2"):
+            dev[key] = dev[key][:, :, row0:row0 + H]
     for kp, bp in (("KP1", "BP1"), ("KP2", "BP2")):
         cords = torch.from_numpy(batch[kp]).to(device)
-        dev[bp] = encode_heatmaps(cords, H, W).permute(0, 3, 1, 2)
+        dev[bp] = encode_heatmaps(cords, H, W, row0=row0).permute(0, 3, 1, 2)
     return dev
 
 

@@ -36,14 +36,28 @@ gfla_tpu_torch.train --distributed ...`). `--batchSize` is a host's
 batch, split over its ranks; the global batch is hosts x `--batchSize`,
 and each step applies the gradient of its mean. Only rank 0 prints, logs,
 evaluates, writes visuals, traces and checkpoints. `--gpu_ids=-1
---mesh_devices=N` runs N ranks on the CPU (gloo). `--spatial` above 1 is
-refused: the data x spatial mode is not ported.
+--mesh_devices=N` runs N ranks on the CPU (gloo).
+
+The data x spatial mode, as gfla_tpu's `--spatial=S --halo=h`
+(gfla_tpu_torch.parallel's spatial axis; `--model=pose`, f32, without
+`--remat`): the ranks form N / S spatial groups of S consecutive ranks,
+each a data index that loads its rows of the global batch; each rank of a
+group holds one row band of every image and activation, exchanges halo
+rows with its neighbours, and sums its reductions over the group. The step
+is gfla_tpu's single-device step, but where a local attention's flow
+leaves its band's window of h rows, where it clamps as gfla_tpu's halo
+gather does. Rank 0's group evaluates and writes the visuals, each rank on
+its band, gathered whole.
 """
 
 from __future__ import annotations
 
 from gfla_tpu_torch import parallel
-from gfla_tpu_torch.options import TrainOptions, refuse_parallel_flags
+from gfla_tpu_torch.options import (
+    TrainOptions,
+    refuse_parallel_flags,
+    spatial_layout,
+)
 from gfla_tpu_torch.runtime import select_devices
 from gfla_tpu_torch.train.loop import train
 
@@ -61,7 +75,8 @@ def main(args=None) -> int:
     else:
         devices = select_devices(opt.gpu_ids, opt.mesh_devices)
         at = parallel.World(size=len(devices), local_size=len(devices))
-    if opt.batchSize % at.local_size:
+    sp = spatial_layout(opt, at.size, at.local_size)
+    if opt.batchSize % (at.local_size // sp):
         raise SystemExit(f"--batchSize={opt.batchSize} does not split over "
                          f"{at.local_size} ranks on this host")
     if at.rank == 0 and opt.phase != "val":
@@ -74,8 +89,8 @@ def main(args=None) -> int:
             parallel.close_world()
     if len(devices) > 1:
         print(f"data parallel: {len(devices)} ranks on "
-              f"{[str(d) for d in devices]}, {opt.batchSize // len(devices)} "
-              f"rows each")
+              f"{[str(d) for d in devices]}, "
+              f"{opt.batchSize * sp // len(devices)} rows each")
         parallel.spawn(train, devices, opt)
         return 0
     return train(devices[0], opt)

@@ -1,5 +1,8 @@
 """The trainer's held-out evaluation and visuals (counterpart of gfla_tpu's
-train.py:64-111, :126-142 and :202-266)."""
+train.py:64-111, :126-142 and :202-266). In the data x spatial mode each
+rank of rank 0's spatial group runs the generator on its row band, and the
+outputs and inputs are gathered whole (`parallel.whole`) before they are
+scored or drawn."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.utils.images import flow2color, tensor2im
 
 HOLDOUT_SEED = 9973
@@ -50,7 +54,8 @@ def evaluate_held_out(task, batch) -> Dict[str, float]:
         compare_ssim,
     )
 
-    out = task.test_step(batch)
+    out = parallel.whole(task.test_step(batch))
+    batch = parallel.whole(batch)
     if "gt_data" in batch and "input_data" in batch:
         gt = batch["gt_data"].cpu().numpy()
         T = gt.shape[1]
@@ -81,11 +86,12 @@ def current_visuals(task, batch) -> Dict[str, torch.Tensor]:
         return {}
     if "P_all" in batch:
         return {"img_gen": tensor2im(task.test_step(batch)[0][:, -1])}
+    out = parallel.whole(task.test_step(batch))
+    batch = parallel.whole(batch)
     visuals = {"input_P1": tensor2im(batch["P1"])}
     if batch["BP2"].dim() == 4:
         visuals["input_BP2"] = tensor2im(
             batch["BP2"][:1].amax(1, keepdim=True) * 2.0 - 1.0)
-    out = task.test_step(batch)
     if len(out) == 3:
         visuals["img_gen"] = tensor2im(out[0])
     visuals["input_P2"] = tensor2im(batch["P2"])

@@ -47,13 +47,18 @@ def _stop_trace(prof, device, path: str, note: str = "") -> None:
 
 def train(device: torch.device, opt) -> int:
     """The training loop on this rank's `device` (every rank runs it, in a
-    world set up by `main`)."""
-    at = parallel.world()
+    world set up by `main`; with `--spatial` it enters the bands here)."""
     main_rank = parallel.is_main()
     log = print if main_rank else (lambda *a, **k: None)
     if device.type == "cuda":
         set_tf32(False)  # f32 work stays f32 (TF32 off), in either dtype
         log(card_line())
+    if (opt.spatial or 1) > 1:
+        parallel.init_bands(opt.spatial, opt.halo)
+        log(f"spatial partitioning: {opt.spatial} row shards, halo "
+            f"{opt.halo}")
+    at = parallel.data_world()  # a spatial group's ranks share its data
+    first = parallel.first_group()  # evaluates and writes the visuals
     np.random.seed(opt.seed + at.rank)
     torch.manual_seed(opt.seed + at.rank)
     dataset = get_dataset_class(opt.dataset_mode)(opt)
@@ -100,7 +105,7 @@ def train(device: torch.device, opt) -> int:
     batches = infinite(loader)
     batch = task.prepare_batch(next(batches))
     eval_batch = batch  # when no batch can be held out
-    if holdout is not None and main_rank:
+    if holdout is not None and first:
         eval_batch = task.prepare_batch(
             collate([dataset[int(i)] for i in holdout]))
     trace_at = start_iter + 2 if opt.profile_iters and main_rank else -1
@@ -125,11 +130,11 @@ def train(device: torch.device, opt) -> int:
             t_last = time.perf_counter()
             visualizer.print_current_errors(iters // opt.iters_per_epoch,
                                             iters, logs, dt)
-        if opt.display_freq and iters % opt.display_freq == 0 and main_rank:
+        if opt.display_freq and iters % opt.display_freq == 0 and first:
             visualizer.display_current_results(
                 current_visuals(task, batch), iters)
         if opt.eval_iters_freq and iters % opt.eval_iters_freq == 0 \
-                and main_rank:
+                and first:
             evals = evaluate_held_out(task, eval_batch)
             if evals:
                 visualizer.print_current_eval(iters // opt.iters_per_epoch,

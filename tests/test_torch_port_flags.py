@@ -5,9 +5,10 @@
   at 32x32 (ngf 16, img_f 64) gives the losses, the gradients of G and D and
   the stored spectral-norm u of the step without it, each within 1e-6 x its
   largest |value| (the same f32 sums, in the order the recomputation takes).
-- gfla_tpu's parallelism flags: `--spatial` above 1 (the data x spatial
-  mode) makes the training CLI raise NotImplementedError naming the flag
-  and its ROADMAP item, before any data or network is built; the training
+- gfla_tpu's parallelism flags: `--spatial=2` on the one CPU device makes
+  the training CLI exit with gfla_tpu's message (S must divide the device
+  count), before any data or network is built (the data x spatial mode
+  itself is tests/test_torch_port_spatial.py); the training
   CLI trains one step with `--mesh_devices=2` on two CPU ranks and with
   `--distributed` in a torchrun world of one; the serving CLI takes all
   three, serves on one device and says so.
@@ -151,10 +152,9 @@ def test_parallel_flags_are_refused(tmp_path, module, flag):
                   else ["--max_dataset_size=1"]),
                 env=_torchrun_world_of_one() if flag == "--distributed"
                 else None)
-    if train and flag == "--spatial=2":  # the one refusal left
+    if train and flag == "--spatial=2":  # 2 bands on one device
         assert proc.returncode != 0
-        assert "NotImplementedError" in proc.stderr
-        assert flag in proc.stderr and "queue 1, item 2" in proc.stderr
+        assert "--spatial 2 must divide the device count 1" in proc.stderr
         assert "dataset [" not in proc.stdout
         return
     assert proc.returncode == 0, proc.stderr[-3000:]
