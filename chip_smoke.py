@@ -117,16 +117,25 @@ Phases, each failing the run (non-zero exit) on the first error:
      machine the warp route's band form (ops/local_attn._warp_window: the
      forward and both backward kernels on the band's halo window), run as
      each band of an S=2 and an S=4 split of the two pose sites runs it
-     (a flow row planted past the halo), against its plain twin, and the
-     bands against the halo-gather reference on the whole map; the window
-     kernels timed beside the whole map's; where the machine has two cards
-     (four: dp 2 x sp 2 at batch 8, else dp 1 x sp 2 at batch 2), spawned
-     ranks on bands of phase 6's batch: a kernel-path step against the
-     plain path's by phase 6's rule, an SGD step against one card's by
+     (a flow row planted past the halo), and of ShapeNet's k=3 site,
+     against its plain twin, and the bands against the halo-gather
+     reference on the whole map; the window kernels timed beside the whole
+     map's; the window kernels' bf16 instances at both pose sites in 2 and
+     4 bands against the bf16 plain twins by the bf16 rule and the whole
+     map's bf16 kernel; where the machine has two cards (four: dp 2 x sp 2
+     at batch 8, else dp 1 x sp 2 at batch 2), spawned ranks on bands of
+     phase 6's batch: a kernel-path step against the plain path's by phase
+     6's rule, and against the same step under --remat (u bitwise equal,
+     as many collectives on each rank), an SGD step against one card's by
      gfla_tpu's spatial rule with every rank's state bitwise equal, its
      launches counted as path spatial_train (on one card no such count is
      printed), the step's ms, peak memory a card and the halo exchange's
-     ms beside one card's.
+     ms beside one card's; from one state each, a shapenet and a
+     shapenetflow (GFLA_PALLAS_CORR=1) SGD step against one card's by
+     gfla_tpu's spatial rule and a bf16 pose step against one card's bf16
+     step by BF16_STEP_HOLD, every rank's state bitwise equal (paths
+     spatial_train_remat, spatial_train_shapenet, spatial_train_corr,
+     spatial_train_bf16).
  11. disk data: a DeepFashion-layout tree (16 images of 256x176 a phase, 24
      train and 8 test pairs) and a Market-layout one (128x64) written
      through nvJPEG (image_io.encode_jpeg) and decoded back (PSNR >= 35 dB
@@ -156,6 +165,14 @@ Phases, each failing the run (non-zero exit) on the first error:
      launch of each warp kernel a step); the kernel path against the plain
      path from one state, a layers-1 generator's step on the card against
      the CPU's at 2x64x64, both against a float64 step.
+ 14b. shapenet disk: the committed HDF5 store (tests/fixtures/shapenet_car)
+     read through ShapeNetDataset and the port's own reader (no h5py),
+     every view held to digests.json; four full-width batch-8 steps from
+     phase 14's state on batches from the store through the training
+     loader with 2 workers (path shapenet_disk_train, 1 launch of each warp
+     kernel a step); one batch of the 18-view test sweep from the store
+     (36 _vis.jpg, path shapenet_disk_sweep); the loader's ms a batch and
+     the step's ms beside phase 14's.
  15. shapenetflow: four full-width stage-1 steps with GFLA_PALLAS_CORR=1, 1
      max-correlation launch a step; the shapenet task's --continue_train
      then loads every flow_net tensor of that directory.
@@ -257,10 +274,10 @@ Phases, each failing the run (non-zero exit) on the first error:
      64x64 pose training and its val panels in processes of their own,
      the metrics CLI on them); its CSV holds finite values; each cell's
      seconds.
-The HDF5 store itself is not read on the card, whose Python has no h5py:
-the ShapeNet phases feed batches in the dataset's layout to the task's own
-prepare_batch and run_test, and the reader is held against gfla_tpu's on
-the CPU (tests/test_torch_port_shapenet.py).
+The card's Python has no h5py: phase 14b reads the HDF5 store through the
+port's own reader (gfla_tpu_torch/data/hdf5.py), which the CPU tests hold
+to h5py (tests/test_torch_port_hdf5.py); the other ShapeNet phases feed
+batches in the dataset's layout made in memory.
 The switches are set per phase with mock.patch.dict, so none leaks into the
 next; every other phase runs with GFLA_ATTN_PALLAS=auto, GFLA_PALLAS_CORR=0.
 Each phase's wall time follows it on a line of its own. A timing takes 20
@@ -1903,7 +1920,7 @@ def cosine(a, b):
 
 def grads_by_rule(what, kernel, plain, f32, resolved=None,
                   hold=BF16_STEP_HOLD, one_element=True, l2=None,
-                  loose=None):
+                  loose=None, to_f32=False):
     """One step's gradients on the kernel path against the plain bf16 path
     directly, each tensor by its cosine and norm ratio and each network by
     its concatenated cosine (BF16_STEP_HOLD), the flow net's and the
@@ -1923,7 +1940,11 @@ def grads_by_rule(what, kernel, plain, f32, resolved=None,
     held in the network's cosine and mean only, and so is every tensor
     whose name `loose` (a compiled pattern) matches; with `l2` (BF16_L2),
     each tensor of the direct hold that the plain path resolves is also
-    held by its L2 distance to the f32 gradient."""
+    held by its L2 distance to the f32 gradient. With `to_f32`, a tensor
+    outside the direct hold passes if the same floor and band hold the
+    kernel path's gradient against the f32 step's (two bf16 computations
+    that sum a gradient over the image in different parts, as bands do,
+    round it apart; each is held to f32 then), its readings printed."""
     for tag in f32:
         grads = {side: s[tag]["grads"] for side, s in (
             ("f32", f32), ("kernel", kernel), ("plain", plain))}
@@ -1965,6 +1986,17 @@ def grads_by_rule(what, kernel, plain, f32, resolved=None,
             g32 = grads["f32"][name]
             gk, gp = grads["kernel"][name], grads["plain"][name]
             plain_ratio = gp.norm().item() / max(g32.norm().item(), 1e-30)
+            if to_f32:
+                c32 = cosine(gk, g32)
+                r32 = gk.norm().item() / max(g32.norm().item(), 1e-30)
+                print(f"{what}: {tag} {name}: against the other path at "
+                      f"cosine {c_kernel:.4f}, norm ratio {ratio:.4f}; "
+                      f"against the f32 gradient at cosine {c32:.4f}, norm "
+                      f"ratio {r32:.4f} (the other path {cosine(gp, g32):.4f}"
+                      f", {plain_ratio:.4f})")
+                if c32 >= floor and band[0] <= r32 <= band[1]:
+                    bad.remove((name, c_kernel, ratio))
+                    continue
             if resolved is None or cosine(gp, g32) >= resolved:
                 continue
             top = g32.abs().max().item()
@@ -2741,6 +2773,12 @@ def phase_data_parallel(train):
 
 
 SP_SPLITS = (2, 4)  # (a): band splits of the window kernels' sites
+# (a): the sites whose window kernels run, in f32: pose's two and
+# ShapeNet's; in bf16 (SP_CASES_BF16) pose's two
+SP_CASES = [c for c in KERNEL_CASES if c[0] in (
+    "k=5 site 64x64 C128", "k=3 site 32x32 C256",
+    "shapenet k=3 site 64x64 C128")]
+SP_CASES_BF16 = SP_CASES[:2]
 SP_HALO = 8         # --halo's default
 SP_FAR_Y = 30.0     # (a): a flow row planted past the halo
 SP_RANKS = (4, 2)   # (b): dp 2 x sp 2 on four cards, else dp 1 x sp 2
@@ -2753,6 +2791,19 @@ SP_SHARE_1, SP_SHARE_2 = 1e-4, 1e-6
 SP_TIMEOUT = 300    # (b): seconds the spawned ranks may take
 SP_ITERS = 20       # (b): launches of a timed collective, the same on all
 SP_TIMED = 3        # (b): SGD steps timed on each rank and on one card
+SP_PATHS = ("spatial_train", "spatial_train_remat", "spatial_train_shapenet",
+            "spatial_train_corr", "spatial_train_bf16")  # (b)'s paths
+# (b): the bf16 step under --spatial against one card's: BF16_STEP_HOLD,
+# its norm bands widened by SP_BF16_ULP on each side. Each band rounds its
+# partial sum of a parameter's gradient over its rows to bf16 once, before
+# the ranks add the partials in f32, so a gradient's norm moves by up to
+# bf16's unit roundoff against one card's, which rounds the whole sum once
+# (BF16_STEP_HOLD's bands are readings of the kernel against the plain path
+# on one card, where every such sum is rounded alike; D's is 1 +- 1e-3).
+SP_BF16_ULP = 2 ** -8
+SP_BF16_HOLD = {tag: (floor, whole, (band[0] - SP_BF16_ULP,
+                                     band[1] + SP_BF16_ULP))
+                for tag, (floor, whole, band) in BF16_STEP_HOLD.items()}
 
 
 def window_rows(t, s, S, h):
@@ -2891,7 +2942,8 @@ def spatial_windows(device):
     """(a) The warp route over row bands, `ops/local_attn._warp_window`
     itself (the warp kernels on each band's halo window), for each band of
     an S=2 and an S=4 split of the pose sites (k=5 on 64x64x128, k=3 on
-    32x32x256, batch 8) on one card (`as_band`), a flow row planted
+    32x32x256, batch 8) and ShapeNet's (k=3 on 64x64x128) on one card
+    (`as_band`), a flow row planted
     SP_FAR_Y rows down, past the halo: its output and its gradients (the
     whole source's through the exchange's adjoint) against the same call
     on the plain twins (KERNEL_ATOL, BWD_REL x each gradient's
@@ -2905,7 +2957,7 @@ def spatial_windows(device):
     from gfla_tpu_torch.ops import warp
 
     results = {}
-    for i, (name, B, H, W, C, D, k, scale) in enumerate(KERNEL_CASES[:2]):
+    for i, (name, B, H, W, C, D, k, scale) in enumerate(SP_CASES):
         args = warp_inputs(B, H, W, C, D, k, scale, 60 + i, device)
         src, flow, hidden_bt, w1s, w2, b2 = args
         far = H // 2 - 2
@@ -2968,6 +3020,73 @@ def spatial_windows(device):
     return results
 
 
+def spatial_windows_bf16(device):
+    """(a) The window kernels' bf16 instances (warp_fwd_bf16.cu,
+    warp_bwd_bf16.cu) through `_warp_window`, for each band of an S=2 and
+    an S=4 split of the pose sites on one card, from bf16 source, W1s, W2
+    and g, the flow kept inside the window (|flow_y| <= h - k//2 - 1, so
+    that the window's clamp is the image's): each band's output and
+    gradients against the same call on the bf16 plain twins (from the
+    forward kernel's hpre), by the bf16 rule against the f32 result of the
+    same values (BF16_OUT_REL for the output and d_source, BF16_GRAD_REL
+    for the others, x max|f32|); the bands' outputs against the whole
+    map's bf16 forward kernel within BF16_OUT_REL x max|f32|."""
+    from gfla_tpu_torch.ops import warp
+
+    bf = torch.bfloat16
+    results = {}
+    for i, (name, B, H, W, C, D, k, scale) in enumerate(SP_CASES_BF16):
+        src, flow, hbt, w1s, w2, b2 = warp_inputs(B, H, W, C, D, k, scale,
+                                                  80 + i, device)
+        g = torch.from_numpy(np.random.RandomState(90 + i).randn(
+            B, H, W, C).astype(np.float32)).to(device).to(bf)
+        for S in SP_SPLITS:
+            Hl = H // S
+            h = min(SP_HALO, Hl)
+            reach = h - k // 2 - 1
+            inside = flow.clone()
+            inside[..., 1].clamp_(-reach, reach)
+            args = (src.to(bf), inside, hbt, w1s.to(bf), w2.to(bf), b2)
+            wide = (args[0].float(), inside, hbt, args[3].float(),
+                    args[4].float(), b2)  # the same values, in f32
+            whole = warp.warp_fwd(*args, k)
+            whole32 = warp.warp_fwd(*wide, k)
+            errs = {"out": 0.0, "grads": 0.0}
+            bands = []
+            for s in range(S):
+                got, got_g, _ = band_warp(args, g, k, S, h, s)
+                with mock.patch.object(warp, "warp_fwd",
+                                       PlainAtKernelHpre.apply):
+                    want, want_g, _ = band_warp(args, g, k, S, h, s)
+                    ref, ref_g, _ = band_warp(wide, g.float(), k, S, h, s)
+                torch.cuda.synchronize()
+                check(got.dtype == bf, f"bf16 window {name}: {got.dtype}")
+                what = f"bf16 window {name} S={S} band {s}"
+                errs["out"] = max(errs["out"], bf16_rule(
+                    f"{what} out", got, want, ref, BF16_OUT_REL)[1])
+                for out, a, b, f in zip(BWD_OUTPUTS, got_g, want_g, ref_g):
+                    tol = BF16_OUT_REL if out == "d_source" \
+                        else BF16_GRAD_REL
+                    errs["grads"] = max(errs["grads"], bf16_rule(
+                        f"{what} {out}", a, b, f, tol)[1])
+                bands.append(got)
+            full = torch.cat(bands, 1).float()
+            top = whole32.abs().max().item()
+            err = (full - whole.float()).abs().max().item() / top
+            check(err <= BF16_OUT_REL, f"bf16 window {name} S={S}: bands "
+                  f"vs the whole map's bf16 kernel {err:.3e} x max|f32|")
+            print(f"spatial window kernels in bf16 {name} S={S} (bands of "
+                  f"{Hl} rows, halo {h}, |flow_y| <= {reach}): against the "
+                  f"bf16 plain twins on each band, x max|f32|: output "
+                  f"{errs['out']:.3e} (tol {BF16_OUT_REL:g}), gradients "
+                  f"{errs['grads']:.3e} (tol {BF16_OUT_REL:g} d_source, "
+                  f"{BF16_GRAD_REL:g} the others); the bands against the "
+                  f"whole map's bf16 kernel {err:.3e} (tol "
+                  f"{BF16_OUT_REL:g})")
+            results[(name, S)] = dict(errs, whole=err)
+    return results
+
+
 def _collective_ms(fn):
     """Median CUDA-event ms of `fn()` over SP_ITERS launches after 3, the
     same count on every rank (the ranks must call collectives alike)."""
@@ -2985,13 +3104,16 @@ def _collective_ms(fn):
     return statistics.median(times)
 
 
-def spatial_rank(device, state_path, out_dir, sp, rows):
-    """(b)'s rank: phase 6's state, fresh Adams, on this rank's band of its
-    data index's `rows` rows of phase 6's batch: a kernel-path and a
-    plain-path Adam step (rank 0's snapshots kept); an SGD step, its
-    launches counted; SP_TIMED more, timed, with the peak memory; the halo
-    exchanges and band sums of a step counted, and each timed alone at the
-    pose path's largest shapes."""
+def spatial_rank(device, states, out_dir, sp, rows):
+    """(b)'s rank: phase 6's state (`states["pose"]`), fresh Adams, on this
+    rank's band of its data index's `rows` rows of phase 6's batch: a
+    kernel-path and a plain-path Adam step, and the kernel-path one again
+    under --remat, its launches and the spatial group's collectives
+    counted (rank 0's snapshots kept); an SGD step, its launches counted;
+    SP_TIMED more, timed, with the peak memory; the halo exchanges and
+    band sums of a step counted, and each timed alone at the pose path's
+    largest shapes; then `spatial_heads` (shapenet, shapenetflow under
+    GFLA_PALLAS_CORR=1, and pose in bf16)."""
     from gfla_tpu_torch import parallel
     from gfla_tpu_torch.runtime import set_tf32
     from gfla_tpu_torch.tasks import create_task
@@ -3007,23 +3129,33 @@ def spatial_rank(device, state_path, out_dir, sp, rows):
     opt, ckpt = train_opt("--name=spatial_rank", f"--spatial={sp}")
     task = create_task(opt, device)
     seconds["task"] = time.perf_counter() - start
-    for tag, sd in torch.load(state_path, weights_only=True).items():
+    for tag, sd in torch.load(states["pose"], weights_only=True).items():
         nets(task)[tag].load_state_dict(sd)
     band = task.prepare_batch(deepfashion_batch(100))
     batch = {k: v[data.rank * rows:(data.rank + 1) * rows]
              for k, v in band.items()}
     seconds["state and batch"] = time.perf_counter() - start
-    out = {"band": b.index, "data": data.rank, "seconds": seconds}
-    for key, path in (("a", contextlib.nullcontext), ("b", plain_warp)):
+    out = {"band": b.index, "data": data.rank, "seconds": seconds,
+           "collectives": {}}
+    for key, path, remat in (("a", contextlib.nullcontext, False),
+                             ("b", plain_warp, False),
+                             ("c", contextlib.nullcontext, True)):
         t = copy.deepcopy(task)
+        t.opt.remat = remat
+        reset_launch_counts()
+        before = parallel.band_collectives
         with path():
             logs = t.train_step(batch)
+        torch.cuda.synchronize()
+        out["collectives"][key] = parallel.band_collectives - before
+        if remat:
+            out["remat_counts"] = launch_counts()
         if parallel.is_main():
             out[key] = (logs, {tag: {kind: {n: v.cpu() for n, v in d.items()}
                                      for kind, d in snap.items()}
                                for tag, snap in snapshot(t).items()})
         del t
-    out["seconds"]["Adam pair"] = time.perf_counter() - start
+    out["seconds"]["Adam steps"] = time.perf_counter() - start
     task = sgd(task)
     calls = {"halo": 0, "sum": 0}
     halo, band_sum = parallel._Halo.apply, parallel._BandSum.apply
@@ -3064,8 +3196,61 @@ def spatial_rank(device, state_path, out_dir, sp, rows):
         "instance-norm band sum of (B, 256, 1, 1)":
             _collective_ms(lambda: parallel.band_sum(stats))}
     out["seconds"]["collectives"] = time.perf_counter() - start
-    torch.save(out, os.path.join(out_dir, f"rank{parallel.world().rank}.pt"))
     ckpt.cleanup()
+    del task, conv, window, stats
+    out["heads"] = spatial_heads(device, states, sp, rows, band)
+    out["seconds"]["other heads"] = time.perf_counter() - start
+    torch.save(out, os.path.join(out_dir, f"rank{parallel.world().rank}.pt"))
+
+
+SP_HEADS = (  # (b): (name, model, option, seed of the batch, CORR switch)
+    ("shapenet", "shapenet", None, 520, "0"),
+    ("shapenetflow", "shapenetflow", None, 530, "1"),
+    ("bf16", "pose", "--compute_dtype=bfloat16", None, "0"))
+
+
+def head_batch(task, seed, rows, band=None):
+    """The global batch of SP_HEADS' step on this process: ShapeNet's
+    (`shapenet_batch(seed)`) or, with `band`, phase 6's prepared batch,
+    each this data index's `rows` rows."""
+    from gfla_tpu_torch import parallel
+
+    data = parallel.data_world()
+    full = band if seed is None else task.prepare_batch(shapenet_batch(seed))
+    return {k: v[data.rank * rows:(data.rank + 1) * rows]
+            for k, v in full.items()}
+
+
+def spatial_heads(device, states, sp, rows, band):
+    """(b)'s other heads on this rank, each from its state in `states` with
+    SGD: one step on the rank's band of its data index's rows (phase 6's
+    prepared band `band` for the bf16 pose step), its launches counted,
+    its logs (the world's mean), gradients, parameters and u."""
+    from gfla_tpu_torch import parallel
+    from gfla_tpu_torch.tasks import create_task
+
+    out = {}
+    for name, model, option, seed, corr in SP_HEADS:
+        opt, ckpt = train_opt(f"--name=spatial_{name}", f"--spatial={sp}",
+                              *([option] if option else []), model=model,
+                              dataset="synthetic" if model == "pose"
+                              else "shapenet")
+        task = sgd(create_task(opt, device))
+        for tag, sd in torch.load(states[name], weights_only=True).items():
+            nets(task)[tag].load_state_dict(sd)
+        batch = head_batch(task, seed, rows, band)
+        reset_launch_counts()
+        with switches(GFLA_PALLAS_CORR=corr):
+            logs = task.train_step(batch)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            counts=launch_counts(), grads=dp_grads(task),
+            logs={k: float(v)
+                  for k, v in parallel.allreduce_mean(logs).items()},
+            replica={k: v.cpu() for k, v in replica_state(task).items()})
+        del task
+        ckpt.cleanup()
+    return out
 
 
 def sp_rule(what, one, two):
@@ -3105,12 +3290,14 @@ def phase_spatial(train):
 
     device = train["batch"]["P1"].device
     windows = spatial_windows(device)
+    windows_bf16 = spatial_windows_bf16(device)
     n = next((r for r in SP_RANKS if torch.cuda.device_count() >= r), 0)
     if not n:
-        print(f"spatial_train: the two-rank step did not run "
+        print(f"spatial_train: the two-rank steps did not run "
               f"({torch.cuda.device_count()} card); the window kernels ran "
               f"alone")
-        return {"spatial_train": None, "windows": windows}
+        return {"windows": windows, "windows_bf16": windows_bf16,
+                **{path: None for path in SP_PATHS}}
     start = time.perf_counter()
     sp, dp = 2, n // 2
     rows = (8 if dp == 2 else 2) // dp  # a data index's rows
@@ -3130,13 +3317,16 @@ def phase_spatial(train):
     one_peak = torch.cuda.max_memory_allocated() / 2**30
     del one
     tmp = tempfile.TemporaryDirectory()
-    state_path = os.path.join(tmp.name, "state.pt")
+    states = {name: os.path.join(tmp.name, f"{name}.pt")
+              for name in ("pose", "bf16", "shapenet", "shapenetflow")}
     torch.save({tag: net.state_dict() for tag, net in nets(state).items()},
-               state_path)
+               states["pose"])
+    states["bf16"] = states["pose"]
+    heads = spatial_head_refs(state, states, batch, rows * dp)
     spawned = time.perf_counter()
     ref_s = spawned - start
     parallel.spawn(spatial_rank, [torch.device("cuda", i) for i in range(n)],
-                   state_path, tmp.name, sp, rows, timeout=SP_TIMEOUT)
+                   states, tmp.name, sp, rows, timeout=SP_TIMEOUT)
     spawned = time.perf_counter() - spawned
     ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"),
                         weights_only=False) for r in range(n)]
@@ -3190,12 +3380,153 @@ def phase_spatial(train):
           f"again where a gradient flows back); alone: "
           + ", ".join(f"{what} {ms:.4f} ms"
                       for what, ms in ranks[0]["ms"].items()))
+    remat = spatial_remat(ranks, exact, lrs, snap_a, logs_a, device, dp,
+                          sp)
+    head_counts = spatial_heads_held(ranks, heads, want, dp, sp)
     print(f"spatial dp {dp} x sp {sp}, wall: one card's reference "
           f"{ref_s:.1f} s, the ranks {spawned:.1f} s (rank 0's own, from "
           f"its start: "
           + ", ".join(f"{what} done at {t:.1f} s"
                       for what, t in ranks[0]["seconds"].items()) + ")")
-    return {"spatial_train": ranks[0]["counts"], "windows": windows}
+    return {"spatial_train": ranks[0]["counts"], "windows": windows,
+            "windows_bf16": windows_bf16, "spatial_train_remat": remat,
+            **head_counts}
+
+
+def spatial_head_refs(state, states, batch, rows):
+    """(b)'s references on one card: the shapenet and shapenetflow tasks at
+    full width from their seeded init, off the kinks (their states saved
+    at `states`), and an SGD step of each on ShapeNet's global batch of
+    `rows` (shapenetflow under GFLA_PALLAS_CORR=1); phase 6's state in
+    bf16, an SGD step on phase 6's global batch `batch`. Each: (logs,
+    gradients)."""
+    from gfla_tpu_torch.tasks import create_task
+
+    refs = {}
+    for name, model, option, seed, corr in SP_HEADS:
+        opt, ckpt = train_opt(f"--name=one_{name}",
+                              *([option] if option else []), model=model,
+                              dataset="synthetic" if model == "pose"
+                              else "shapenet")
+        task = create_task(opt)
+        if model == "pose":
+            for tag, net in nets(state).items():
+                nets(task)[tag].load_state_dict(net.state_dict())
+        else:
+            task = off_the_kinks(task)
+            torch.save({tag: net.state_dict()
+                        for tag, net in nets(task).items()}, states[name])
+        task = sgd(task)
+        with switches(GFLA_PALLAS_CORR=corr):
+            logs = task.train_step(batch if seed is None else
+                                   head_batch(task, seed, rows))
+        refs[name] = ({k: float(v) for k, v in logs.items()},
+                      dp_grads(task))
+        del task
+        ckpt.cleanup()
+    return refs
+
+
+def spatial_remat(ranks, exact, lrs, snap_a, logs_a, device, dp, sp):
+    """(b) --remat: rank 0's kernel-path Adam step under --spatial --remat
+    against the same step without it by phase 6's rule (check_step_pair),
+    u bitwise equal; each rank's launches (the forward twice) and the
+    spatial group's collectives, the same on every rank, more than
+    without --remat. Returns rank 0's launches."""
+    logs_c, snap_c = ranks[0]["c"]
+    snap_c = {tag: {kind: {k: v.to(device) for k, v in d.items()}
+                    for kind, d in s.items()} for tag, s in snap_c.items()}
+    check_step_pair(f"spatial dp {dp} x sp {sp}: --remat vs without",
+                    logs_c, snap_c, logs_a, snap_a, exact, lrs)
+    for tag, snap in snap_c.items():
+        check(all(torch.equal(u, snap_a[tag]["u"][n])
+                  for n, u in snap["u"].items()),
+              f"spatial --remat: {tag}'s u differs from the step without")
+    counts = [r["collectives"] for r in ranks]
+    check(all(c == counts[0] for c in counts)
+          and counts[0]["c"] > counts[0]["a"],
+          f"spatial --remat: the ranks' collectives {counts}")
+    for r, res in enumerate(ranks):
+        check(only(res["remat_counts"], warp_fwd=4, warp_bwd_pos=2,
+                   warp_bwd_w1=2), f"rank {r} --remat launches "
+              f"{res['remat_counts']}")
+    print(f"spatial dp {dp} x sp {sp} --remat: the kernel-path Adam step "
+          f"held to the same step without --remat (phase 6's rule), u "
+          f"bitwise equal; collectives a step on each rank "
+          f"{counts[0]['c']} against {counts[0]['a']} without; launches "
+          f"{ranks[0]['remat_counts']}")
+    return ranks[0]["remat_counts"]
+
+
+def spatial_heads_held(ranks, refs, f32, dp, sp):
+    """(b)'s other heads: each rank's step of SP_HEADS bitwise equal on
+    every rank (logs, gradients, parameters, u); shapenet's and
+    shapenetflow's against one card's step on the same global batch by
+    gfla_tpu's spatial rule (SP_TOTAL_REL, SP_SHARE_1, SP_SHARE_2), the
+    bf16 pose step against one card's bf16 step by BF16_STEP_HOLD's
+    cosines and its norm bands widened by bf16's unit roundoff
+    (`grads_by_rule` with SP_BF16_HOLD, the mean over tensors against f32
+    by the bf16 rule's first clause, one-element gradients in the
+    network's hold only,
+    the f32 step `f32` the reference of what bf16 resolves, BF16_RESOLVED
+    as phase 14's bf16 step takes it; a tensor outside the hold passes if
+    the hold holds it against the f32 step, `to_f32`: the input norm's
+    bias, a 3-value sum over the image that cancels and that the bands sum
+    in two parts, read a norm ratio of 1.5735 and 1.5466 against one
+    card's in two four-card runs on H100 80GB HBM3 cards at 700 W, and
+    1.3080 against f32's, where one card's reads 0.8458); launches
+    counted as paths spatial_train_shapenet (one of each warp kernel a
+    rank), spatial_train_corr (one max_corr a rank) and spatial_train_bf16
+    (two of each bf16 warp kernel a rank)."""
+    expected = {"shapenet": dict(warp_fwd=1, warp_bwd_pos=1, warp_bwd_w1=1),
+                "shapenetflow": dict(max_corr=1),
+                "bf16": dict(warp_fwd_bf16=2, warp_bwd_pos_bf16=2,
+                             warp_bwd_w1_bf16=2)}
+    for name, _, _, _, _ in SP_HEADS:
+        got = [r["heads"][name] for r in ranks]
+        for r, res in enumerate(got):
+            check(only(res["counts"], **expected[name]),
+                  f"spatial {name}: rank {r} launches {res['counts']}")
+        for res in got[1:]:
+            check(res["logs"] == got[0]["logs"]
+                  and all(torch.equal(res["replica"][k], v)
+                          for k, v in got[0]["replica"].items())
+                  and all(torch.equal(res["grads"][tag][k], g)
+                          for tag, d in got[0]["grads"].items()
+                          for k, g in d.items()),
+                  f"spatial {name}: the ranks differ")
+        logs, want = refs[name]
+        total_rel = abs(got[0]["logs"]["total_G"] - logs["total_G"]) \
+            / abs(logs["total_G"])
+        if name == "bf16":
+            check(total_rel <= BF16_LOSS_REL, f"spatial bf16: total_G "
+                  f"{total_rel:.3e} rel apart")
+            grads_by_rule(f"spatial dp {dp} x sp {sp} bf16 vs one card",
+                          {t: {"grads": g} for t, g in got[0]["grads"].items()},
+                          {t: {"grads": g} for t, g in want.items()},
+                          {t: {"grads": g} for t, g in f32.items()},
+                          resolved=BF16_RESOLVED, hold=SP_BF16_HOLD,
+                          one_element=False, to_f32=True)
+            rule = f"BF16_STEP_HOLD, total_G {total_rel:.3e} rel"
+        else:
+            check(total_rel <= SP_TOTAL_REL, f"spatial {name}: total_G "
+                  f"{total_rel:.3e} rel apart")
+            shares = {tag: sp_rule(f"spatial {name} vs one card, {tag}",
+                                   {k: want[tag][k]
+                                    for k in got[0]["grads"][tag]},
+                                   got[0]["grads"][tag])
+                      for tag in got[0]["grads"]}
+            rule = "; ".join(f"{tag} {s1:.2e} of entries above 1e-3 of "
+                             f"max, {s2:.2e} above 1e-2"
+                             for tag, (s1, s2) in shares.items()) \
+                + f"; total_G {total_rel:.3e} rel"
+        print(f"spatial dp {dp} x sp {sp} {name} SGD step against one "
+              f"card's: {rule}; every rank's gradients, parameters and u "
+              f"bitwise equal; launches a rank {got[0]['counts']}")
+    return {"spatial_train_shapenet": ranks[0]["heads"]["shapenet"]["counts"],
+            "spatial_train_corr":
+                ranks[0]["heads"]["shapenetflow"]["counts"],
+            "spatial_train_bf16": ranks[0]["heads"]["bf16"]["counts"]}
 
 DISK_PSNR_MIN = 35.0   # dB: nvJPEG encode + decode at quality 75, each image
 FIXTURE_MEAN_ABS = 0.1  # levels: nvJPEG's planes, upsampled and converted
@@ -3976,6 +4307,137 @@ def phase_shapenet_bf16(serve, train):
           f"{train['ms']:.3f} ms, peak {train['peak']:.2f} GiB "
           f"(phase_shapenet_train)")
     return dict(serve=serve_counts["warp_fwd_bf16"], train=train_counts)
+
+
+SHAPENET_STORE = "tests/fixtures/shapenet_car"  # 2 objects x 18 azimuths
+DISK_SN_STEPS = 4   # 14b: steps from the store
+DISK_SN_WORKERS = 2  # 14b: the training loader's spawned workers
+
+
+def phase_shapenet_disk(serve, train):
+    """14b. ShapeNet from its HDF5 store, through the port's own reader
+    (gfla_tpu_torch/data/hdf5.py: the card's Python has no h5py): whether
+    h5py imports here, printed; every view of the committed store
+    (SHAPENET_STORE, 64x64: car0's images contiguous, car1's chunked with
+    gzip) read through ShapeNetDataset and held to its digests.json;
+    DISK_SN_STEPS full-width batch-8 D-then-G steps at 256x256 from the
+    store through the training loader with DISK_SN_WORKERS spawned
+    workers, from phase 14's state (path shapenet_disk_train: one launch of
+    each warp kernel a step, and no other), finite losses; the loader's ms
+    a batch and the step's ms beside phase 14's step on batches made in
+    memory; one batch of the 18-view test sweep from the store through the
+    serving task's run_test (path shapenet_disk_sweep: 2 sources x 18
+    azimuths, one warp forward a view, each _vis.jpg through nvJPEG, named
+    as gfla_tpu names them)."""
+    import hashlib
+    import importlib.util
+
+    from gfla_tpu_torch.data import image_io, infinite, make_loader
+    from gfla_tpu_torch.data.shapenet_data import ShapeNetDataset
+    from gfla_tpu_torch.options import TestOptions
+    from gfla_tpu_torch.runtime import card_line
+
+    print(f"shapenet store: h5py importable here: "
+          f"{importlib.util.find_spec('h5py') is not None}; the store is "
+          f"read by gfla_tpu_torch/data/hdf5.py")
+    root = os.path.abspath(SHAPENET_STORE)
+    with open(os.path.join(root, "digests.json")) as f:
+        digests = json.load(f)
+    opt, ckpt = train_opt("--name=shapenet_disk", f"--dataroot={root}",
+                          f"--nThreads={DISK_SN_WORKERS}", model="shapenet",
+                          dataset="shapenet")
+    dataset = ShapeNetDataset(opt)
+    t0 = time.perf_counter()
+    for key, want in digests.items():
+        image, pose = dataset._image(key), dataset._pose(key)
+        check(hashlib.sha256(image.tobytes()).hexdigest() == want["sha256"]
+              and list(image.shape) == want["shape"]
+              and str(image.dtype) == want["dtype"]
+              and pose.tolist() == want["pose"],
+              f"shapenet store: view {key} is not its digest")
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(digests)
+    reader = type(dataset._data())
+    check(reader.__module__ == "gfla_tpu_torch.data.hdf5",
+          f"the store was read by {reader.__module__}")
+    print(f"shapenet store: {len(digests)} views read through "
+          f"ShapeNetDataset, each image's sha256, shape, dtype and pose "
+          f"its digest's; {read_ms:.3f} ms a view (image and pose)")
+
+    task = copy.deepcopy(train["state"])
+    loader = make_loader(dataset, opt, train=True)
+    batches = infinite(loader)
+    load_ms, step_ms, logs = [], [], []
+    reset_launch_counts()
+    for _ in range(DISK_SN_STEPS):
+        t0 = time.perf_counter()
+        host = next(batches)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        batch = task.prepare_batch(host)
+        check(tuple(batch["P1"].shape) == (SHAPENET_B, 3, SHAPENET_SIZE,
+                                           SHAPENET_SIZE)
+              and tuple(batch["BP1"].shape) == (SHAPENET_B, 2),
+              f"shapenet store batch {batch['P1'].shape}")
+        times, step_logs = timed_steps(task, [batch])
+        step_ms += times
+        logs += step_logs
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    batches.close()
+    if loader._iterator is not None:  # the persistent workers
+        loader._iterator._shutdown_workers()
+    del loader, batches
+    print(f"shapenet from the store: {DISK_SN_STEPS} steps, launches "
+          f"{counts}")
+    check(only(counts, warp_fwd=DISK_SN_STEPS, warp_bwd_pos=DISK_SN_STEPS,
+               warp_bwd_w1=DISK_SN_STEPS),
+          f"shapenet from the store launched {counts}")
+    for i, step_logs in enumerate(logs):
+        check(sorted(step_logs) == sorted(task.loss_names + ["total_G"])
+              and all(bool(torch.isfinite(v)) for v in step_logs.values()),
+              f"shapenet from the store, step {i + 1}: losses {step_logs}")
+    del task
+    ckpt.cleanup()
+
+    stask = serve["task"]
+    topt = TestOptions().parse(SHAPENET + [f"--dataroot={root}",
+                                           "--nThreads=0", "--batchSize=2"],
+                               save=False)
+    tset = ShapeNetDataset(topt)
+    work = tempfile.TemporaryDirectory()
+    sopt = copy.copy(stask.opt)
+    sopt.results_dir, sopt.name = work.name, "disk_sweep"
+    sources = [tset[i]["P1_path"] for i in range(len(tset))]
+    want = sorted(f"{src}_2_{src.split('_')[0]}_{a // 10}_0_vis.jpg"
+                  for src in sources for a in range(0, 360, 20))
+    encodes = image_io.nvjpeg_encodes
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    n = stask.run_test(sopt, make_loader(tset, topt, train=False))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep = launch_counts()
+    encodes = image_io.nvjpeg_encodes - encodes
+    names = sorted(os.listdir(os.path.join(work.name, "disk_sweep")))
+    work.cleanup()
+    print(f"shapenet sweep from the store: run_test wrote {n} _vis.jpg "
+          f"({encodes} nvJPEG encodes) for {len(sources)} sources at 18 "
+          f"azimuths in {sweep_s:.2f} s; launches {sweep}")
+    check(n == len(want) == 36 and names == want,
+          f"shapenet sweep from the store wrote {n}: {names[:3]}")
+    check(encodes == n, f"the sweep's {n} images took {encodes} nvJPEG "
+          f"encodes")
+    check(only(sweep, warp_fwd=18), f"the sweep launched {sweep}")
+    print(f"shapenet from the store, batch 8 at 256x256 on "
+          f"{card_line()!r}: loader {load_ms[0]:.1f} ms for the first "
+          f"batch (its {DISK_SN_WORKERS} workers start), then "
+          f"{statistics.median(load_ms[1:]):.3f} ms a batch (median; "
+          f"{', '.join(f'{t:.2f}' for t in load_ms[1:])}); step "
+          f"{statistics.median(step_ms[1:]):.3f} ms (median of the last "
+          f"{DISK_SN_STEPS - 1}; steps "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}) against "
+          f"{train['ms']:.3f} ms on batches made in memory "
+          f"(phase_shapenet_train)")
+    return {"shapenet_disk_train": counts, "shapenet_disk_sweep": sweep}
 
 
 ANIM_T = 6         # frames a chunk (--max_frames_per_gpu)
@@ -5764,6 +6226,7 @@ def main(argv):
         sn_serve = timed(phase_shapenet_serve)
         sn_sweep = timed(phase_shapenet_sweep, sn_serve)
         sn_train = timed(phase_shapenet_train)
+        sn_disk = timed(phase_shapenet_disk, sn_serve, sn_train)
         sn_flow = timed(phase_shapenetflow)
         sn_bf16 = timed(phase_shapenet_bf16, sn_serve, sn_train)
         anim, anim_f32 = {}, {}
@@ -5802,9 +6265,9 @@ def main(argv):
         {"serve": serve["launches"], "train": train["warp_fwd"],
          "train_corr": switched["train_corr"]["warp_fwd"],
          "ddp_train": data_parallel["ddp_train"]["warp_fwd"],
-         **if_ran("spatial_train", spatial["spatial_train"], "warp_fwd"),
          **{path: c["warp_fwd"] for path, c in disk.items()},
          **shapenet, "shapenet_train": sn_train["counts"]["warp_fwd"],
+         **{path: c["warp_fwd"] for path, c in sn_disk.items()},
          "dance_serve": anim["dance_serve"],
          "face_serve": anim["face_serve"],
          **{path: anim[path]["warp_fwd"]
@@ -5824,10 +6287,10 @@ def main(argv):
             {"train": train[name],
              "train_corr": switched["train_corr"][name],
              "ddp_train": data_parallel["ddp_train"][name],
-             **if_ran("spatial_train", spatial["spatial_train"], name),
              **{path: c[name] for path, c in disk.items()
                 if path.endswith("_train")},
              "shapenet_train": sn_train["counts"][name],
+             "shapenet_disk_train": sn_disk["shapenet_disk_train"][name],
              **{path: anim[path][name]
                 for path in ("dance_train", "face_train")},
              "dance_train_corr": anim_switched["dance_train_corr"][name],
@@ -5840,6 +6303,12 @@ def main(argv):
             shape, both_cases(
                 KERNEL_CASES, bwd, lambda r, part=part: r[part],
                 lambda c, name=name: warp_work(*c[1:7])[name])))
+    for entry in entries:  # (b)'s paths, where the ranks ran
+        for path in ("spatial_train", "spatial_train_remat",
+                     "spatial_train_shapenet"):
+            ran = if_ran(path, spatial[path], entry["name"])
+            entry["launches_by_path"].update(ran)
+            entry["launches"] += sum(ran.values())
     work16 = warp_work_bf16(*site[1:7])
     anim_paths = ("dance_train_bf16", "face_train_bf16",
                   "dance_train_bf16_corr", "dance_train_bf16_remat",
@@ -5857,6 +6326,8 @@ def main(argv):
              {"train_bf16": train_bf16["counts"]["warp_bwd_w1_bf16"],
               "shapenet_train_bf16": sn_bf16["train"]["warp_bwd_w1_bf16"]})):
         paths.update({path: anim_bf16[path][name] for path in anim_paths})
+        paths.update(if_ran("spatial_train_bf16",
+                            spatial["spatial_train_bf16"], name))
         kern = name.removesuffix("_bf16")
         entries.append(kernel_entry(
             name, f"gfla_tpu_torch/csrc/{source}",
@@ -5918,7 +6389,9 @@ def main(argv):
          "shapenetflow": sn_flow["max_corr"],
          "dance_train_corr": anim_switched["dance_train_corr"]["max_corr"],
          "dance_train_bf16_corr":
-             anim_bf16["dance_train_bf16_corr"]["max_corr"]},
+             anim_bf16["dance_train_bf16_corr"]["max_corr"],
+         **if_ran("spatial_train_corr", spatial["spatial_train_corr"],
+                  "max_corr")},
         max(r["err"] for r in corr.values()), f"{CORR_ATOL:g} abs (cmax)",
         c["ms"], c["plain_ms"], c["work"], c["library_ms"],
         "B=8 Ns=Nt=4096 C=256",

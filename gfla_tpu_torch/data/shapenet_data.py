@@ -15,8 +15,9 @@ images are the stored uint8 pixels: the resize to `--load_size` and the
 [-1, 1] scaling happen on the task's device (tasks/pose.py `prepare_batch`,
 data/resample.py `resize_like_pil`). The labels stay raw ints; the task
 one-hots them on the device (tasks/shapenet.py `labels_to_semantic`).
-The store is opened lazily in each worker, since an h5py file does not
-pickle; h5py is imported there, so no CLI imports it at start.
+The store is read through the port's own HDF5 reader (data/hdf5.py: numpy
+and zlib, no h5py, which the card's Python lacks), opened lazily in each
+worker, since an open file does not pickle.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import os
 from typing import Dict
 
 import numpy as np
+
+from gfla_tpu_torch.data import hdf5
 
 
 def _rgb(img: np.ndarray) -> np.ndarray:
@@ -78,9 +81,7 @@ class ShapeNetDataset:
 
     def _data(self):
         if self._h5 is None:
-            import h5py
-
-            self._h5 = h5py.File(self.hdf5_file, "r")
+            self._h5 = hdf5.File(self.hdf5_file)
         return self._h5
 
     def _image(self, key: str) -> np.ndarray:

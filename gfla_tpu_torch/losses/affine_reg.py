@@ -12,6 +12,11 @@ k - 1 rows below it from the next band, anchors the patches at its own
 rows (the last band loses the image's bottom k - 1, as the valid patches
 do), and its residual sum is summed over the bands and divided by the
 whole image's patch count.
+
+The residuals and their sums are in at least f32, as gfla_tpu's einsum
+with `preferred_element_type=float32` and its f32 mean: a bf16 flow's
+patches are widened before the projection, and over bands the f32 band
+sums are summed over the group.
 """
 
 from __future__ import annotations
@@ -59,17 +64,18 @@ class AffineRegularizationLoss:
         xs = torch.arange(W, device=flow.device, dtype=flow.dtype)
         ys = torch.arange(row0, row0 + H, device=flow.device,
                           dtype=flow.dtype)
-        proj = self.projector.to(flow.device, flow.dtype)
+        acc = torch.promote_types(flow.dtype, torch.float32)
+        proj = self.projector.to(flow.device, acc)
         loss = 0.0
         for g in (flow[:, 0] + xs[None, None, :], flow[:, 1] + ys[None, :, None]):
             if b is None:
-                r = _patches(g, kz) @ proj.t()
+                r = _patches(g, kz).to(acc) @ proj.t()
                 loss = loss + (r * r).sum(-1).mean()
                 continue
             patches = _patches(parallel.pad_rows(g, 0, kz - 1, dim=1), kz)
             if b.bottom:
                 patches = patches[:, :H - kz + 1]
-            r = patches @ proj.t()
+            r = patches.to(acc) @ proj.t()
             count = B * (H * b.size - kz + 1) * (W - kz + 1)
             loss = loss + parallel.band_sum((r * r).sum()) / count
         return loss

@@ -140,7 +140,7 @@ def _global_ratio(num, den):
     if parallel.bands() is not None:
         raise NotImplementedError(
             "the masked correctness loss over row bands (--spatial with "
-            "--use_mask) is not ported yet (ROADMAP.md, queue 1, item 2a)")
+            "--use_mask) is not ported yet (ROADMAP.md, queue 1, item 2)")
     den = parallel.allreduce_sum_(den.detach().clone())
     return parallel.world().size * (num / (den + _EPS))
 
@@ -237,7 +237,7 @@ class PerceptualCorrectness:
             raise NotImplementedError(
                 "the animation heads' correctness loss (a mask, frames or "
                 "bilinear sampling) over row bands is not ported yet "
-                "(ROADMAP.md, queue 1, item 2a)")
+                "(ROADMAP.md, queue 1, item 2)")
         target_vgg = target_vgg.to(acc_dtype(target_vgg.dtype))
         source_vgg = parallel.gather_rows(
             source_vgg.to(acc_dtype(source_vgg.dtype)))

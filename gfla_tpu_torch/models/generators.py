@@ -65,6 +65,7 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
+from gfla_tpu_torch import parallel
 from gfla_tpu_torch.nn.attention import ExtractorAttn
 from gfla_tpu_torch.nn.blocks import (
     EncoderBlock,
@@ -296,7 +297,11 @@ class ShapeNetTargetNet(_TargetDecoder):
                           activation, attn_layer, extractor_kz, **kw)
 
     def encode(self, target_b):
-        seed = target_b.expand(-1, -1, 8, 8).contiguous(
+        """The code tiled to the seed's 8 x 8, or over row bands to the
+        band's 8 / S rows of it (options.spatial_levels keeps S <= 8)."""
+        b = parallel.bands()
+        rows = 8 if b is None else 8 // b.size
+        seed = target_b.expand(-1, -1, rows, 8).contiguous(
             memory_format=torch.channels_last)
         return self.block1(self.block0(seed))
 
@@ -321,6 +326,7 @@ class ShapeNetFlowNet(PoseFlowNet):
 
     def forward(self, source, source_b, target_b):
         out, result = self.encode(source)
+        # tiled over the bottleneck's rows, the band's over row bands
         code = (source_b - target_b).expand(-1, -1, *out.shape[2:])
         out = self.cat(torch.cat([out, code], dim=1).contiguous(
             memory_format=torch.channels_last))

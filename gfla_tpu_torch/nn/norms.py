@@ -21,7 +21,9 @@ module built here is `nn.Conv2d`, `nn.ConvTranspose2d` or
 
 Under a bf16 compute dtype (`train.precision.cast_call`) these modules run
 on bf16 copies of their parameters and buffers: InstanceNorm's reductions
-then accumulate in f32 and round to bf16, as gfla_tpu's jnp reductions do,
+then accumulate in f32 and round to bf16, as gfla_tpu's jnp reductions do
+(over row bands too: `band_var_mean` sums the f32 partials over the bands
+before it rounds),
 and the spectral norm's power iteration runs on the bf16 weight and u; the
 u it stores is kept in f32 by `cast_call`, as gfla_tpu's `to_f32` keeps it.
 """
@@ -65,12 +67,25 @@ class InstanceNorm(nn.InstanceNorm2d):
             var, mean = torch.var_mean(x, dim=(2, 3), correction=0,
                                        keepdim=True)
         else:  # the band sums, then the squares about the global mean
-            n = x.shape[2] * x.shape[3] * parallel.bands().size
-            mean = parallel.band_sum(x.sum((2, 3), keepdim=True)) / n
-            var = parallel.band_sum(
-                ((x - mean) ** 2).sum((2, 3), keepdim=True)) / n
+            var, mean = band_var_mean(x)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight[:, None, None] + self.bias[:, None, None]
+
+
+def band_var_mean(x):
+    """(biased variance, mean) over each (sample, channel)'s whole image
+    from this row band, as gfla_tpu's `jnp.var` and `jnp.mean` reduce: a
+    bf16 `x` is widened to f32, the mean and the squares about that f32
+    mean summed in f32 (each band's partial sum, then the sum over the
+    bands, before any rounding, as GSPMD all-reduces the f32 partials),
+    and each statistic rounded once to `x`'s type."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    n = x.shape[2] * x.shape[3] * parallel.bands().size
+    wide = x.to(acc)
+    mean = parallel.band_sum(wide.sum((2, 3), keepdim=True)) / n
+    var = parallel.band_sum(((wide - mean) ** 2).sum((2, 3),
+                                                     keepdim=True)) / n
+    return var.to(x.dtype), mean.to(x.dtype)
 
 
 def norm_layer(norm_type: str, num_features: int) -> nn.Module:
@@ -329,8 +344,17 @@ def recompute_keeping_u(module: nn.Module, fn, *args):
     them has returned by the backward. It leaves each as it found it, so u
     advances once per forward, as in gfla_tpu's jax.checkpoint, which
     recomputes inside the cast (the values and gradients are those of the
-    call without it)."""
-    from torch.utils.checkpoint import checkpoint
+    call without it).
+
+    Over row bands the recomputation issues the forward's halo exchanges
+    and band sums again, inside the backward, and every rank of a spatial
+    group must issue them in the same order or the group hangs. Each rank
+    has the same graph, so the backward reaches the region at the same
+    point everywhere; the checkpoint's early stop (it raises once the last
+    tensor the backward needs is recomputed) is turned off, so that the
+    recomputation runs the whole forward on every rank, each collective
+    of it once, whatever a band's graph saves."""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
     slots = [(store, name) for m in module.modules()
              for store in (m._parameters, m._buffers) for name in store]
@@ -349,4 +373,5 @@ def recompute_keeping_u(module: nn.Module, fn, *args):
                     store[name] = t
             runs.append(1)
 
-    return checkpoint(run, *args, use_reentrant=False)
+    with set_checkpoint_early_stop(parallel.bands() is None):
+        return checkpoint(run, *args, use_reentrant=False)

@@ -68,36 +68,22 @@ def resolve_use_spect_d(opt) -> bool:
     return not getattr(opt, "no_spect_d", False)
 
 
-# what each --spatial refusal waits for (ROADMAP.md, queue 1)
-SPATIAL_TODO = {
-    "heads": "item 2a: --spatial for the other heads",
-    "bfloat16": "item 2b: --spatial with --compute_dtype=bfloat16",
-    "remat": "item 2c: --spatial with --remat",
-}
-
-
-def _todo(what: str) -> str:
-    return f"not ported yet (ROADMAP.md, queue 1, {SPATIAL_TODO[what]})"
+# the heads that train under --spatial, and what the others wait for
+SPATIAL_HEADS = ("pose", "poseflownet", "shapenet", "shapenetflow")
+SPATIAL_TODO = ("not ported yet (ROADMAP.md, queue 1, item 2: --spatial for "
+                "dance, face and keypoint)")
 
 
 def refuse_parallel_flags(opt) -> None:
     """Raise NotImplementedError for `--spatial` above 1 (gfla_tpu's
     train.py reads 0 as 1 too, and `--halo` only under it) where the port
-    has no data x spatial mode yet: any head but pose, and with bfloat16 or
-    `--remat`. Each message names the ROADMAP item that will port it."""
+    has no data x spatial mode yet: the animation heads and keypoint. The
+    message names the ROADMAP item that will port it. The four single-frame
+    heads take it in either compute dtype and with `--remat`."""
     sp = opt.spatial or 1
-    if sp <= 1:
-        return
-    if opt.model != "pose":
+    if sp > 1 and opt.model not in SPATIAL_HEADS:
         raise NotImplementedError(
-            f"--spatial={sp} with --model={opt.model}: {_todo('heads')}")
-    if getattr(opt, "compute_dtype", "float32") == "bfloat16":
-        raise NotImplementedError(
-            f"--spatial={sp} with --compute_dtype=bfloat16: "
-            f"{_todo('bfloat16')}")
-    if getattr(opt, "remat", False):
-        raise NotImplementedError(f"--spatial={sp} with --remat: "
-                                  f"{_todo('remat')}")
+            f"--spatial={sp} with --model={opt.model}: {SPATIAL_TODO}")
 
 
 def _height(opt) -> int:
@@ -106,25 +92,47 @@ def _height(opt) -> int:
 
 
 def spatial_levels(opt):
-    """(what, rows, rows each band must hold) of every resolution the pose
-    step convolves, pools or gathers: every band needs a whole number of
-    rows, at least 1 (each conv lends a neighbour 1 row), 2 where the flow
-    net's and G's output reflect-pad (a band reflects about its edge row),
-    and at an attention level k - 1 (the target's edge pad lends k//2, the
-    affine regularisation's patches k - 1)."""
+    """(what, rows, rows each band must hold) of every resolution the
+    head's step convolves, pools or gathers: every band needs a whole
+    number of rows, at least 1 (each conv lends a neighbour 1 row), 2 where
+    the flow net's and G's output reflect-pad (a band reflects about its
+    edge row), and at an attention level k - 1 (the target's edge pad
+    lends k//2, the affine regularisation's patches k - 1).
+    - pose: G (its encoder and decoder levels), the flow net's five
+      levels, D's and VGG19's;
+    - poseflownet and shapenetflow (stage 1): the flow net's levels (for
+      shapenetflow its bottleneck holds the tiled viewpoint code), VGG19's
+      and the regularisation at the attention levels; no G decoder, no D;
+    - shapenet: first the target net's seed, the code tiled to 8x8 rows,
+      and its 16 and 32 levels (ShapeNetTargetNet grows from it whatever
+      the image's height), then as pose."""
     H = _height(opt)
+    model = getattr(opt, "model", "pose")
+    flow = [(f"the flow net's level {d}", H >> d, 2 if d < 5 else 1)
+            for d in range(1, 6)]
+    if model.startswith("shapenet"):
+        flow[-1] = ("the flow net's level 5 (the tiled code)", H >> 5, 1)
+    vgg = [(f"VGG19's level {d}", H >> d, 1) for d in range(1, 5)]
+    attn = [(key, k) for key, k in opt.kernel_size.items()
+            if int(key) in [int(a) for a in opt.attn_layer]]
+    if model in ("poseflownet", "shapenetflow"):
+        return flow + vgg + [
+            (f"the regularisation at level {key} (k={k})", H >> int(key),
+             max(1, k - 1)) for key, k in attn]
     d_layers = getattr(opt, "d_layers", None) or (
         3 if opt.dataset_mode == "market" else 4)
-    levels = [("G's output", H, 2)]
+    levels = []
+    if model == "shapenet":
+        levels += [("the target net's 8x8 seed", 8, 1),
+                   ("the target net's level 16", 16, 1),
+                   ("the target net's level 32", 32, 1)]
+    levels += [("G's output", H, 2)]
     levels += [(f"G's level {d}", H >> d, 1) for d in range(1, opt.layers + 1)]
-    levels += [(f"the flow net's level {d}", H >> d, 2 if d < 5 else 1)
-               for d in range(1, 6)]
+    levels += flow
     levels += [(f"D's level {d}", H >> d, 1) for d in range(1, d_layers + 1)]
-    levels += [(f"VGG19's level {d}", H >> d, 1) for d in range(1, 5)]
-    for key, k in opt.kernel_size.items():
-        if int(key) in [int(a) for a in opt.attn_layer]:
-            levels.append((f"the attention at level {key} (k={k})",
-                           H >> int(key), max(1, k - 1)))
+    levels += vgg
+    levels += [(f"the attention at level {key} (k={k})", H >> int(key),
+                max(1, k - 1)) for key, k in attn]
     return levels
 
 
@@ -213,18 +221,19 @@ class BaseOptions:
                  "gfla_tpu's; poseflownet trains in float32")
         # gfla_tpu's parallelism flags. Training: --mesh_devices=N runs N
         # ranks on this host, --distributed joins a torchrun world, and
-        # --spatial=S splits every image's rows over S of them (pose only,
-        # refuse_parallel_flags and spatial_layout). Serving runs on one
-        # device, as gfla_tpu's test.py does.
+        # --spatial=S splits every image's rows over S of them (the four
+        # single-frame heads, refuse_parallel_flags and spatial_layout).
+        # Serving runs on one device, as gfla_tpu's test.py does.
         add("--mesh_devices", type=int, default=0,
             help="training: data-parallel ranks on this host, one a device "
                  "(the first N --gpu_ids, or cuda:0..N-1 when one id is "
                  "given; N CPU ranks with --gpu_ids=-1); 0 = every listed "
                  "id; the global batch is --batchSize per host")
         add("--spatial", type=int, default=1,
-            help="training, --model=pose: split every image's rows into "
-                 "this many bands, one a rank (the ranks / S data indices "
-                 "split the batch)")
+            help="training, --model=pose, poseflownet, shapenet or "
+                 "shapenetflow (either --compute_dtype, with or without "
+                 "--remat): split every image's rows into this many bands, "
+                 "one a rank (the ranks / S data indices split the batch)")
         add("--halo", type=int, default=8,
             help="rows each band's attention gathers take from each "
                  "neighbour under --spatial")

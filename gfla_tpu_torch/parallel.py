@@ -379,9 +379,14 @@ def first_group() -> bool:
     return data_world().rank == 0
 
 
+band_collectives = 0  # the spatial group's collectives this process issued
+
+
 def _collect(t: torch.Tensor) -> list:
     """Every band's `t` (contiguous, the same shape on each), in band
     order."""
+    global band_collectives
+    band_collectives += 1
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(_bands.size)]
     dist.all_gather(parts, t, group=_bands.group)
@@ -389,6 +394,8 @@ def _collect(t: torch.Tensor) -> list:
 
 
 def _sum_over_bands(t: torch.Tensor) -> torch.Tensor:
+    global band_collectives
+    band_collectives += 1
     t = t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(t, group=_bands.group)
     return t
@@ -470,10 +477,15 @@ def band_sum(x: torch.Tensor) -> torch.Tensor:
 def band_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of the whole image's `x` from this band's: `x.mean()`
     without bands, else the band sums summed over the group, over S times
-    the band's count."""
+    the band's count. As gfla_tpu's `jnp.mean`, which sums a bf16 `x` in
+    f32 and rounds once (GSPMD all-reduces the f32 partials before that
+    rounding), each band sums in at least f32, the group sums those, and
+    the mean is rounded to `x`'s type at the end."""
     if _bands is None:
         return x.mean()
-    return band_sum(x.sum()) / (x.numel() * _bands.size)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    total = band_sum(x.sum(dtype=acc))
+    return (total / (x.numel() * _bands.size)).to(x.dtype)
 
 
 def gather_rows(x: torch.Tensor, dim: int = 2) -> torch.Tensor:

@@ -72,8 +72,10 @@ def prepare_batch(batch, device, load_size):
     batch's NHWC float images move as they are. Heatmaps are encoded on the
     device from the (B, K, 2) keypoints; ShapeNet's viewpoint labels, (B, 2)
     or (B, V, 2) ints, move as they are, for the task to one-hot. Over row
-    bands (the data x spatial mode) the images keep the rank's band and
-    the heatmaps encode only its rows, from their global coordinates."""
+    bands (the data x spatial mode) every image, ShapeNet's too, is
+    resized to `load_size` whole and then keeps the rank's band; the
+    heatmaps encode only its rows, from their global coordinates, and
+    ShapeNet's labels stay whole."""
     dev = {}
     if "P1_inv" in batch:
         n = len(batch["P1"])
@@ -91,17 +93,17 @@ def prepare_batch(batch, device, load_size):
             if img.dtype == torch.uint8:
                 img = resize_like_pil(img, load_size)
             dev[key] = img.movedim(-1, -3)
-    if "KP1" not in batch:
-        for key in ("BP1", "BP2"):
-            dev[key] = torch.from_numpy(batch[key]).to(device)
-        return dev
-    H, W = dev["P1"].shape[2:]
+    H, W = dev["P1"].shape[-2:]
     row0, b = 0, parallel.bands()
     if b is not None:
         H //= b.size
         row0 = b.first_row(H)
-        for key in ("P1", "P2"):
-            dev[key] = dev[key][:, :, row0:row0 + H]
+        for key in ("P1", "P2"):  # a sweep's P2 is (B, V, 3, H, W)
+            dev[key] = dev[key][..., row0:row0 + H, :]
+    if "KP1" not in batch:
+        for key in ("BP1", "BP2"):
+            dev[key] = torch.from_numpy(batch[key]).to(device)
+        return dev
     for kp, bp in (("KP1", "BP1"), ("KP2", "BP2")):
         cords = torch.from_numpy(batch[kp]).to(device)
         dev[bp] = encode_heatmaps(cords, H, W, row0=row0).permute(0, 3, 1, 2)

@@ -39,7 +39,8 @@ evaluates, writes visuals, traces and checkpoints. `--gpu_ids=-1
 --mesh_devices=N` runs N ranks on the CPU (gloo).
 
 The data x spatial mode, as gfla_tpu's `--spatial=S --halo=h`
-(gfla_tpu_torch.parallel's spatial axis; `--model=pose`, f32, without
+(gfla_tpu_torch.parallel's spatial axis; `--model=pose`, `poseflownet`,
+`shapenet` or `shapenetflow`, in either `--compute_dtype`, with or without
 `--remat`): the ranks form N / S spatial groups of S consecutive ranks,
 each a data index that loads its rows of the global batch; each rank of a
 group holds one row band of every image and activation, exchanges halo

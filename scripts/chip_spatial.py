@@ -1,8 +1,11 @@
 """chip_smoke.py's data x spatial phase (10c) alone, with the kernel build and
 the full-width pose task (phase 6) it starts from: the warp kernels' window
-form at S=2 and S=4 on every machine, and, where the machine has two or
-four cards, the spawned ranks' step held to one card's. It prints the card
-line, each phase's lines and wall time, and exits 0 only if every check
+form at S=2 and S=4 on every machine (f32 at the pose and ShapeNet sites,
+bf16 at the pose sites), and, where the machine has two or four cards, the
+spawned ranks' steps held to one card's: pose (and its --remat step held
+to the step without it), shapenet, shapenetflow under GFLA_PALLAS_CORR=1,
+and pose in bf16. It prints the card line, each phase's lines and wall
+time, the launches of each path that ran, and exits 0 only if every check
 held.
 
     python3 scripts/chip_spatial.py
@@ -34,7 +37,9 @@ def main() -> int:
         chip_smoke.timed(chip_smoke.phase_build)
         train = chip_smoke.timed(chip_smoke.phase_train)
         spatial = chip_smoke.timed(chip_smoke.phase_spatial, train)
-    print(f"spatial_train launches {spatial['spatial_train']}")
+    for path in chip_smoke.SP_PATHS:
+        if spatial[path] is not None:
+            print(f"{path} launches {spatial[path]}")
     return 0
 
 

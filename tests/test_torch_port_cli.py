@@ -218,9 +218,9 @@ def test_train_options_parse_like_gfla_tpu(monkeypatch, tmp_path, flags):
 def test_clis_start_without_jax_h5py_or_pil(tmp_path, cli, model):
     """Everything either CLI imports at start, the ShapeNet heads and
     dataset among it (`--help` exits while the options parse, after every
-    import at module level): no JAX, no h5py (the store's reader imports it
-    in the loader), no PIL (the card decodes and encodes no image through
-    it)."""
+    import at module level): no JAX, no h5py (the store is read by the
+    port's own reader, data/hdf5.py), no PIL (the card decodes and encodes
+    no image through it)."""
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", cli, f"--model={model}",
          "--dataset_mode=shapenet", "--help"],

@@ -595,14 +595,14 @@ def test_train_cli_runs_both_stages(store, tmp_path):
     """Stage 1 writes only G; stage 2 prints the flow-net tensors it loads
     and trains on from there, with the held-out evaluation, the visuals and
     a trace. Neither imports JAX or PIL (the card's path reads no image
-    through PIL)."""
+    through PIL), nor h5py: the store is read by the port's own reader."""
     common = [f"--dataroot={store}", "--batchSize=2", "--print_freq=1",
               f"--checkpoints_dir={tmp_path / 'ckpt'}", "--name=views"]
     proc = _cli("gfla_tpu_torch.train", tmp_path, *common,
                 "--model=shapenetflow", "--max_iters=1")
     assert proc.returncode == 0, proc.stderr
     assert not _imported(proc.stderr) & (FORBIDDEN | {"PIL"})
-    assert "h5py" in _imported(proc.stderr)
+    assert "h5py" not in _imported(proc.stderr)
     ckpt = tmp_path / "ckpt" / "views"
     assert not any("net_D" in p.name for p in ckpt.iterdir())
     n = len(torch.load(ckpt / "1_net_G.pth", weights_only=True))
@@ -610,7 +610,7 @@ def test_train_cli_runs_both_stages(store, tmp_path):
                 "--layers=1", "--continue_train", "--max_iters=4",
                 "--eval_iters_freq=2", "--display_freq=2", "--profile_iters=1")
     assert proc.returncode == 0, proc.stderr
-    assert not _imported(proc.stderr) & (FORBIDDEN | {"PIL"})
+    assert not _imported(proc.stderr) & (FORBIDDEN | {"PIL", "h5py"})
     assert f"G: loaded {n} tensors" in proc.stdout
     assert f"flow_net ({n})" in proc.stdout
     assert "resumed from iteration 1" in proc.stdout

@@ -8,13 +8,19 @@ jax, so that a rank starts fast.
   at S=2 (two groups, dp 2 x sp 2), the halo gather (`halo_block_extract`) and
   the warp route (`local_attn_warp`, its plain twin on the window) at
   k=3 and 5, with a flow past the halo; the band convolutions, the
-  reflection pad, InstanceNorm, VGG19 and ResDiscriminator. Each result is
-  the band's output and its gradients under a fixed cotangent.
+  reflection pad, InstanceNorm, VGG19 and ResDiscriminator, and most of
+  these again in bf16 (BF16_MODULES). Each result is the band's output and
+  its gradients under a fixed cotangent.
 - `step_bands` (a world of 2 ranks, dp 1 x sp 2): one pose SGD step from
-  given state dicts on the band of a 64x64 batch of 2, then the training
-  loop of `python -m gfla_tpu_torch.train --gpu_ids=-1 --mesh_devices=2
-  --spatial=2` for one step with its evaluation and visuals, and a
-  `--continue_train` run that takes the next step.
+  given state dicts on the band of a 64x64 batch of 2; the same for
+  poseflownet, shapenet and shapenetflow, and pose's in bf16 and with
+  `--remat` (STEPS), each counting the spatial group's collectives; then
+  the training loop of `python -m gfla_tpu_torch.train --gpu_ids=-1
+  --mesh_devices=2 --spatial=2` for one step with its evaluation and
+  visuals, a `--continue_train` run that takes the next step, and
+  ShapeNet from the committed store (tests/fixtures/shapenet_car): a
+  stage-1 shapenetflow step, then shapenet resumed on it for a step with
+  its evaluation and visuals.
 """
 
 from __future__ import annotations
@@ -26,13 +32,14 @@ import torch
 
 import chip_smoke
 import torch_port_ranks as ranks
+from torch_port_store import FIXTURE
 from gfla_tpu_torch import parallel
 from gfla_tpu_torch.models.discriminators import ResDiscriminator
 from gfla_tpu_torch.models.vgg import VGG19
 from gfla_tpu_torch.nn import blocks, norms
 from gfla_tpu_torch.ops.block_extract import block_extract, halo_block_extract
 from gfla_tpu_torch.ops.local_attn import local_attn_warp
-from gfla_tpu_torch.tasks.pose import PoseTask
+from gfla_tpu_torch.tasks import create_task
 
 HALO = 4
 ATTN_H, ATTN_W, ATTN_C, ATTN_D = 16, 6, 3, 8
@@ -143,13 +150,18 @@ MODULES = ["conv3x3", "conv4x4s2", "conv1x1", "spectral4x4s2", "convT2x",
            "spectral_convT2x", "reflect_jump", "instance_norm", "vgg19",
            "res_discriminator"]
 VGG_OUT = ("relu1_2", "relu2_2", "relu3_4", "relu4_4", "relu5_4")
+# the modules held in bf16 too (InstanceNorm's band sums in f32, the
+# halo rows exchanged in bf16)
+BF16_MODULES = ["conv3x3", "conv4x4s2", "convT2x", "reflect_jump",
+                "instance_norm", "vgg19", "res_discriminator"]
 
 
 def module_case(name, index=0, size=1, dtype=torch.float32):
     """The band's outputs, its input gradient and this band's share of the
     parameter gradients (the bands' shares sum to the whole image's),
     under a seeded cotangent on the whole output; the spectral norms' u
-    after a training-mode call. In `dtype` (the test's f64 reference)."""
+    after a training-mode call. In `dtype` (bf16, or the test's f64
+    reference)."""
     m, x = _module(name)
     m.to(dtype)
     xb = band(x, index, size, 2).to(dtype).clone().requires_grad_(True)
@@ -182,26 +194,52 @@ def module_bands(device, out_dir):
                      "attn": {n: attn_case(n, b.index, size)
                               for n, _, _ in ATTN_CASES},
                      "modules": {n: module_case(n, b.index, size)
-                                 for n in MODULES}}
+                                 for n in MODULES},
+                     "modules_bf16": {
+                         n: module_case(n, b.index, size, torch.bfloat16)
+                         for n in BF16_MODULES}}
     torch.save(out, os.path.join(out_dir,
                                  f"bands_rank{parallel.world().rank}.pt"))
 
 
-def step_opt(**over):
+HEADS = ("pose", "poseflownet", "shapenet", "shapenetflow")
+# ShapeNet's heads at 64 rows: one G level (the target grows from an 8x8
+# seed to 8 * 2^(layers + 2) rows) and one attention level, k=3
+SHAPENET = dict(dataset_mode="shapenet", structure_nc=21, label_nc_h=18,
+                label_nc_v=3, layers=1, attn_layer=[1], kernel_size={"1": 3})
+STAGE_1 = dict(lambda_correct=20.0, lambda_regularization=0.01)
+
+
+def step_opt(model="pose", **over):
+    """The tiny task's options for `model` (tests/torch_port_ranks.py's
+    widths) at STEP_H rows."""
     ranks.H = STEP_H
-    return ranks.pose_opt(load_size=STEP_H, old_size=(STEP_H, STEP_H),
-                          **over)
+    head = {"poseflownet": STAGE_1, "shapenet": SHAPENET,
+            "shapenetflow": {**SHAPENET, **STAGE_1}}.get(model, {})
+    return ranks.pose_opt(**{"load_size": STEP_H,
+                             "old_size": (STEP_H, STEP_H), **head,
+                             "model": model, **over})
 
 
-def step_batch():
+def step_batch(model="pose"):
+    """A prepared batch of 2 for `model`: pose's heatmaps, or ShapeNet's
+    raw viewpoint labels, (B, 2) ints (azimuth / 10, elevation)."""
     ranks.H = STEP_H
-    return ranks.pose_batch(1)
+    batch = ranks.pose_batch(1)
+    if model.startswith("shapenet"):
+        rng = np.random.RandomState(2)
+        for key in ("BP1", "BP2"):
+            batch[key] = torch.from_numpy(np.stack(
+                [rng.randint(0, 18, 2) * 2, rng.randint(0, 3, 2) * 10],
+                1).astype(np.int32))
+    return batch
 
 
-def sgd_task(state_path):
-    """The tiny pose task with SGD, from the state dicts at `state_path`
-    (gfla_tpu's weights, carried through convert.py)."""
-    task = chip_smoke.sgd(PoseTask(step_opt()))
+def sgd_task(state_path, model="pose", **over):
+    """The tiny task of `model` with SGD, from the state dicts at
+    `state_path` (gfla_tpu's weights, carried through convert.py)."""
+    task = chip_smoke.sgd(create_task(step_opt(model, **over),
+                                      torch.device("cpu")))
     state = torch.load(state_path, weights_only=True)
     task.vgg.load_state_dict(state.pop("VGG"))
     for tag, sd in state.items():
@@ -209,15 +247,28 @@ def sgd_task(state_path):
     return task
 
 
-def sgd_step(state_path, index=0, size=1):
+def sgd_step(state_path, index=0, size=1, model="pose", **over):
     """One SGD step on this band of the batch: its logs, gradients (the
-    world's mean), parameters and buffers after it."""
-    task = sgd_task(state_path)
-    logs = task.train_step({k: band(v, index, size, 2)
-                            for k, v in step_batch().items()})
+    world's mean), parameters and buffers after it, and the spatial
+    group's collectives it issued."""
+    task = sgd_task(state_path, model, **over)
+    batch = {k: band(v, index, size, 2) if v.dim() == 4 else v
+             for k, v in step_batch(model).items()}
+    before = parallel.band_collectives
+    logs = task.train_step(batch)
     return {"logs": {k: float(v) for k, v in logs.items()},
             "grads": chip_smoke.dp_grads(task),
-            "replica": chip_smoke.replica_state(task)}
+            "replica": chip_smoke.replica_state(task),
+            "collectives": parallel.band_collectives - before}
+
+
+# the steps each rank of the dp 1 x sp 2 world takes beside pose's:
+# (name, model, state, options)
+STEPS = [("poseflownet", "poseflownet", "poseflownet", {}),
+         ("shapenet", "shapenet", "shapenet", {}),
+         ("shapenetflow", "shapenetflow", "shapenetflow", {}),
+         ("pose_bf16", "pose", "pose_bf16", {"compute_dtype": "bfloat16"}),
+         ("pose_remat", "pose", "pose", {"remat": True})]
 
 
 CLI_ARGS = ["--gpu_ids=-1", "--mesh_devices=2", "--spatial=2",
@@ -226,7 +277,15 @@ CLI_ARGS = ["--gpu_ids=-1", "--mesh_devices=2", "--spatial=2",
             "--print_freq=1", "--name=sp"]
 
 
-def cli_loop(ckpt, *extra):
+# ShapeNet from the committed store: stage 1, then stage 2 resumed on it
+VIEWS_ARGS = ["--gpu_ids=-1", "--mesh_devices=2", "--spatial=2",
+              "--dataset_mode=shapenet", f"--dataroot={FIXTURE}",
+              f"--load_size={STEP_H}", "--attn_layer=1",
+              "--kernel_size=1=3", "--batchSize=1", "--nThreads=0",
+              "--print_freq=1", "--name=views"]
+
+
+def cli_loop(ckpt, *extra, args=CLI_ARGS):
     """The training CLI's loop on this rank, as its `main` starts it on
     each of the ranks it spawns."""
     from gfla_tpu_torch.options import (
@@ -236,24 +295,35 @@ def cli_loop(ckpt, *extra):
     )
     from gfla_tpu_torch.train.loop import train
 
-    opt = TrainOptions().parse([*CLI_ARGS, f"--checkpoints_dir={ckpt}",
+    opt = TrainOptions().parse([*args, f"--checkpoints_dir={ckpt}",
                                 *extra], show=False)
     refuse_parallel_flags(opt)
     assert spatial_layout(opt, 2, 2) == 2
     return train(torch.device("cpu"), opt)
 
 
-def step_bands(device, state_path, out_dir):
-    """(c) and the CLI on this rank of a dp 1 x sp 2 world; results to
-    `{out_dir}/step_rank{r}.pt`."""
+def step_bands(device, state_dir, out_dir):
+    """(c), the other heads' steps, pose's in bf16 and with --remat, and the
+    CLI on this rank of a dp 1 x sp 2 world; results to
+    `{out_dir}/step_rank{r}.pt`. The states are `{state_dir}/{state}.pt`."""
     torch.set_num_threads(THREADS)
     b = parallel.init_bands(2, HALO)
-    out = {"step": sgd_step(state_path, b.index, 2)}
+    out = {"step": sgd_step(os.path.join(state_dir, "pose.pt"), b.index, 2)}
+    for name, model, state, over in STEPS:
+        out[name] = sgd_step(os.path.join(state_dir, f"{state}.pt"),
+                             b.index, 2, model, **over)
     ckpt = os.path.join(out_dir, "ckpt")
     out["cli"] = cli_loop(ckpt, "--max_iters=1", "--eval_iters_freq=1",
                           "--display_freq=1")
     out["resume"] = cli_loop(ckpt, "--max_iters=2", "--continue_train",
                              "--eval_iters_freq=0")
+    out["views_flow"] = cli_loop(ckpt, "--model=shapenetflow",
+                                 "--max_iters=1", "--eval_iters_freq=0",
+                                 args=VIEWS_ARGS)
+    out["views"] = cli_loop(ckpt, "--model=shapenet", "--layers=1",
+                            "--continue_train",
+                            "--max_iters=2", "--eval_iters_freq=2",
+                            "--display_freq=2", args=VIEWS_ARGS)
     torch.save(out, os.path.join(out_dir,
                                  f"step_rank{parallel.world().rank}.pt"))
 
