@@ -119,10 +119,12 @@ Phases, each failing the run (non-zero exit) on the first error:
      each band of an S=2 and an S=4 split of the two pose sites runs it
      (a flow row planted past the halo), and of ShapeNet's k=3 site,
      against its plain twin, and the bands against the halo-gather
-     reference on the whole map; the window kernels timed beside the whole
-     map's; the window kernels' bf16 instances at both pose sites in 2 and
-     4 bands against the bf16 plain twins by the bf16 rule and the whole
-     map's bf16 kernel; where the machine has two cards (four: dp 2 x sp 2
+     reference on the whole map, and of the animation heads' two sites at
+     a frame's batch of 2; the window kernels timed beside the whole
+     map's; the window kernels' bf16 instances at both pose sites and both
+     animation sites in 2 and 4 bands against the bf16 plain twins by the
+     bf16 rule and the whole map's bf16 kernel; where the machine has two
+     cards (four: dp 2 x sp 2
      at batch 8, else dp 1 x sp 2 at batch 2), spawned ranks on bands of
      phase 6's batch: a kernel-path step against the plain path's by phase
      6's rule, and against the same step under --remat (u bitwise equal,
@@ -135,7 +137,19 @@ Phases, each failing the run (non-zero exit) on the first error:
      gfla_tpu's spatial rule and a bf16 pose step against one card's bf16
      step by BF16_STEP_HOLD, every rank's state bitwise equal (paths
      spatial_train_remat, spatial_train_shapenet, spatial_train_corr,
-     spatial_train_bf16).
+     spatial_train_bf16). After phase 18 (`phase_spatial_anim`), from its
+     dance and face states, the ranks' full-width chunk steps (batch 2 x 6
+     frames at 256x256): dance and face in f32 and dance with --use_mask
+     under GFLA_PALLAS_CORR=1 against one card's by gfla_tpu's spatial
+     rule, dance in bf16 against one card's bf16 step by phase 20b's hold
+     (its planted faults still failing it), face with --remat against the
+     ranks' own face step (as many collectives on every rank), and a
+     keypoint step, its batch replicated over the group, bitwise one
+     card's; every rank's state bitwise equal, the f32 steps' ms and peak
+     a card beside one card's (paths spatial_train_dance,
+     spatial_train_face, spatial_train_dance_mask_corr,
+     spatial_train_dance_bf16, spatial_train_face_remat,
+     spatial_train_keypoint).
  11. disk data: a DeepFashion-layout tree (16 images of 256x176 a phase, 24
      train and 8 test pairs) and a Market-layout one (128x64) written
      through nvJPEG (image_io.encode_jpeg) and decoded back (PSNR >= 35 dB
@@ -2778,7 +2792,13 @@ SP_SPLITS = (2, 4)  # (a): band splits of the window kernels' sites
 SP_CASES = [c for c in KERNEL_CASES if c[0] in (
     "k=5 site 64x64 C128", "k=3 site 32x32 C256",
     "shapenet k=3 site 64x64 C128")]
-SP_CASES_BF16 = SP_CASES[:2]
+# ... and the animation heads' sites at a frame's batch, B=2 (each stream's
+# attention runs on one frame of a clip of 2 at a time), in f32 and bf16
+SP_ANIM_CASES = [
+    ("animation k=5 site 64x64 C128 B2", 2, 64, 64, 128, 128, 5, 1.5),
+    ("animation k=3 site 32x32 C256 B2", 2, 32, 32, 256, 128, 3, 1.5)]
+SP_CASES += SP_ANIM_CASES
+SP_CASES_BF16 = SP_CASES[:2] + SP_ANIM_CASES
 SP_HALO = 8         # --halo's default
 SP_FAR_Y = 30.0     # (a): a flow row planted past the halo
 SP_RANKS = (4, 2)   # (b): dp 2 x sp 2 on four cards, else dp 1 x sp 2
@@ -2942,7 +2962,8 @@ def spatial_windows(device):
     """(a) The warp route over row bands, `ops/local_attn._warp_window`
     itself (the warp kernels on each band's halo window), for each band of
     an S=2 and an S=4 split of the pose sites (k=5 on 64x64x128, k=3 on
-    32x32x256, batch 8) and ShapeNet's (k=3 on 64x64x128) on one card
+    32x32x256, batch 8), ShapeNet's (k=3 on 64x64x128) and the animation
+    heads' (the pose sites at a frame's batch of 2) on one card
     (`as_band`), a flow row planted
     SP_FAR_Y rows down, past the halo: its output and its gradients (the
     whole source's through the exchange's adjoint) against the same call
@@ -3023,7 +3044,8 @@ def spatial_windows(device):
 def spatial_windows_bf16(device):
     """(a) The window kernels' bf16 instances (warp_fwd_bf16.cu,
     warp_bwd_bf16.cu) through `_warp_window`, for each band of an S=2 and
-    an S=4 split of the pose sites on one card, from bf16 source, W1s, W2
+    an S=4 split of the pose sites and the animation heads' (B=2) on one
+    card, from bf16 source, W1s, W2
     and g, the flow kept inside the window (|flow_y| <= h - k//2 - 1, so
     that the window's clamp is the image's): each band's output and
     gradients against the same call on the bf16 plain twins (from the
@@ -5117,10 +5139,10 @@ ANIM_RULE = dict(resolved=BF16_RESOLVED, hold=ANIM_BF16_STEP_HOLD,
                  one_element=False, l2=BF16_L2, loose=ANIM_LOOSE)
 
 
-def planted_faults(what, kernel, plain, f32):
-    """The animation hold (ANIM_RULE) read on the kernel path's step with a
-    fault planted in one warp-fed G gradient, scaled by 1.5 and then
-    zeroed: each must fail it. The tensor: of the flow nets' and the
+def planted_faults(what, kernel, plain, f32, rule=ANIM_RULE):
+    """The animation hold (`rule`, ANIM_RULE by default) read on the kernel
+    path's step with a fault planted in one warp-fed G gradient, scaled by
+    1.5 and then zeroed: each must fail it. The tensor: of the flow nets' and the
     attention's that the hold holds tensor by tensor, the one the plain
     bf16 path resolves best (the least L2 distance to the f32 gradient, x
     its norm)."""
@@ -5136,7 +5158,7 @@ def planted_faults(what, kernel, plain, f32):
         try:
             grads_by_rule(f"{what}, {name} x {scale:g} planted",
                           {"G": {"grads": grads}}, plain, {"G": f32["G"]},
-                          **ANIM_RULE)
+                          **rule)
         except RuntimeError as fault:
             print(f"{what}: the hold fails {name} x {scale:g}: {fault}")
             continue
@@ -5446,6 +5468,412 @@ def phase_anim_bf16(device, f32_train):
     return counts
 
 
+# 10c(b), the animation heads and keypoint over row bands, where the
+# machine has two or four cards (dp 1 x sp 2, or dp 2 x sp 2): one
+# full-width chunk step (batch SP_ANIM_B x ANIM_T frames at 256x256, a data
+# index's rows of it) of each path from phase 18's states (dance's and
+# face's, off the kinks), SGD, beside one card's step on the same global
+# batch; keypoint's step on a seeded batch of KP_BATCH windows
+SP_ANIM = (  # (path, head, options, GFLA_PALLAS_CORR)
+    ("spatial_train_dance", "dance", (), "0"),
+    ("spatial_train_face", "face", (), "0"),
+    ("spatial_train_dance_mask_corr", "dance", ("--use_mask",), "1"),
+    ("spatial_train_dance_bf16", "dance", (ANIM_BF16,), "0"),
+    ("spatial_train_face_remat", "face", ("--remat",), "0"))
+SP_ANIM_PATHS = (*(path for path, _, _, _ in SP_ANIM),
+                 "spatial_train_keypoint")
+SP_ANIM_B = 2       # the animation steps' global batch of clips
+SP_ANIM_TIMED = ("spatial_train_dance", "spatial_train_face")  # ms, peak
+# the bf16 chunk step under --spatial against one card's: phase 20b's hold
+# (ANIM_BF16_STEP_HOLD, BF16_L2), its norm bands widened by SP_BF16_ULP on
+# each side, and a tensor outside it held to the f32 step, as the pose
+# head's bf16 step under --spatial is held (SP_BF16_HOLD, its reason)
+SP_ANIM_BF16_HOLD = {tag: (floor, whole, (band[0] - SP_BF16_ULP,
+                                          band[1] + SP_BF16_ULP))
+                     for tag, (floor, whole, band)
+                     in ANIM_BF16_STEP_HOLD.items()}
+SP_ANIM_BF16_RULE = dict(ANIM_RULE, hold=SP_ANIM_BF16_HOLD, to_f32=True)
+
+
+def anim_person_mask(B, T, H, W, seed):
+    """(B, T, 1, H, W) float32 --use_mask masks that differ between the
+    batch rows: a block whose width grows with the row, soft values around
+    it, and zeros (tests/torch_port_ranks.py's)."""
+    rng = np.random.RandomState(seed)
+    mask = np.clip(rng.rand(B, T, 1, H, W) * 1.5 - 0.25, 0, 1)
+    for b in range(B):
+        mask[b, :, :, H // 4:3 * H // 4, :(b + 1) * W // (B + 1)] = 1.0
+        mask[b, :, :, :, (b + 2) * W // (B + 2):] *= 0.1 * b
+    return torch.from_numpy(mask.astype(np.float32))
+
+
+def sp_anim_task(path, kind, options, device, spatial=None):
+    """The full-width task of one SP_ANIM path (phase 18's options, batch
+    SP_ANIM_B), with SGD: under `--spatial=spatial` on a rank, or on one
+    card; and its checkpoint directory."""
+    from gfla_tpu_torch.tasks import create_task
+
+    opt, ckpt = train_opt(f"--name={path}", f"--batchSize={SP_ANIM_B}",
+                          f"--n_frames_total={ANIM_T}", *options,
+                          *([f"--spatial={spatial}"] if spatial else []),
+                          model=kind, dataset="synthetic_video")
+    return sgd(create_task(opt, device)), ckpt
+
+
+def sp_anim_batch(task, host, mask, first, rows):
+    """The task's prepared batch of the host clips' `rows` rows from
+    `first` (each rank's band of them under --spatial), with `mask`'s same
+    rows (their band) as mask_all where given."""
+    from gfla_tpu_torch import parallel
+
+    take = {k: v[first:first + rows] for k, v in host.items()}
+    batch = task.prepare_batch(take)
+    if mask is not None:
+        m = mask[first:first + rows].to(task.device)
+        b = parallel.bands()
+        if b is not None:
+            h = m.shape[-2] // b.size
+            m = m[..., b.first_row(h):b.first_row(h) + h, :]
+        batch["mask_all"] = m
+    return batch
+
+
+def sp_kp_task(device):
+    """The keypoint head at its one width from its seeded init, SGD, and a
+    seeded batch of KP_BATCH windows of 86 frames on `device`."""
+    from gfla_tpu_torch.tasks.keypoint import KeypointTask
+
+    opt = types.SimpleNamespace(
+        model="keypoint", isTrain=True, batchSize=KP_BATCH, structure_nc=17,
+        lr=1e-4, lr_policy="lambda", niter=100, niter_decay=0, iter_count=1,
+        iters_per_epoch=1000, seed=0, gpu_ids="0")
+    rng = np.random.RandomState(560)
+    batch = {"input_data": rng.randn(KP_BATCH, 86, 34) * 0.5,
+             "gt_data": rng.randn(KP_BATCH, 6, 34) * 0.5}
+    return sgd(KeypointTask(opt, device)), {
+        k: torch.from_numpy(v.astype(np.float32)).to(device)
+        for k, v in batch.items()}
+
+
+def sp_anim_result(task, logs, counts, collectives=None):
+    from gfla_tpu_torch import parallel
+
+    return dict(counts=counts, collectives=collectives,
+                logs={k: float(v)
+                      for k, v in parallel.allreduce_mean(logs).items()},
+                grads=dp_grads(task),
+                replica={k: v.cpu() for k, v in replica_state(task).items()})
+
+
+def spatial_anim_rank(device, states, out_dir, sp, rows):
+    """(b)'s rank for the animation heads and keypoint: each SP_ANIM path's
+    chunk step from its head's state on this rank's band of its data
+    index's `rows` clips, its launches and the spatial group's collectives
+    counted; SP_TIMED more of dance's and face's f32 steps, timed, with the
+    peak memory; then keypoint's step (its batch replicated over the
+    group: the data index's rows of it, whole) under deterministic()."""
+    from gfla_tpu_torch import parallel
+    from gfla_tpu_torch.runtime import set_tf32
+
+    start = time.perf_counter()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // parallel.world().size))
+    set_tf32(False)
+    b = parallel.init_bands(sp, SP_HALO)
+    data = parallel.data_world()
+    host = torch.load(states["host"], weights_only=False)
+    out = {"band": b.index, "data": data.rank, "seconds": {}}
+    for path, kind, options, corr in SP_ANIM:
+        task, ckpt = sp_anim_task(path, kind, options, device, sp)
+        for tag, sd in torch.load(states[kind], weights_only=True).items():
+            nets(task)[tag].load_state_dict(sd)
+        batch = sp_anim_batch(task, host[kind], host["mask"]
+                              if "--use_mask" in options else None,
+                              data.rank * rows, rows)
+        reset_launch_counts()
+        before = parallel.band_collectives
+        with switches(GFLA_PALLAS_CORR=corr):
+            logs = task.train_step(batch)
+        torch.cuda.synchronize()
+        out[path] = sp_anim_result(task, logs, launch_counts(),
+                                   parallel.band_collectives - before)
+        if path in SP_ANIM_TIMED:
+            torch.cuda.reset_peak_memory_stats()
+            out[path]["times"], _ = timed_steps(task, [batch] * SP_TIMED)
+            out[path]["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        del task, batch
+        ckpt.cleanup()
+        out["seconds"][path] = time.perf_counter() - start
+    task, batch = sp_kp_task(device)
+    batch = {k: v[data.rank * (KP_BATCH // data.size):]
+             [:KP_BATCH // data.size] for k, v in batch.items()}
+    with deterministic():
+        reset_launch_counts()
+        logs = task.train_step(batch)
+        torch.cuda.synchronize()
+        out["spatial_train_keypoint"] = sp_anim_result(task, logs,
+                                                       launch_counts())
+    out["seconds"]["spatial_train_keypoint"] = time.perf_counter() - start
+    torch.save(out, os.path.join(out_dir, f"rank{parallel.world().rank}.pt"))
+
+
+def spatial_anim_refs(states, host, mask, dp):
+    """(b)'s references on one card, each from the same state on the
+    global batch: the f32 SP_ANIM paths' SGD chunk steps (dance's and
+    face's timed as the ranks' are, with the peak memory), the bf16 one,
+    and keypoint's data-parallel step over `dp` data indices under
+    deterministic(): each index's step on its rows, its dropouts drawn as
+    that index's (`tasks.keypoint.dropout_seed`), the gradients averaged.
+    --remat is held to the ranks' own face step. Each: dict(logs,
+    grads[, times, peak, replica])."""
+
+    device = states["dance"].device
+    refs = {}
+    for path, kind, options, corr in SP_ANIM:
+        if "--remat" in options:
+            continue
+        task, ckpt = sp_anim_task(f"one_{path}", kind, options, device)
+        for tag, net in nets(states[kind]).items():
+            nets(task)[tag].load_state_dict(net.state_dict())
+        batch = sp_anim_batch(task, host[kind], mask if "--use_mask"
+                              in options else None, 0, SP_ANIM_B)
+        with switches(GFLA_PALLAS_CORR=corr):
+            logs = task.train_step(batch)
+        refs[path] = dict(logs={k: float(v) for k, v in logs.items()},
+                          grads=dp_grads(task))
+        if path in SP_ANIM_TIMED:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            refs[path]["times"], _ = timed_steps(task, [batch] * SP_TIMED)
+            refs[path]["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        del task, batch
+        ckpt.cleanup()
+    steps, rows = [], KP_BATCH // dp
+    for i in range(dp):
+        task, batch = sp_kp_task(device)
+        task.data_index = i  # its dropouts draw as data index i's
+        with deterministic():
+            logs = task.train_step({k: v[i * rows:(i + 1) * rows]
+                                    for k, v in batch.items()})
+        steps.append(dict(
+            logs={k: float(v) for k, v in logs.items()},
+            grads=dp_grads(task),
+            replica={k: v.cpu() for k, v in replica_state(task).items()}))
+        del task
+    refs["spatial_train_keypoint"] = steps[0] if dp == 1 else dict(
+        grads={"G": {n: sum(s["grads"]["G"][n] for s in steps) / dp
+                     for n in steps[0]["grads"]["G"]}})
+    torch.cuda.empty_cache()
+    return refs
+
+
+def phase_spatial_anim(anim):
+    """10c(b) for the animation heads and keypoint (the data x spatial
+    mode's last heads), where the machine has two cards (four: dp 2 x sp
+    2, else dp 1 x sp 2): spawned ranks take, from `anim`'s states (phase
+    18's full-width dance and face tasks, off the kinks), one SGD chunk
+    step on their band of each data index's rows of a global batch of
+    SP_ANIM_B clips x ANIM_T frames at 256x256: dance and face in f32, and
+    dance with --use_mask (seeded masks) under GFLA_PALLAS_CORR=1, each
+    held to one card's step on the same global batch by gfla_tpu's spatial
+    rule (SP_TOTAL_REL, SP_SHARE_1, SP_SHARE_2); dance in bf16, held to
+    one card's bf16 step by phase 20b's hold (SP_ANIM_BF16_RULE, one
+    card's f32 step the reference of what bf16 resolves), both of phase
+    20b's planted faults failing it; face with --remat, held to the ranks'
+    own face step by phase 18's kernel-vs-plain rule (losses within
+    TRAIN_LOSS_REL, each network's gradient within ANIM_GRAD_REL in
+    relative L2), u bitwise equal, as many collectives on every rank, more
+    than without; and keypoint's step, its batch replicated over the
+    group, bitwise one card's step on dp 1 (under deterministic()), by the
+    8-vs-1 rule on dp 2. Every rank's gradients, parameters and u bitwise
+    equal after each; the launches of each path counted, and the f32
+    steps' ms and peak memory a card beside one card's. On one card a line
+    says the ranks did not run and no count is returned."""
+    from gfla_tpu_torch import parallel
+    from gfla_tpu_torch.runtime import card_line
+
+    n = next((r for r in SP_RANKS if torch.cuda.device_count() >= r), 0)
+    if not n:
+        print(f"spatial_train_dance, _face, _dance_mask_corr, _dance_bf16, "
+              f"_face_remat, _keypoint: the ranks did not run "
+              f"({torch.cuda.device_count()} card)")
+        return {path: None for path in SP_ANIM_PATHS}
+    start = time.perf_counter()
+    sp, dp = 2, n // 2
+    rows = SP_ANIM_B // dp
+    states = {kind: anim[kind]["state"] for kind in ("dance", "face")}
+    host = {kind: anim_clips(states[kind].opt, SP_ANIM_B)[0]
+            for kind in ("dance", "face")}
+    mask = anim_person_mask(SP_ANIM_B, ANIM_T, ANIM_SIZE, ANIM_SIZE, 570)
+    refs = spatial_anim_refs(states, host, mask, dp)
+    tmp = tempfile.TemporaryDirectory()
+    files = {"host": os.path.join(tmp.name, "host.pt")}
+    torch.save({**host, "mask": mask}, files["host"])
+    for kind, state in states.items():
+        files[kind] = os.path.join(tmp.name, f"{kind}.pt")
+        torch.save({tag: net.state_dict() for tag, net in nets(state).items()},
+                   files[kind])
+    ref_s = time.perf_counter() - start
+    spawned = time.perf_counter()
+    parallel.spawn(spatial_anim_rank,
+                   [torch.device("cuda", i) for i in range(n)], files,
+                   tmp.name, sp, rows, timeout=SP_TIMEOUT)
+    spawned = time.perf_counter() - spawned
+    ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"),
+                        weights_only=False) for r in range(n)]
+    tmp.cleanup()
+    check([(r["data"], r["band"]) for r in ranks]
+          == [(i // sp, i % sp) for i in range(n)], "the rank layout")
+    what = f"spatial dp {dp} x sp {sp}"
+    expected = {
+        "spatial_train_dance": dict(warp_fwd=ANIM_LAUNCHES,
+                                    warp_bwd_pos=ANIM_LAUNCHES,
+                                    warp_bwd_w1=ANIM_LAUNCHES),
+        "spatial_train_dance_mask_corr": dict(
+            warp_fwd=ANIM_LAUNCHES, warp_bwd_pos=ANIM_LAUNCHES,
+            warp_bwd_w1=ANIM_LAUNCHES, max_corr=4),
+        "spatial_train_dance_bf16": dict(
+            warp_fwd_bf16=ANIM_LAUNCHES, warp_bwd_pos_bf16=ANIM_LAUNCHES,
+            warp_bwd_w1_bf16=ANIM_LAUNCHES),
+        "spatial_train_face_remat": dict(warp_fwd=2 * ANIM_LAUNCHES,
+                                         warp_bwd_pos=ANIM_LAUNCHES,
+                                         warp_bwd_w1=ANIM_LAUNCHES),
+        "spatial_train_keypoint": {}}
+    expected["spatial_train_face"] = expected["spatial_train_dance"]
+    for path in SP_ANIM_PATHS:
+        got = [r[path] for r in ranks]
+        for r, res in enumerate(got):
+            check(only(res["counts"], **expected[path]),
+                  f"{what} {path}: rank {r} launches {res['counts']}")
+        for res in got[1:]:
+            check(res["logs"] == got[0]["logs"]
+                  and all(torch.equal(res["replica"][k], v)
+                          for k, v in got[0]["replica"].items())
+                  and all(torch.equal(res["grads"][tag][k], g)
+                          for tag, d in got[0]["grads"].items()
+                          for k, g in d.items()),
+                  f"{what} {path}: the ranks' logs, gradients, parameters "
+                  f"or u differ")
+    print(f"{what} on {card_line()!r}, animation heads at {ANIM_SIZE}x"
+          f"{ANIM_SIZE}, global batch {SP_ANIM_B} x {ANIM_T} frames ({rows} "
+          f"clip(s) of {ANIM_SIZE // sp} rows a rank) and keypoint at batch "
+          f"{KP_BATCH}; every rank's gradients, parameters and u bitwise "
+          f"equal after each step; the launches a rank "
+          + "; ".join(f"{path} "
+                      f"{ {k: v for k, v in ranks[0][path]['counts'].items() if v} }"
+                      for path in SP_ANIM_PATHS))
+    for path in SP_ANIM_TIMED:
+        print(f"  {path}: step ms per rank "
+              + ", ".join(f"{statistics.median(r[path]['times'][1:]):.3f}"
+                          for r in ranks)
+              + f" against {statistics.median(refs[path]['times'][1:]):.3f}"
+              f" on one card at batch {SP_ANIM_B}; peak GiB per card "
+              + ", ".join(f"{r[path]['peak']:.2f}" for r in ranks)
+              + f" against {refs[path]['peak']:.2f}")
+    print(f"{what} animation and keypoint, wall: one card's references "
+          f"{ref_s:.1f} s, the ranks {spawned:.1f} s (rank 0's own, from "
+          f"its start: "
+          + ", ".join(f"{p} done at {t:.1f} s"
+                      for p, t in ranks[0]["seconds"].items()) + ")")
+    for path in ("spatial_train_dance", "spatial_train_face",
+                 "spatial_train_dance_mask_corr"):
+        got, ref = ranks[0][path], refs[path]
+        total_rel = abs(got["logs"]["total_G"] - ref["logs"]["total_G"]) \
+            / abs(ref["logs"]["total_G"])
+        check(total_rel <= SP_TOTAL_REL, f"{what} {path}: total_G "
+              f"{total_rel:.3e} rel apart")
+        shares = {tag: sp_rule(f"{what} {path} vs one card, {tag}",
+                               ref["grads"][tag], got["grads"][tag])
+                  for tag in ref["grads"]}
+        print(f"  {path} against one card's: " + "; ".join(
+            f"{tag} {s1:.2e} of entries above 1e-3 of max, {s2:.2e} above "
+            f"1e-2" for tag, (s1, s2) in shares.items())
+            + f"; total_G {total_rel:.3e} rel")
+    path = "spatial_train_dance_bf16"
+    got, ref = ranks[0][path], refs[path]
+    total_rel = abs(got["logs"]["total_G"] - ref["logs"]["total_G"]) \
+        / abs(ref["logs"]["total_G"])
+    check(total_rel <= BF16_LOSS_REL, f"{what} {path}: total_G "
+          f"{total_rel:.3e} rel apart")
+
+    def snaps(res):
+        return {t: {"grads": g} for t, g in res["grads"].items()}
+
+    f32 = snaps(refs["spatial_train_dance"])
+    grads_by_rule(f"{what} bf16 dance chunk step vs one card", snaps(got),
+                  snaps(ref), f32, **SP_ANIM_BF16_RULE)
+    planted_faults(f"{what} bf16 dance chunk step vs one card", snaps(got),
+                   snaps(ref), f32, SP_ANIM_BF16_RULE)
+    print(f"  {path} against one card's: phase 20b's hold (norm bands "
+          f"widened by {SP_BF16_ULP:g}), both planted faults failing it; "
+          f"total_G {total_rel:.3e} rel")
+    counts = [r["spatial_train_face_remat"]["collectives"] for r in ranks]
+    plain = [r["spatial_train_face"]["collectives"] for r in ranks]
+    check(all(c == counts[0] for c in counts)
+          and all(c == plain[0] for c in plain) and counts[0] > plain[0],
+          f"{what} face --remat: the ranks' collectives {counts}, without "
+          f"--remat {plain}")
+    for r, res in enumerate(ranks):
+        remat, face = res["spatial_train_face_remat"], \
+            res["spatial_train_face"]
+        loss_rel = rel_diff(remat["logs"], face["logs"])
+        grad_rel = {}
+        for tag, want in face["grads"].items():
+            a, b = (torch.cat([g[k].flatten() for k in sorted(want)])
+                    for g in (remat["grads"][tag], want))
+            grad_rel[tag] = ((a - b).norm() / b.norm()).item()
+        check(loss_rel <= TRAIN_LOSS_REL
+              and max(grad_rel.values()) <= ANIM_GRAD_REL,
+              f"{what} face --remat vs without on rank {r}: losses "
+              f"{loss_rel:.3e} rel, gradients {grad_rel}")
+        us = [k for k in face["replica"] if k.endswith("weight_u")]
+        check(len(us) == 2 * (3 * 4 + 1)
+              and all(torch.equal(remat["replica"][k], face["replica"][k])
+                      for k in us), f"{what} face --remat: rank {r}'s u")
+        print(f"  spatial_train_face_remat on rank {r} against its face "
+              f"step: losses within {loss_rel:.3e} rel, gradients "
+              + ", ".join(f"{t} {v:.3e}" for t, v in grad_rel.items())
+              + " in relative L2, u bitwise equal")
+    print(f"  spatial_train_face_remat: collectives a chunk step on each "
+          f"rank {counts[0]} against {plain[0]} without")
+    path = "spatial_train_keypoint"
+    got, ref = ranks[0][path], refs[path]
+    if dp == 1:
+        check(got["logs"] == ref["logs"]
+              and all(torch.equal(got["grads"]["G"][k], g)
+                      for k, g in ref["grads"]["G"].items())
+              and all(torch.equal(got["replica"][k], v)
+                      for k, v in ref["replica"].items()),
+              f"{what} keypoint: not bitwise one card's step")
+        rule = "bitwise one card's step"
+    else:
+        share, worst = dp_rule(f"{what} keypoint vs one card",
+                               ref["grads"]["G"], got["grads"]["G"])
+        rule = (f"one card's data-parallel step over {dp} data indices "
+                f"(each its rows and its dropouts' generator, the gradients "
+                f"averaged) by the 8-vs-1 rule: {share:.4%} of entries "
+                f"above {DP_DIVERGE:g} of max, max {worst:.3e}")
+    print(f"  {path}: the batch replicated over the group, {rule}")
+    return {path: ranks[0][path]["counts"] for path in SP_ANIM_PATHS}
+
+
+def anim_spatial_states():
+    """phase_spatial_anim's states where phase 18 has not run (the
+    scripts' own phases): each head's full-width task, off the kinks."""
+    from gfla_tpu_torch.tasks import create_task
+
+    states = {}
+    for kind in ("dance", "face"):
+        opt, ckpt = train_opt(f"--name={kind}_state", "--batchSize=2",
+                              f"--n_frames_total={ANIM_T}", model=kind,
+                              dataset="synthetic_video")
+        task = create_task(opt)
+        states[kind] = {"state": off_the_kinks(task)}
+        del task
+        ckpt.cleanup()
+    return states
+
+
 KP_STEPS = 4           # keypoint steps through the training CLI
 KP_BATCH = 8           # windows a batch: 6 gt frames, 86 input frames
 KP_SEQS, KP_FRAMES = 2, 40  # the AlphaPose test tree: sequences, frames
@@ -5627,7 +6055,7 @@ def phase_keypoint(device):
               "keypoint: eval_log.txt")
 
     # save/resume: the trainer's task and one resumed from its last save
-    # take the same step (the same CUDA seed draws the same dropout)
+    # take the same step (the same step draws the same dropout)
     opt = TrainOptions().parse(train_args, save=False)
     dataset = get_dataset_class("keypoint")(opt)
     batch = task.prepare_batch(collate([dataset[i] for i in range(KP_BATCH)]))
@@ -5635,7 +6063,6 @@ def phase_keypoint(device):
     check(resumed.resume() == KP_STEPS, "keypoint: resume step")
     logs = []
     for t in (task, resumed):
-        torch.manual_seed(7)
         logs.append(float(t.train_step(batch)["mpjpe"]))
     diff = max((a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
                for a, b in zip(task.net_g.parameters(),
@@ -6229,15 +6656,18 @@ def main(argv):
         sn_disk = timed(phase_shapenet_disk, sn_serve, sn_train)
         sn_flow = timed(phase_shapenetflow)
         sn_bf16 = timed(phase_shapenet_bf16, sn_serve, sn_train)
-        anim, anim_f32 = {}, {}
+        anim, anim_f32, anim_states = {}, {}, {}
         for kind in ("dance", "face"):
             anim[f"{kind}_serve"] = timed(phase_anim_serve, kind)["launches"]
             anim_train = timed(phase_anim_train, kind)
             anim[f"{kind}_train"] = anim_train["counts"]
             anim_f32[kind] = {k: anim_train[k] for k in ("ms", "peak")}
+            anim_states[kind] = {"state": anim_train["state"]}
             if kind == "dance":
                 anim_switched = timed(phase_anim_switches, anim_train)
             del anim_train
+        spatial.update(timed(phase_spatial_anim, anim_states))
+        del anim_states
         video = timed(phase_video_disk, device, anim_f32["dance"]["ms"])
         anim_bf16 = timed(phase_anim_bf16, device, anim_f32)
         keypoint = timed(phase_keypoint, device)
@@ -6305,7 +6735,9 @@ def main(argv):
                 lambda c, name=name: warp_work(*c[1:7])[name])))
     for entry in entries:  # (b)'s paths, where the ranks ran
         for path in ("spatial_train", "spatial_train_remat",
-                     "spatial_train_shapenet"):
+                     "spatial_train_shapenet", "spatial_train_dance",
+                     "spatial_train_face", "spatial_train_dance_mask_corr",
+                     "spatial_train_face_remat", "spatial_train_keypoint"):
             ran = if_ran(path, spatial[path], entry["name"])
             entry["launches_by_path"].update(ran)
             entry["launches"] += sum(ran.values())
@@ -6326,8 +6758,8 @@ def main(argv):
              {"train_bf16": train_bf16["counts"]["warp_bwd_w1_bf16"],
               "shapenet_train_bf16": sn_bf16["train"]["warp_bwd_w1_bf16"]})):
         paths.update({path: anim_bf16[path][name] for path in anim_paths})
-        paths.update(if_ran("spatial_train_bf16",
-                            spatial["spatial_train_bf16"], name))
+        for path in ("spatial_train_bf16", "spatial_train_dance_bf16"):
+            paths.update(if_ran(path, spatial[path], name))
         kern = name.removesuffix("_bf16")
         entries.append(kernel_entry(
             name, f"gfla_tpu_torch/csrc/{source}",
@@ -6391,7 +6823,9 @@ def main(argv):
          "dance_train_bf16_corr":
              anim_bf16["dance_train_bf16_corr"]["max_corr"],
          **if_ran("spatial_train_corr", spatial["spatial_train_corr"],
-                  "max_corr")},
+                  "max_corr"),
+         **if_ran("spatial_train_dance_mask_corr",
+                  spatial["spatial_train_dance_mask_corr"], "max_corr")},
         max(r["err"] for r in corr.values()), f"{CORR_ATOL:g} abs (cmax)",
         c["ms"], c["plain_ms"], c["work"], c["library_ms"],
         "B=8 Ns=Nt=4096 C=256",

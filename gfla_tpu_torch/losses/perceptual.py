@@ -20,9 +20,13 @@ are band sums over the global count (`parallel.band_mean`), a Gram matrix
 sums its band products over the bands (every band then holds it whole, so
 the style L1 is a plain mean), and the correctness loss gathers the source
 features whole, as gfla_tpu gathers a replicated operand, and compares the
-band's target rows with the source sampled at their global positions. The
-masked, per-frame and bilinear forms of the correctness loss (the
-animation heads) refuse bands.
+band's target rows with the source sampled at their global positions.
+The animation heads' per-frame form takes each frame's mean over the batch
+and the whole image as a band reduction (`parallel.band_mean` over a
+dimension), and the masked form gfla_tpu's ratio of global sums
+(`_global_ratio`). Only the bilinear form (`use_bilinear_sampling`, which
+no head reaches) has no band form: its warp reads the source's rows at
+the band's own positions, and it refuses bands.
 """
 
 from __future__ import annotations
@@ -130,19 +134,19 @@ def _safe_norm(x, dim: int):
 
 def _global_ratio(num, den):
     """num / (den + eps) of the global batch, from this rank's numerator
-    and denominator: in a data-parallel run the denominator (mask sums,
-    which carry no gradient) is summed over the ranks and the ratio scaled
-    by the world size, so that the mean over the ranks, of the gradients as
-    of the logged values, is gfla_tpu's ratio of global sums. Without a
-    process group it is num / (den + eps)."""
+    and denominator (sums over its rows of its batch): the denominator
+    (mask sums, which carry no gradient) is summed over every rank; over
+    row bands the numerator is summed over the spatial group
+    (`parallel.band_sum`, so that each rank holds its data index's and
+    takes `band_mean`'s gradient convention); and the ratio is scaled by
+    the number of data indices, so that the mean over the ranks, of the
+    gradients as of the logged values, is gfla_tpu's ratio of global sums.
+    Without a process group it is num / (den + eps)."""
     if not parallel.active():
         return num / (den + _EPS)
-    if parallel.bands() is not None:
-        raise NotImplementedError(
-            "the masked correctness loss over row bands (--spatial with "
-            "--use_mask) is not ported yet (ROADMAP.md, queue 1, item 2)")
     den = parallel.allreduce_sum_(den.detach().clone())
-    return parallel.world().size * (num / (den + _EPS))
+    return parallel.data_world().size * (parallel.band_sum(num)
+                                         / (den + _EPS))
 
 
 def _nearest_resize(x, H: int, W: int):
@@ -232,12 +236,11 @@ class PerceptualCorrectness:
         in the same order, so a caller on rank 0 alone would hang the
         world."""
         b = parallel.bands()
-        if b is not None and (mask is not None or frames is not None
-                              or use_bilinear_sampling):
+        if b is not None and use_bilinear_sampling:
             raise NotImplementedError(
-                "the animation heads' correctness loss (a mask, frames or "
-                "bilinear sampling) over row bands is not ported yet "
-                "(ROADMAP.md, queue 1, item 2)")
+                "the correctness loss's bilinear sampling has no row-band "
+                "form: its warp would read the gathered source at the "
+                "band's own rows, not at their global positions")
         target_vgg = target_vgg.to(acc_dtype(target_vgg.dtype))
         source_vgg = parallel.gather_rows(
             source_vgg.to(acc_dtype(source_vgg.dtype)))
@@ -262,7 +265,7 @@ class PerceptualCorrectness:
             if frames is None:
                 return parallel.band_mean(loss_map) - e1
             lm = loss_map.reshape(-1, frames, H * W)
-            return (lm.mean(dim=(0, 2)) - e1).sum()
+            return (parallel.band_mean(lm, (0, 2)) - e1).sum()
         m = mask if mask.shape[2:] == (H, W) else _nearest_resize(mask, H, W)
         m = m.reshape(B, H * W)
         loss_map = loss_map - e1

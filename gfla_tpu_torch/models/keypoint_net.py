@@ -77,6 +77,23 @@ def feature_length(t: int, k: int) -> int:
     return t
 
 
+class Dropout(nn.Dropout):
+    """nn.Dropout whose masks come from `generator` when one is set (the
+    task sets one seeded from the rank's data index, so that the S ranks
+    of a spatial group, which hold the same batch, drop the same entries
+    and stay bitwise equal), else from torch's global generator. It keeps
+    F.dropout's scaling, x * mask / (1 - p)."""
+
+    generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.generator is None or not self.training or not self.p:
+            return super().forward(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
 class KPInputNet2D(nn.Module):
     def __init__(self, keypoint_nc: int = 17, channels: int = 256,
                  layers: int = 4, dropout: float = 0.15,
@@ -86,7 +103,7 @@ class KPInputNet2D(nn.Module):
         self.kernel_size, self.layers = k, layers
         self.expand_conv = nn.Conv1d(K2, C, k, bias=False)
         self.expand_ln = LayerNormAll(C)
-        self.expand_drop = nn.Dropout(dropout)
+        self.expand_drop = Dropout(dropout)
         convs, norms = [], []
         dilation = k
         for _ in range(layers - 1):
@@ -99,11 +116,17 @@ class KPInputNet2D(nn.Module):
         # after expand_drop: named_modules() lists the 7 dropouts in the
         # order forward calls them, which is how masks are matched to them
         self.layers_drop = nn.ModuleList(
-            nn.Dropout(dropout) for _ in range(2 * (layers - 1)))
+            Dropout(dropout) for _ in range(2 * (layers - 1)))
         self.shrink = nn.Conv1d(C, K2, 1)
         self.feature_conv_1 = nn.Conv1d(K2, C, k, stride=2, bias=False)
         self.feature_conv_2 = nn.Conv1d(C, C, k, stride=2, bias=False)
         self.feature_conv_3 = nn.Conv1d(C, C, k, stride=2, bias=False)
+
+    def seed_dropout(self, generator: torch.Generator) -> None:
+        """Every dropout's masks from `generator`, in call order."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
 
     def forward(self, kp: torch.Tensor) -> torch.Tensor:
         """kp: (B, 2K, T) -> (B, 2K, T - (3^layers - 1))."""

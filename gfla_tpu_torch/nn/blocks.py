@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 from torch import nn
 
 from gfla_tpu_torch.nn.norms import (
@@ -100,12 +101,16 @@ class ResBlockEncoder(nn.Module):
 
 
 class AvgPool3d(nn.AvgPool3d):
-    """nn.AvgPool3d computed in float32 and rounded once to the input's
-    type: what cuDNN-free CUDA does for a bf16 input (float sums, one
-    rounding), on every device; torch's CPU pool takes no bf16."""
+    """nn.AvgPool3d computed in at least float32 and rounded once to the
+    input's type: what cuDNN-free CUDA does for a bf16 input (float sums,
+    one rounding), on every device; torch's CPU pool takes no bf16. Over
+    row bands the temporal discriminator's unpadded stride-2 pool needs no
+    neighbour's rows: each band holds an even number of them
+    (options.spatial_levels)."""
 
     def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return super().forward(x.to(acc)).to(x.dtype)
 
 
 class ResBlock3DEncoder(nn.Module):

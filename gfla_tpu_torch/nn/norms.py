@@ -17,7 +17,10 @@ zero-padded conv takes its halo rows from the neighbouring bands first
 conv the one row below (`band_conv_transpose2x`), the pad its rows
 (`ReflectionPad2d`), and the norm sums its statistics over the bands. A
 module built here is `nn.Conv2d`, `nn.ConvTranspose2d` or
-`nn.ReflectionPad2d` without bands, bit for bit, with the same keys.
+`nn.ReflectionPad2d` without bands, bit for bit, with the same keys. The
+temporal discriminator's 3-D convolutions take their rows (NCDHW's dim 3)
+by the same rule (`band_conv3d`), and `add_coords` appends the band's rows
+of the whole image's coordinates.
 
 Under a bf16 compute dtype (`train.precision.cast_call`) these modules run
 on bf16 copies of their parameters and buffers: InstanceNorm's reductions
@@ -115,6 +118,18 @@ def band_conv_transpose2x(x, w, b):
     y = F.conv_transpose2d(parallel.pad_rows(x, 0, 1), w, b, stride=2,
                            padding=1, output_padding=1)
     return y[:, :, :2 * h]
+
+
+def band_conv3d(x, w, b, stride, padding):
+    """F.conv3d(x, w, b, stride, padding) on a row band of NCDHW `x` (rows
+    on dim 3), by `band_conv2d`'s rule: p_h rows from the band above and
+    kh - s_h - p_h from the band below (zeros at the image's edges), the
+    time and column axes padded as they are. The temporal discriminator's
+    3^3 conv (padding 1) and its (3,4,4) stride (1,2,2) conv (padding
+    (0,1,1)) each take one row from either side."""
+    kh, (sd, sh, sw), (pd, ph, pw) = w.shape[3], stride, padding
+    x = parallel.pad_rows(x, ph, max(0, kh - sh - ph), dim=3)
+    return F.conv3d(x, w, b, (sd, sh, sw), (pd, 0, pw))
 
 
 class Conv2d(nn.Conv2d):
@@ -263,7 +278,20 @@ class SpectralConv3d(SpectralNormed):
         return w.reshape(w.shape[0], -1)
 
     def conv(self, x, w):
+        if parallel.bands() is not None and self.padding[1]:
+            return band_conv3d(x, w, self.bias, self.stride, self.padding)
         return F.conv3d(x, w, self.bias, self.stride, self.padding)
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d that also takes a row band (`band_conv3d`) when it pads
+    its rows; an unpadded one (the shortcut's 1^3) runs as it is."""
+
+    def forward(self, x):
+        if parallel.bands() is None or not self.padding[1]:
+            return super().forward(x)
+        return band_conv3d(x, self.weight, self.bias, self.stride,
+                           self.padding)
 
 
 def _triple(v):
@@ -272,10 +300,10 @@ def _triple(v):
 
 def conv3d(in_nc: int, out_nc: int, kernel_size, stride=1, padding=0,
            use_spect: bool = False) -> nn.Module:
-    """nn.Conv3d, or SpectralConv3d with `use_spect` (gfla_tpu's Conv3d)."""
+    """Conv3d, or SpectralConv3d with `use_spect` (gfla_tpu's Conv3d)."""
     if use_spect:
         return SpectralConv3d(in_nc, out_nc, kernel_size, stride, padding)
-    return nn.Conv3d(in_nc, out_nc, kernel_size, stride, padding)
+    return Conv3d(in_nc, out_nc, kernel_size, stride, padding)
 
 
 def add_coords(x: torch.Tensor, with_r: bool = False) -> torch.Tensor:
@@ -283,10 +311,15 @@ def add_coords(x: torch.Tensor, with_r: bool = False) -> torch.Tensor:
     appended, first the one that runs along H, then along W, then with
     `with_r` their radius (gfla_tpu/nn/norms.py:192-206, which keeps the
     original AddCoords' orientation: its 'xx' channel is normalised over
-    H)."""
+    H). Over row bands the H coordinate is the band's rows of the whole
+    image's, `linspace(-1, 1, S * H)`."""
     B, _, H, W = x.shape
+    b = parallel.bands()
+    rows = H if b is None else H * b.size
     hh, ww = (torch.linspace(-1.0, 1.0, n, dtype=x.dtype, device=x.device)
-              for n in (H, W))
+              for n in (rows, W))
+    if b is not None:
+        hh = hh[b.first_row(H):b.first_row(H) + H]
     hh_ch = hh[None, None, :, None].expand(B, 1, H, W)
     ww_ch = ww[None, None, None, :].expand(B, 1, H, W)
     chans = [x, hh_ch, ww_ch]

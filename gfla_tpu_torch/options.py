@@ -68,24 +68,6 @@ def resolve_use_spect_d(opt) -> bool:
     return not getattr(opt, "no_spect_d", False)
 
 
-# the heads that train under --spatial, and what the others wait for
-SPATIAL_HEADS = ("pose", "poseflownet", "shapenet", "shapenetflow")
-SPATIAL_TODO = ("not ported yet (ROADMAP.md, queue 1, item 2: --spatial for "
-                "dance, face and keypoint)")
-
-
-def refuse_parallel_flags(opt) -> None:
-    """Raise NotImplementedError for `--spatial` above 1 (gfla_tpu's
-    train.py reads 0 as 1 too, and `--halo` only under it) where the port
-    has no data x spatial mode yet: the animation heads and keypoint. The
-    message names the ROADMAP item that will port it. The four single-frame
-    heads take it in either compute dtype and with `--remat`."""
-    sp = opt.spatial or 1
-    if sp > 1 and opt.model not in SPATIAL_HEADS:
-        raise NotImplementedError(
-            f"--spatial={sp} with --model={opt.model}: {SPATIAL_TODO}")
-
-
 def _height(opt) -> int:
     size = opt.load_size
     return size if isinstance(size, int) else size[0]
@@ -94,10 +76,11 @@ def _height(opt) -> int:
 def spatial_levels(opt):
     """(what, rows, rows each band must hold) of every resolution the
     head's step convolves, pools or gathers: every band needs a whole
-    number of rows, at least 1 (each conv lends a neighbour 1 row), 2 where
-    the flow net's and G's output reflect-pad (a band reflects about its
-    edge row), and at an attention level k - 1 (the target's edge pad
-    lends k//2, the affine regularisation's patches k - 1).
+    number of rows, at least 1 (each conv lends a neighbour 1 row, and an
+    unpadded 2x2 pool takes an even number of rows a band), 2 where the
+    flow net's and G's output reflect-pad (a band reflects about its edge
+    row), and at an attention level k - 1 (the target's edge pad lends
+    k//2, the affine regularisation's patches k - 1).
     - pose: G (its encoder and decoder levels), the flow net's five
       levels, D's and VGG19's;
     - poseflownet and shapenetflow (stage 1): the flow net's levels (for
@@ -105,9 +88,20 @@ def spatial_levels(opt):
       and the regularisation at the attention levels; no G decoder, no D;
     - shapenet: first the target net's seed, the code tiled to 8x8 rows,
       and its 16 and 32 levels (ShapeNetTargetNet grows from it whatever
-      the image's height), then as pose."""
+      the image's height), then as pose;
+    - dance and face: as pose (their flow nets, FaceFlowNet and dance's
+      two PoseFlowNets, have PoseFlowNet's five levels), then D_V's
+      `--d_layers` levels: dance's temporal discriminator halves the rows
+      in each of its two 3-D blocks (a 3^3 conv and a (3,4,4) stride
+      (1,2,2) conv, each lending 1 row, and an unpadded (3,2,2) pool),
+      then in its 2-D encoders; face's is a ResDiscriminator over the
+      frame differences;
+    - keypoint: none (its (B, T, 34) batch is replicated over the spatial
+      group, as gfla_tpu's rank-3 arrays are)."""
     H = _height(opt)
     model = getattr(opt, "model", "pose")
+    if model == "keypoint":
+        return []
     flow = [(f"the flow net's level {d}", H >> d, 2 if d < 5 else 1)
             for d in range(1, 6)]
     if model.startswith("shapenet"):
@@ -129,7 +123,16 @@ def spatial_levels(opt):
     levels += [("G's output", H, 2)]
     levels += [(f"G's level {d}", H >> d, 1) for d in range(1, opt.layers + 1)]
     levels += flow
-    levels += [(f"D's level {d}", H >> d, 1) for d in range(1, d_layers + 1)]
+    if model == "dance":  # D_V's levels are D's rows
+        levels += [(f"D's and D_V's level {d} (D_V's "
+                    + ("3-D block" if d < 3 else "encoder") + ")", H >> d, 1)
+                   for d in range(1, d_layers + 1)]
+    elif model == "face":
+        levels += [(f"D's and D_V's level {d}", H >> d, 1)
+                   for d in range(1, d_layers + 1)]
+    else:
+        levels += [(f"D's level {d}", H >> d, 1)
+                   for d in range(1, d_layers + 1)]
     levels += vgg
     levels += [(f"the attention at level {key} (k={k})", H >> int(key),
                 max(1, k - 1)) for key, k in attn]
@@ -143,7 +146,10 @@ def spatial_layout(opt, ranks: int, local_ranks: int) -> int:
     stays on one host, the host's batch splits over its data indices, and
     at every level of the path (`spatial_levels`) a band holds a whole
     number of rows, enough for what it lends (gfla_tpu's GSPMD also takes
-    uneven shards; the port does not). Raises SystemExit otherwise."""
+    uneven shards; the port does not). For dance from disk, gfla_tpu's
+    `shard_batch_spatial` also shards the (B, T, 17, 2) joints `KP_all` on
+    their axis 1, T, and asserts that it divides (the task checks each
+    batch again). Raises SystemExit otherwise."""
     sp = max(1, opt.spatial or 1)
     if sp == 1:
         return 1
@@ -159,6 +165,14 @@ def spatial_layout(opt, ranks: int, local_ranks: int) -> int:
     if opt.batchSize % (local_ranks // sp):
         raise SystemExit(f"--batchSize={opt.batchSize} does not split over "
                          f"{local_ranks // sp} data indices on this host")
+    if getattr(opt, "model", "pose") == "dance" \
+            and opt.dataset_mode == "dance" \
+            and not getattr(opt, "no_device_encode", False) \
+            and opt.n_frames_total % sp:
+        raise SystemExit(f"--spatial {sp}: the batch's KP_all, (B, T, 17, "
+                         f"2), has T = --n_frames_total = "
+                         f"{opt.n_frames_total} on axis 1, which does not "
+                         f"divide by {sp} (gfla_tpu shards that axis)")
     for what, rows, need in spatial_levels(opt):
         if rows % sp or rows // sp < need:
             raise SystemExit(
@@ -221,8 +235,8 @@ class BaseOptions:
                  "gfla_tpu's; poseflownet trains in float32")
         # gfla_tpu's parallelism flags. Training: --mesh_devices=N runs N
         # ranks on this host, --distributed joins a torchrun world, and
-        # --spatial=S splits every image's rows over S of them (the four
-        # single-frame heads, refuse_parallel_flags and spatial_layout).
+        # --spatial=S splits every image's rows over S of them (every head;
+        # spatial_layout says what each level needs).
         # Serving runs on one device, as gfla_tpu's test.py does.
         add("--mesh_devices", type=int, default=0,
             help="training: data-parallel ranks on this host, one a device "
@@ -230,10 +244,10 @@ class BaseOptions:
                  "given; N CPU ranks with --gpu_ids=-1); 0 = every listed "
                  "id; the global batch is --batchSize per host")
         add("--spatial", type=int, default=1,
-            help="training, --model=pose, poseflownet, shapenet or "
-                 "shapenetflow (either --compute_dtype, with or without "
-                 "--remat): split every image's rows into this many bands, "
-                 "one a rank (the ranks / S data indices split the batch)")
+            help="training, every head (either --compute_dtype, with or "
+                 "without --remat): split every image's rows into this many "
+                 "bands, one a rank (the ranks / S data indices split the "
+                 "batch; keypoint's batch is replicated over the bands)")
         add("--halo", type=int, default=8,
             help="rows each band's attention gathers take from each "
                  "neighbour under --spatial")

@@ -474,18 +474,21 @@ def band_sum(x: torch.Tensor) -> torch.Tensor:
     return x if _bands is None else _BandSum.apply(x)
 
 
-def band_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of the whole image's `x` from this band's: `x.mean()`
-    without bands, else the band sums summed over the group, over S times
-    the band's count. As gfla_tpu's `jnp.mean`, which sums a bf16 `x` in
-    f32 and rounds once (GSPMD all-reduces the f32 partials before that
-    rounding), each band sums in at least f32, the group sums those, and
-    the mean is rounded to `x`'s type at the end."""
+def band_mean(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """The mean of the whole image's `x` from this band's, over every
+    dimension or over `dim` (a per-frame loss keeps its frame axis):
+    `x.mean(dim)` without bands, else the band sums summed over the group,
+    over S times the band's count. As gfla_tpu's `jnp.mean`, which sums a
+    bf16 `x` in f32 and rounds once (GSPMD all-reduces the f32 partials
+    before that rounding), each band sums in at least f32, the group sums
+    those, and the mean is rounded to `x`'s type at the end."""
     if _bands is None:
-        return x.mean()
+        return x.mean() if dim is None else x.mean(dim)
     acc = torch.promote_types(x.dtype, torch.float32)
-    total = band_sum(x.sum(dtype=acc))
-    return (total / (x.numel() * _bands.size)).to(x.dtype)
+    total = band_sum(x.sum(dtype=acc) if dim is None
+                     else x.sum(dim, dtype=acc))
+    count = x.numel() // total.numel()
+    return (total / (count * _bands.size)).to(x.dtype)
 
 
 def gather_rows(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
@@ -495,19 +498,21 @@ def gather_rows(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
 
 
 def whole(tree):
-    """Every 4-D tensor of `tree` (a tensor, or a dict, list or tuple of
-    them) gathered whole along its rows, outside autograd: the
-    evaluation's and the visuals' outputs and inputs. `tree` itself
-    without bands."""
+    """Every image tensor of `tree` (a tensor, or a dict, list or tuple of
+    them), (..., C, H, W) of 4 or 5 dimensions, gathered whole along its
+    rows, outside autograd: the evaluation's and the visuals' outputs and
+    inputs (a clip's (B, T, C, H, W) frames too). `tree` itself without
+    bands; a tensor of fewer dimensions (keypoint's (B, T, 34), replicated
+    over the group) as it is."""
     if _bands is None:
         return tree
     if isinstance(tree, dict):
         return {k: whole(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(whole(v) for v in tree)
-    if torch.is_tensor(tree) and tree.dim() == 4:
+    if torch.is_tensor(tree) and tree.dim() >= 4:
         with torch.no_grad():
-            return torch.cat(_collect(tree), 2)
+            return torch.cat(_collect(tree), -2)
     return tree
 
 

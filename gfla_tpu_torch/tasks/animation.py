@@ -28,7 +28,10 @@ the first starts from the reference pair. A chunk's step
   i_g) and D_V (window from s_g), which iterate u without storing it;
 * the G backward and Adam step.
 In a data-parallel run each gradient is averaged over the ranks just before
-its Adam step (gfla_tpu_torch.parallel), once a chunk. The four indices
+its Adam step (gfla_tpu_torch.parallel), once a chunk; in the data x
+spatial mode (`--spatial`) each rank's batch is its row band of every clip
+and image (`prepare_batch`), every module and loss band-aware, and the
+carry between chunks stays on the band. The four indices
 are drawn from a torch.Generator seeded from `--seed` and the step count
 (gfla_tpu draws them with jax.random from the step), so every rank draws
 the same ones, or passed in. Checkpoints are `{iter}_net_{G,D,D_V}.pth`.
@@ -100,12 +103,32 @@ DIST_LEVELS = torch.from_numpy(
 def prepare_batch(batch, device, opt=None):
     """Host clip batch -> device tensors, (B, T, C, H, W) and (B, C, H, W).
     The synthetic clips' arrays move as they are; the file-backed datasets'
-    frames are decoded and warp-resized here (`prepare_video_batch`)."""
+    frames are decoded and warp-resized here (`prepare_video_batch`). Over
+    row bands (the data x spatial mode) each keeps the rank's band of its
+    rows."""
     if isinstance(batch.get("P_all"), list):
         return prepare_video_batch(batch, device, opt)
-    return {key: torch.from_numpy(value).to(device).movedim(-1, -3)
-            for key, value in batch.items()
-            if isinstance(value, np.ndarray) and value.dtype == np.float32}
+    out = {key: torch.from_numpy(value).to(device).movedim(-1, -3)
+           for key, value in batch.items()
+           if isinstance(value, np.ndarray) and value.dtype == np.float32}
+    return {key: _band_rows(t) if t.dim() >= 4 else t
+            for key, t in out.items()}
+
+
+def _band(rows: int):
+    """(the rank's band's rows, its first row) of an image of `rows` rows:
+    the whole image without bands."""
+    b = parallel.bands()
+    if b is None:
+        return rows, 0
+    return rows // b.size, b.first_row(rows // b.size)
+
+
+def _band_rows(t, dim: int = -2):
+    """The rank's band of `t`'s rows along `dim` (all of them without
+    bands)."""
+    h, row0 = _band(t.shape[dim])
+    return t.narrow(dim, row0, h)
 
 
 def _bicubic_at(greys, size):
@@ -171,7 +194,11 @@ def prepare_video_batch(batch, device, opt):
     limbs, as gfla_tpu's train.py does, or its host maps moved; face's
     structure built by `face_structure`, the reference being the first
     frame; dance's --use_mask masks by `prepare_masks`. Everything after
-    the decode is the same code on every device."""
+    the decode is the same code on every device. Over row bands the
+    frames, masks and face's structure (whose Canny edges read the
+    neighbouring rows) are built whole, then each keeps the rank's band;
+    dance's heatmaps are encoded for the band's rows alone, from their
+    global coordinates, beside its drawn limbs' band."""
     frames = batch["P_all"]
     B, T = len(frames), len(frames[0])
     H, W = ((opt.load_size, opt.load_size) if isinstance(opt.load_size, int)
@@ -192,27 +219,38 @@ def prepare_video_batch(batch, device, opt):
     def dev(key):
         return torch.from_numpy(batch[key]).to(device)
 
-    out = {"P_all": images[:B * T].reshape(B, T, 3, H, W)}
+    h, row0 = _band(H)
+    b = parallel.bands()
+    if b is not None and "KP_all" in batch \
+            and batch["KP_all"].shape[1] % b.size:
+        # gfla_tpu's shard_batch_spatial shards its axis 1 and asserts this
+        raise SystemExit(f"--spatial {b.size}: the batch's KP_all "
+                         f"{batch['KP_all'].shape} has T = "
+                         f"{batch['KP_all'].shape[1]} on axis 1, which does "
+                         f"not divide by {b.size}")
+    out = {"P_all": _band_rows(images[:B * T].reshape(B, T, 3, H, W))}
     if "ref_image" in batch:  # dance
-        out["ref_image"] = images[B * T:]
+        out["ref_image"] = _band_rows(images[B * T:])
         for key, kp, rgb in (("BP_all", "KP_all", "BP_all_rgb"),
                              ("ref_skeleton", "ref_KP", "ref_rgb")):
             if kp in batch:
                 maps = torch.cat([
-                    encode_heatmaps(dev(kp), H, W, missing_value=0.0),
-                    RGB_LEVELS.to(device)[dev(rgb).long()]], -1)
+                    encode_heatmaps(dev(kp), h, W, missing_value=0.0,
+                                    row0=row0),
+                    RGB_LEVELS.to(device)[_band_rows(dev(rgb), -3).long()]],
+                    -1)
             else:
-                maps = dev(key)
+                maps = _band_rows(dev(key), -3)
             out[key] = maps.movedim(-1, -3)
     else:  # face
-        bp = face_structure(
+        bp = _band_rows(face_structure(
             dev("edges"), dev("labels"),
             dev("dist") if "dist" in batch else None, decoded,
-            not getattr(opt, "no_canny_edge", False)).movedim(-1, -3)
+            not getattr(opt, "no_canny_edge", False)).movedim(-1, -3))
         out.update(BP_all=bp, ref_image=out["P_all"][:, 0],
                    ref_skeleton=bp[:, 0])
     if "mask_all" in batch:
-        out["mask_all"] = prepare_masks(batch, device, (H, W))
+        out["mask_all"] = _band_rows(prepare_masks(batch, device, (H, W)))
     for key in ("gen_kps_clean", "gen_kps_noise"):
         if key in batch:
             out[key] = dev(key)

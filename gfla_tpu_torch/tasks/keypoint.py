@@ -12,6 +12,15 @@ the flag.
 Batches keep gfla_tpu's (B, T, 34) layout, channels [y..., x...]; the net
 is NCT, so the task transposes at its edge. Checkpoints are
 `{iter}_net_G.pth` with the original's `kp_input.*` keys.
+
+Under `--spatial=S` the batch has no rows to split: gfla_tpu's
+`shard_batch_spatial` puts every array of rank < 4 on its data axis alone,
+replicated over the spatial one. So here the S ranks of a spatial group
+load the same rows (the loader shards by data index) and take the same
+step; the dropouts draw from a generator seeded from `--seed`, the step
+and the data index (`dropout_seed`), so that they drop the same entries,
+and the gradient averaged over the world is the data-parallel gradient
+over its N / S data indices.
 """
 
 from __future__ import annotations
@@ -27,6 +36,15 @@ from gfla_tpu_torch.tasks.pose import PoseTask
 from gfla_tpu_torch.tasks.poseflownet import PoseFlowNetTask
 from gfla_tpu_torch.tasks.testing import run_test_keypoint
 from gfla_tpu_torch.train.state import make_optimizer
+
+
+def dropout_seed(seed: int, data_index: int, step: int) -> int:
+    """The seed of the dropouts' generator for step `step` on a rank of
+    data index `data_index` (the same on the S ranks of its spatial
+    group): a function of the step, as gfla_tpu's dropout key is
+    (`PRNGKey(step)`, tasks/keypoint.py:71), so a resumed run draws what
+    the uninterrupted one would."""
+    return (seed * 1_000_003 + step) * 1_009 + data_index
 
 
 class KeypointTask:
@@ -53,9 +71,12 @@ class KeypointTask:
             "kpinput2d", structure_nc=getattr(opt, "structure_nc", 17),
             channels=getattr(opt, "kp_channels", 256),
             layers=getattr(opt, "kp_layers", 4))
-        init_kp_weights(self.net_g,
-                        torch.Generator().manual_seed(getattr(opt, "seed", 0)))
+        init_kp_weights(self.net_g, torch.Generator().manual_seed(
+            getattr(opt, "seed", 0)))
         self.net_g.to(self.device)
+        self.dropout = torch.Generator(device=self.device)
+        self.net_g.kp_input.seed_dropout(self.dropout)
+        self.data_index = parallel.data_world().rank
         self.is_train = getattr(opt, "isTrain", False)
         if not self.is_train:
             self.net_g.eval()
@@ -95,7 +116,10 @@ class KeypointTask:
 
     def train_step(self, batch):
         """One step on a prepared batch (gfla_tpu's _train_step_impl):
-        mean((out - gt)^2), logged as mpjpe and total_G."""
+        mean((out - gt)^2), logged as mpjpe and total_G. The dropouts
+        draw from `dropout_seed` of this step."""
+        self.dropout.manual_seed(dropout_seed(
+            getattr(self.opt, "seed", 0), self.data_index, self.step))
         out = self.forward(batch["input_data"])
         loss = torch.mean((out - batch["gt_data"]) ** 2)
         self.opt_g.zero_grad(set_to_none=True)

@@ -39,26 +39,23 @@ evaluates, writes visuals, traces and checkpoints. `--gpu_ids=-1
 --mesh_devices=N` runs N ranks on the CPU (gloo).
 
 The data x spatial mode, as gfla_tpu's `--spatial=S --halo=h`
-(gfla_tpu_torch.parallel's spatial axis; `--model=pose`, `poseflownet`,
-`shapenet` or `shapenetflow`, in either `--compute_dtype`, with or without
-`--remat`): the ranks form N / S spatial groups of S consecutive ranks,
-each a data index that loads its rows of the global batch; each rank of a
-group holds one row band of every image and activation, exchanges halo
-rows with its neighbours, and sums its reductions over the group. The step
-is gfla_tpu's single-device step, but where a local attention's flow
-leaves its band's window of h rows, where it clamps as gfla_tpu's halo
-gather does. Rank 0's group evaluates and writes the visuals, each rank on
-its band, gathered whole.
+(gfla_tpu_torch.parallel's spatial axis; every head, in either
+`--compute_dtype`, with or without `--remat`): the ranks form N / S spatial
+groups of S consecutive ranks, each a data index that loads its rows of
+the global batch; each rank of a group holds one row band of every image,
+clip and activation, exchanges halo rows with its neighbours, and sums its
+reductions over the group. The step is gfla_tpu's single-device step, but
+where a local attention's flow leaves its band's window of h rows, where
+it clamps as gfla_tpu's halo gather does. keypoint's (B, T, 34) batch has
+no rows: as in gfla_tpu, the S ranks of a group hold the same batch and
+take the same step. Rank 0's group evaluates and writes the visuals, each
+rank on its band, gathered whole.
 """
 
 from __future__ import annotations
 
 from gfla_tpu_torch import parallel
-from gfla_tpu_torch.options import (
-    TrainOptions,
-    refuse_parallel_flags,
-    spatial_layout,
-)
+from gfla_tpu_torch.options import TrainOptions, spatial_layout
 from gfla_tpu_torch.runtime import select_devices
 from gfla_tpu_torch.train.loop import train
 
@@ -66,7 +63,6 @@ from gfla_tpu_torch.train.loop import train
 def main(args=None) -> int:
     options = TrainOptions()
     opt = options.parse(args, show=False)
-    refuse_parallel_flags(opt)
     if opt.distributed:
         at = parallel.env_world()
         if opt.mesh_devices not in (0, at.size):

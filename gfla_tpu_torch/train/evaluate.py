@@ -1,8 +1,9 @@
 """The trainer's held-out evaluation and visuals (counterpart of gfla_tpu's
 train.py:64-111, :126-142 and :202-266). In the data x spatial mode each
-rank of rank 0's spatial group runs the generator on its row band, and the
-outputs and inputs are gathered whole (`parallel.whole`) before they are
-scored or drawn."""
+rank of rank 0's spatial group runs the generator on its row band (an
+animation clip's frames too), and the outputs and inputs are gathered
+whole (`parallel.whole`) before they are scored or drawn; keypoint's
+group holds its batch whole."""
 
 from __future__ import annotations
 
@@ -85,7 +86,8 @@ def current_visuals(task, batch) -> Dict[str, torch.Tensor]:
     if "input_data" in batch:
         return {}
     if "P_all" in batch:
-        return {"img_gen": tensor2im(task.test_step(batch)[0][:, -1])}
+        return {"img_gen": tensor2im(parallel.whole(
+            task.test_step(batch)[0][:, -1]))}
     out = parallel.whole(task.test_step(batch))
     batch = parallel.whole(batch)
     visuals = {"input_P1": tensor2im(batch["P1"])}

@@ -1,10 +1,14 @@
 """chip_smoke.py's data x spatial phase (10c) alone, with the kernel build and
 the full-width pose task (phase 6) it starts from: the warp kernels' window
-form at S=2 and S=4 on every machine (f32 at the pose and ShapeNet sites,
-bf16 at the pose sites), and, where the machine has two or four cards, the
-spawned ranks' steps held to one card's: pose (and its --remat step held
-to the step without it), shapenet, shapenetflow under GFLA_PALLAS_CORR=1,
-and pose in bf16. It prints the card line, each phase's lines and wall
+form at S=2 and S=4 on every machine (f32 at the pose, ShapeNet and
+animation sites, bf16 at the pose and animation sites), and, where the
+machine has two or four cards, the spawned ranks' steps held to one card's:
+pose (and its --remat step held to the step without it), shapenet,
+shapenetflow under GFLA_PALLAS_CORR=1, and pose in bf16; then, from dance's
+and face's full-width tasks (`anim_spatial_states`, in place of phase 18's
+states), their chunk steps (f32, dance with --use_mask under
+GFLA_PALLAS_CORR=1, dance in bf16, face with --remat) and a keypoint step
+(phase_spatial_anim). It prints the card line, each phase's lines and wall
 time, the launches of each path that ran, and exits 0 only if every check
 held.
 
@@ -37,7 +41,14 @@ def main() -> int:
         chip_smoke.timed(chip_smoke.phase_build)
         train = chip_smoke.timed(chip_smoke.phase_train)
         spatial = chip_smoke.timed(chip_smoke.phase_spatial, train)
-    for path in chip_smoke.SP_PATHS:
+        del train
+        if torch.cuda.device_count() >= 2:
+            states = chip_smoke.timed(chip_smoke.anim_spatial_states)
+        else:  # phase_spatial_anim reads no state on one card
+            states = None
+        spatial.update(chip_smoke.timed(chip_smoke.phase_spatial_anim,
+                                        states))
+    for path in (*chip_smoke.SP_PATHS, *chip_smoke.SP_ANIM_PATHS):
         if spatial[path] is not None:
             print(f"{path} launches {spatial[path]}")
     return 0

@@ -7,8 +7,9 @@ jax in the ranks, 2 torch threads a rank), in a module fixture that starts
 them beside gfla_tpu's own work and bounds each at RANKS_TIMEOUT:
 - 4 ranks, at S=4 (one spatial group) and then S=2 (dp 2 x sp 2);
 - 2 ranks, dp 1 x sp 2: a pose SGD step, the other single-frame heads'
-  steps, pose's in bf16 and with --remat, then the training CLI's loop
-  (pose, and ShapeNet from the committed store).
+  steps, pose's in bf16 and with --remat, the animation heads' chunk
+  steps and keypoint's step, then the training CLI's loop (pose, and
+  ShapeNet from the committed store).
 Held:
 (a) the port's halo gather (`halo_block_extract`) and the warp route on the
     band's window (`local_attn_warp`, the warp kernels' plain twins)
@@ -44,11 +45,23 @@ Held:
     --remat step against the same step without it, with as many
     collectives on each rank; the band modules in bf16 against the whole
     modules in bf16 (`_beside_bf16`);
-(d) the options: `--spatial` accepted for pose, poseflownet, shapenet and
-    shapenetflow, in bf16 and with --remat, refused with gfla_tpu's two
-    messages where S does not divide the rank count or the load size,
-    refused per level (ShapeNet's 8-row seed among them), for dance, face
-    and keypoint naming their ROADMAP item; a world without `--spatial`
+(c'') dance (with --use_mask) and face chunk steps under dp 1 x sp 2
+    against gfla_tpu's single-device chunk step by the same rule and
+    against the port's one rank by the 8-vs-1 rule, the ranks bitwise
+    equal, face's evaluation and visual gathered from the bands, a dance
+    (masked) and a face batch from trees on disk prepared on each band
+    bitwise the band of the whole batch; a face
+    bf16 chunk step against the port's one-rank bf16 step by
+    `_bf16_held`; a dance --remat chunk step against the same step
+    without it, with as many collectives on each rank; a keypoint step,
+    its batch replicated over the group, bitwise the one-rank step; the
+    correctness loss's masked and per-frame band forms against the loss
+    run whole, in f32 and bf16;
+(d) the options: `--spatial` accepted for every head, in bf16 and with
+    --remat, refused with gfla_tpu's two messages where S does not divide
+    the rank count or the load size, refused per level (ShapeNet's 8-row
+    seed, dance's and face's D and D_V among them) and for dance's KP_all
+    from disk, each naming what refused; a world without `--spatial`
     unchanged; GFLA_HALO_DEBUG;
 and the training CLI's loop under `--gpu_ids=-1 --mesh_devices=2
 --spatial=2` (evaluation and visuals gathered from the bands): one set of
@@ -56,7 +69,6 @@ checkpoints and one loss log, and a `--continue_train` run that takes the
 next step; ShapeNet's stage 1 and stage 2 from tests/fixtures/shapenet_car.
 """
 
-import argparse
 import concurrent.futures
 import functools
 import os
@@ -70,6 +82,7 @@ import pytest
 import torch
 
 import chip_smoke
+import test_torch_port_animation_train as anim_rule
 import test_torch_port_bf16 as bf16_rule
 import torch_port_bands as bands
 from gfla_tpu.ops.block_extract import block_extract as jax_block_extract
@@ -80,14 +93,12 @@ from gfla_tpu.train.state import GANTrainState
 from gfla_tpu_torch import convert, parallel
 from gfla_tpu_torch.nn import norms
 from gfla_tpu_torch.ops import block_extract as port_block_extract
-from gfla_tpu_torch.options import (
-    TrainOptions,
-    refuse_parallel_flags,
-    spatial_layout,
-)
+from gfla_tpu_torch.options import TrainOptions, spatial_layout
 from gfla_tpu_torch.tasks import create_task
 
-RANKS_TIMEOUT = 300  # s, each world: as tests/test_torch_port_parallel.py
+# s, each world: the 2-rank world's ~20 steps and 4 CLI runs took over 300
+# s (tests/test_torch_port_parallel.py's bound) under the tier-1 run's load
+RANKS_TIMEOUT = 600
 REL = 1e-6
 BF16_BANDS, BF16_SLACK = 2.0, 2 ** -8
 CPU = torch.device("cpu")
@@ -246,6 +257,45 @@ def _trained(state_dict):
             and not re.search(r"(jump\d+|outconv)\.model\.2\.", k)}
 
 
+ANIM_HEADS = ("dance", "face")
+
+
+def _anim_state(kind, state_dir):
+    """The port's tiny task of `kind` (dance with --use_mask) and
+    gfla_tpu's task and state holding the same weights, as
+    tests/test_torch_port_animation_train.py's `_pair` makes them (at
+    torch_port_bands.anim_opt's options); the port's state saved at
+    `{state_dir}/{kind}.pt` with gfla_tpu's VGG19 and the four indices
+    gfla_tpu draws for the chunk. Returns (gfla_tpu's task, state, clip,
+    rng)."""
+    task, task_j, state = anim_rule._pair(kind, use_mask=kind == "dance")
+    rng = jax.random.PRNGKey(5)
+    T = bands.ANIM_T[kind]
+    torch.save({**{tag: net.state_dict()
+                   for tag, net in chip_smoke.nets(task).items()},
+                "VGG": task.vgg.state_dict(),
+                "indices": torch.tensor(anim_rule._indices(rng, T, T))},
+               os.path.join(state_dir, f"{kind}.pt"))
+    return task_j, state, bands.anim_clip(kind), rng
+
+
+def _gfla_tpu_chunk(kind, task_j, state, clip, rng):
+    """gfla_tpu's single-device chunk step on the whole clip: (logs, G's,
+    D's and D_V's gradients by name, as the port's parameters: its Adam's
+    first moment, beta1 = 0)."""
+    state2, logs, _ = anim_rule._chunk_step(
+        task_j, state, anim_rule._first_chunk(clip), rng)
+    mu_g, mu_d = state2.opt_state_g[0].mu, state2.opt_state_d[0].mu
+    layers = anim_rule.D_LAYERS
+    grads = {"G": anim_rule._g_state_dict(kind, mu_g),
+             "D": convert.res_discriminator_state_dict(
+                 mu_d["D"], state2.stats_d["D"], layers=layers),
+             "D_V": anim_rule._dv_state_dict(kind, mu_d["D_V"],
+                                             state2.stats_d["D_V"])}
+    return ({k: float(v) for k, v in logs.items()},
+            {tag: _trained(g) for tag, g in grads.items()})
+
+
 def _jax_both(k):
     """A fresh function (jit caches its trace by the function, and the
     halo mesh is read when tracing) of the gather's and the attention's
@@ -286,8 +336,10 @@ def _jax_attn(size):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Both worlds' results by rank, and gfla_tpu's: the 4-rank world
-    starts at once, the 2-rank one once gfla_tpu's states are saved for
-    it; gfla_tpu's steps (each head's in f32, pose's in bf16) and
+    starts at once, the 2-rank one once gfla_tpu's states of the
+    single-frame heads are saved for it (the animation heads' follow,
+    before the ranks reach their chunk steps); gfla_tpu's steps (each
+    head's in f32, pose's in bf16, dance's and face's chunk steps) and
     attention run while they do."""
     out = tmp_path_factory.mktemp("bands")
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
@@ -297,13 +349,22 @@ def worlds(tmp_path_factory):
             jax_states = {m: _gfla_tpu_state(m, out) for m in bands.HEADS}
             _, batch, host = jax_states["pose"]
             noised = _bf16_state(out, host)
+            for kind, (hw, seed) in bands.VIDEO_TREES.items():
+                chip_smoke.write_video_tree(str(out / "video" / kind), kind,
+                                            *hw, seed, "cpu", seqs=2,
+                                            frames=5)
             steps = pool.submit(parallel.spawn, bands.step_bands, [CPU] * 2,
                                 str(out), str(out), timeout=RANKS_TIMEOUT)
+            # the ranks take their animation steps last, once these exist
+            anim_states = {k: _anim_state(k, out) for k in ANIM_HEADS}
+            (out / bands.ANIM_READY).touch()
             step = {m: _gfla_tpu_step(m, *jax_states[m])
                     for m in bands.HEADS}
             step["pose_bf16"] = _gfla_tpu_step(
                 "pose", _sgd_jax_task("pose", compute_dtype="bfloat16"),
                 batch, noised)
+            for kind in ANIM_HEADS:
+                step[kind] = _gfla_tpu_chunk(kind, *anim_states[kind])
             attn = {size: _jax_attn(size) for size in bands.SPATIAL}
             for name, case in attn[bands.SPATIAL[0]].items():
                 for size in bands.SPATIAL[1:]:
@@ -331,6 +392,11 @@ def one_rank(worlds):
     # which tensors have a gradient in f32 (the bf16 rule's live ones)
     one["pose_bf16_f32"] = bands.sgd_step(worlds["state_dir"]
                                           / "pose_bf16.pt")
+    for name, kind, state, over in bands.ANIM_STEPS:
+        if not over.get("remat"):  # --remat is held to the step without it
+            one[name] = bands.anim_step(worlds["state_dir"] / f"{state}.pt",
+                                        kind=kind, **over)
+    one["keypoint"] = bands.kp_step()
     return one
 
 
@@ -349,7 +415,8 @@ def _group(worlds, size):
     assert [r["band"] for r in res] == [i % size for i in range(4)]
     for i in range(size, 4):
         a, b = res[i - size], res[i]
-        for case in ("attn", "modules", "modules_bf16"):
+        for case in ("attn", "modules", "modules_bf16", "losses",
+                     "losses_bf16"):
             flat_a = _flatten(a[case])
             flat_b = _flatten(b[case])
             assert flat_a.keys() == flat_b.keys()
@@ -428,10 +495,10 @@ def test_band_modules_match_whole(worlds, whole_modules, size, name):
     group = [g["modules"][name] for g in _group(worlds, size)]
     f32, f64 = whole_modules[name]
     for key in f32["outs"]:
-        _beside_f64(_whole([g["outs"][key] for g in group], 2),
+        _beside_f64(_whole([g["outs"][key] for g in group], -2),
                     f32["outs"][key], f64["outs"][key],
                     f"S={size} {name} {key}")
-    _beside_f64(_whole([g["d_input"] for g in group], 2), f32["d_input"],
+    _beside_f64(_whole([g["d_input"] for g in group], -2), f32["d_input"],
                 f64["d_input"], f"S={size} {name} d_input")
     assert group[0]["d_params"].keys() == f32["d_params"].keys()
     for key in f32["d_params"]:
@@ -478,10 +545,10 @@ def test_band_modules_bf16_match_whole(worlds, whole_modules, whole_bf16,
     group = [g["modules_bf16"][name] for g in _group(worlds, size)]
     bf16, f64 = whole_bf16[name], whole_modules[name][1]
     for key in bf16["outs"]:
-        _beside_bf16(_whole([g["outs"][key].float() for g in group], 2),
+        _beside_bf16(_whole([g["outs"][key].float() for g in group], -2),
                      bf16["outs"][key], f64["outs"][key],
                      f"S={size} {name} {key}")
-    _beside_bf16(_whole([g["d_input"].float() for g in group], 2),
+    _beside_bf16(_whole([g["d_input"].float() for g in group], -2),
                  bf16["d_input"], f64["d_input"], f"S={size} {name} d_input")
     assert group[0]["d_params"].keys() == bf16["d_params"].keys()
     for key in bf16["d_params"]:
@@ -495,6 +562,56 @@ def test_band_modules_bf16_match_whole(worlds, whole_modules, whole_bf16,
                    for g in group), key
         _beside_bf16(group[0]["u"][key], bf16["u"][key], f64["u"][key],
                      f"S={size} {name} {key}")
+
+
+# --- (b') the correctness loss's band forms ---------------------------------
+
+@pytest.fixture(scope="module")
+def whole_losses():
+    """Each form of the correctness loss run whole, in f32, f64 and bf16."""
+    return {name: {dt: bands.loss_case(name, dtype=getattr(torch, dt))
+                   for dt in ("float32", "float64", "bfloat16")}
+            for name, _, _ in bands.LOSSES}
+
+
+LOSS_GRADS = ("d_target", "d_source", "d_flow")
+
+
+@pytest.mark.parametrize("size", bands.SPATIAL)
+@pytest.mark.parametrize("name", [c[0] for c in bands.LOSSES])
+def test_band_losses_match_whole(worlds, whole_losses, size, name):
+    """The masked, per-frame and masked per-frame correctness loss on
+    bands (a band's target rows against the gathered source; the mask
+    sums over the world, the per-frame means band reductions) against the
+    loss run whole, by `_beside_f64`: every band's value, and the
+    gradients of the target, source and flow, which each band holds S
+    times its share of (`parallel.band_mean`'s convention, under which the
+    world's mean gradient is the whole image's), so divided by S."""
+    group = [g["losses"][name] for g in _group(worlds, size)]
+    f32, f64 = whole_losses[name]["float32"], whole_losses[name]["float64"]
+    for g in group:
+        _beside_f64(g["value"], f32["value"], f64["value"],
+                    f"S={size} {name} value")
+    for key in LOSS_GRADS:
+        _beside_f64(_whole([g[key] / size for g in group], -2), f32[key],
+                    f64[key], f"S={size} {name} {key}")
+
+
+@pytest.mark.parametrize("size", bands.SPATIAL)
+@pytest.mark.parametrize("name", [c[0] for c in bands.LOSSES])
+def test_band_losses_bf16_match_whole(worlds, whole_losses, size, name):
+    """... and on bf16 features (promoted to f32 inside the loss, as
+    gfla_tpu's `_acc` does) against the loss run whole on them, by
+    `_beside_bf16`; the features' gradients in bf16."""
+    group = [g["losses_bf16"][name] for g in _group(worlds, size)]
+    bf16, f64 = whole_losses[name]["bfloat16"], whole_losses[name]["float64"]
+    for g in group:
+        _beside_bf16(g["value"], bf16["value"], f64["value"],
+                     f"S={size} {name} value")
+    assert all(g["d_target"].dtype == torch.bfloat16 for g in group)
+    for key in LOSS_GRADS:
+        _beside_bf16(_whole([g[key].float() / size for g in group], -2),
+                     bf16[key].float(), f64[key], f"S={size} {name} {key}")
 
 
 # --- (c) one pose step under dp 1 x sp 2 -------------------------------------
@@ -600,11 +717,12 @@ def _bf16_held(got, want, f32):
     mask-head bias, a sum over every position that cancels to nearly 0,
     whose sign bf16 rounding decides) has a cosine of +-1 and is held in
     the network's whole only, as chip_smoke's bf16 rule holds it
-    (`one_element`)."""
+    (`one_element`). The animation heads' D_V, a discriminator as D is,
+    is held by D's hold."""
     for tag, g32 in f32.items():
         scale = max(g.abs().max().item() for g in g32.values())
         live = [n for n, g in g32.items() if g.abs().max() > 1e-5 * scale]
-        hold = bf16_rule.STEP_HOLD[tag]
+        hold = bf16_rule.STEP_HOLD["D" if tag == "D_V" else tag]
         near_f32 = {b[0] for b in bf16_rule._unheld(got[tag], g32, live,
                                                      *hold)}
         bad = [b for b in bf16_rule._unheld(got[tag], want[tag], live,
@@ -673,6 +791,147 @@ def test_spatial_remat_step_is_the_step_without_it(worlds):
     assert counts[0] > plain[0]
 
 
+# --- (c'') the animation heads and keypoint under dp 1 x sp 2 -------------
+
+@pytest.mark.parametrize("kind", ANIM_HEADS)
+def test_spatial_anim_step_matches_gfla_tpu(worlds, kind):
+    """A chunk step of dance (with --use_mask) and of face on two bands of
+    a 64x64 clip against gfla_tpu's single-device chunk step from the same
+    state and indices, by gfla_tpu's spatial rule (total_G within 2e-3,
+    the gradients' shares) on G, D and D_V, the 11 losses within 2e-3."""
+    logs, grads = worlds["gfla_tpu_steps"][kind]
+    got = worlds["step"][0][kind]
+    assert set(got["logs"]) == set(logs)
+    for name, want in logs.items():
+        assert abs(got["logs"][name] - want) <= 2e-3 * abs(want), \
+            (name, got["logs"][name], want)
+    assert set(got["grads"]) == set(grads) == {"G", "D", "D_V"}
+    for tag, want in grads.items():
+        _spatial_rule(want, got["grads"][tag], f"{kind} {tag}")
+
+
+@pytest.mark.parametrize("kind", ANIM_HEADS)
+def test_spatial_anim_step_matches_one_rank(worlds, one_rank, kind):
+    """... and against the port's one-rank chunk step by the 8-vs-1 rule
+    (total_G within 1e-4), with every rank's logs, gradients, parameters
+    and u bitwise equal, and the carry (the last frame, the
+    skeleton and the ground truth) the band of one rank's within 1e-5."""
+    one = one_rank[kind]
+    got = [r[kind] for r in worlds["step"]]
+    assert got[0]["logs"] == got[1]["logs"]
+    np.testing.assert_allclose(got[0]["logs"]["total_G"],
+                               one["logs"]["total_G"], rtol=1e-4)
+    for tag, want in one["grads"].items():
+        for name, g in got[0]["grads"][tag].items():
+            assert torch.equal(g, got[1]["grads"][tag][name]), (tag, name)
+        chip_smoke.dp_rule(f"spatial {kind} {tag}", want,
+                           got[0]["grads"][tag])
+    a, b = got[0]["replica"], got[1]["replica"]
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert sum(k.endswith("weight_u") for k in a) == 2 * (
+        3 * anim_rule.D_LAYERS + 1)
+    for i, want in enumerate(one["carry"]):
+        have = torch.cat([r["carry"][i] for r in got], -2)
+        _close(have, want, f"{kind} carry {i}", 1e-5)
+
+
+@pytest.mark.parametrize("kind", list(bands.VIDEO_TREES))
+def test_spatial_video_batch_is_the_band_of_the_whole(worlds, kind):
+    """A dance (with --use_mask) and a face batch from trees on disk,
+    prepared on each band: every tensor, the frames, reference, masks,
+    dance's heatmaps and drawn limbs and face's structure (its Canny edges
+    read whole), bitwise the band of the batch prepared whole."""
+    whole = bands.video_batch(str(worlds["state_dir"] / "video" / kind),
+                              kind)
+    assert {"P_all", "BP_all", "ref_image", "ref_skeleton"} <= set(whole)
+    assert ("mask_all" in whole) == (kind == "dance")
+    for key, want in whole.items():
+        if want.dim() < 4:
+            continue
+        got = torch.cat([r["video"][kind][key] for r in worlds["step"]], -2)
+        assert got.shape == want.shape, (key, got.shape, want.shape)
+        assert torch.equal(got, want), key
+
+
+def test_spatial_face_eval_and_visual_from_the_bands(worlds, one_rank):
+    """Face's held-out evaluation and visual after its step, each rank's
+    generator on its band and the frames gathered whole: the metrics
+    within 1e-6 of one rank's, the visual (uint8) equal."""
+    one = one_rank["face"]
+    for r in worlds["step"]:
+        got = r["face"]
+        assert got["eval"].keys() == one["eval"].keys() == {"ssim", "psnr",
+                                                            "l1"}
+        for name, want in one["eval"].items():
+            assert abs(got["eval"][name] - want) <= 1e-6 * abs(want), name
+        assert got["visuals"].keys() == one["visuals"].keys() == {"img_gen"}
+        assert got["visuals"]["img_gen"].shape == (bands.STEP_H,
+                                                   bands.STEP_H, 3)
+        assert torch.equal(got["visuals"]["img_gen"],
+                           one["visuals"]["img_gen"])
+
+
+def test_spatial_face_bf16_step_matches_one_rank(worlds, one_rank):
+    """A face chunk step in bf16 on two bands against the port's one-rank
+    bf16 chunk step: each loss within the bf16 rule's LOSS_REL, the
+    gradients by its per-tensor cosine and norm-ratio hold (`_bf16_held`,
+    one rank's f32 step the reference of what bf16 resolves), the f32
+    masters' gradients f32, and the ranks bitwise equal."""
+    one = one_rank["face_bf16"]
+    got = [r["face_bf16"] for r in worlds["step"]]
+    assert got[0]["logs"] == got[1]["logs"]
+    for name, want in one["logs"].items():
+        assert abs(got[0]["logs"][name] - want) <= \
+            bf16_rule.LOSS_REL * abs(want), (name, got[0]["logs"][name], want)
+    for tag, g in got[0]["grads"].items():
+        assert all(t.dtype == torch.float32 for t in g.values()), tag
+    a, b = got[0]["replica"], got[1]["replica"]
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    _bf16_held(got[0]["grads"], one["grads"], one_rank["face"]["grads"])
+
+
+def test_spatial_dance_remat_step_is_the_step_without_it(worlds):
+    """Dance with --use_mask and --remat on two bands: the chunk step's
+    logs and gradients within 1e-6 of the largest |value| of the same step
+    without it, u bitwise equal; each frame's recomputation issues its
+    halo exchanges and band sums again, as many on each rank."""
+    for rank in worlds["step"]:
+        plain, remat = rank["dance"], rank["dance_remat"]
+        for name, want in plain["logs"].items():
+            assert abs(remat["logs"][name] - want) <= REL * abs(want), name
+        for tag, want in plain["grads"].items():
+            scale = max(g.abs().max().item() for g in want.values())
+            assert remat["grads"][tag].keys() == want.keys()
+            for name, g in want.items():
+                err = (remat["grads"][tag][name] - g).abs().max().item()
+                assert err <= REL * scale, (tag, name, err)
+        us = [k for k in plain["replica"] if k.endswith("weight_u")]
+        assert len(us) == 2 * (3 * anim_rule.D_LAYERS + 1)
+        for k in us:
+            assert torch.equal(remat["replica"][k], plain["replica"][k]), k
+    counts = [r["dance_remat"]["collectives"] for r in worlds["step"]]
+    plain = [r["dance"]["collectives"] for r in worlds["step"]]
+    assert counts[0] == counts[1] and plain[0] == plain[1]
+    assert counts[0] > plain[0]
+
+
+def test_spatial_keypoint_step_is_the_one_rank_step(worlds, one_rank):
+    """keypoint under dp 1 x sp 2: gfla_tpu replicates its (B, T, 34)
+    batch over the spatial axis, so both ranks take the one-rank step on
+    the whole batch, their dropouts drawn alike from the data index's
+    generator: logs, gradients, parameters and Adam state bitwise equal to
+    one rank's and to each other's."""
+    one = one_rank["keypoint"]
+    for r in worlds["step"]:
+        got = r["keypoint"]
+        assert got["logs"] == one["logs"]
+        for name, g in one["grads"]["G"].items():
+            assert torch.equal(got["grads"]["G"][name], g), name
+        assert got["replica"].keys() == one["replica"].keys()
+        for k, v in one["replica"].items():
+            assert torch.equal(got["replica"][k], v), k
+
+
 # --- the training CLI -------------------------------------------------------
 
 def test_training_cli_spatial_writes_one_set_and_resumes(worlds):
@@ -732,7 +991,6 @@ def test_spatial_accepted_for_pose():
                             (256, 8, 4)):
         opt = _train_opt(f"--load_size={load}", f"--spatial={sp}",
                          "--batchSize=2")
-        refuse_parallel_flags(opt)
         assert spatial_layout(opt, ranks, ranks) == sp
 
 
@@ -772,15 +1030,20 @@ def test_spatial_refused_with_gfla_tpus_checks(args, ranks, message):
 @pytest.mark.parametrize("over", [
     {"model": "poseflownet"}, {"model": "shapenet"},
     {"model": "shapenetflow"}, {"compute_dtype": "bfloat16"},
-    {"remat": True}])
+    {"remat": True}, {"model": "dance"}, {"model": "face"},
+    {"model": "keypoint"}])
 def test_spatial_accepted_for_the_other_heads_and_levers(over):
-    """The single-frame heads, bf16 and --remat take --spatial, each with
-    its spatial_layout: at 256 rows S=4 on 8 ranks, S=8 on 8."""
+    """Every head, bf16 and --remat take --spatial, each with its
+    spatial_layout: at 256 rows S=4 on 8 ranks, S=8 on 8 (dance from disk,
+    whose KP_all's T is --n_frames_total, with 8 frames; keypoint's batch
+    replicated over the bands, with gfla_tpu's one check, the height)."""
     args = ["--load_size=256", "--batchSize=2"]
     if "model" in over:
         args.append(f"--model={over['model']}")
         if over["model"].startswith("shapenet"):
             args.append("--dataset_mode=shapenet")
+        if over["model"] == "dance":
+            args += ["--dataset_mode=dance", "--n_frames_total=8"]
     if "compute_dtype" in over:
         args.append(f"--compute_dtype={over['compute_dtype']}")
     if over.get("remat"):
@@ -789,7 +1052,6 @@ def test_spatial_accepted_for_the_other_heads_and_levers(over):
         opt = _train_opt(*args, f"--spatial={sp}")
         for key, value in over.items():
             assert getattr(opt, key) == value
-        refuse_parallel_flags(opt)
         assert spatial_layout(opt, 8, 8) == sp
 
 
@@ -798,23 +1060,38 @@ def test_spatial_refused_at_shapenets_seed():
     height: at 256 rows --spatial=16 is refused there, naming the level."""
     opt = _train_opt("--model=shapenet", "--dataset_mode=shapenet",
                      "--load_size=256", "--spatial=16", "--batchSize=1")
-    refuse_parallel_flags(opt)
     with pytest.raises(SystemExit, match="--spatial 16: the target net's "
                                          "8x8 seed has 8 rows"):
         spatial_layout(opt, 16, 16)
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"model": m}, "item 2") for m in ("dance", "face", "keypoint")])
+    ({"model": "dance", "d_layers": 6},
+     r"D's and D_V's level 6 \(D_V's encoder\) has 4 rows"),
+    ({"model": "face", "d_layers": 6}, "D's and D_V's level 6 has 4 rows"),
+    ({"model": "keypoint", "load_size": 260},
+     "must divide the image height 260"),
+    ({"model": "dance", "dataset_mode": "dance", "n_frames_total": 12},
+     "KP_all, .* has T = --n_frames_total = 12 on axis 1")])
 def test_spatial_refused_elsewhere_names_its_item(over, item):
-    opt = argparse.Namespace(**{"model": "pose", "spatial": 2,
-                                "compute_dtype": "float32", "remat": False,
-                                **over})
-    with pytest.raises(NotImplementedError,
-                       match=f"--spatial=2 .*queue 1, {item}:"):
-        refuse_parallel_flags(opt)
+    """No head refuses --spatial as such; where a head's layout does not
+    split, spatial_layout names what refused: dance's and face's D and D_V
+    at --d_layers=6 (256 rows leave 4 at their level 6, S=8), keypoint's
+    height (gfla_tpu's check, which it applies to every head), dance's
+    KP_all from disk, whose T gfla_tpu's shard_batch_spatial shards (12
+    frames over S=8). At S=1 nothing is checked."""
+    args = ["--load_size=256", "--batchSize=1", "--spatial=8",
+            f"--model={over['model']}"]
+    for key in ("load_size", "dataset_mode", "n_frames_total"):
+        if key in over:
+            args.append(f"--{key}={over[key]}")
+    opt = _train_opt(*args)
+    if "d_layers" in over:
+        opt.d_layers = over["d_layers"]
+    with pytest.raises(SystemExit, match=item):
+        spatial_layout(opt, 8, 8)
     opt.spatial = 1
-    refuse_parallel_flags(opt)
+    assert spatial_layout(opt, 8, 8) == 1
 
 
 def test_world_without_spatial_is_unchanged():
